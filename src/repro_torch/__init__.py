@@ -1,0 +1,18 @@
+"""repro_torch — the PyTorch + CUDA port of ``repro``.
+
+The package mirrors ``repro``'s layout (``configs``, ``core``,
+``kernels``, ``models``, ``serve``) so every module has a named
+counterpart. It imports ``torch``, numpy and scipy only — never JAX and
+nothing of ``repro``. Every kernel that ``repro`` wrote in Pallas for the
+TPU is a CUDA C++ kernel here (``kernels/csrc``), built with ``nvcc`` for
+``sm_90a`` at first use and bound through ``ctypes``; each sits beside a
+plain PyTorch version of the same function, which a wrapper runs only for
+a tensor on the CPU.
+
+Entry points (``serve.ServeEngine``, ``models.model.init``,
+``convert.params_from_jax``) run on the card unless the caller passes
+``device="cpu"``; with no card and no device they raise.
+"""
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,75 @@
+"""Architecture configuration (dense family).
+
+``repro.configs.base`` imports JAX, so the port re-declares the fields of
+``ArchConfig`` that the dense decoder reads. Field names, defaults and
+``reduced()`` follow ``repro`` so a config means the same model on both
+sides.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+FAMILIES = ("dense",)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str  # only "dense" is ported so far
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 0  # 0 -> d_model // n_heads
+    rope: bool = True
+    rope_theta: float = 10000.0
+    qk_norm: bool = False
+    sliding_window: Optional[int] = None
+    tie_embeddings: bool = True
+    norm_eps: float = 1e-5
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    attn_chunk: int = 1024  # query-block size of the plain chunked attention
+    # attention backend (models/attn_backend.py): "auto" | "torch" (the
+    # plain chunked mha) | "flash" (the CUDA kernels: flash prefill and
+    # grouped decode attention)
+    attn_backend: str = "auto"
+    # KV-cache storage dtype: None -> compute_dtype; "bfloat16" or "int8"
+    # (int8 carries per-(row, position) f32 scales beside the cache)
+    kv_dtype: Optional[str] = None
+    source: str = ""  # citation
+
+    def __post_init__(self):
+        if self.family not in FAMILIES:
+            raise NotImplementedError(
+                f"family {self.family!r} is not ported yet (see ROADMAP.md, "
+                f"queue A); ported families: {FAMILIES}")
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    def reduced(self) -> "ArchConfig":
+        """Smoke-test variant: 2 layers, d_model 128, <= 4 heads, head dim
+        32, vocab 512, f32 — the same cut ``repro``'s ``reduced()`` makes
+        for the dense family."""
+        n_heads = min(self.n_heads, 4)
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            n_layers=min(self.n_layers, 2),
+            d_model=128,
+            n_heads=n_heads,
+            n_kv_heads=min(self.n_kv_heads, max(1, n_heads // 2)),
+            d_head=32,
+            d_ff=256,
+            vocab=512,
+            sliding_window=(min(self.sliding_window, 16)
+                            if self.sliding_window else None),
+            param_dtype="float32",
+            compute_dtype="float32",
+            attn_chunk=16,
+        )

@@ -1,0 +1,76 @@
+"""Parameters of ``repro``'s model, as numpy arrays, into the port's.
+
+``repro`` keeps its parameters as a pytree of JAX arrays; the caller turns
+it into numpy (``jax.tree.map(np.asarray, params)``) so this module never
+imports JAX. The port keeps ``repro``'s layout — ``embed`` [V, D] (tied),
+``layers/*`` stacked [L, ...], ``wq``/``wk``/``wv`` [D, H, dh], ``wo``
+[H, dh, D], ``q_norm``/``k_norm`` [dh], ``mlp`` ``w_gate``/``w_up`` [D, F]
+and ``w_down`` [F, D], ``norm_f`` [D] — so conversion is a checked copy,
+and both sides compute the same function.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+
+__all__ = ["params_from_jax", "expected_shapes"]
+
+
+def expected_shapes(cfg) -> dict:
+    """The dense model's parameter shapes, keyed like the param dict."""
+    L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = {"wq": (L, D, H, dh), "wk": (L, D, Hkv, dh), "wv": (L, D, Hkv, dh),
+            "wo": (L, H, dh, D)}
+    if cfg.qk_norm:
+        attn.update(q_norm=(L, dh), k_norm=(L, dh))
+    shapes = {
+        "embed": (cfg.vocab, D),
+        "layers": {"norm_attn": (L, D), "attn": attn, "norm_ffn": (L, D),
+                   "mlp": {"w_gate": (L, D, F), "w_up": (L, D, F),
+                           "w_down": (L, F, D)}},
+        "norm_f": (D,),
+    }
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (D, cfg.vocab)
+    return shapes
+
+
+def _leaf(a, want, name: str, device):
+    a = np.asarray(a)
+    if tuple(a.shape) != tuple(want):
+        raise ValueError(f"param {name}: shape {a.shape}, expected {want}")
+    if a.dtype.name == "bfloat16":  # ml_dtypes.bfloat16: reinterpret bits
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()
+                             ).view(torch.bfloat16)
+    elif a.dtype == np.float32:
+        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+    else:
+        raise TypeError(f"param {name}: dtype {a.dtype} not supported "
+                        f"(float32, bfloat16)")
+    return t.to(device)
+
+
+def _convert(tree, shapes, prefix, device):
+    extra = set(tree) - set(shapes)
+    missing = set(shapes) - set(tree)
+    if extra or missing:
+        raise ValueError(f"param tree at {prefix or '<root>'}: unexpected "
+                         f"{sorted(extra)}, missing {sorted(missing)}")
+    out = {}
+    for key, want in shapes.items():
+        name = f"{prefix}/{key}" if prefix else key
+        if isinstance(want, dict):
+            out[key] = _convert(tree[key], want, name, device)
+        else:
+            out[key] = _leaf(tree[key], want, name, device)
+    return out
+
+
+def params_from_jax(np_tree, cfg, device=None):
+    """``repro``'s dense param pytree (numpy leaves, f32 or
+    ``ml_dtypes.bfloat16``) -> the port's param dict on ``device`` (the card
+    unless the caller names another)."""
+    return _convert(np_tree, expected_shapes(cfg), "", resolve_device(device))

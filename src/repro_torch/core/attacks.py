@@ -1,0 +1,137 @@
+"""Byzantine attack models (Section 4 of the paper, plus extras).
+
+An attack maps the stacked honest messages ``v`` ``[n, ...]`` to corrupted
+messages, replacing the rows a boolean ``mask`` selects. Every attack has
+the signature ``(generator, v, mask)``: the ``torch.Generator`` takes the
+place of ``repro``'s PRNG key and is read only by the random ``gaussian``
+attack (it must live on ``v``'s device).
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+Attack = Callable[[Optional[torch.Generator], torch.Tensor, torch.Tensor],
+                  torch.Tensor]
+
+__all__ = ["byzantine_mask", "gaussian", "omniscient", "alie", "ipm", "mimic",
+           "bitflip", "signflip", "zero", "wrong_value", "get", "REGISTRY",
+           "OMNISCIENT_ATTACKS"]
+
+
+def byzantine_mask(m_plus_1: int, alpha: float, device=None) -> torch.Tensor:
+    """[m+1] bool with floor(alpha * m) Byzantine workers; row 0 (the
+    trusted master) never is. The last rows are chosen (the estimators are
+    permutation-invariant)."""
+    n_byz = int(alpha * (m_plus_1 - 1))
+    return torch.arange(m_plus_1, device=device) >= (m_plus_1 - n_byz)
+
+
+def _apply(mask, honest, corrupt):
+    mask = mask.to(honest.device).reshape((-1,) + (1,) * (honest.ndim - 1))
+    return torch.where(mask, corrupt, honest)
+
+
+def gaussian(generator, v, mask, std: float = 200.0 ** 0.5):
+    """Gaussian attack: replace messages by N(0, 200*I) draws (paper 4.1)."""
+    if generator is None:
+        raise ValueError("the gaussian attack needs a torch.Generator")
+    noise = std * torch.randn(v.shape, generator=generator, device=v.device,
+                              dtype=torch.float32)
+    return _apply(mask, v, noise.to(v.dtype))
+
+
+def omniscient(generator, v, mask, scale: float = 1e10):
+    """Omniscient attack: scaled negative of the mean (paper 4.2(b))."""
+    honest_mean = torch.mean(v, dim=0, keepdim=True)
+    return _apply(mask, v, (-scale * honest_mean).expand_as(v))
+
+
+def _honest_moments(v, mask):
+    """Per-coordinate f32 mean/std over the unmasked rows, keepdim."""
+    f32 = v.float()
+    keep = (~mask).to(v.device).reshape((-1,) + (1,) * (v.ndim - 1)).float()
+    n_h = torch.clamp_min(torch.sum(keep, dim=0), 1.0)
+    mean = torch.sum(f32 * keep, dim=0, keepdim=True) / n_h
+    var = torch.sum((f32 - mean) ** 2 * keep, dim=0, keepdim=True) / n_h
+    return mean, torch.sqrt(torch.clamp_min(var, 0.0))
+
+
+def alie(generator, v, mask, z=None):
+    """ALIE (Baruch et al. 2019): Byzantine rows at honest_mean + z *
+    honest_std. The default z is the plotting-position quantile of
+    ``repro.core.attacks.alie``, floored at 0.2."""
+    from scipy.special import ndtri
+
+    mean, std = _honest_moments(v, mask)
+    if z is None:
+        n = v.shape[0]
+        m = float(mask.sum())
+        n_h = max(n - m, 1.0)
+        s = float(n // 2 + 1) - m
+        q = min(max((n_h - s + 1.0) / (n_h + 1.0), 0.5), 1.0 - 1e-6)
+        z = max(float(ndtri(q)), 0.2)
+    corrupt = (mean + z * std).to(v.dtype)
+    return _apply(mask, v, corrupt.expand_as(v))
+
+
+def ipm(generator, v, mask, eps: float = 0.5):
+    """Inner-product manipulation (Xie et al. 2020): -eps * honest mean."""
+    mean, _ = _honest_moments(v, mask)
+    return _apply(mask, v, (-eps * mean).to(v.dtype).expand_as(v))
+
+
+def mimic(generator, v, mask):
+    """Mimic (Karimireddy et al. 2022): every Byzantine row replays the
+    honest row farthest from the honest mean."""
+    mean, _ = _honest_moments(v, mask)
+    dev = torch.sum((v.float() - mean) ** 2, dim=tuple(range(1, v.ndim)))
+    dev = torch.where(mask.to(v.device), torch.full_like(dev, -float("inf")),
+                      dev)
+    victim = torch.argmax(dev)
+    return _apply(mask, v, v[victim][None].expand_as(v))
+
+
+def bitflip(generator, v, mask, n_dims: int = 5):
+    """Flip the sign of the first ``n_dims`` coordinates."""
+    if v.ndim == 1:
+        return _apply(mask, v, -v)
+    flip = torch.where(torch.arange(v.shape[-1], device=v.device) < n_dims,
+                       -1.0, 1.0).to(v.dtype)
+    return _apply(mask, v, v * flip)
+
+
+def signflip(generator, v, mask, scale: float = 1.0):
+    """Full sign flip (classic baseline)."""
+    return _apply(mask, v, -scale * v)
+
+
+def zero(generator, v, mask):
+    """Send zeros (drop-out / crash failure)."""
+    return _apply(mask, v, torch.zeros_like(v))
+
+
+def wrong_value(generator, v, mask, value: float = 100.0):
+    """All Byzantine rows report the same constant."""
+    return _apply(mask, v, torch.full_like(v, value))
+
+
+REGISTRY = {
+    "none": lambda generator, v, mask: v,
+    "gaussian": gaussian,
+    "omniscient": omniscient,
+    "alie": alie,
+    "ipm": ipm,
+    "mimic": mimic,
+    "bitflip": bitflip,
+    "signflip": signflip,
+    "zero": zero,
+    "wrong_value": wrong_value,
+}
+
+OMNISCIENT_ATTACKS = ("omniscient", "alie", "ipm", "mimic")
+
+
+def get(name: str) -> Attack:
+    return REGISTRY[name]

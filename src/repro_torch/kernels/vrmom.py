@@ -1,0 +1,229 @@
+"""Robust aggregation kernels B1 (aggregate) and B4 (aggregate + sample).
+
+``aggregate`` replaces ``repro.kernels.vrmom.aggregate_pallas`` (Pallas
+call ``_agg_2d``, l.142/151) and ``aggregate_sample`` replaces
+``aggregate_sample_pallas`` (``_tail_3d``, l.242/269). Both CUDA kernels
+(``csrc/vrmom.cu``) call one device function, ``agg::aggregate``
+(``csrc/agg.cuh``), the counterpart of the TPU kernel's ``_agg_block``, so
+fused greedy tokens are bit-identical to an argmax over ``aggregate``'s
+output. One thread owns one coordinate and sorts its m worker values in
+registers; the stack is read once with coalesced loads and no
+intermediate reaches device memory. Both are bound by memory bandwidth on
+the H100 (the stack is read once, the outputs are small).
+
+Each wrapper launches its kernel for a CUDA tensor, raises on anything
+the kernel does not take, and counts its launches in ``.launches`` (one
+per call; B4's call runs its partial pass and its finishing pass). For a
+tensor on the CPU it runs the plain PyTorch version beside it
+(``aggregate_plain`` / ``aggregate_sample_plain``), which repeats the
+kernel's arithmetic op for op. Dispatch policy lives in
+``core.estimator.Estimator``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.vrmom import _MAD_CONST, deltas, denominator
+from . import build as _B
+from .ref import f32_scalar
+
+__all__ = ["aggregate", "aggregate_sample", "aggregate_plain",
+           "aggregate_sample_plain", "resolve_method", "MAX_M", "MAX_K"]
+
+MAX_M = 128  # widest sorting network compiled (csrc/vrmom.cu)
+MAX_K = 64   # agg::kMaxK
+_METHOD_ID = {"mean": 0, "median": 1, "trimmed_mean": 2, "vrmom": 3}
+_DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
+_SIGNATURES = {
+    "agg_launch": [_B.P, _B.P, _B.I, _B.I, _B.LL, _B.I, _B.I, _B.I, _B.F,
+                   _B.F, _B.P, _B.P],
+    "agg_sample_launch": [_B.P, _B.P, _B.P, _B.P, _B.P, _B.P, _B.I, _B.I,
+                          _B.I, _B.I, _B.I, _B.I, _B.I, _B.I, _B.F, _B.F,
+                          _B.P, _B.P],
+    "agg_tail_tile": [],
+}
+
+
+def resolve_method(method: str, beta: float, m: int):
+    """-> (method, k_trim); "mom" is the median. A trimmed mean must trim at
+    least one row per end and keep at least one (``Estimator.validate``
+    refuses such specs before dispatch)."""
+    method = "median" if method == "mom" else method
+    if method not in _METHOD_ID:
+        raise ValueError(f"no fused kernel for method {method!r}")
+    k_trim = 0
+    if method == "trimmed_mean":
+        k_trim = int(beta * m)
+        if k_trim == 0 or m - 2 * k_trim < 1:
+            raise ValueError(
+                f"trimmed_mean kernel: beta={beta} at m={m} trims {k_trim} "
+                f"rows per end — spec must be validated "
+                f"(Estimator.validate) before dispatch")
+    return method, k_trim
+
+
+# -- plain versions -----------------------------------------------------------
+
+def _aggregate_f32(x2, method: str, K: int, k_trim: int, eps: float):
+    """The kernel's arithmetic in PyTorch: [m, C] -> [C] f32."""
+    xf = x2.float()
+    m = xf.shape[0]
+    dev = xf.device
+    if method == "mean":
+        acc = torch.zeros_like(xf[0])
+        for i in range(m):
+            acc = acc + xf[i]
+        return acc * f32_scalar(np.float32(1) / np.float32(m), dev)
+    xs = torch.sort(xf, dim=0).values
+    if method == "trimmed_mean":
+        acc = torch.zeros_like(xf[0])
+        for i in range(k_trim, m - k_trim):
+            acc = acc + xs[i]
+        n = np.float32(m - 2 * k_trim)
+        return acc * f32_scalar(np.float32(1) / n, dev)
+    med = 0.5 * (xs[(m - 1) // 2] + xs[m // 2])
+    if method == "median":
+        return med
+    ds = torch.sort(torch.abs(xs - med[None]), dim=0).values
+    s = 0.5 * (ds[(m - 1) // 2] + ds[m // 2]) / f32_scalar(_MAD_CONST, dev)
+    z = (xs - med[None]) / torch.clamp_min(s, eps)[None]
+    count = torch.zeros(z.shape[1:], dtype=torch.int64, device=dev)
+    for d in deltas(K).tolist():
+        count = count + (z <= d).sum(dim=0)
+    total = 0.5 * (2 * count - m * K).float()
+    out = med - s * total / f32_scalar(denominator(m, K), dev)
+    return torch.where(s <= eps, med, out)
+
+
+def aggregate_plain(x2, method: str = "vrmom", K: int = 10, k_trim: int = 0,
+                    eps: float = 1e-12):
+    """Plain version of B1: [m, C] -> [C] in x's dtype (f32 math)."""
+    return _aggregate_f32(x2, method, K, k_trim, eps).to(x2.dtype)
+
+
+def _select_plain(a, top_k: int):
+    """Top-k of each row of f32 ``a`` [B, V] in (value descending, index
+    ascending) order — a stable descending sort keeps equal values in
+    index order."""
+    vals, idx = torch.sort(a, dim=1, descending=True, stable=True)
+    return vals[:, :top_k], idx[:, :top_k].to(torch.int32)
+
+
+def aggregate_sample_plain(x, method: str = "vrmom", K: int = 10,
+                           k_trim: int = 0, top_k: int = 0,
+                           eps: float = 1e-12, with_agg: bool = True):
+    """Plain version of B4 on [m, B, V]: see :func:`aggregate_sample`."""
+    m, B, V = x.shape
+    a = _aggregate_f32(x.reshape(m, -1), method, K, k_trim, eps).reshape(B, V)
+    agg = a.to(x.dtype) if with_agg else None
+    if top_k == 0:
+        return agg, torch.argmax(a, dim=-1).to(torch.int32)
+    topv, topi = _select_plain(a, top_k)
+    return agg, topv, topi
+
+
+# -- kernel wrappers ----------------------------------------------------------
+
+def _lib():
+    return _B.load("vrmom", _SIGNATURES)
+
+
+def _check_stack(x, what: str):
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: tensor on {x.device}, expected cuda or cpu")
+    if x.dtype not in _DTYPE_ID:
+        raise TypeError(f"{what}: dtype {x.dtype} not supported "
+                        f"(float32, bfloat16)")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: the stack must be contiguous")
+    if not 1 <= x.shape[0] <= MAX_M:
+        raise ValueError(f"{what}: m={x.shape[0]} outside 1..{MAX_M}, the "
+                         f"widest sorting network the kernel compiles")
+
+
+def _params(method: str, K: int, m: int):
+    if method == "vrmom" and not 1 <= K <= MAX_K:
+        raise ValueError(f"vrmom kernel takes 1 <= K <= {MAX_K}, got K={K}")
+    d = np.zeros(MAX_K, np.float32)
+    denom = np.float32(0.0)
+    if method == "vrmom":
+        d[:K] = deltas(K)
+        denom = denominator(m, K)
+    return d, float(denom)
+
+
+def aggregate(x, method: str = "vrmom", K: int = 10, beta: float = 0.1,
+              eps: float = 1e-12):
+    """B1: fused aggregation over axis 0, ``[m, ...] -> [...]``.
+
+    ``method``: median/mom | vrmom | trimmed_mean | mean. Trailing dims are
+    coordinates. f32 or bf16 in, f32 math, the input dtype out.
+    """
+    m = x.shape[0]
+    method, k_trim = resolve_method(method, beta, m)
+    shape = x.shape[1:]
+    if x.device.type == "cpu":
+        return aggregate_plain(x.reshape(m, -1), method, K, k_trim,
+                               eps).reshape(shape)
+    _check_stack(x, "aggregate")
+    d, denom = _params(method, K, m)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    err = _lib().agg_launch(
+        x.data_ptr(), out.data_ptr(), _DTYPE_ID[x.dtype], m, x[0].numel(),
+        _METHOD_ID[method], K, k_trim, eps, denom, d.ctypes.data,
+        _B.stream_handle(x.device))
+    _B.check(err, "aggregate")
+    aggregate.launches += 1
+    return out
+
+
+aggregate.launches = 0
+
+
+def aggregate_sample(x, method: str = "vrmom", K: int = 10, beta: float = 0.1,
+                     top_k: int = 0, eps: float = 1e-12,
+                     with_agg: bool = True):
+    """B4: fused aggregation + sampling tail over an ``[m, B, V]`` stack.
+
+    Returns ``(agg, tok [B] int32)`` for ``top_k == 0`` (greedy; ``tok[b]``
+    bit-identical to ``argmax(aggregate(x)[b])``, first occurrence on
+    ties), or ``(agg, topv [B, k] f32, topi [B, k] int32)`` in
+    (value descending, index ascending) order. ``with_agg=False`` writes
+    no ``[B, V]`` aggregate and returns ``agg=None``. NaN logits are never
+    selected.
+    """
+    if x.ndim != 3:
+        raise ValueError(f"fused tail wants [m, B, V] stacks, got "
+                         f"{tuple(x.shape)}")
+    m, B, V = x.shape
+    if not 0 <= top_k <= V:
+        raise ValueError(f"top_k={top_k} out of range for V={V}")
+    method, k_trim = resolve_method(method, beta, m)
+    if x.device.type == "cpu":
+        return aggregate_sample_plain(x, method, K, k_trim, top_k, eps,
+                                      with_agg)
+    _check_stack(x, "aggregate_sample")
+    d, denom = _params(method, K, m)
+    lib = _lib()
+    k = max(top_k, 1)
+    n_tiles = -(-V // lib.agg_tail_tile())
+    dev = x.device
+    part_v = torch.empty((B, n_tiles, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((B, n_tiles, k), dtype=torch.int32, device=dev)
+    topv = torch.empty((B, k), dtype=torch.float32, device=dev)
+    topi = torch.empty((B, k), dtype=torch.int32, device=dev)
+    agg = torch.empty((B, V), dtype=x.dtype, device=dev) if with_agg else None
+    err = lib.agg_sample_launch(
+        x.data_ptr(), agg.data_ptr() if with_agg else None, part_v.data_ptr(),
+        part_i.data_ptr(), topv.data_ptr(), topi.data_ptr(),
+        _DTYPE_ID[x.dtype], m, B, V, k, _METHOD_ID[method], K, k_trim, eps,
+        denom, d.ctypes.data, _B.stream_handle(dev))
+    _B.check(err, "aggregate_sample")
+    aggregate_sample.launches += 1
+    if top_k == 0:
+        return agg, topi[:, 0]
+    return agg, topv, topi
+
+
+aggregate_sample.launches = 0

@@ -1,0 +1,50 @@
+"""Shared building blocks: norms, RoPE, SwiGLU and the seeded inits."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def dense_init(generator, shape, dtype, fan_in=None, device=None):
+    """N(0, 1/fan_in) in f32, cast to ``dtype`` (fan_in defaults to
+    shape[0], as in ``repro``)."""
+    fan_in = fan_in if fan_in is not None else shape[0]
+    scale = 1.0 / torch.sqrt(torch.tensor(float(max(fan_in, 1)),
+                                          dtype=torch.float32, device=device))
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (w * scale).to(dtype)
+
+
+def embed_init(generator, shape, dtype, device=None):
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (w * 0.02).to(dtype)
+
+
+def rmsnorm(x, scale, eps=1e-5):
+    """Normalise in f32, cast back to x's dtype, THEN multiply by the scale
+    (the order ``repro`` uses)."""
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(dt) * scale
+
+
+def rope(x, positions, theta: float = 10000.0):
+    """Half-split rotary embedding. x: [..., S, H, dh]; positions: [..., S]."""
+    dh = x.shape[-1]
+    half = dh // 2
+    exponent = torch.arange(half, dtype=torch.float32, device=x.device) / half
+    freqs = 1.0 / (theta ** exponent)
+    ang = positions.float()[..., None] * freqs  # [..., S, half]
+    cos = torch.cos(ang)[..., None, :]  # [..., S, 1, half]
+    sin = torch.sin(ang)[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    """SwiGLU MLP: (silu(x@wg) * (x@wu)) @ wd."""
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down

@@ -1,0 +1,46 @@
+"""Model API, dense family (``repro.models.model``'s counterpart).
+
+    init(cfg, generator, device=None)               -> params
+    prefill(params, cfg, batch, ...)                -> (logits, caches)
+    init_cache(cfg, batch, max_len, device=None)    -> caches
+    decode_step(params, cfg, caches, token)         -> (logits [B, V], caches)
+
+``batch`` is ``{"tokens": [B, S] int tensor}``. ``init`` runs on the card
+unless ``device`` names another one (with no card it raises). Only the
+dense family exists (``ArchConfig`` refuses the others).
+"""
+from __future__ import annotations
+
+from ..device import resolve_device
+from . import transformer
+
+
+def init(cfg, generator, device=None):
+    return transformer.init(cfg, generator, device=resolve_device(device))
+
+
+def prefill(params, cfg, batch, window="cfg", cache_len=None,
+            last_only: bool = False):
+    """``last_only``: logits of the final position only, [B, 1, V] (the
+    serving path never builds [B, S, V])."""
+    h, caches = transformer.forward(params, cfg, batch["tokens"],
+                                    window=window, make_cache=True,
+                                    cache_len=cache_len)
+    if last_only:
+        h = h[:, -1:]
+    return transformer.unembed(params, cfg, h), caches
+
+
+def init_cache(cfg, batch_size: int, max_len: int, window="cfg",
+               device=None):
+    return transformer.init_cache(cfg, batch_size, max_len, window=window,
+                                  device=resolve_device(device))
+
+
+def decode_step(params, cfg, caches, token, window="cfg"):
+    return transformer.decode_step(params, cfg, caches, token, window=window)
+
+
+def param_count(params) -> int:
+    return sum(v.numel() if not isinstance(v, dict) else param_count(v)
+               for v in params.values())

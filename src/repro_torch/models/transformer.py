@@ -1,0 +1,127 @@
+"""Decoder-only stack, dense family.
+
+Parameters are a plain dict in ``repro``'s layout: ``embed`` [V, D]
+(tied unembedding), ``layers`` with every leaf stacked [L, ...], and
+``norm_f``. Where ``repro`` scans the stacked layers with ``lax.scan``,
+the port loops over them in Python; caches stay stacked
+[L, B, T, Hkv, dh] as in ``repro``.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import attention as A
+from .layers import dense_init, embed_init, rmsnorm, swiglu
+
+
+def layer_params(p, i: int):
+    """Layer ``i``'s parameter dict (views into the stacked leaves)."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in p.items()}
+
+
+def init(cfg, generator, device=None):
+    """Seeded init with ``repro``'s distributions: N(0, 1/fan_in) dense
+    weights, N(0, 0.02^2) embeddings, unit norm scales."""
+    dt = getattr(torch, cfg.param_dtype)
+    L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
+    layers = {
+        "norm_attn": torch.ones((L, D), dtype=dt, device=device),
+        "attn": A.attn_init(generator, cfg, device=device, n_layers=L),
+        "norm_ffn": torch.ones((L, D), dtype=dt, device=device),
+        "mlp": {
+            "w_gate": dense_init(generator, (L, D, F), dt, fan_in=D,
+                                 device=device),
+            "w_up": dense_init(generator, (L, D, F), dt, fan_in=D,
+                               device=device),
+            "w_down": dense_init(generator, (L, F, D), dt, fan_in=F,
+                                 device=device),
+        },
+    }
+    p = {
+        "embed": embed_init(generator, (cfg.vocab, D), dt, device=device),
+        "layers": layers,
+        "norm_f": torch.ones((D,), dtype=dt, device=device),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = embed_init(generator, (D, cfg.vocab), dt,
+                                  device=device)
+    return p
+
+
+def _embed_tokens(p, cfg, tokens):
+    return p["embed"][tokens].to(getattr(torch, cfg.compute_dtype))
+
+
+def unembed(p, cfg, h):
+    w = p["embed"].t() if cfg.tie_embeddings else p["lm_head"]
+    return h @ w
+
+
+def _ffn(lp, h, cfg):
+    hn = rmsnorm(h, lp["norm_ffn"], cfg.norm_eps)
+    return h + swiglu(hn, **lp["mlp"])
+
+
+def forward(p, cfg, tokens, *, window="cfg", make_cache=False,
+            cache_len=None):
+    """Forward over tokens [B, S]. Returns (final normed hidden [B, S, D],
+    stacked caches or None); ``unembed`` turns hidden into logits."""
+    h = _embed_tokens(p, cfg, tokens)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=h.device)[None].expand(B, S)
+    caches = []
+    for i in range(cfg.n_layers):
+        lp = layer_params(p["layers"], i)
+        attn_out, cache = A.attn_forward(
+            lp["attn"], rmsnorm(h, lp["norm_attn"], cfg.norm_eps), cfg,
+            positions=positions, window=window, make_cache=make_cache,
+            cache_len=cache_len)
+        h = _ffn(lp, h + attn_out, cfg)
+        caches.append(cache)
+    h = rmsnorm(h, p["norm_f"], cfg.norm_eps)
+    return h, _stack(caches) if make_cache else None
+
+
+def _stack(caches):
+    first = caches[0]
+
+    def st(field):
+        if getattr(first, field) is None:
+            return None
+        return torch.stack([getattr(c, field) for c in caches])
+
+    return A.KVCache(k=st("k"), v=st("v"), pos=first.pos,
+                     k_scale=st("k_scale"), v_scale=st("v_scale"))
+
+
+def init_cache(cfg, batch_size: int, max_len: int, window="cfg",
+               device=None):
+    window = cfg.sliding_window if window == "cfg" else window
+    one = A.init_cache(cfg, batch_size, max_len, window=window, device=device)
+
+    def st(x):
+        return None if x is None else \
+            x[None].expand((cfg.n_layers,) + x.shape).contiguous()
+
+    return A.KVCache(k=st(one.k), v=st(one.v), pos=0, k_scale=st(one.k_scale),
+                     v_scale=st(one.v_scale))
+
+
+def decode_step(p, cfg, caches, token, *, window="cfg"):
+    """One decode step. token: [B] int. Writes each layer's new K/V row into
+    the stacked ``caches`` in place; returns (logits [B, V], caches
+    advanced by one position)."""
+    h = _embed_tokens(p, cfg, token[:, None])
+    for i in range(cfg.n_layers):
+        lp = layer_params(p["layers"], i)
+        cache = A.KVCache(
+            k=caches.k[i], v=caches.v[i], pos=caches.pos,
+            k_scale=None if caches.k_scale is None else caches.k_scale[i],
+            v_scale=None if caches.v_scale is None else caches.v_scale[i])
+        attn_out, _ = A.attn_decode(
+            lp["attn"], rmsnorm(h, lp["norm_attn"], cfg.norm_eps), cfg,
+            cache, window=window)
+        h = _ffn(lp, h + attn_out, cfg)
+    h = rmsnorm(h, p["norm_f"], cfg.norm_eps)
+    return unembed(p, cfg, h)[:, 0], caches._replace(pos=caches.pos + 1)

@@ -1,0 +1,115 @@
+"""repro_torch guards: import boundary, device policy, kernel sources.
+
+* No file of the port (``src/repro_torch/**``) nor ``chip_smoke.py``
+  imports JAX or ``repro`` — the port keeps its own copies.
+* Entry points run on the card unless the caller names a device; with no
+  card they raise instead of falling back to the CPU.
+* Every C entry point a wrapper binds exists in the CUDA sources, and
+  every source the builder compiles exists.
+* ``chip_smoke.py`` fails (and prints no result line) without a card and
+  when it stands alone.
+"""
+import ast
+import importlib
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import convert
+from repro_torch.configs import get as get_arch
+from repro_torch.kernels import build
+from repro_torch.models import model as M
+from repro_torch.serve import ServeEngine
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, (node.module or "").split(".")[0]
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_port_imports_neither_jax_nor_repro():
+    files = _port_files()
+    assert len(files) > 20
+    bad = [f"{p.relative_to(REPO)}:{line} imports {root}"
+           for p in files for line, root in _imported_roots(p)
+           if root in FORBIDDEN]
+    assert not bad, "\n".join(bad)
+
+
+def test_import_scan_catches_a_violation(tmp_path):
+    """The scan above sees both import forms and ignores repro_torch."""
+    f = tmp_path / "m.py"
+    f.write_text("import jax.numpy as jnp\nfrom repro.core import vrmom\n"
+                 "from repro_torch import kernels\nfrom . import x\n")
+    assert [r for _, r in _imported_roots(f)] == ["jax", "repro",
+                                                  "repro_torch"]
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_need_a_device_without_a_card(no_card):
+    cfg = get_arch("qwen3-1.7b").reduced()
+    params = M.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, params, max_len=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        M.init(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.params_from_jax({}, cfg)
+    eng = ServeEngine(cfg, params, max_len=16, device="cpu")
+    assert eng.device.type == "cpu"
+
+
+def test_c_entry_points_exist_in_sources():
+    for name in build.SOURCES:
+        assert (build.CSRC / f"{name}.cu").is_file(), name
+    for lib in build.SOURCES:
+        # the package re-exports functions under the module names
+        mod = importlib.import_module(f"repro_torch.kernels.{lib}")
+        src = (build.CSRC / f"{lib}.cu").read_text()
+        for fn, argtypes in mod._SIGNATURES.items():
+            m = re.search(rf"\bint {fn}\(([^)]*)\)", src)
+            assert m, f"{fn} not defined in {lib}.cu"
+            n_args = len([a for a in m.group(1).split(",") if a.strip()])
+            assert n_args == len(argtypes), (fn, n_args, len(argtypes))
+
+
+def test_library_name_tracks_sources_and_flags(monkeypatch):
+    a = build.library_path("vrmom")
+    monkeypatch.setitem(build.EXTRA_FLAGS, "vrmom", ("--fmad=true",))
+    assert build.library_path("vrmom") != a
+    assert a.parent == REPO / "build" / "repro_torch"
+
+
+def test_chip_smoke_fails_without_a_card_or_alone(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: chip_smoke.py would run")
+    for cwd, script in ((REPO, REPO / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            shutil.copy(REPO / "chip_smoke.py", script)
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout

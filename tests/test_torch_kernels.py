@@ -1,0 +1,321 @@
+"""repro_torch kernels B1-B4: each plain version against the JAX kernel.
+
+The same numpy inputs go through ``repro``'s Pallas kernel (interpret
+mode on the CPU, as ``tests/test_kernels.py`` runs it) and through the
+port's wrapper, which runs its plain PyTorch version for a CPU tensor.
+Tolerances follow ``tests/test_estimator.py``: 1e-5 in f32 for
+attention and for every estimator whose last step rounds. The median and
+the tokens must match exactly. The mean and trimmed mean are sums, and
+XLA picks their order by the layout of the slice it reduces (row order
+for some row counts, two interleaved partial sums for others), so they
+are held at 1e-5, about two f32 ulps at these magnitudes.
+The CUDA kernels against their plain versions on the card are in
+``tests/test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as JR
+from repro.kernels.decode_attention import decode_attention as j_decode
+from repro.kernels.flash_attention import flash_attention as j_flash
+from repro.kernels.vrmom import aggregate_pallas, aggregate_sample_pallas
+from repro_torch import kernels as K
+from repro_torch.kernels import ref as TR
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_plain,
+                                                  lengths)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.kernels.vrmom import (aggregate, aggregate_plain,
+                                       aggregate_sample,
+                                       aggregate_sample_plain)
+
+torch.set_num_threads(1)
+
+METHODS = ("median", "vrmom", "trimmed_mean", "mean")
+# a trimmed mean needs m >= 3 (one row trimmed per end, one left)
+B1_CASES = [(method, m) for method in METHODS
+            for m in (2, 3, 4, 5, 8, 9, 100)
+            if not (method == "trimmed_mean" and m < 3)]
+
+
+def _stack(seed, shape):
+    return (4.0 * np.random.RandomState(seed).randn(*shape) + 1.5
+            ).astype(np.float32)
+
+
+def _beta(m):
+    # int(beta * m) >= 1 and m - 2 * int(beta * m) >= 1 for every m >= 3
+    return 0.1 if m >= 10 else 1.0 / m + 1e-6
+
+
+def _check(method, got, want):
+    if method == "median":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture
+def no_launch():
+    """The wrappers run their plain versions on the CPU: no kernel launch
+    may be counted."""
+    K.reset_launch_counts()
+    yield
+    assert K.launch_counts() == {fn.__name__: 0 for fn in K.KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# B1: aggregation
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("method,m", B1_CASES)
+def test_b1_plain_matches_pallas_flat(method, m, no_launch):
+    x = _stack(m, (m, 37))
+    beta, Kq = _beta(m), 8
+    want = np.asarray(aggregate_pallas(jnp.asarray(x), method, K=Kq,
+                                       beta=beta, interpret=True))
+    got = aggregate(torch.from_numpy(x), method, K=Kq, beta=beta).numpy()
+    _check(method, got, want)
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_b1_plain_matches_pallas_logit_stack(method, no_launch):
+    """[m, B, V] replica-logit stacks: trailing dims are coordinates."""
+    x = _stack(7, (8, 3, 41))
+    want = np.asarray(aggregate_pallas(jnp.asarray(x), method, K=8,
+                                       beta=0.25, interpret=True))
+    got = aggregate(torch.from_numpy(x), method, K=8, beta=0.25).numpy()
+    assert got.shape == (3, 41)
+    _check(method, got, want)
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_b1_plain_matches_ref_oracles(method):
+    """The plain version against ``repro``'s jnp oracles and the port's own
+    (``kernels/ref.py``)."""
+    x = _stack(11, (9, 53))
+    if method == "mean":
+        ref_j, ref_t = JR.ref_mean(jnp.asarray(x)), TR.ref_mean(
+            torch.from_numpy(x))
+        got = aggregate_plain(torch.from_numpy(x), "mean")
+    elif method == "median":
+        ref_j, ref_t = JR.ref_mom(jnp.asarray(x)), TR.ref_mom(
+            torch.from_numpy(x))
+        got = aggregate_plain(torch.from_numpy(x), "median")
+    elif method == "vrmom":
+        ref_j = JR.ref_vrmom(jnp.asarray(x), K=10)
+        ref_t = TR.ref_vrmom(torch.from_numpy(x), K=10)
+        got = aggregate_plain(torch.from_numpy(x), "vrmom", K=10)
+    else:
+        ref_j = JR.ref_trimmed_mean(jnp.asarray(x), beta=0.2)
+        ref_t = TR.ref_trimmed_mean(torch.from_numpy(x), beta=0.2)
+        got = aggregate_plain(torch.from_numpy(x), "trimmed_mean", k_trim=1)
+    for ref in (np.asarray(ref_j), ref_t.numpy()):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("method", ["median", "vrmom"])
+def test_b1_bf16_in_bf16_out(method, no_launch):
+    x = _stack(5, (8, 64))
+    xb = x.astype(ml_dtypes.bfloat16)
+    want = np.asarray(aggregate_pallas(jnp.asarray(xb), method, K=8,
+                                       interpret=True))
+    tb = torch.from_numpy(xb.view(np.uint16).copy()).view(torch.bfloat16)
+    got = aggregate(tb, method, K=8)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    want = want.astype(np.float32)
+    if method == "median":
+        np.testing.assert_array_equal(got, want)
+    else:  # one bf16 rounding of a value that agrees to 1e-5 in f32
+        np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=1e-5)
+
+
+@pytest.mark.parametrize("m", [3, 8])
+def test_b1_degenerate_scale_gives_exact_median(m, no_launch):
+    """Identical honest rows: MAD = 0 and VRMOM returns the exact median
+    (the guard the robust serving contract rests on)."""
+    row = _stack(3, (1, 29))
+    x = np.repeat(row, m, axis=0)
+    x[-1] = -x[-1]  # one corrupted row keeps the honest majority
+    got = aggregate(torch.from_numpy(x), "vrmom", K=8).numpy()
+    np.testing.assert_array_equal(got, row[0])
+    want = np.asarray(aggregate_pallas(jnp.asarray(x), "vrmom", K=8,
+                                       interpret=True))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_b1_rejects_unvalidated_trim():
+    with pytest.raises(ValueError, match="trims"):
+        aggregate(torch.zeros(8, 4), "trimmed_mean", beta=0.1)
+
+
+def test_b1_meta_tensor_raises():
+    """A tensor that is neither on the CPU nor on the card is refused; the
+    wrapper never falls back to the plain version for it."""
+    with pytest.raises(ValueError, match="meta"):
+        aggregate(torch.zeros(8, 4, device="meta"), "median")
+
+
+# ---------------------------------------------------------------------------
+# B4: aggregation + sampling tail
+# ---------------------------------------------------------------------------
+
+def _tied_logits(seed, m, B, V):
+    # quantized to multiples of 0.25 so equal aggregates (ties) occur
+    x = np.round(_stack(seed, (m, B, V)) * 4.0) / 4.0
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("m", [3, 8])
+@pytest.mark.parametrize("method", ["median", "vrmom", "trimmed_mean"])
+def test_b4_greedy_matches_pallas(method, m, no_launch):
+    x = _tied_logits(m, m, 4, 300)
+    beta = _beta(m)
+    _, want = aggregate_sample_pallas(jnp.asarray(x), method, K=8,
+                                      beta=beta, interpret=True)
+    agg, got = aggregate_sample(torch.from_numpy(x), method, K=8, beta=beta)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # bit-identical to an argmax over B1's output
+    b1 = aggregate(torch.from_numpy(x), method, K=8, beta=beta)
+    np.testing.assert_array_equal(got.numpy(),
+                                  torch.argmax(b1, dim=-1).numpy())
+    np.testing.assert_array_equal(agg.numpy(), b1.numpy())
+
+
+@pytest.mark.parametrize("k", [1, 5, 17])
+def test_b4_topk_matches_pallas_with_ties(k, no_launch):
+    x = _tied_logits(21, 8, 3, 257)
+    _, wv, wi = aggregate_sample_pallas(jnp.asarray(x), "median", top_k=k,
+                                        interpret=True)
+    agg, tv, ti = aggregate_sample(torch.from_numpy(x), "median", top_k=k)
+    a = agg.numpy()
+    assert any(len(np.unique(r)) < r.size for r in a)  # ties are present
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(wv))
+
+
+def test_b4_with_agg_false_writes_no_aggregate(no_launch):
+    x = _stack(2, (5, 2, 64))
+    agg, tok = aggregate_sample(torch.from_numpy(x), "vrmom", K=8,
+                                with_agg=False)
+    assert agg is None and tok.dtype == torch.int32 and tok.shape == (2,)
+    agg_p, tok_p = aggregate_sample_plain(torch.from_numpy(x), "vrmom", K=8)
+    np.testing.assert_array_equal(tok.numpy(), tok_p.numpy())
+
+
+def test_b4_validates():
+    with pytest.raises(ValueError, match="m, B, V"):
+        aggregate_sample(torch.zeros(4, 8), "median")
+    with pytest.raises(ValueError, match="top_k"):
+        aggregate_sample(torch.zeros(4, 2, 8), "median", top_k=9)
+
+
+# ---------------------------------------------------------------------------
+# B2: flash attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S,T,H,Hkv,causal", [
+    (24, 24, 4, 4, True),    # GQA 1:1
+    (24, 24, 8, 2, True),    # GQA 4:1
+    (24, 24, 8, 2, False),
+    (16, 40, 4, 1, False),   # T != S
+    (20, 37, 4, 2, False),   # ragged T
+    (33, 33, 4, 2, True),    # ragged causal
+])
+def test_b2_plain_matches_pallas(S, T, H, Hkv, causal, no_launch):
+    rs = np.random.RandomState(S * 100 + T)
+    q = rs.randn(2, S, H, 32).astype(np.float32)
+    k = rs.randn(2, T, Hkv, 32).astype(np.float32)
+    v = rs.randn(2, T, Hkv, 32).astype(np.float32)
+    want = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=causal, blk_q=16, blk_k=16,
+                              interpret=True))
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), causal=causal).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_b2_plain_matches_ref_attention():
+    rs = np.random.RandomState(0)
+    q, k, v = (rs.randn(2, 12, 4, 32).astype(np.float32) for _ in range(3))
+    want = TR.ref_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    got = flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_b2_validates():
+    q = torch.zeros(1, 4, 3, 32)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(q, torch.zeros(1, 4, 2, 32), torch.zeros(1, 4, 2, 32))
+
+
+# ---------------------------------------------------------------------------
+# B3: decode attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kv_len", ["none", "scalar", "rows"])
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (8, 2)])
+def test_b3_plain_matches_pallas(kv_len, H, Hkv, no_launch):
+    rs = np.random.RandomState(H + Hkv)
+    B, T, dh = 3, 40, 32
+    q = rs.randn(B, 1, H, dh).astype(np.float32)
+    k = rs.randn(B, T, Hkv, dh).astype(np.float32)
+    v = rs.randn(B, T, Hkv, dh).astype(np.float32)
+    lens = {"none": None, "scalar": 23,
+            "rows": np.array([5, 40, 17], np.int32)}[kv_len]
+    want = np.asarray(j_decode(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), kv_len=lens, interpret=True))
+    t_lens = torch.from_numpy(lens) if isinstance(lens, np.ndarray) else lens
+    got = decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), kv_len=t_lens).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_b3_int8_scales_match_pallas(no_launch):
+    rs = np.random.RandomState(8)
+    B, T, H, Hkv, dh = 2, 33, 8, 4, 32
+    q = rs.randn(B, 1, H, dh).astype(np.float32)
+    k8 = rs.randint(-127, 128, size=(B, T, Hkv, dh)).astype(np.int8)
+    v8 = rs.randint(-127, 128, size=(B, T, Hkv, dh)).astype(np.int8)
+    ks = (rs.rand(B, T) * 0.02 + 1e-3).astype(np.float32)
+    vs = (rs.rand(B, T) * 0.02 + 1e-3).astype(np.float32)
+    lens = np.array([33, 20], np.int32)
+    want = np.asarray(j_decode(jnp.asarray(q), jnp.asarray(k8),
+                               jnp.asarray(v8), kv_len=lens,
+                               k_scale=jnp.asarray(ks),
+                               v_scale=jnp.asarray(vs), interpret=True))
+    got = decode_attention(torch.from_numpy(q), torch.from_numpy(k8),
+                           torch.from_numpy(v8), kv_len=torch.from_numpy(lens),
+                           k_scale=torch.from_numpy(ks),
+                           v_scale=torch.from_numpy(vs)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_b3_lengths_clamp_and_forms():
+    assert lengths(None, 2, 7, "cpu").tolist() == [7, 7]
+    assert lengths(9, 2, 7, "cpu").tolist() == [7, 7]
+    assert lengths(torch.tensor([3, 12]), 2, 7, "cpu").tolist() == [3, 7]
+
+
+def test_b3_validates():
+    q = torch.zeros(2, 2, 4, 32)
+    kv = torch.zeros(2, 8, 2, 32)
+    with pytest.raises(ValueError, match="single-query"):
+        decode_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="together"):
+        decode_attention(q[:, :1], kv, kv, k_scale=torch.ones(2, 8))
+
+
+def test_b3_empty_row_is_zero():
+    """A row with no valid position returns 0 in both versions."""
+    q = torch.randn(2, 1, 4, 32)
+    kv = torch.randn(2, 8, 2, 32)
+    out = decode_attention_plain(q, kv, kv, torch.tensor([0, 8],
+                                                         dtype=torch.int32))
+    assert torch.all(out[0] == 0) and torch.all(torch.isfinite(out[1]))
