@@ -3,10 +3,15 @@
 
     python3 chip_smoke.py
 
-Phase 1 builds the four CUDA kernels from the sources in the checkout.
-Phase 2 holds each kernel against its plain PyTorch version at the
-shapes the serving path gives it, and times kernel, plain version and
-(for attention) one PyTorch library call as a yardstick. Phase 3 serves
+Phase 1 builds the four CUDA kernels from the sources in the checkout
+and prints each kernel's registers, shared memory and spills. Phase 2
+holds each kernel against its plain PyTorch version at the shapes the
+serving path gives it (B3 also at every length around its 32-key chunk
+edges and at batch 32, bitwise equal to the same rows at batch 4; B2 in
+bf16 at every head dim with ragged S and T), checks that B2 and B3 give
+the same bits on a second call and that one B3 call with a python-int
+length is one device kernel, and times kernel, plain version and (for
+attention) one PyTorch library call as a yardstick. Phase 3 serves
 qwen3-1.7b at full width (28 layers, bf16, seeded random weights) through
 ``ServeEngine.generate`` with robust replicated decoding (m = 8 replicas,
 VRMOM, alpha = 0.25): greedy tokens must be identical under the none,
@@ -32,6 +37,11 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak
+SPIN_CYCLES = 4_000_000     # ~2 ms of device spin at the H100's 1.98 GHz
+
+# the port's kernels by their device names (csrc/*.cu)
+PORT_KERNELS = ("agg_kernel", "tail_partial_kernel", "tail_finish_kernel",
+                "flash_fwd_wgmma", "flash_fwd_f32", "decode_split_kernel")
 
 # workload of phase 3
 N_PROMPTS, PROMPT_LEN, NEW_TOKENS = 4, 192, 24
@@ -56,23 +66,27 @@ def card_line() -> str:
 
 
 def timed_ms(fn, torch, iters: int = 20, flush=None) -> float:
-    """Median CUDA-event time of one call; ``flush`` runs before each
-    start event so every call finds a cold L2."""
+    """Median CUDA-event time of one call on the device. ``flush`` runs
+    before each start event so every call finds a cold L2; then the device
+    spins for ~2 ms (``torch.cuda._sleep``) while the host enqueues the
+    start event, the call and the end event, so the wrapper's host time is
+    not counted: the events bracket device work only."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    pairs = []
+    times = []
     for _ in range(iters):
         if flush is not None:
             flush()
+        torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
         e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
 
 
 def bound(nbytes: float, bf16_flops: float = 0.0):
@@ -88,6 +102,60 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def kernels_in_one_call(torch, fn) -> list:
+    """Names of the device kernels that one call of ``fn`` runs (after a
+    warm-up call), from a torch.profiler trace of the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.name for ev in prof.events()
+            if ev.device_type == DeviceType.CUDA]
+
+
+def ptxas_report(build) -> None:
+    """Registers, static shared memory and spills of every kernel, from the
+    ``-Xptxas -v`` log the build keeps beside each library (attention at
+    head dim 128 only, the slice's width)."""
+    import re
+    import shutil
+
+    demangle = shutil.which("c++filt")
+    for lib in build.SOURCES:
+        info, cur = {}, None
+        for line in build.library_path(lib).with_suffix(".log").read_text(
+                ).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                cur = m.group(1)
+                info[cur] = dict(regs="?", smem="0", spill="?", stack="?")
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores", line)
+            if m:
+                info[cur]["stack"], info[cur]["spill"] = m.groups()
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                info[cur]["regs"] = m.group(1)
+                sm = re.search(r"(\d+) bytes smem", line)
+                info[cur]["smem"] = sm.group(1) if sm else "0"
+        for name, r in info.items():
+            if lib != "vrmom" and "ILi128E" not in name:
+                continue
+            if demangle:
+                name = subprocess.run([demangle, name], capture_output=True,
+                                      text=True).stdout.strip()
+            print(f"[ptxas] {lib}: {r['regs']} registers, {r['smem']} bytes "
+                  f"static smem, {r['spill']} bytes spilled, {r['stack']} "
+                  f"bytes stack  {name[:100]}")
+
+
 def phase_build():
     from repro_torch.kernels import build
 
@@ -98,13 +166,17 @@ def phase_build():
         print(f"[build] {name}: {s:.1f} s")
     print(f"[build] all kernels: {total:.1f} s wall (one nvcc per source, "
           f"in parallel)")
+    ptxas_report(build)
 
 
 def phase_kernels(torch, dev):
     """Each kernel against its plain version; returns per-kernel records
     (without launches, which the main path fills in)."""
+    import importlib
+
     import torch.nn.functional as F
 
+    from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain,
                                                       lengths)
@@ -197,8 +269,9 @@ def phase_kernels(torch, dev):
 
     # -- B2 at the prefill shape ---------------------------------------------
     # bf16 kernel output against the plain version in f32 from the same bf16
-    # inputs: one bf16 rounding of the output (2^-9 relative) plus f32 sums
-    # in another order.
+    # inputs: one bf16 rounding of the output (2^-9 relative), the bf16
+    # rounding of each softmax weight before P.V, and f32 sums in another
+    # order.
     atol, rtol = 1e-2, 1e-2
     q = torch.randn((4, 192, 16, 128), generator=g, device=dev
                     ).to(torch.bfloat16)
@@ -210,18 +283,26 @@ def phase_kernels(torch, dev):
     ref = flash_attention_plain(q.float(), k.float(), v.float(), causal=True)
     e2 = max_err(out, ref)
     torch.testing.assert_close(out.float(), ref, atol=atol, rtol=rtol)
-    qr = torch.randn((4, 100, 16, 128), generator=g, device=dev
-                     ).to(torch.bfloat16)
-    kr = torch.randn((4, 150, 8, 128), generator=g, device=dev
-                     ).to(torch.bfloat16)
-    vr = torch.randn((4, 150, 8, 128), generator=g, device=dev
-                     ).to(torch.bfloat16)
-    torch.testing.assert_close(
-        flash_attention(qr, kr, vr, causal=False).float(),
-        flash_attention_plain(qr.float(), kr.float(), vr.float(),
-                              causal=False), atol=atol, rtol=rtol)
-    print(f"[B2] causal [4,192,16,128] x [4,192,8,128] bf16 max err {e2:.3g}"
-          f" (tolerance {atol} + {rtol}*|ref|); ragged non-causal T=150 ok")
+    require(torch.equal(out, flash_attention(q, k, v, causal=True)),
+            "B2: two calls on the same inputs differ")
+    for dh in (32, 64, 128):
+        for S, T in ((100, 150), (193, 193)):
+            qr, kr, vr = (torch.randn((2, n, h, dh), generator=g, device=dev
+                                      ).to(torch.bfloat16)
+                          for n, h in ((S, 8), (T, 2), (T, 2)))
+            for causal in (True, False):
+                torch.testing.assert_close(
+                    flash_attention(qr, kr, vr, causal=causal).float(),
+                    flash_attention_plain(qr.float(), kr.float(), vr.float(),
+                                          causal=causal),
+                    atol=atol, rtol=rtol)
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    smem = build.load("flash_attention", fa._SIGNATURES
+                      ).flash_attention_smem_bytes(128)
+    print(f"[B2] causal [4,192,16,128] x [4,192,8,128] bf16 (wgmma) max err "
+          f"{e2:.3g} (tolerance {atol} + {rtol}*|ref|), bitwise repeatable; "
+          f"dh 32/64/128 at S,T = 100,150 and 193,193, causal and not, ok; "
+          f"{smem} bytes of dynamic shared memory per block at dh 128")
     t_b2 = timed_ms(lambda: flash_attention(q, k, v, causal=True), torch,
                     flush=flush)
     t_b2p = timed_ms(lambda: flash_attention_plain(q, k, v, causal=True),
@@ -255,6 +336,18 @@ def phase_kernels(torch, dev):
         ref = decode_attention_plain(qd.float(), kc.float(), vc.float(), ln)
         e3 = max(e3, max_err(out, ref))
         torch.testing.assert_close(out.float(), ref, atol=atol, rtol=rtol)
+    # every length at a 32-key chunk edge, as a scalar and per row
+    for n in (0, 1, 31, 32, 33, 63, 64, 65, T - 1, T):
+        ref = decode_attention_plain(qd.float(), kc.float(), vc.float(),
+                                     lengths(n, 4, T, dev))
+        for kv_len in (n, torch.full((4,), n, dtype=torch.int32,
+                                     device=dev)):
+            torch.testing.assert_close(
+                decode_attention(qd, kc, vc, kv_len=kv_len).float(), ref,
+                atol=atol, rtol=rtol)
+    require(torch.equal(decode_attention(qd, kc, vc, kv_len=150),
+                        decode_attention(qd, kc, vc, kv_len=150)),
+            "B3: two calls on the same inputs differ")
     k8 = torch.randint(-127, 128, kc.shape, generator=g, device=dev,
                        dtype=torch.int8)
     v8 = torch.randint(-127, 128, vc.shape, generator=g, device=dev,
@@ -266,17 +359,34 @@ def phase_kernels(torch, dev):
                          v_scale=vs).float(),
         decode_attention_plain(qd.float(), k8, v8, lens, ks, vs),
         atol=atol, rtol=rtol)
+    # batch 32 (the replicated path: 2 splits against 7 at batch 4): each
+    # row must come out bitwise as it does at batch 4
     q32 = torch.randn((32, 1, 16, 128), generator=g, device=dev
                       ).to(torch.bfloat16)
     k32 = kc.repeat(8, 1, 1, 1)
     v32 = vc.repeat(8, 1, 1, 1)
-    torch.testing.assert_close(
-        decode_attention(q32, k32, v32, kv_len=200).float(),
-        decode_attention_plain(q32.float(), k32.float(), v32.float(),
-                               lengths(200, 32, T, dev)),
-        atol=atol, rtol=rtol)
+    for kv_len in (200, lens.repeat(8)):
+        out32 = decode_attention(q32, k32, v32, kv_len=kv_len)
+        torch.testing.assert_close(
+            out32.float(),
+            decode_attention_plain(q32.float(), k32.float(), v32.float(),
+                                   lengths(kv_len, 32, T, dev)),
+            atol=atol, rtol=rtol)
+        by4 = torch.cat([decode_attention(
+            q32[i:i + 4], kc, vc, kv_len=kv_len if isinstance(kv_len, int)
+            else lens) for i in range(0, 32, 4)])
+        require(torch.equal(out32, by4),
+                "B3 at batch 32 differs bitwise from the same rows at "
+                "batch 4")
+    launches = kernels_in_one_call(
+        torch, lambda: decode_attention(qd, kc, vc, kv_len=200))
+    require(len(launches) == 1,
+            f"one B3 call with a python-int kv_len ran {len(launches)} "
+            f"device kernels: {launches}")
     print(f"[B3] q [4,1,16,128] over [4,{T},8,128] bf16 max err {e3:.3g}; "
-          f"per-row kv_len, int8 + scales, batch 32 ok")
+          f"lengths 0..{T} at every chunk edge (scalar and per row), int8 + "
+          f"scales, batch 32 == batch 4 bitwise, repeat calls bitwise equal; "
+          f"one call = one device kernel ({launches[0][:60]})")
     t_b3 = timed_ms(lambda: decode_attention(qd, kc, vc), torch, flush=flush)
     full = lengths(None, 4, T, dev)
     t_b3p = timed_ms(lambda: decode_attention_plain(qd, kc, vc, full), torch,
@@ -461,6 +571,10 @@ def profile_generate(torch, eng, batch, gen_ms: float) -> None:
           f"({launches / NEW_TOKENS:.0f} per token)")
     for dev_us, count, key in sorted(rows, reverse=True)[:12]:
         print(f"[profile] {dev_us / 1e3:8.2f} ms {count:6d}x  {key[:90]}")
+    for dev_us, count, key in rows:
+        if any(k in key for k in PORT_KERNELS):
+            print(f"[profile] port kernel {dev_us / 1e3:8.3f} ms {count:5d}x "
+                  f"({dev_us / count:7.2f} us each)  {key[:70]}")
 
 
 def main() -> int:

@@ -3,36 +3,88 @@
 ``decode_attention`` replaces ``repro.kernels.decode_attention
 .decode_attention`` (Pallas call ``_decode_grouped``, l.158/246, with both
 bodies ``_kernel_narrow`` and ``_kernel_wide``). The CUDA kernel
-(``csrc/decode_attention.cu``) runs one block per (kv head, batch row)
-covering the whole query group, reads the cache in place (never repeated
-to H heads), multiplies int8 dequant scales in at load, masks each row to
-its own valid length and keeps the online softmax in f32. Decode
-attention is bound by the bytes of K/V it must read on the H100; with
-B * Hkv blocks the first version fills only part of the card.
+(``csrc/decode_attention.cu``) splits the kv axis across blocks
+(flash-decoding): each block covers the whole query group of one (kv
+head, row) over a span of 32-key chunks, reads the cache in place (never
+repeated to H heads) with 16-byte ``cp.async`` copies, multiplies int8
+dequant scales in at load and keeps the online softmax in f32; the last
+block of each (row, kv head) merges the chunks in order, in the same
+launch. :func:`plan_splits` picks the split; one call is one launch.
 
 The wrapper launches the kernel for CUDA tensors (q f32/bf16, cache
 f32/bf16/int8, dh in {32, 64, 128}, H / Hkv <= 8, contiguous), raises on
 anything else, and counts launches in ``decode_attention.launches``; for
-CPU tensors it runs ``decode_attention_plain``.
+CPU tensors it runs ``decode_attention_plain``. A python-int ``kv_len``
+goes to the kernel as a scalar argument, so a call makes no other device
+work. Calls on one device share ticket counters per stream and must be
+ordered on that stream.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from . import build as _B
 
 __all__ = ["decode_attention", "decode_attention_plain", "lengths",
-           "HEAD_DIMS", "MAX_GROUP"]
+           "plan_splits", "SplitPlan", "HEAD_DIMS", "MAX_GROUP", "CHUNK"]
 
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8  # query heads per kv head (kMaxGroup)
 _Q_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+CHUNK = 32      # keys per chunk record (kChunk)
+H100_SMS = 132
 _SIGNATURES = {
-    "decode_attention_fwd": [_B.P, _B.P, _B.P, _B.P, _B.P, _B.P, _B.P, _B.I,
-                             _B.I, _B.I, _B.I, _B.I, _B.I, _B.I, _B.P],
+    # q, k, v, k_scale, v_scale, lens, len_all, out, part, tickets,
+    # q_dtype, kv_dtype, B, T, H, Hkv, dh, n_split, chunks_per_split, stream
+    "decode_attention_fwd": [_B.P, _B.P, _B.P, _B.P, _B.P, _B.P, _B.I, _B.P,
+                             _B.P, _B.P, _B.I, _B.I, _B.I, _B.I, _B.I, _B.I,
+                             _B.I, _B.I, _B.I, _B.P],
 }
 NEG_INF = -1e30
+_TICKETS = {}   # (device index, stream) -> zeroed int32 counters
+_SMS = {}       # device index -> multiprocessor count
+
+
+class SplitPlan(NamedTuple):
+    n_split: int            # blocks along the kv axis per (row, kv head)
+    chunks_per_split: int   # 32-key chunks each of those blocks covers
+    n_chunks: int           # ceil(T / 32): chunk records per (row, kv head)
+    scratch_shape: tuple    # f32 records (acc[G][dh], m[G], l[G]) per chunk
+
+
+def plan_splits(B: int, Hkv: int, T: int, G: int, dh: int,
+                sms: int = H100_SMS) -> SplitPlan:
+    """Split of the kv axis for ``B * Hkv`` (row, kv head) pairs: about two
+    waves of blocks on ``sms`` multiprocessors, each split a whole number
+    of 32-key chunks and no split empty at full length. The result does not
+    depend on the split (see the kernel's note), only the speed does."""
+    n_chunks = max(1, -(-T // CHUNK))
+    want = max(1, -(-2 * sms // (B * Hkv)))
+    cps = -(-n_chunks // min(n_chunks, want))
+    return SplitPlan(-(-n_chunks // cps), cps, n_chunks,
+                     (B, Hkv, n_chunks, G * (dh + 2)))
+
+
+def _tickets(device, stream, n: int):
+    """The int32 counters of (device, stream), zeroed once and grown when
+    ``n`` outgrows them; every kernel leaves them zero."""
+    key = (device.index, stream.value)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _TICKETS[key] = buf
+    return buf
+
+
+def _sm_count(device) -> int:
+    n = _SMS.get(device.index)
+    if n is None:
+        n = _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
 
 
 def lengths(kv_len, B: int, T: int, device):
@@ -86,12 +138,12 @@ def decode_attention(q, k, v, *, kv_len=None, k_scale=None, v_scale=None):
         raise ValueError(f"H={H} not divisible by Hkv={Hkv}")
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale must be passed together")
-    lens = lengths(kv_len, B, T, q.device)
     if k_scale is not None:
         k_scale = k_scale.float().expand(B, T).contiguous()
         v_scale = v_scale.float().expand(B, T).contiguous()
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, lens, k_scale, v_scale)
+        return decode_attention_plain(q, k, v, lengths(kv_len, B, T, "cpu"),
+                                      k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: tensor on {q.device}")
     if q.dtype not in _Q_DTYPE or k.dtype not in _KV_DTYPE \
@@ -101,18 +153,37 @@ def decode_attention(q, k, v, *, kv_len=None, k_scale=None, v_scale=None):
                         f"{k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("decode_attention: q, k and v must be contiguous")
-    if dh not in HEAD_DIMS or H // Hkv > MAX_GROUP:
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("decode_attention: k and v must be 16-byte aligned")
+    G = H // Hkv
+    if dh not in HEAD_DIMS or G > MAX_GROUP:
         raise ValueError(f"decode_attention: head dim {dh} (want one of "
-                         f"{HEAD_DIMS}) or group {H // Hkv} (max "
-                         f"{MAX_GROUP}) not compiled")
+                         f"{HEAD_DIMS}) or group {G} (max {MAX_GROUP}) not "
+                         f"compiled")
+    # a scalar length goes by value; a vector by pointer (clamped in-kernel)
+    lens, len_all = None, T
+    if isinstance(kv_len, int):
+        len_all = max(0, min(kv_len, T))
+    elif kv_len is not None:
+        lens = kv_len
+        if not (torch.is_tensor(lens) and lens.dtype == torch.int32
+                and lens.device == q.device and lens.shape == (B,)
+                and lens.is_contiguous()):
+            lens = lengths(kv_len, B, T, q.device)
+    plan = plan_splits(B, Hkv, T, G, dh, _sm_count(q.device))
+    stream = _B.stream_handle(q.device)
     out = torch.empty_like(q)
+    part = torch.empty(plan.scratch_shape, dtype=torch.float32,
+                       device=q.device)
     lib = _B.load("decode_attention", _SIGNATURES)
     err = lib.decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if k_scale is None else k_scale.data_ptr(),
         None if v_scale is None else v_scale.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), _Q_DTYPE[q.dtype],
-        _KV_DTYPE[k.dtype], B, T, H, Hkv, dh, _B.stream_handle(q.device))
+        None if lens is None else lens.data_ptr(), len_all, out.data_ptr(),
+        part.data_ptr(), _tickets(q.device, stream, B * Hkv).data_ptr(),
+        _Q_DTYPE[q.dtype], _KV_DTYPE[k.dtype], B, T, H, Hkv, dh,
+        plan.n_split, plan.chunks_per_split, stream)
     _B.check(err, "decode_attention")
     decode_attention.launches += 1
     return out

@@ -2,13 +2,13 @@
 
 ``flash_attention`` replaces ``repro.kernels.flash_attention.flash_attention``
 (Pallas call ``_flash_bh``, l.76/108). The CUDA kernel
-(``csrc/flash_attention.cu``) runs one block per (16-query tile,
-batch * head), walks 32-key tiles staged in shared memory, and keeps the
-online-softmax state (m, l, acc) in f32 registers, so scores never reach
-device memory; GQA stays grouped (K/V are read at kv head h // (H / Hkv),
-never repeated). At the prefill shapes it moves ~9.4 MB per layer, so the
-H100 bound is bandwidth; this first version computes on the CUDA cores,
-not the tensor cores, and is compute-bound above that bound.
+(``csrc/flash_attention.cu``) keeps the online-softmax state in f32
+registers, so scores never reach device memory, and GQA stays grouped
+(K/V are read at kv head h // (H / Hkv), never repeated). For bf16 it runs
+one warpgroup per 64-row query tile and computes Q.K^T and P.V on the
+tensor cores (``wgmma``), with K/V tiles double-buffered in shared memory;
+f32 inputs take a CUDA-core body. At the prefill shapes it moves ~9.4 MB
+per layer, so the H100 bound is bandwidth.
 
 The wrapper launches the kernel for CUDA tensors (f32 or bf16, dh in
 {32, 64, 128}, contiguous), raises on anything else, and counts launches
@@ -29,6 +29,7 @@ _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "flash_attention_fwd": [_B.P, _B.P, _B.P, _B.P, _B.I, _B.I, _B.I, _B.I,
                             _B.I, _B.I, _B.I, _B.I, _B.P],
+    "flash_attention_smem_bytes": [_B.I],
 }
 NEG_INF = -1e30
 
@@ -77,6 +78,9 @@ def flash_attention(q, k, v, *, causal: bool = True):
                         f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k and v must be contiguous")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_attention: q, k and v must be 16-byte "
+                         "aligned")
     B, S, H, dh = q.shape
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {dh} not in {HEAD_DIMS}")

@@ -24,9 +24,9 @@ from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.vrmom import aggregate_pallas, aggregate_sample_pallas
 from repro_torch import kernels as K
 from repro_torch.kernels import ref as TR
-from repro_torch.kernels.decode_attention import (decode_attention,
+from repro_torch.kernels.decode_attention import (CHUNK, decode_attention,
                                                   decode_attention_plain,
-                                                  lengths)
+                                                  lengths, plan_splits)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.vrmom import (aggregate, aggregate_plain,
@@ -295,6 +295,48 @@ def test_b3_int8_scales_match_pallas(no_launch):
                            k_scale=torch.from_numpy(ks),
                            v_scale=torch.from_numpy(vs)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 40])
+def test_b3_scalar_and_vector_lengths_match_pallas(n, no_launch):
+    """Lengths around a 32-key chunk edge and the whole cache (T = 40):
+    the scalar kv_len and the same length as a [B] vector give the JAX
+    kernel's result."""
+    rs = np.random.RandomState(n)
+    B, T, H, Hkv, dh = 2, 40, 8, 2, 32
+    q = rs.randn(B, 1, H, dh).astype(np.float32)
+    k = rs.randn(B, T, Hkv, dh).astype(np.float32)
+    v = rs.randn(B, T, Hkv, dh).astype(np.float32)
+    rows = np.full((B,), n, np.int32)
+    for j_len, t_len in ((n, n), (rows, torch.from_numpy(rows))):
+        want = np.asarray(j_decode(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), kv_len=j_len,
+                                   interpret=True))
+        got = decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), kv_len=t_len).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,Hkv,T,n_split", [
+    (4, 8, 216, 7),     # the slice's decode shape: 224 blocks
+    (32, 8, 216, 2),    # the replicated path's batch
+    (1, 1, 1, 1),
+    (4, 8, 4096, 9),
+])
+def test_b3_plan_splits(B, Hkv, T, n_split):
+    """About two waves of blocks on 132 SMs, whole 32-key chunks, at least
+    one key in every split at full length, and a scratch record per
+    chunk."""
+    G, dh = 2, 128
+    plan = plan_splits(B, Hkv, T, G, dh)
+    assert plan.n_split == n_split
+    assert plan.n_chunks == -(-T // CHUNK)
+    assert plan.scratch_shape == (B, Hkv, plan.n_chunks, G * (dh + 2))
+    span = plan.chunks_per_split * CHUNK
+    for s in range(plan.n_split):
+        assert min((s + 1) * span, T) - s * span >= 1
+    assert plan.n_split * span >= T > (plan.n_split - 1) * span
+    assert B * Hkv * plan.n_split <= 2 * 132 + B * Hkv
 
 
 def test_b3_lengths_clamp_and_forms():
