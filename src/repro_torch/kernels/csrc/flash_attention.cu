@@ -453,14 +453,4 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of one bf16 (wgmma) block at head dim dh, bytes.
-int flash_attention_smem_bytes(int dh) {
-  switch (dh) {
-    case 32: return wg::Shape<32>::kSmem;
-    case 64: return wg::Shape<64>::kSmem;
-    case 128: return wg::Shape<128>::kSmem;
-    default: return -1;
-  }
-}
-
 }  // extern "C"

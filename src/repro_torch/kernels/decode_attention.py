@@ -16,8 +16,8 @@ f32/bf16/int8, dh in {32, 64, 128}, H / Hkv <= 8, contiguous), raises on
 anything else, and counts launches in ``decode_attention.launches``; for
 CPU tensors it runs ``decode_attention_plain``. A python-int ``kv_len``
 goes to the kernel as a scalar argument, so a call makes no other device
-work. Calls on one device share ticket counters per stream and must be
-ordered on that stream.
+work. Calls of one shape on one stream share their scratch and ticket
+counters, so they must be ordered on that stream.
 """
 from __future__ import annotations
 
@@ -44,8 +44,7 @@ _SIGNATURES = {
                              _B.I, _B.I, _B.I, _B.P],
 }
 NEG_INF = -1e30
-_TICKETS = {}   # (device index, stream) -> zeroed int32 counters
-_SMS = {}       # device index -> multiprocessor count
+_STATE = {}     # (device, stream, B, T, H, Hkv, dh) -> _launch_state(...)
 
 
 class SplitPlan(NamedTuple):
@@ -68,23 +67,27 @@ def plan_splits(B: int, Hkv: int, T: int, G: int, dh: int,
                      (B, Hkv, n_chunks, G * (dh + 2)))
 
 
-def _tickets(device, stream, n: int):
-    """The int32 counters of (device, stream), zeroed once and grown when
-    ``n`` outgrows them; every kernel leaves them zero."""
-    key = (device.index, stream.value)
-    buf = _TICKETS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
-        _TICKETS[key] = buf
-    return buf
-
-
-def _sm_count(device) -> int:
-    n = _SMS.get(device.index)
-    if n is None:
-        n = _SMS[device.index] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return n
+def _launch_state(device, stream: int, B: int, T: int, H: int, Hkv: int,
+                  dh: int) -> tuple:
+    """(n_split, chunks_per_split, scratch pointer, tickets pointer, scratch,
+    tickets) of one shape on one stream, made at its first call: the f32
+    chunk records and the B * Hkv int32 ticket counters (zeroed once; every
+    kernel leaves them zero) are reused by each later call, which the
+    stream orders after the one before. A decode loop's calls so cost one
+    dict lookup here, and no allocation or fill."""
+    key = (device.index, stream, B, T, H, Hkv, dh)
+    st = _STATE.get(key)
+    if st is None:
+        plan = plan_splits(B, Hkv, T, H // Hkv, dh,
+                           torch.cuda.get_device_properties(
+                               device).multi_processor_count)
+        part = torch.empty(plan.scratch_shape, dtype=torch.float32,
+                           device=device)
+        tickets = torch.zeros(B * Hkv, dtype=torch.int32, device=device)
+        st = _STATE[key] = (plan.n_split, plan.chunks_per_split,
+                            part.data_ptr(), tickets.data_ptr(), part,
+                            tickets)
+    return st
 
 
 def lengths(kv_len, B: int, T: int, device):
@@ -170,20 +173,18 @@ def decode_attention(q, k, v, *, kv_len=None, k_scale=None, v_scale=None):
                 and lens.device == q.device and lens.shape == (B,)
                 and lens.is_contiguous()):
             lens = lengths(kv_len, B, T, q.device)
-    plan = plan_splits(B, Hkv, T, G, dh, _sm_count(q.device))
-    stream = _B.stream_handle(q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    n_split, cps, part, tickets = _launch_state(q.device, stream, B, T, H,
+                                                Hkv, dh)[:4]
     out = torch.empty_like(q)
-    part = torch.empty(plan.scratch_shape, dtype=torch.float32,
-                       device=q.device)
     lib = _B.load("decode_attention", _SIGNATURES)
     err = lib.decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if k_scale is None else k_scale.data_ptr(),
         None if v_scale is None else v_scale.data_ptr(),
         None if lens is None else lens.data_ptr(), len_all, out.data_ptr(),
-        part.data_ptr(), _tickets(q.device, stream, B * Hkv).data_ptr(),
-        _Q_DTYPE[q.dtype], _KV_DTYPE[k.dtype], B, T, H, Hkv, dh,
-        plan.n_split, plan.chunks_per_split, stream)
+        part, tickets, _Q_DTYPE[q.dtype], _KV_DTYPE[k.dtype], B, T, H, Hkv,
+        dh, n_split, cps, stream)
     _B.check(err, "decode_attention")
     decode_attention.launches += 1
     return out

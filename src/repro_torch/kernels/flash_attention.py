@@ -29,7 +29,6 @@ _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "flash_attention_fwd": [_B.P, _B.P, _B.P, _B.P, _B.I, _B.I, _B.I, _B.I,
                             _B.I, _B.I, _B.I, _B.I, _B.P],
-    "flash_attention_smem_bytes": [_B.I],
 }
 NEG_INF = -1e30
 
