@@ -6,11 +6,12 @@
 Phase 1 builds the four CUDA kernels from the sources in the checkout
 and prints each kernel's registers, shared memory and spills. Phase 2
 holds each kernel against its plain PyTorch version at the shapes the
-serving path gives it (B3 also at every length around its 32-key chunk
-edges and at batch 32, bitwise equal to the same rows at batch 4; B2 in
-bf16 at every head dim with ragged S and T), checks that B2 and B3 give
-the same bits on a second call and that one B3 call with a python-int
-length is one device kernel, and times kernel, plain version and (for
+serving path gives it (B1 in f32 and bf16 for all four methods; B3 also
+at every length around its 32-key chunk edges and at batch 32, bitwise
+equal to the same rows at batch 4; B2 in bf16 at every head dim with
+ragged S and T), checks that B2 and B3 give the same bits on a second
+call and that one B3 call with a python-int length, and one B4 call
+(greedy or top-50), is one device kernel, and times kernel, plain version and (for
 attention) one PyTorch library call as a yardstick. Phase 3 serves
 qwen3-1.7b at full width (28 layers, bf16, seeded random weights) through
 ``ServeEngine.generate`` with robust replicated decoding (m = 8 replicas,
@@ -39,8 +40,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak
 
 # the port's kernels by their device names (csrc/*.cu)
-PORT_KERNELS = ("agg_kernel", "tail_partial_kernel", "tail_finish_kernel",
-                "flash_fwd_wgmma", "flash_fwd_f32", "decode_split_kernel")
+PORT_KERNELS = ("agg_kernel", "tail_kernel", "flash_fwd_wgmma",
+                "flash_fwd_f32", "decode_split_kernel")
 
 # workload of phase 3
 N_PROMPTS, PROMPT_LEN, NEW_TOKENS = 4, 192, 24
@@ -227,12 +228,24 @@ def phase_kernels(torch, dev):
                                 aggregate_plain(xm, method, K=8)),
                     f"B1 {method} at m={m} differs from its plain version")
     xb = x.to(torch.bfloat16)
-    outb = aggregate(xb, "vrmom", K=8)
-    require(outb.dtype == torch.bfloat16 and torch.equal(
-        outb, aggregate_plain(xb.reshape(8, -1), "vrmom", K=8).reshape(4, V)),
-        "B1 on a bf16 stack differs from its plain version")
+    for method in ("vrmom", "median", "trimmed_mean", "mean"):
+        outb = aggregate(xb, method, K=8, beta=0.25)
+        k_trim = 2 if method == "trimmed_mean" else 0
+        require(outb.dtype == torch.bfloat16 and torch.equal(
+            outb, aggregate_plain(xb.reshape(8, -1), method, K=8,
+                                  k_trim=k_trim).reshape(4, V)),
+            f"B1 {method} on a bf16 stack differs from its plain version")
+    b4_kernels = {}
+    for k in (0, 50):
+        b4_kernels[k] = kernels_in_one_call(torch, lambda k=k: (
+            aggregate_sample(x, "vrmom", K=8, top_k=k, with_agg=False)))
+        require(len(b4_kernels[k]) == 1,
+                f"one B4 call (top_k={k}) ran {len(b4_kernels[k])} device "
+                f"kernels: {b4_kernels[k]}")
     print(f"[B1/B4] exact against the plain versions: {json.dumps(errs)}; "
-          f"fused greedy == argmax(B1) == plain tail; top-50 order equal")
+          f"fused greedy == argmax(B1) == plain tail; top-50 order equal; "
+          f"one B4 call (greedy, top-50) = one device kernel "
+          f"({b4_kernels[0][0][:60]})")
 
     stack_bytes = x.numel() * 4
     t_b1 = timed_ms(lambda: aggregate(x, "vrmom", K=8), torch, flush=flush)

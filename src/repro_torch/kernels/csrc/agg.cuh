@@ -1,26 +1,29 @@
 // Coordinate-wise robust aggregation of one coordinate over the worker
-// axis: the device function both aggregation kernels (vrmom.cu: the plain
+// axis: the device functions both aggregation kernels (vrmom.cu: the plain
 // aggregate and the fused aggregate + sample tail) call, so the fused
 // greedy tokens are bit-identical to an argmax over the plain aggregate.
 //
 // Replaces `_agg_block` / `_sort_rows` of repro/kernels/vrmom.py (the
 // Pallas TPU kernel). The TPU kernel sorts a [m_pad, tile] VMEM block with
 // an odd-even transposition network over the sublanes; here each thread
-// owns ONE coordinate: it loads the m worker values (threads of a warp on
-// neighbouring coordinates, so every load is coalesced), sorts them in
-// registers with the same odd-even transposition network over a
-// compile-time width MMAX (padded with +inf, which sorts past the m real
-// rows), and evaluates the estimator in f32.
+// owns whole coordinates: it holds the m worker values of one coordinate
+// in registers, sorts them with a compile-time network over a width N
+// (padded with NaN, which sorts past the m real rows), and evaluates the
+// estimator in f32.
+//
+// The sort is the plain version's (torch.sort): NaN ranks above every
+// number, so a NaN row sorts last and counts like any other. Each
+// compare-exchange is `min.f32` (which drops a NaN operand) for the low
+// side and `max.NaN.f32` (which keeps it) for the high side.
 //
 // Numerics follow the TPU kernel's op order (repro/kernels/vrmom.py
 // l.93-120): means are row-order sums times the f32 reciprocal of the row
 // count (the form XLA gives the reference's division by a count); median
-// = 0.5 * (two middle order statistics), MAD from a
-// second sort of |x - med|, s = MAD / 0.6744897501960817,
-// z = (x - med) / max(s, eps), counts of z <= Delta_k, and
-// out = med - s * total / (m * psi_sum(K)) with the denominator one f32
-// computed on the host; s <= eps returns the median. Built with
-// --fmad=false so no multiply-add is contracted.
+// = 0.5 * (two middle order statistics), MAD = the same of |x - med|,
+// s = MAD / 0.6744897501960817, z = (x - med) / max(s, eps), counts of
+// z <= Delta_k, and out = med - s * total / (m * psi_sum(K)) with the
+// denominator one f32 computed on the host; s <= eps returns the median.
+// Built with --fmad=false so no multiply-add is contracted.
 #pragma once
 
 #include "common.cuh"
@@ -39,8 +42,18 @@ struct Params {
   int k_trim;     // trimmed mean: rows dropped at each end
   float eps;      // degenerate-scale guard
   float denom;    // f32(m * psi_sum(K)), computed in float64 on the host
-  float deltas[kMaxK];  // f32(ndtri(k / (K + 1))), k = 1..K
+  float deltas[kMaxK];  // f32(ndtri(k / (K + 1))), k = 1..K, ascending
 };
+
+__device__ __forceinline__ float nan_f32() { return __int_as_float(0x7fffffff); }
+
+// a <- the lower, b <- the higher of the two; NaN counts as the highest
+__device__ __forceinline__ void cmpx(float& a, float& b) {
+  float hi;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(hi) : "f"(a), "f"(b));
+  a = fminf(a, b);
+  b = hi;
+}
 
 template <int N>
 __device__ __forceinline__ void sort_network(float (&v)[N]) {
@@ -48,17 +61,9 @@ __device__ __forceinline__ void sort_network(float (&v)[N]) {
 #pragma unroll 1
   for (int p = 0; p < N; p += 2) {
 #pragma unroll
-    for (int i = 0; i + 1 < N; i += 2) {
-      const float lo = fminf(v[i], v[i + 1]);
-      v[i + 1] = fmaxf(v[i], v[i + 1]);
-      v[i] = lo;
-    }
+    for (int i = 0; i + 1 < N; i += 2) cmpx(v[i], v[i + 1]);
 #pragma unroll
-    for (int i = 1; i + 1 < N; i += 2) {
-      const float lo = fminf(v[i], v[i + 1]);
-      v[i + 1] = fmaxf(v[i], v[i + 1]);
-      v[i] = lo;
-    }
+    for (int i = 1; i + 1 < N; i += 2) cmpx(v[i], v[i + 1]);
   }
 }
 
@@ -76,16 +81,14 @@ __device__ __forceinline__ float median_sorted(const float (&v)[N], int m) {
   return 0.5f * (a + b);
 }
 
-// Aggregate x[0], x[stride], ..., x[(m-1)*stride] (m <= N).
-template <int N, typename T>
-__device__ __forceinline__ float aggregate(const T* __restrict__ x,
-                                           long long stride,
-                                           const Params& P) {
+// Aggregate v[0..m) (m <= N); v[m..N) is scratch. v is clobbered.
+template <int N>
+__device__ __forceinline__ float aggregate_values(float (&v)[N],
+                                                  const Params& P) {
   const int m = P.m;
-  float v[N];
 #pragma unroll
   for (int i = 0; i < N; ++i)
-    v[i] = i < m ? kern::to_f32(x[(long long)i * stride]) : INFINITY;
+    if (i >= m) v[i] = nan_f32();
   if (P.method == kMean) {
     float acc = 0.f;
 #pragma unroll
@@ -105,7 +108,7 @@ __device__ __forceinline__ float aggregate(const T* __restrict__ x,
   if (P.method == kMedian) return med;
   float dev[N];
 #pragma unroll
-  for (int i = 0; i < N; ++i) dev[i] = fabsf(v[i] - med);  // pads stay +inf
+  for (int i = 0; i < N; ++i) dev[i] = fabsf(v[i] - med);  // pads stay NaN
   sort_network<N>(dev);
   const float s = median_sorted<N>(dev, m) / kMadConst;
   const float sd = fmaxf(s, P.eps);
@@ -121,6 +124,18 @@ __device__ __forceinline__ float aggregate(const T* __restrict__ x,
   const float total = 0.5f * (float)(2 * count - m * P.K);
   const float out = med - s * total / P.denom;
   return s <= P.eps ? med : out;
+}
+
+// Aggregate x[0], x[stride], ..., x[(m-1)*stride] (m <= N).
+template <int N, typename T>
+__device__ __forceinline__ float aggregate(const T* __restrict__ x,
+                                           long long stride,
+                                           const Params& P) {
+  float v[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    v[i] = i < P.m ? kern::to_f32(x[(long long)i * stride]) : 0.f;
+  return aggregate_values<N>(v, P);
 }
 
 }  // namespace agg

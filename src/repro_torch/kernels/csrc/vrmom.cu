@@ -5,24 +5,33 @@
 // [m, C] stack over axis 0. One thread per coordinate, through the shared
 // device function agg::aggregate (agg.cuh).
 //
-// B4 `tail_partial_kernel` + `tail_finish_kernel` replace `_tail_3d` /
-// `_tail_kernel` (the Pallas call at l.269): the same aggregate of an
-// [m, B, V] logit stack, then greedy (k = 1) or top-k token selection in
-// (value descending, index ascending) order — jnp.argmax's first
-// occurrence and lax.top_k's tie order. The TPU kernel carries a running
-// argmax / top-k across its sequential vocab grid; on the GPU the tiles
-// run in no order, so each block writes its tile's top-k as partials and
-// a finishing pass merges them per row. Selection needs no mutable mask:
-// round r picks the best item strictly after round r-1's pick in that
-// total order, so every pass is order-independent.
+// B4 `tail_kernel` replaces `_tail_3d` / `_tail_kernel` (the Pallas call
+// at l.269): the same aggregate of an [m, B, V] logit stack, then greedy
+// (k = 1) or top-k token selection in (value descending, index ascending)
+// order: jnp.argmax's first occurrence and lax.top_k's tie order. NaN
+// ranks above every number, as in torch.argmax and torch.sort, which the
+// plain version and the unfused path use. The TPU kernel carries a running
+// argmax / top-k across its sequential vocab grid. Here blocks run in no
+// order, all in ONE launch: each block aggregates a tile of one row,
+// writes its tile's best k (value, index) records, and takes a ticket from
+// the row's counter; the block that draws the row's last ticket merges the
+// row's records and writes its top-k, then resets the counter to zero, so
+// the counters are zeroed once and never filled again.
+//
+// A (value, index) pair travels as one 64-bit key whose unsigned order is
+// the selection order: the value's bits made monotone (NaN highest, -0
+// equal to +0) above the complemented index. Greedy is a max over keys; a
+// tile's top-k is a bitonic sort of its keys in shared memory; the merge
+// walks the rows' sorted record lists by their heads, one pick a round.
 //
 // Bound on the H100: both kernels read the stack once (m * C * 4 bytes for
 // f32) and write little (B1: C values; B4: k ids per row, plus the [B, V]
-// aggregate only when asked), so they are bound by memory bandwidth; the
-// per-coordinate sort is O(m^2) compare-exchanges in registers, which for
-// the serving width m = 8 stays far below the load time. Design: coalesced
-// loads (thread t on coordinate t), no intermediate written to device
-// memory, the [B, V] aggregate write skipped when not requested.
+// aggregate only when asked), so the bytes bound them; the per-coordinate
+// sort and estimate are a few hundred instructions, which at m = 8 come
+// close to the same time (PERF.md). Design of B4: a thread loads every
+// row of its ITEMS coordinates (16-byte vector loads along V for f32 at
+// ITEMS = 4) before it sorts any, so each thread keeps m * ITEMS loads in
+// flight; no intermediate but the per-tile records reaches device memory.
 #include <climits>
 #include <cstdint>
 
@@ -30,38 +39,68 @@
 
 namespace {
 
+using u64 = unsigned long long;
+
 constexpr int kAggThreads = 256;
 constexpr int kTailThreads = 256;
-constexpr int kTailItems = 8;  // coordinates per thread in the tail
-constexpr int kTailTile = kTailThreads * kTailItems;
-constexpr int kFinishThreads = 1024;
+constexpr int kMergeLists = 4;  // record lists one thread of the merge follows
 
-// (value, index) total order: larger value first, then smaller index.
-__device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
-  return av > bv || (av == bv && ai < bi);
+// -- (value, index) keys -----------------------------------------------------
+
+__device__ __forceinline__ u64 pack(float a, int idx) {
+  unsigned u = a == 0.f ? 0u : __float_as_uint(a);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  if (a != a) u = 0xffffffffu;
+  return ((u64)u << 32) | (unsigned)~idx;
 }
 
-// Reduce (v, i) to the block's best under `better`; every thread gets it.
+__device__ __forceinline__ float key_value(u64 k) {
+  const unsigned u = (unsigned)(k >> 32);
+  if (u == 0xffffffffu) return agg::nan_f32();
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+__device__ __forceinline__ int key_index(u64 k) { return (int)~(unsigned)k; }
+
+__device__ __forceinline__ u64 umax(u64 a, u64 b) { return a > b ? a : b; }
+
+// Block-wide max; every thread gets it. `buf` is free again only after the
+// next barrier, so back-to-back calls alternate two buffers.
 template <int THREADS>
-__device__ __forceinline__ void block_best(float& v, int& i) {
-  __shared__ float sv[THREADS / 32];
-  __shared__ int si[THREADS / 32];
+__device__ __forceinline__ u64 block_max(u64 v, u64* buf) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    if (better(ov, oi, v, i)) { v = ov; i = oi; }
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) { sv[warp] = v; si[warp] = i; }
+  for (int off = 16; off > 0; off >>= 1)
+    v = umax(v, __shfl_xor_sync(0xffffffffu, v, off));
+  if (threadIdx.x % 32 == 0) buf[threadIdx.x / 32] = v;
   __syncthreads();
-  v = sv[0];
-  i = si[0];
+  v = buf[0];
 #pragma unroll
-  for (int w = 1; w < THREADS / 32; ++w)
-    if (better(sv[w], si[w], v, i)) { v = sv[w]; i = si[w]; }
-  __syncthreads();  // the scratch is reused by the next call
+  for (int w = 1; w < THREADS / 32; ++w) v = umax(v, buf[w]);
+  return v;
 }
+
+// Sort `s` [TILE] descending (bitonic network, THREADS threads).
+template <int TILE, int THREADS>
+__device__ __forceinline__ void block_sort_desc(u64* s) {
+  for (int size = 2; size <= TILE; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      __syncthreads();
+      for (int t = threadIdx.x; t < TILE / 2; t += THREADS) {
+        const int lo = 2 * t - (t & (stride - 1));
+        const int hi = lo + stride;
+        const bool desc = (lo & size) == 0;
+        const u64 a = s[lo], b = s[hi];
+        if ((a < b) == desc) {
+          s[lo] = b;
+          s[hi] = a;
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// -- B1 ----------------------------------------------------------------------
 
 template <int N, typename T>
 __global__ void __launch_bounds__(kAggThreads)
@@ -72,83 +111,145 @@ agg_kernel(const T* __restrict__ x, T* __restrict__ out, long long C,
   kern::store(out + c, agg::aggregate<N>(x + c, C, P));
 }
 
-// grid (n_tiles, B): block (tile, b) aggregates coordinates
-// [tile * kTailTile, (tile + 1) * kTailTile) of row b, then writes the
-// tile's top-k (value, index) partials.
-template <int N, typename T>
-__global__ void __launch_bounds__(kTailThreads)
-tail_partial_kernel(const T* __restrict__ x, T* __restrict__ agg_out,
-                    float* __restrict__ part_v, int* __restrict__ part_i,
-                    int B, int V, int top_k, agg::Params P) {
-  __shared__ float tile_v[kTailTile];
-  const int b = blockIdx.y;
-  const int v0 = blockIdx.x * kTailTile;
-  const long long row = (long long)b * V;
-  const long long stride = (long long)B * V;
-#pragma unroll 1
-  for (int j = 0; j < kTailItems; ++j) {
-    const int v = v0 + j * kTailThreads + threadIdx.x;
-    float a = -INFINITY;
-    if (v < V) {
-      a = agg::aggregate<N>(x + row + v, stride, P);
-      if (agg_out != nullptr) kern::store(agg_out + row + v, a);
-    }
-    tile_v[j * kTailThreads + threadIdx.x] = a;
-  }
-  __syncthreads();
-  float pv = INFINITY;  // previous pick: every item comes after it
-  int pi = -1;
-  float* pv_out = part_v + ((long long)b * gridDim.x + blockIdx.x) * top_k;
-  int* pi_out = part_i + ((long long)b * gridDim.x + blockIdx.x) * top_k;
-  for (int r = 0; r < top_k; ++r) {
-    float bv = -INFINITY;
-    int bi = INT_MAX;
+// -- B4 ----------------------------------------------------------------------
+
+// The m rows of coordinates v0 .. v0 + ITEMS - 1 of one logit row, every
+// load issued before any is used. `vec`: V and the stack are aligned for
+// one ITEMS-wide load per row.
+template <int N, typename T, int ITEMS>
+__device__ __forceinline__ void load_items(const T* __restrict__ xb,
+                                           long long stride, int v0, int V,
+                                           bool vec, int m,
+                                           float (&vals)[ITEMS][N]) {
+  if (vec && v0 + ITEMS <= V) {
 #pragma unroll
-    for (int j = 0; j < kTailItems; ++j) {
-      const int v = v0 + j * kTailThreads + threadIdx.x;
-      const float a = tile_v[j * kTailThreads + threadIdx.x];
-      if (v < V && better(pv, pi, a, v) && better(a, v, bv, bi)) {
-        bv = a;
-        bi = v;
+    for (int i = 0; i < N; ++i) {
+      if (i < m) {
+        float f[ITEMS];
+        kern::load_vec<T, ITEMS>(xb + i * stride + v0, f);
+#pragma unroll
+        for (int j = 0; j < ITEMS; ++j) vals[j][i] = f[j];
       }
     }
-    block_best<kTailThreads>(bv, bi);
-    if (threadIdx.x == 0) { pv_out[r] = bv; pi_out[r] = bi; }
-    pv = bv;
-    pi = bi;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < ITEMS; ++j)
+        vals[j][i] = i < m && v0 + j < V
+            ? kern::to_f32(xb[i * stride + v0 + j]) : 0.f;
   }
 }
 
-// grid (B): merge row b's n_cand partials into its top-k.
-__global__ void __launch_bounds__(kFinishThreads)
-tail_finish_kernel(const float* __restrict__ part_v,
-                   const int* __restrict__ part_i, int n_cand, int top_k,
-                   float* __restrict__ topv, int* __restrict__ topi) {
-  const int b = blockIdx.x;
-  const float* cv = part_v + (long long)b * n_cand;
-  const int* ci = part_i + (long long)b * n_cand;
-  float pv = INFINITY;
-  int pi = -1;
+// The last block of a row: merge the row's n_blk sorted record lists (kk
+// records each, best first, empty slots 0) into its top_k. Thread t
+// follows lists t, t + THREADS, ...: their heads, and the record after
+// each head, loaded ahead, sit in registers. Each round the block takes the
+// largest head; its owner moves that list on. top_k <= V, so a round never
+// finds every list empty.
+template <int THREADS>
+__device__ __forceinline__ void merge_row(const u64* __restrict__ rb,
+                                          int n_blk, int kk, int top_k,
+                                          float* __restrict__ tv,
+                                          int* __restrict__ ti,
+                                          u64 (&red)[2][THREADS / 32]) {
+  u64 head[kMergeLists], next[kMergeLists];
+  int pos[kMergeLists];
+#pragma unroll
+  for (int l = 0; l < kMergeLists; ++l) {
+    const int j = threadIdx.x + l * THREADS;
+    const u64* list = rb + (long long)j * kk;
+    head[l] = j < n_blk ? __ldcg(list) : 0ull;
+    next[l] = j < n_blk && kk > 1 ? __ldcg(list + 1) : 0ull;
+    pos[l] = 0;
+  }
   for (int r = 0; r < top_k; ++r) {
-    float bv = -INFINITY;
-    int bi = INT_MAX;
-    for (int c = threadIdx.x; c < n_cand; c += kFinishThreads) {
-      const float a = cv[c];
-      const int ai = ci[c];
-      if (better(pv, pi, a, ai) && better(a, ai, bv, bi)) {
-        bv = a;
-        bi = ai;
+    u64 mine = 0;
+    int lm = 0;
+#pragma unroll
+    for (int l = 0; l < kMergeLists; ++l)
+      if (head[l] > mine) {
+        mine = head[l];
+        lm = l;
+      }
+    const u64 w = block_max<THREADS>(mine, red[r & 1]);
+    if (threadIdx.x == 0) {
+      tv[r] = key_value(w);
+      ti[r] = key_index(w);
+    }
+    if (mine == w && w != 0) {  // keys are distinct: one owner
+#pragma unroll
+      for (int l = 0; l < kMergeLists; ++l) {
+        if (l != lm) continue;
+        const int p = ++pos[l];
+        head[l] = next[l];
+        next[l] = p + 1 < kk ? __ldcg(rb + (long long)(threadIdx.x + l *
+                                      THREADS) * kk + p + 1)
+                             : 0ull;
       }
     }
-    block_best<kFinishThreads>(bv, bi);
-    if (threadIdx.x == 0) {
-      topv[(long long)b * top_k + r] = bv;
-      topi[(long long)b * top_k + r] = bi;
-    }
-    pv = bv;
-    pi = bi;
   }
 }
+
+// grid (n_blk, B): block (t, b) aggregates coordinates
+// [t * TILE, (t + 1) * TILE) of row b, writes its best kk = min(top_k,
+// TILE) keys to rec[b][t], and the row's last block merges them.
+template <int N, typename T, int ITEMS>
+__global__ void __launch_bounds__(kTailThreads)
+tail_kernel(const T* __restrict__ x, T* __restrict__ agg_out,
+            u64* __restrict__ rec, int* __restrict__ tickets,
+            float* __restrict__ topv, int* __restrict__ topi, int B, int V,
+            int top_k, int kk, bool vec, agg::Params P) {
+  constexpr int TILE = kTailThreads * ITEMS;
+  extern __shared__ u64 keys[];  // [TILE], top_k > 1 only
+  __shared__ u64 red[2][kTailThreads / 32];
+  __shared__ int ticket;
+  const int b = blockIdx.y, n_blk = gridDim.x;
+  const int v0 = blockIdx.x * TILE + threadIdx.x * ITEMS;
+  const long long stride = (long long)B * V;
+
+  float vals[ITEMS][N];
+  load_items<N, T, ITEMS>(x + (long long)b * V, stride, v0, V, vec, P.m,
+                          vals);
+  u64 best = 0;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    u64 key = 0;
+    if (v0 + j < V) {
+      const float a = agg::aggregate_values<N>(vals[j], P);
+      if (agg_out != nullptr)
+        kern::store(agg_out + (long long)b * V + v0 + j, a);
+      key = pack(a, v0 + j);
+    }
+    if (top_k == 1) best = umax(best, key);
+    else keys[threadIdx.x * ITEMS + j] = key;
+  }
+  u64* rb = rec + (long long)b * n_blk * kk;
+  if (top_k == 1) {
+    best = block_max<kTailThreads>(best, red[0]);
+    if (threadIdx.x == 0) rb[blockIdx.x] = best;
+  } else {
+    block_sort_desc<TILE, kTailThreads>(keys);
+    for (int r = threadIdx.x; r < kk; r += kTailThreads)
+      rb[(long long)blockIdx.x * kk + r] = keys[r];
+  }
+  // One thread releases the block's records (ordered before it by the
+  // barrier), takes the ticket and acquires the other blocks' records, as
+  // decode_attention.cu's merge does.
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+    ticket = atomicAdd(tickets + b, 1);
+    asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (ticket != n_blk - 1) return;
+  merge_row<kTailThreads>(rb, n_blk, kk, top_k, topv + (long long)b * top_k,
+                          topi + (long long)b * top_k, red);
+  if (threadIdx.x == 0) tickets[b] = 0;
+}
+
+// -- host side ---------------------------------------------------------------
 
 agg::Params make_params(int m, int method, int K, int k_trim, float eps,
                         float denom, const float* deltas) {
@@ -171,16 +272,28 @@ void launch_agg(const void* x, void* out, long long C, const agg::Params& P,
       static_cast<const T*>(x), static_cast<T*>(out), C, P);
 }
 
-template <int N, typename T>
-void launch_tail(const void* x, void* agg_out, float* part_v, int* part_i,
-                 float* topv, int* topi, int B, int V, int top_k,
-                 const agg::Params& P, cudaStream_t stream) {
-  const int n_tiles = (V + kTailTile - 1) / kTailTile;
-  tail_partial_kernel<N, T><<<dim3(n_tiles, B), kTailThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(agg_out), part_v, part_i, B,
-      V, top_k, P);
-  tail_finish_kernel<<<B, kFinishThreads, 0, stream>>>(
-      part_v, part_i, n_tiles * top_k, top_k, topv, topi);
+struct TailArgs {
+  const void* x;
+  void* agg_out;
+  u64* rec;
+  int* tickets;
+  float* topv;
+  int* topi;
+  int B, V, top_k;
+  cudaStream_t s;
+};
+
+template <int N, typename T, int ITEMS>
+void launch_tail(const TailArgs& a, const agg::Params& P) {
+  constexpr int TILE = kTailThreads * ITEMS;
+  const int n_blk = (a.V + TILE - 1) / TILE;
+  const int kk = a.top_k < TILE ? a.top_k : TILE;
+  const bool vec = a.V % ITEMS == 0 &&
+      reinterpret_cast<uintptr_t>(a.x) % (ITEMS * sizeof(T)) == 0;
+  const size_t smem = a.top_k > 1 ? TILE * sizeof(u64) : 0;
+  tail_kernel<N, T, ITEMS><<<dim3(n_blk, a.B), kTailThreads, smem, a.s>>>(
+      static_cast<const T*>(a.x), static_cast<T*>(a.agg_out), a.rec,
+      a.tickets, a.topv, a.topi, a.B, a.V, a.top_k, kk, vec, P);
 }
 
 template <typename T>
@@ -193,13 +306,12 @@ bool dispatch_agg(const void* x, void* out, long long C, const agg::Params& P,
   return true;
 }
 
+// items: coordinates a thread aggregates (4 for m <= 8, else 1)
 template <typename T>
-bool dispatch_tail(const void* x, void* agg_out, float* pv, int* pi,
-                   float* topv, int* topi, int B, int V, int k,
-                   const agg::Params& P, cudaStream_t s) {
-  if (P.m <= 8) launch_tail<8, T>(x, agg_out, pv, pi, topv, topi, B, V, k, P, s);
-  else if (P.m <= 32) launch_tail<32, T>(x, agg_out, pv, pi, topv, topi, B, V, k, P, s);
-  else if (P.m <= 128) launch_tail<128, T>(x, agg_out, pv, pi, topv, topi, B, V, k, P, s);
+bool dispatch_tail(const TailArgs& a, const agg::Params& P, int items) {
+  if (P.m <= 8 && items == 4) launch_tail<8, T, 4>(a, P);
+  else if (P.m <= 32 && items == 1) launch_tail<32, T, 1>(a, P);
+  else if (P.m <= 128 && items == 1) launch_tail<128, T, 1>(a, P);
   else return false;
   return true;
 }
@@ -222,25 +334,27 @@ int agg_launch(const void* x, void* out, int dtype, int m, long long C,
   return (int)cudaGetLastError();
 }
 
-// Scratch part_v / part_i hold B * ceil(V / 2048) * top_k partials.
-// agg_out may be null (no [B, V] aggregate is written then).
-int agg_sample_launch(const void* x, void* agg_out, float* part_v,
-                      int* part_i, float* topv, int* topi, int dtype, int m,
-                      int B, int V, int top_k, int method, int K, int k_trim,
+// One launch. rec holds B * ceil(V / (256 * items)) * min(top_k, 256 *
+// items) keys (uninitialised); tickets B int32 counters, zero on entry
+// and left zero. agg_out may be null (no [B, V] aggregate is written then).
+// topv / topi are [B, top_k].
+int agg_sample_launch(const void* x, void* agg_out, void* rec, int* tickets,
+                      float* topv, int* topi, int dtype, int m, int B, int V,
+                      int top_k, int items, int method, int K, int k_trim,
                       float eps, float denom, const float* deltas,
                       void* stream) {
-  if (K > agg::kMaxK || top_k < 1) return (int)cudaErrorInvalidValue;
+  if (K > agg::kMaxK || top_k < 1 || top_k > V) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int n_blk = (V + kTailThreads * items - 1) / (kTailThreads * items);
+  if (n_blk > kMergeLists * kTailThreads) return (int)cudaErrorInvalidValue;
   const agg::Params P = make_params(m, method, K, k_trim, eps, denom, deltas);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool ok = dtype == 0
-      ? dispatch_tail<float>(x, agg_out, part_v, part_i, topv, topi, B, V,
-                             top_k, P, s)
-      : dispatch_tail<__nv_bfloat16>(x, agg_out, part_v, part_i, topv, topi,
-                                     B, V, top_k, P, s);
+  const TailArgs a{x, agg_out, static_cast<u64*>(rec), tickets, topv, topi,
+                   B, V, top_k, static_cast<cudaStream_t>(stream)};
+  const bool ok = dtype == 0 ? dispatch_tail<float>(a, P, items)
+                             : dispatch_tail<__nv_bfloat16>(a, P, items);
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
-
-int agg_tail_tile() { return kTailTile; }
 
 }  // extern "C"

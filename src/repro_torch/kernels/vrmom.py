@@ -3,23 +3,26 @@
 ``aggregate`` replaces ``repro.kernels.vrmom.aggregate_pallas`` (Pallas
 call ``_agg_2d``, l.142/151) and ``aggregate_sample`` replaces
 ``aggregate_sample_pallas`` (``_tail_3d``, l.242/269). Both CUDA kernels
-(``csrc/vrmom.cu``) call one device function, ``agg::aggregate``
+(``csrc/vrmom.cu``) call one device function, ``agg::aggregate_values``
 (``csrc/agg.cuh``), the counterpart of the TPU kernel's ``_agg_block``, so
 fused greedy tokens are bit-identical to an argmax over ``aggregate``'s
-output. One thread owns one coordinate and sorts its m worker values in
-registers; the stack is read once with coalesced loads and no
-intermediate reaches device memory. Both are bound by memory bandwidth on
-the H100 (the stack is read once, the outputs are small).
+output. A thread sorts the m worker values of its coordinates in
+registers; the stack is read once with coalesced loads. B4 is one launch
+a call: the last block of each row merges the row's per-tile top-k
+records (:func:`plan_tail` sizes the tiles). Both are bound by memory
+bandwidth on the H100 (the stack is read once, the outputs are small).
 
 Each wrapper launches its kernel for a CUDA tensor, raises on anything
 the kernel does not take, and counts its launches in ``.launches`` (one
-per call; B4's call runs its partial pass and its finishing pass). For a
-tensor on the CPU it runs the plain PyTorch version beside it
-(``aggregate_plain`` / ``aggregate_sample_plain``), which repeats the
-kernel's arithmetic op for op. Dispatch policy lives in
-``core.estimator.Estimator``.
+per call). For a tensor on the CPU it runs the plain PyTorch version
+beside it (``aggregate_plain`` / ``aggregate_sample_plain``), which
+repeats the kernel's arithmetic op for op. Selection follows torch's
+order: value descending, index ascending, NaN above every number.
+Dispatch policy lives in ``core.estimator.Estimator``.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -29,7 +32,8 @@ from . import build as _B
 from .ref import f32_scalar
 
 __all__ = ["aggregate", "aggregate_sample", "aggregate_plain",
-           "aggregate_sample_plain", "resolve_method", "MAX_M", "MAX_K"]
+           "aggregate_sample_plain", "resolve_method", "plan_tail",
+           "TailPlan", "MAX_M", "MAX_K"]
 
 MAX_M = 128  # widest sorting network compiled (csrc/vrmom.cu)
 MAX_K = 64   # agg::kMaxK
@@ -38,11 +42,38 @@ _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "agg_launch": [_B.P, _B.P, _B.I, _B.I, _B.LL, _B.I, _B.I, _B.I, _B.F,
                    _B.F, _B.P, _B.P],
+    # x, agg_out, rec, tickets, topv, topi, dtype, m, B, V, top_k, items,
+    # method, K, k_trim, eps, denom, deltas, stream
     "agg_sample_launch": [_B.P, _B.P, _B.P, _B.P, _B.P, _B.P, _B.I, _B.I,
-                          _B.I, _B.I, _B.I, _B.I, _B.I, _B.I, _B.F, _B.F,
-                          _B.P, _B.P],
-    "agg_tail_tile": [],
+                          _B.I, _B.I, _B.I, _B.I, _B.I, _B.I, _B.I, _B.F,
+                          _B.F, _B.P, _B.P],
 }
+TAIL_THREADS = 256  # kTailThreads
+MERGE_LISTS = 4     # kMergeLists: record lists per thread of the merge
+_PARAMS = {}        # (method, K, m) -> (deltas [MAX_K] f32, denominator)
+_STATE = {}         # (device, stream, B, V, tile, kk) -> (rec, tickets)
+
+
+class TailPlan(NamedTuple):
+    items: int   # coordinates a thread aggregates
+    tile: int    # coordinates a block covers
+    n_blk: int   # blocks per row, each leaving one record list
+    kk: int      # records a block leaves: min(k, tile)
+
+
+def plan_tail(m: int, V: int, top_k: int) -> TailPlan:
+    """B4's grid for an [m, B, V] stack: four coordinates a thread (one
+    16-byte load a row in f32) where the m values of four fit in
+    registers (m <= 8), else one; 256 threads a block. The last block of
+    a row follows at most 4 record lists a thread, which caps V."""
+    items = 4 if m <= 8 else 1
+    tile = TAIL_THREADS * items
+    n_blk = -(-V // tile)
+    if n_blk > MERGE_LISTS * TAIL_THREADS:
+        raise ValueError(f"aggregate_sample: V={V} needs {n_blk} tiles of "
+                         f"{tile}; the merge takes at most "
+                         f"{MERGE_LISTS * TAIL_THREADS}")
+    return TailPlan(items, tile, n_blk, min(max(top_k, 1), tile))
 
 
 def resolve_method(method: str, beta: float, m: int):
@@ -143,6 +174,11 @@ def _check_stack(x, what: str):
 
 
 def _params(method: str, K: int, m: int):
+    """(deltas [MAX_K] f32, denominator) of a spec, computed once."""
+    key = (method, K, m)
+    hit = _PARAMS.get(key)
+    if hit is not None:
+        return hit
     if method == "vrmom" and not 1 <= K <= MAX_K:
         raise ValueError(f"vrmom kernel takes 1 <= K <= {MAX_K}, got K={K}")
     d = np.zeros(MAX_K, np.float32)
@@ -150,7 +186,23 @@ def _params(method: str, K: int, m: int):
     if method == "vrmom":
         d[:K] = deltas(K)
         denom = denominator(m, K)
-    return d, float(denom)
+    hit = _PARAMS[key] = (d, float(denom))
+    return hit
+
+
+def _launch_state(device, stream: int, B: int, V: int, plan: TailPlan):
+    """(records pointer, tickets pointer, records, tickets) of one shape on
+    one stream, made at its first call: B * n_blk * kk 64-bit records and
+    B int32 ticket counters (zeroed once; every launch leaves them zero).
+    Calls of one shape on one stream share them, ordered by the stream."""
+    key = (device.index, stream, B, V, plan.tile, plan.kk)
+    st = _STATE.get(key)
+    if st is None:
+        rec = torch.empty((B, plan.n_blk, plan.kk), dtype=torch.int64,
+                          device=device)
+        tickets = torch.zeros(B, dtype=torch.int32, device=device)
+        st = _STATE[key] = (rec.data_ptr(), tickets.data_ptr(), rec, tickets)
+    return st
 
 
 def aggregate(x, method: str = "vrmom", K: int = 10, beta: float = 0.1,
@@ -189,9 +241,11 @@ def aggregate_sample(x, method: str = "vrmom", K: int = 10, beta: float = 0.1,
     Returns ``(agg, tok [B] int32)`` for ``top_k == 0`` (greedy; ``tok[b]``
     bit-identical to ``argmax(aggregate(x)[b])``, first occurrence on
     ties), or ``(agg, topv [B, k] f32, topi [B, k] int32)`` in
-    (value descending, index ascending) order. ``with_agg=False`` writes
-    no ``[B, V]`` aggregate and returns ``agg=None``. NaN logits are never
-    selected.
+    (value descending, index ascending) order, NaN ranking above every
+    number as in ``torch.argmax`` / ``torch.sort``. ``with_agg=False``
+    writes no ``[B, V]`` aggregate and returns ``agg=None``. One call is
+    one launch; calls of one shape on one stream share scratch and must be
+    ordered on that stream.
     """
     if x.ndim != 3:
         raise ValueError(f"fused tail wants [m, B, V] stacks, got "
@@ -204,21 +258,20 @@ def aggregate_sample(x, method: str = "vrmom", K: int = 10, beta: float = 0.1,
         return aggregate_sample_plain(x, method, K, k_trim, top_k, eps,
                                       with_agg)
     _check_stack(x, "aggregate_sample")
+    plan = plan_tail(m, V, top_k)
     d, denom = _params(method, K, m)
-    lib = _lib()
-    k = max(top_k, 1)
-    n_tiles = -(-V // lib.agg_tail_tile())
     dev = x.device
-    part_v = torch.empty((B, n_tiles, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((B, n_tiles, k), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rec, tickets = _launch_state(dev, stream, B, V, plan)[:2]
+    k = max(top_k, 1)
     topv = torch.empty((B, k), dtype=torch.float32, device=dev)
     topi = torch.empty((B, k), dtype=torch.int32, device=dev)
     agg = torch.empty((B, V), dtype=x.dtype, device=dev) if with_agg else None
-    err = lib.agg_sample_launch(
-        x.data_ptr(), agg.data_ptr() if with_agg else None, part_v.data_ptr(),
-        part_i.data_ptr(), topv.data_ptr(), topi.data_ptr(),
-        _DTYPE_ID[x.dtype], m, B, V, k, _METHOD_ID[method], K, k_trim, eps,
-        denom, d.ctypes.data, _B.stream_handle(dev))
+    err = _lib().agg_sample_launch(
+        x.data_ptr(), agg.data_ptr() if with_agg else None, rec, tickets,
+        topv.data_ptr(), topi.data_ptr(), _DTYPE_ID[x.dtype], m, B, V, k,
+        plan.items, _METHOD_ID[method], K, k_trim, eps, denom, d.ctypes.data,
+        stream)
     _B.check(err, "aggregate_sample")
     aggregate_sample.launches += 1
     if top_k == 0:

@@ -76,6 +76,175 @@ def test_cuda_b4_matches_plain(cuda, k):
     torch.testing.assert_close(got[0], b1, rtol=0, atol=0)
 
 
+def _same(got, want):
+    """Bitwise equal up to NaN payloads and the sign of zero: the same
+    shape and dtype, NaN at the same places, equal values elsewhere."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    nan = torch.isnan(got) if got.is_floating_point() else None
+    if nan is None:
+        assert torch.equal(got, want)
+        return
+    assert torch.equal(nan, torch.isnan(want))
+    assert torch.equal(got[~nan], want[~nan])
+
+
+def _b4_check(x, method="vrmom", K=8, beta=0.1, top_k=0, with_agg=True):
+    """B4 against its plain version (and, with the aggregate, B1)."""
+    _, k_trim = resolve_method(method, beta, x.shape[0])
+    got = aggregate_sample(x, method, K=K, beta=beta, top_k=top_k,
+                           with_agg=with_agg)
+    want = aggregate_sample_plain(x, method, K=K, k_trim=k_trim,
+                                  top_k=top_k, with_agg=with_agg)
+    assert len(got) == len(want)
+    for g, w in zip(got[1:], want[1:]):
+        _same(g, w)
+    if with_agg:
+        _same(got[0], want[0])
+        _same(got[0], aggregate(x, method, K=K, beta=beta))
+    else:
+        assert got[0] is None
+    return got
+
+
+# B4 tiles: 1024 coordinates a block at m <= 8, 256 above
+B4_V = (1, 7, 255, 256, 257, 1023, 1024, 1025, 5000, 151936)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", B4_V)
+def test_cuda_b4_ragged_vocab(cuda, V):
+    """Every V around the tile edges, greedy and top-k for k in {1, 2, 50,
+    V}, with and without the aggregate; m = 8 (vector loads when V % 4 ==
+    0) and m = 9 (a coordinate a thread)."""
+    for m in (8, 9):
+        x = _stack(V + m, (m, 4, V), cuda)
+        for k in sorted({0, 1, 2, 50, V} & set(range(V + 1))):
+            for with_agg in (True, False):
+                if V == 151936 and k == V and (m == 9 or with_agg):
+                    continue  # one whole-vocabulary sort is enough
+                _b4_check(x, top_k=k, with_agg=with_agg)
+
+
+# a trimmed mean needs m >= 3 (one row trimmed per end, one left)
+B4_M_CASES = [(method, m) for method in METHODS
+              for m in (1, 2, 3, 8, 9, 32, 33, 100, 128)
+              if not (method == "trimmed_mean" and m < 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,m", B4_M_CASES)
+def test_cuda_b4_worker_counts(cuda, method, m):
+    x = _stack(m, (m, 4, 5000), cuda)
+    beta = 0.1 if m >= 10 else 1.0 / m + 1e-6
+    for k in (0, 50):
+        _b4_check(x, method, beta=beta, top_k=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4, 32])
+def test_cuda_b4_batches(cuda, B):
+    x = 4.0 * torch.randn((8, B, 151936), device=cuda,
+                          generator=torch.Generator(device=cuda
+                                                    ).manual_seed(B))
+    for k in (0, 50):
+        _b4_check(x, top_k=k, with_agg=B != 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 1, 2, 50])
+def test_cuda_b4_ties_span_blocks(cuda, k):
+    """Equal aggregates in many tiles: constant rows (every coordinate
+    ties: the first k indices win) and coarsely quantised rows."""
+    V = 5000
+    const = torch.full((8, 2, V), 1.25, device=cuda)
+    _, tok = aggregate_sample(const, "vrmom", K=8)
+    assert tok.tolist() == [0, 0]
+    _b4_check(const, top_k=k)
+    g = torch.Generator(device=cuda).manual_seed(k)
+    coarse = torch.randint(0, 3, (8, 4, V), device=cuda, generator=g).float()
+    for method in ("median", "vrmom"):
+        _b4_check(coarse, method, top_k=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [3, 8, 9])
+def test_cuda_b1_b4_inf_nan(cuda, m):
+    """+-inf and NaN rows: the sorts rank NaN above every number, as
+    torch.sort does; NaN aggregates rank first in the selection, as in
+    torch.argmax and torch.sort."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    V = 3000
+    x = 4.0 * torch.randn((m, 4, V), device=cuda, generator=g)
+    pick = torch.rand((m, 4, V), device=cuda, generator=g)
+    x[pick < 0.05] = float("inf")
+    x[(pick >= 0.05) & (pick < 0.1)] = -float("inf")
+    x[(pick >= 0.1) & (pick < 0.15)] = float("nan")
+    x[:, 2] = torch.where(pick[:, 2] < 0.5, x[:, 2], float("nan"))
+    x[:, 3, :10] = float("nan")    # NaN aggregates early in row 3
+    x[:, 3, 2000:2010] = float("inf")
+    for method in METHODS:
+        beta = 1.0 / m + 1e-6
+        _, k_trim = resolve_method(method, beta, m)
+        _same(aggregate(x, method, K=8, beta=beta),
+              aggregate_plain(x.reshape(m, -1), method, K=8,
+                              k_trim=k_trim).reshape(4, V))
+        for k in (0, 1, 50, V):
+            _b4_check(x, method, beta=beta, top_k=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 9])
+def test_cuda_b4_bf16(cuda, m):
+    x = _stack(m, (m, 4, 5001), cuda).to(torch.bfloat16)
+    for k in (0, 50):
+        agg = _b4_check(x, top_k=k)[0]
+        assert agg.dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+def test_cuda_b4_repeat_and_interleaved_shapes(cuda):
+    """Repeat calls give the same bits, and calls of two shapes
+    interleaved on one stream stay right: each launch leaves its ticket
+    counters at zero."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    xa = 4.0 * torch.randn((8, 4, 151936), device=cuda, generator=g)
+    xb = 4.0 * torch.randn((9, 2, 5000), device=cuda, generator=g)
+    calls = [lambda: aggregate_sample(xa, "vrmom", K=8),
+             lambda: aggregate_sample(xb, "vrmom", K=8, top_k=50),
+             lambda: aggregate_sample(xa, "vrmom", K=8, top_k=50,
+                                      with_agg=False)]
+    first = [c() for c in calls]
+    for _ in range(3):
+        for c, f in zip(calls, first):
+            for got, want in zip(c(), f):
+                if want is not None:
+                    assert torch.equal(got, want)
+    _b4_check(xa, top_k=50)
+    _b4_check(xb, top_k=50)
+
+
+def _kernels_in_one_call(torch_, fn):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch_.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch_.cuda.synchronize()
+    return [ev.name for ev in prof.events()
+            if ev.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 50])
+def test_cuda_b4_one_kernel_a_call(cuda, k):
+    x = 4.0 * torch.randn((8, 4, 151936), device=cuda)
+    names = _kernels_in_one_call(torch, lambda: aggregate_sample(
+        x, "vrmom", K=8, top_k=k, with_agg=False))
+    assert len(names) == 1 and "tail_kernel" in names[0], names
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dh", [32, 64, 128])

@@ -23,15 +23,16 @@ from repro.kernels.decode_attention import decode_attention as j_decode
 from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.vrmom import aggregate_pallas, aggregate_sample_pallas
 from repro_torch import kernels as K
+from repro_torch.core.vrmom import deltas, denominator
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels.decode_attention import (CHUNK, decode_attention,
                                                   decode_attention_plain,
                                                   lengths, plan_splits)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.vrmom import (aggregate, aggregate_plain,
+from repro_torch.kernels.vrmom import (_params, aggregate, aggregate_plain,
                                        aggregate_sample,
-                                       aggregate_sample_plain)
+                                       aggregate_sample_plain, plan_tail)
 
 torch.set_num_threads(1)
 
@@ -213,6 +214,54 @@ def test_b4_validates():
         aggregate_sample(torch.zeros(4, 8), "median")
     with pytest.raises(ValueError, match="top_k"):
         aggregate_sample(torch.zeros(4, 2, 8), "median", top_k=9)
+
+
+@pytest.mark.parametrize("m,V,top_k,plan", [
+    (8, 151936, 0, (4, 1024, 149, 1)),      # the serving stack, greedy
+    (8, 151936, 50, (4, 1024, 149, 50)),
+    (8, 1024, 1024, (4, 1024, 1, 1024)),    # one whole tile
+    (8, 1025, 1025, (4, 1024, 2, 1024)),    # k above the tile: whole tiles
+    (1, 7, 2, (4, 1024, 1, 2)),
+    (9, 151936, 0, (1, 256, 594, 1)),       # m > 8: a coordinate a thread
+    (128, 257, 50, (1, 256, 2, 50)),
+    (128, 262144, 0, (1, 256, 1024, 1)),    # the widest V at m > 8
+])
+def test_b4_plan_tail(m, V, top_k, plan):
+    got = plan_tail(m, V, top_k)
+    assert tuple(got) == plan
+    assert got.tile == got.items * 256 and got.n_blk * got.tile >= V
+
+
+def test_b4_plan_tail_refuses_too_many_tiles():
+    with pytest.raises(ValueError, match="tiles"):
+        plan_tail(9, 262145, 0)
+
+
+@pytest.mark.parametrize("method,K,m", [("vrmom", 8, 8), ("vrmom", 64, 100),
+                                        ("vrmom", 1, 3), ("median", 10, 8)])
+def test_b4_params_cached(method, K, m):
+    first = _params(method, K, m)
+    assert _params(method, K, m) is first  # computed once per spec
+    d, denom = first
+    assert d.dtype == np.float32 and d.shape == (64,)
+    if method == "vrmom":
+        np.testing.assert_array_equal(d[:K], deltas(K))
+        assert np.all(d[K:] == 0) and np.all(np.diff(d[:K]) > 0)
+        assert denom == float(denominator(m, K))
+    else:
+        assert np.all(d == 0) and denom == 0.0
+
+
+def test_b4_plain_ranks_nan_first_like_torch():
+    """The selection order of the plain tail (and of the kernel): value
+    descending, index ascending, NaN above every number, -0 equal to +0."""
+    nan, inf = float("nan"), float("inf")
+    row = [1.0, nan, inf, -0.0, nan, 0.0, -inf, inf]
+    x = torch.tensor([[row]], dtype=torch.float32)  # m = 1, B = 1
+    _, tok = aggregate_sample_plain(x, "mean")
+    assert tok.tolist() == [1]
+    _, tv, ti = aggregate_sample_plain(x, "mean", top_k=8)
+    assert ti.tolist() == [[1, 4, 2, 7, 0, 3, 5, 6]]
 
 
 # ---------------------------------------------------------------------------
