@@ -136,6 +136,8 @@ def main() -> int:
     ap.add_argument("--src", required=True, help="a checkout's src directory")
     ap.add_argument("--tag", default="")
     ap.add_argument("--only", choices=("b1b4", "attn"), default=None)
+    ap.add_argument("--b4-items", type=int, default=0,
+                    help="coordinates a thread of B4 (default: its planner)")
     args = ap.parse_args()
     import torch
 
@@ -146,6 +148,10 @@ def main() -> int:
     from repro_torch.kernels import build
 
     build.build_all()
+    if args.b4_items:
+        vm = sys.modules["repro_torch.kernels.vrmom"]
+        plan = vm.plan_tail
+        vm.plan_tail = lambda m, V, k: plan(m, V, k, items=args.b4_items)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)

@@ -126,6 +126,61 @@ __device__ __forceinline__ float aggregate_values(float (&v)[N],
   return s <= P.eps ? med : out;
 }
 
+// Batcher's 19-comparator sorting network for 8 values (depth 6).
+__device__ __forceinline__ void sort8(float (&v)[8]) {
+  cmpx(v[0], v[2]); cmpx(v[1], v[3]); cmpx(v[4], v[6]); cmpx(v[5], v[7]);
+  cmpx(v[0], v[4]); cmpx(v[1], v[5]); cmpx(v[2], v[6]); cmpx(v[3], v[7]);
+  cmpx(v[0], v[1]); cmpx(v[2], v[3]); cmpx(v[4], v[5]); cmpx(v[6], v[7]);
+  cmpx(v[2], v[4]); cmpx(v[3], v[5]);
+  cmpx(v[1], v[4]); cmpx(v[3], v[6]);
+  cmpx(v[1], v[2]); cmpx(v[3], v[4]); cmpx(v[5], v[6]);
+}
+
+// vrmom at m = 8, K = 8 (the serving spec): the bits of
+// aggregate_values<8> with P.m == P.K == 8 in fewer instructions.
+// - Any sorting network gives the same sorted values: 19 comparators in
+//   place of the transposition network's 28.
+// - The MAD's two middle order statistics come from the two sorted halves
+//   of d = |v - med| when med is finite and no row is NaN: then
+//   d[3] <= d[2] <= d[1] <= d[0] and d[4] <= ... <= d[7] (rounding is
+//   monotone), and the r-th smallest of two sorted lists A, B is
+//   min over i of max(A_i, B_(r-i)). Otherwise d is sorted as before.
+// - The count of z <= Delta_k runs over a compile-time K.
+__device__ __forceinline__ float vrmom8(float (&v)[8], const Params& P) {
+  sort8(v);
+  const float med = 0.5f * (v[3] + v[4]);
+  float t[8], d[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    t[i] = v[i] - med;
+    d[i] = fabsf(t[i]);
+  }
+  float mad;
+  if (isfinite(med) && !isnan(v[7])) {
+    const float r3 = fminf(fminf(fminf(d[7], fmaxf(d[3], d[6])),
+                                 fminf(fmaxf(d[2], d[5]), fmaxf(d[1], d[4]))),
+                           d[0]);
+    const float r4 = fminf(fminf(fmaxf(d[3], d[7]), fmaxf(d[2], d[6])),
+                           fminf(fmaxf(d[1], d[5]), fmaxf(d[0], d[4])));
+    mad = 0.5f * (r3 + r4);
+  } else {
+    sort8(d);
+    mad = 0.5f * (d[3] + d[4]);
+  }
+  const float s = mad / kMadConst;
+  const float sd = fmaxf(s, P.eps);
+  int count = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float z = t[i] / sd;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) count += z <= P.deltas[k];
+  }
+  const float total = 0.5f * (float)(2 * count - 64);
+  const float out = med - s * total / P.denom;
+  return s <= P.eps ? med : out;
+}
+
 // Aggregate x[0], x[stride], ..., x[(m-1)*stride] (m <= N).
 template <int N, typename T>
 __device__ __forceinline__ float aggregate(const T* __restrict__ x,

@@ -102,13 +102,30 @@ __device__ __forceinline__ void block_sort_desc(u64* s) {
 
 // -- B1 ----------------------------------------------------------------------
 
-template <int N, typename T>
+// One coordinate's aggregate: the m = 8, K = 8 vrmom path (FAST) or the
+// general one; both give the same bits.
+template <int N, bool FAST>
+__device__ __forceinline__ float aggregate_coord(float (&v)[N],
+                                                 const agg::Params& P) {
+  if constexpr (FAST) {
+    static_assert(N == 8, "the fast path is vrmom at m = 8, K = 8");
+    return agg::vrmom8(v, P);
+  } else {
+    return agg::aggregate_values<N>(v, P);
+  }
+}
+
+template <int N, typename T, bool FAST>
 __global__ void __launch_bounds__(kAggThreads)
 agg_kernel(const T* __restrict__ x, T* __restrict__ out, long long C,
            agg::Params P) {
   const long long c = (long long)blockIdx.x * kAggThreads + threadIdx.x;
   if (c >= C) return;
-  kern::store(out + c, agg::aggregate<N>(x + c, C, P));
+  float v[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    v[i] = FAST || i < P.m ? kern::to_f32(x[c + i * C]) : 0.f;
+  kern::store(out + c, aggregate_coord<N, FAST>(v, P));
 }
 
 // -- B4 ----------------------------------------------------------------------
@@ -194,7 +211,7 @@ __device__ __forceinline__ void merge_row(const u64* __restrict__ rb,
 // grid (n_blk, B): block (t, b) aggregates coordinates
 // [t * TILE, (t + 1) * TILE) of row b, writes its best kk = min(top_k,
 // TILE) keys to rec[b][t], and the row's last block merges them.
-template <int N, typename T, int ITEMS>
+template <int N, typename T, int ITEMS, bool FAST>
 __global__ void __launch_bounds__(kTailThreads)
 tail_kernel(const T* __restrict__ x, T* __restrict__ agg_out,
             u64* __restrict__ rec, int* __restrict__ tickets,
@@ -209,14 +226,14 @@ tail_kernel(const T* __restrict__ x, T* __restrict__ agg_out,
   const long long stride = (long long)B * V;
 
   float vals[ITEMS][N];
-  load_items<N, T, ITEMS>(x + (long long)b * V, stride, v0, V, vec, P.m,
-                          vals);
+  load_items<N, T, ITEMS>(x + (long long)b * V, stride, v0, V, vec,
+                          FAST ? N : P.m, vals);
   u64 best = 0;
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
     u64 key = 0;
     if (v0 + j < V) {
-      const float a = agg::aggregate_values<N>(vals[j], P);
+      const float a = aggregate_coord<N, FAST>(vals[j], P);
       if (agg_out != nullptr)
         kern::store(agg_out + (long long)b * V + v0 + j, a);
       key = pack(a, v0 + j);
@@ -264,11 +281,16 @@ agg::Params make_params(int m, int method, int K, int k_trim, float eps,
   return P;
 }
 
-template <int N, typename T>
+// vrmom at m = 8, K = 8: the serving spec, which takes the fast path
+bool fast_spec(const agg::Params& P) {
+  return P.method == agg::kVrmom && P.m == 8 && P.K == 8;
+}
+
+template <int N, typename T, bool FAST = false>
 void launch_agg(const void* x, void* out, long long C, const agg::Params& P,
                 cudaStream_t stream) {
   const unsigned blocks = (unsigned)((C + kAggThreads - 1) / kAggThreads);
-  agg_kernel<N, T><<<blocks, kAggThreads, 0, stream>>>(
+  agg_kernel<N, T, FAST><<<blocks, kAggThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(out), C, P);
 }
 
@@ -283,7 +305,7 @@ struct TailArgs {
   cudaStream_t s;
 };
 
-template <int N, typename T, int ITEMS>
+template <int N, typename T, int ITEMS, bool FAST = false>
 void launch_tail(const TailArgs& a, const agg::Params& P) {
   constexpr int TILE = kTailThreads * ITEMS;
   const int n_blk = (a.V + TILE - 1) / TILE;
@@ -291,7 +313,8 @@ void launch_tail(const TailArgs& a, const agg::Params& P) {
   const bool vec = a.V % ITEMS == 0 &&
       reinterpret_cast<uintptr_t>(a.x) % (ITEMS * sizeof(T)) == 0;
   const size_t smem = a.top_k > 1 ? TILE * sizeof(u64) : 0;
-  tail_kernel<N, T, ITEMS><<<dim3(n_blk, a.B), kTailThreads, smem, a.s>>>(
+  tail_kernel<N, T, ITEMS, FAST><<<dim3(n_blk, a.B), kTailThreads, smem,
+                                   a.s>>>(
       static_cast<const T*>(a.x), static_cast<T*>(a.agg_out), a.rec,
       a.tickets, a.topv, a.topi, a.B, a.V, a.top_k, kk, vec, P);
 }
@@ -299,7 +322,8 @@ void launch_tail(const TailArgs& a, const agg::Params& P) {
 template <typename T>
 bool dispatch_agg(const void* x, void* out, long long C, const agg::Params& P,
                   cudaStream_t s) {
-  if (P.m <= 8) launch_agg<8, T>(x, out, C, P, s);
+  if (fast_spec(P)) launch_agg<8, T, true>(x, out, C, P, s);
+  else if (P.m <= 8) launch_agg<8, T>(x, out, C, P, s);
   else if (P.m <= 32) launch_agg<32, T>(x, out, C, P, s);
   else if (P.m <= 128) launch_agg<128, T>(x, out, C, P, s);
   else return false;
@@ -309,7 +333,10 @@ bool dispatch_agg(const void* x, void* out, long long C, const agg::Params& P,
 // items: coordinates a thread aggregates (4 for m <= 8, else 1)
 template <typename T>
 bool dispatch_tail(const TailArgs& a, const agg::Params& P, int items) {
-  if (P.m <= 8 && items == 4) launch_tail<8, T, 4>(a, P);
+  if (fast_spec(P) && items == 4) launch_tail<8, T, 4, true>(a, P);
+  else if (fast_spec(P) && items == 2) launch_tail<8, T, 2, true>(a, P);
+  else if (fast_spec(P) && items == 1) launch_tail<8, T, 1, true>(a, P);
+  else if (P.m <= 8 && items == 4) launch_tail<8, T, 4>(a, P);
   else if (P.m <= 32 && items == 1) launch_tail<32, T, 1>(a, P);
   else if (P.m <= 128 && items == 1) launch_tail<128, T, 1>(a, P);
   else return false;

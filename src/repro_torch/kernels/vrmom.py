@@ -61,12 +61,12 @@ class TailPlan(NamedTuple):
     kk: int      # records a block leaves: min(k, tile)
 
 
-def plan_tail(m: int, V: int, top_k: int) -> TailPlan:
+def plan_tail(m: int, V: int, top_k: int, items=None) -> TailPlan:
     """B4's grid for an [m, B, V] stack: four coordinates a thread (one
     16-byte load a row in f32) where the m values of four fit in
     registers (m <= 8), else one; 256 threads a block. The last block of
     a row follows at most 4 record lists a thread, which caps V."""
-    items = 4 if m <= 8 else 1
+    items = items or (4 if m <= 8 else 1)
     tile = TAIL_THREADS * items
     n_blk = -(-V // tile)
     if n_blk > MERGE_LISTS * TAIL_THREADS:

@@ -182,6 +182,7 @@ def test_cuda_b1_b4_inf_nan(cuda, m):
     x[:, 2] = torch.where(pick[:, 2] < 0.5, x[:, 2], float("nan"))
     x[:, 3, :10] = float("nan")    # NaN aggregates early in row 3
     x[:, 3, 2000:2010] = float("inf")
+    x[:, 1, :500] *= 1e38          # x - med overflows to +-inf
     for method in METHODS:
         beta = 1.0 / m + 1e-6
         _, k_trim = resolve_method(method, beta, m)
