@@ -11,13 +11,14 @@ at every length around its 32-key chunk edges and at batch 32, bitwise
 equal to the same rows at batch 4; B2 in bf16 at every head dim with
 ragged S and T), checks that B2 and B3 give the same bits on a second
 call and that one B3 call with a python-int length, and one B4 call
-(greedy or top-50), is one device kernel, and times kernel, plain version and (for
-attention) one PyTorch library call as a yardstick. Phase 3 serves
-qwen3-1.7b at full width (28 layers, bf16, seeded random weights) through
-``ServeEngine.generate`` with robust replicated decoding (m = 8 replicas,
-VRMOM, alpha = 0.25): greedy tokens must be identical under the none,
-signflip and gaussian attacks, fused and unfused, shared and replicated
-replica compute, and every kernel must have launched on that path.
+(greedy or top-50), is one device kernel, and times kernel, plain
+version and (for attention) one PyTorch library call as a yardstick.
+Phase 3 serves qwen3-1.7b at full width (28 layers, bf16, seeded random
+weights) through ``ServeEngine.generate`` with robust replicated
+decoding (m = 8 replicas, VRMOM, alpha = 0.25): greedy tokens must be
+identical under the none, signflip and gaussian attacks, fused and
+unfused, shared and replicated replica compute, and every kernel must
+have launched on that path.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it lists every kernel with its launches, error and times. Any
@@ -98,19 +99,40 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def kernels_in_one_call(torch, fn) -> list:
-    """Names of the device kernels that one call of ``fn`` runs (after a
-    warm-up call), from a torch.profiler trace of the card."""
+def kernels_in_calls(torch, fns) -> list:
+    """For each call in ``fns`` (after a warm-up call of each), the names of
+    the device kernels it runs, from ONE torch.profiler trace of the card:
+    a spin kernel (``torch.cuda._sleep``) before each call and after the
+    last marks where one call's kernels end. A trace with no device
+    activity at all is taken once more."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for fn in fns:
         fn()
-        torch.cuda.synchronize()
-    return [ev.name for ev in prof.events()
-            if ev.device_type == DeviceType.CUDA]
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn in fns:
+                torch.cuda._sleep(1000)
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        evs = sorted((ev for ev in prof.events()
+                      if ev.device_type == DeviceType.CUDA),
+                     key=lambda ev: ev.time_range.start)
+        if evs:
+            break
+    calls = []
+    for ev in evs:
+        if "spin_kernel" in ev.name:
+            calls.append([])
+        elif calls:
+            calls[-1].append(ev.name)
+    require(len(calls) == len(fns) + 1 and not calls[-1],
+            f"profiler trace not split into {len(fns)} calls: "
+            f"{[ev.name[:50] for ev in evs]}")
+    return calls[:-1]
 
 
 def ptxas_report(build) -> None:
@@ -177,7 +199,7 @@ def phase_kernels(torch, dev):
                                                      flash_attention_plain)
     from repro_torch.kernels.vrmom import (aggregate, aggregate_plain,
                                            aggregate_sample,
-                                           aggregate_sample_plain)
+                                           aggregate_sample_plain, plan_tail)
 
     g = torch.Generator(device=dev).manual_seed(1234)
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -235,17 +257,12 @@ def phase_kernels(torch, dev):
             outb, aggregate_plain(xb.reshape(8, -1), method, K=8,
                                   k_trim=k_trim).reshape(4, V)),
             f"B1 {method} on a bf16 stack differs from its plain version")
-    b4_kernels = {}
-    for k in (0, 50):
-        b4_kernels[k] = kernels_in_one_call(torch, lambda k=k: (
-            aggregate_sample(x, "vrmom", K=8, top_k=k, with_agg=False)))
-        require(len(b4_kernels[k]) == 1,
-                f"one B4 call (top_k={k}) ran {len(b4_kernels[k])} device "
-                f"kernels: {b4_kernels[k]}")
+    plan = plan_tail(8, 4, V, 50)
     print(f"[B1/B4] exact against the plain versions: {json.dumps(errs)}; "
           f"fused greedy == argmax(B1) == plain tail; top-50 order equal; "
-          f"one B4 call (greedy, top-50) = one device kernel "
-          f"({b4_kernels[0][0][:60]})")
+          f"B4 tiles of {plan.tile} coordinates, {plan.n_blk} blocks a row, "
+          f"{8 * plan.tile} bytes of dynamic shared memory a block for "
+          f"top-k")
 
     stack_bytes = x.numel() * 4
     t_b1 = timed_ms(lambda: aggregate(x, "vrmom", K=8), torch, flush=flush)
@@ -383,15 +400,24 @@ def phase_kernels(torch, dev):
         require(torch.equal(out32, by4),
                 "B3 at batch 32 differs bitwise from the same rows at "
                 "batch 4")
-    launches = kernels_in_one_call(
-        torch, lambda: decode_attention(qd, kc, vc, kv_len=200))
-    require(len(launches) == 1,
-            f"one B3 call with a python-int kv_len ran {len(launches)} "
-            f"device kernels: {launches}")
     print(f"[B3] q [4,1,16,128] over [4,{T},8,128] bf16 max err {e3:.3g}; "
           f"lengths 0..{T} at every chunk edge (scalar and per row), int8 + "
-          f"scales, batch 32 == batch 4 bitwise, repeat calls bitwise equal; "
-          f"one call = one device kernel ({launches[0][:60]})")
+          f"scales, batch 32 == batch 4 bitwise, repeat calls bitwise equal")
+    one_kernel = {
+        "B4 greedy": lambda: aggregate_sample(x, "vrmom", K=8,
+                                              with_agg=False),
+        "B4 top-50": lambda: aggregate_sample(x, "vrmom", K=8, top_k=50,
+                                              with_agg=False),
+        "B3 python-int kv_len": lambda: decode_attention(qd, kc, vc,
+                                                         kv_len=200)}
+    per_call = kernels_in_calls(torch, list(one_kernel.values()))
+    require(len(per_call) == len(one_kernel)
+            and all(len(names) == 1 for names in per_call),
+            f"one call should run one device kernel: "
+            f"{dict(zip(one_kernel, per_call))}")
+    print("[one call = one device kernel] " + "; ".join(
+        f"{what}: {names[0][:60]}"
+        for what, names in zip(one_kernel, per_call)))
     t_b3 = timed_ms(lambda: decode_attention(qd, kc, vc), torch, flush=flush)
     full = lengths(None, 4, T, dev)
     t_b3p = timed_ms(lambda: decode_attention_plain(qd, kc, vc, full), torch,

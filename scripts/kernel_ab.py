@@ -120,7 +120,8 @@ def time_attn(out, torch, dev, g, flush) -> None:
     out["b2_sdpa_ms"] = device_ms(sdpa(q, k, v, True), torch, flush)
     out["b2_host_us"] = host_us(b2, torch)
     for B in (4, 32):
-        q, k, v = rand(B, 1, 16, 128), rand(B, 216, 8, 128), rand(B, 216, 8, 128)
+        q = rand(B, 1, 16, 128)
+        k, v = rand(B, 216, 8, 128), rand(B, 216, 8, 128)
 
         def b3():
             return decode_attention(q, k, v, kv_len=216)
@@ -137,7 +138,8 @@ def main() -> int:
     ap.add_argument("--tag", default="")
     ap.add_argument("--only", choices=("b1b4", "attn"), default=None)
     ap.add_argument("--b4-items", type=int, default=0,
-                    help="coordinates a thread of B4 (default: its planner)")
+                    help="coordinates a thread of B4 at m <= 8: 2 or 4 "
+                         "(default: its planner)")
     args = ap.parse_args()
     import torch
 
@@ -151,7 +153,8 @@ def main() -> int:
     if args.b4_items:
         vm = sys.modules["repro_torch.kernels.vrmom"]
         plan = vm.plan_tail
-        vm.plan_tail = lambda m, V, k: plan(m, V, k, items=args.b4_items)
+        vm.plan_tail = lambda m, B, V, k: plan(m, B, V, k,
+                                               items=args.b4_items)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)

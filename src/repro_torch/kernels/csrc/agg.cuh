@@ -181,16 +181,4 @@ __device__ __forceinline__ float vrmom8(float (&v)[8], const Params& P) {
   return s <= P.eps ? med : out;
 }
 
-// Aggregate x[0], x[stride], ..., x[(m-1)*stride] (m <= N).
-template <int N, typename T>
-__device__ __forceinline__ float aggregate(const T* __restrict__ x,
-                                           long long stride,
-                                           const Params& P) {
-  float v[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    v[i] = i < P.m ? kern::to_f32(x[(long long)i * stride]) : 0.f;
-  return aggregate_values<N>(v, P);
-}
-
 }  // namespace agg

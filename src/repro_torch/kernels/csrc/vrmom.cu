@@ -2,8 +2,9 @@
 //
 // B1 `agg_kernel` replaces `_agg_2d` / `_kernel` of repro/kernels/vrmom.py
 // (the Pallas call at l.151): median / vrmom / trimmed_mean / mean of an
-// [m, C] stack over axis 0. One thread per coordinate, through the shared
-// device function agg::aggregate (agg.cuh).
+// [m, C] stack over axis 0. One thread per coordinate, through the device
+// functions of agg.cuh: agg::vrmom8 at the serving spec (vrmom, m = 8,
+// K = 8), agg::aggregate_values otherwise; the two give the same bits.
 //
 // B4 `tail_kernel` replaces `_tail_3d` / `_tail_kernel` (the Pallas call
 // at l.269): the same aggregate of an [m, B, V] logit stack, then greedy
@@ -26,13 +27,13 @@
 //
 // Bound on the H100: both kernels read the stack once (m * C * 4 bytes for
 // f32) and write little (B1: C values; B4: k ids per row, plus the [B, V]
-// aggregate only when asked), so the bytes bound them; the per-coordinate
-// sort and estimate are a few hundred instructions, which at m = 8 come
-// close to the same time (PERF.md). Design of B4: a thread loads every
-// row of its ITEMS coordinates (16-byte vector loads along V for f32 at
-// ITEMS = 4) before it sorts any, so each thread keeps m * ITEMS loads in
-// flight; no intermediate but the per-tile records reaches device memory.
-#include <climits>
+// aggregate only when asked). The per-coordinate sort and estimate take
+// ~500 instructions even on the fast path, so at m = 8 issuing them takes
+// longer than moving the bytes: instruction issue bounds both (PERF.md).
+// Design of B4: a thread loads every row of its ITEMS coordinates (one 8-
+// or 16-byte vector load a row along V in f32 at ITEMS = 2 or 4) before it
+// sorts any, so each thread keeps m * ITEMS loads in flight; no
+// intermediate but the per-tile records reaches device memory.
 #include <cstdint>
 
 #include "agg.cuh"
@@ -330,12 +331,12 @@ bool dispatch_agg(const void* x, void* out, long long C, const agg::Params& P,
   return true;
 }
 
-// items: coordinates a thread aggregates (4 for m <= 8, else 1)
+// items: coordinates a thread aggregates (2 or 4 for m <= 8, else 1)
 template <typename T>
 bool dispatch_tail(const TailArgs& a, const agg::Params& P, int items) {
-  if (fast_spec(P) && items == 4) launch_tail<8, T, 4, true>(a, P);
-  else if (fast_spec(P) && items == 2) launch_tail<8, T, 2, true>(a, P);
-  else if (fast_spec(P) && items == 1) launch_tail<8, T, 1, true>(a, P);
+  if (fast_spec(P) && items == 2) launch_tail<8, T, 2, true>(a, P);
+  else if (fast_spec(P) && items == 4) launch_tail<8, T, 4, true>(a, P);
+  else if (P.m <= 8 && items == 2) launch_tail<8, T, 2>(a, P);
   else if (P.m <= 8 && items == 4) launch_tail<8, T, 4>(a, P);
   else if (P.m <= 32 && items == 1) launch_tail<32, T, 1>(a, P);
   else if (P.m <= 128 && items == 1) launch_tail<128, T, 1>(a, P);
@@ -361,10 +362,11 @@ int agg_launch(const void* x, void* out, int dtype, int m, long long C,
   return (int)cudaGetLastError();
 }
 
-// One launch. rec holds B * ceil(V / (256 * items)) * min(top_k, 256 *
-// items) keys (uninitialised); tickets B int32 counters, zero on entry
-// and left zero. agg_out may be null (no [B, V] aggregate is written then).
-// topv / topi are [B, top_k].
+// One launch. items: 2 or 4 at m <= 8, 1 above (plan_tail in vrmom.py).
+// rec holds B * ceil(V / (256 * items)) * min(top_k, 256 * items) keys
+// (uninitialised); tickets B int32 counters, zero on entry and left zero.
+// agg_out may be null (no [B, V] aggregate is written then). topv / topi
+// are [B, top_k].
 int agg_sample_launch(const void* x, void* agg_out, void* rec, int* tickets,
                       float* topv, int* topi, int dtype, int m, int B, int V,
                       int top_k, int items, int method, int K, int k_trim,

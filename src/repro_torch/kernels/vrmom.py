@@ -6,11 +6,14 @@ call ``_agg_2d``, l.142/151) and ``aggregate_sample`` replaces
 (``csrc/vrmom.cu``) call one device function, ``agg::aggregate_values``
 (``csrc/agg.cuh``), the counterpart of the TPU kernel's ``_agg_block``, so
 fused greedy tokens are bit-identical to an argmax over ``aggregate``'s
-output. A thread sorts the m worker values of its coordinates in
-registers; the stack is read once with coalesced loads. B4 is one launch
-a call: the last block of each row merges the row's per-tile top-k
-records (:func:`plan_tail` sizes the tiles). Both are bound by memory
-bandwidth on the H100 (the stack is read once, the outputs are small).
+output; at the serving spec (vrmom, m = 8, K = 8) both take its fast path
+(``agg::vrmom8``), which gives the same bits in half the instructions. A
+thread sorts the m worker values of its coordinates in registers; the
+stack is read once with coalesced loads. B4 is one launch a call: the last
+block of each row merges the row's per-tile top-k records
+(:func:`plan_tail` sizes the tiles). Both read the stack once and write
+little; at m = 8 their instructions take longer than their bytes on the
+H100 (PERF.md).
 
 Each wrapper launches its kernel for a CUDA tensor, raises on anything
 the kernel does not take, and counts its launches in ``.launches`` (one
@@ -61,12 +64,16 @@ class TailPlan(NamedTuple):
     kk: int      # records a block leaves: min(k, tile)
 
 
-def plan_tail(m: int, V: int, top_k: int, items=None) -> TailPlan:
-    """B4's grid for an [m, B, V] stack: four coordinates a thread (one
-    16-byte load a row in f32) where the m values of four fit in
-    registers (m <= 8), else one; 256 threads a block. The last block of
-    a row follows at most 4 record lists a thread, which caps V."""
-    items = items or (4 if m <= 8 else 1)
+def plan_tail(m: int, B: int, V: int, top_k: int, items=None) -> TailPlan:
+    """B4's grid for an [m, B, V] stack, 256 threads a block. Where the m
+    values of several coordinates fit in registers (m <= 8) a thread
+    aggregates 2 coordinates (one 8-byte load a row in f32), or 4 (one
+    16-byte load) from 2^21 coordinates on, where the grid runs in several
+    waves anyway; above m = 8, one. (On an H100: 2 beat 4 and 1 at
+    B = 4, 4 beat 2 at B = 32, V = 151936; PERF.md.) The last block of a
+    row follows at most 4 record lists a thread, which caps V."""
+    if items is None:
+        items = 1 if m > 8 else 4 if B * V >= 1 << 21 else 2
     tile = TAIL_THREADS * items
     n_blk = -(-V // tile)
     if n_blk > MERGE_LISTS * TAIL_THREADS:
@@ -258,7 +265,7 @@ def aggregate_sample(x, method: str = "vrmom", K: int = 10, beta: float = 0.1,
         return aggregate_sample_plain(x, method, K, k_trim, top_k, eps,
                                       with_agg)
     _check_stack(x, "aggregate_sample")
-    plan = plan_tail(m, V, top_k)
+    plan = plan_tail(m, B, V, top_k)
     d, denom = _params(method, K, m)
     dev = x.device
     stream = torch.cuda.current_stream(dev).cuda_stream

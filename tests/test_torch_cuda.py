@@ -15,6 +15,7 @@ of the output, 2^-9 relative, and in B2 the bf16 rounding of each softmax
 weight before P.V).
 """
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -34,6 +35,8 @@ from repro_torch.kernels.vrmom import (aggregate, aggregate_plain,
                                        resolve_method)
 from repro_torch.models import model as M
 from repro_torch.serve import RobustDecodeConfig, ServeEngine
+
+vrmom_module = sys.modules["repro_torch.kernels.vrmom"]
 
 torch.set_num_threads(1)
 
@@ -106,16 +109,23 @@ def _b4_check(x, method="vrmom", K=8, beta=0.1, top_k=0, with_agg=True):
     return got
 
 
-# B4 tiles: 1024 coordinates a block at m <= 8, 256 above
-B4_V = (1, 7, 255, 256, 257, 1023, 1024, 1025, 5000, 151936)
+# B4 tiles: 512 coordinates a block at m <= 8 (1024 from 2^21 coordinates
+# on), 256 above
+B4_V = (1, 7, 255, 256, 257, 511, 512, 513, 1023, 1024, 1025, 5000, 151936)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("items", [None, 4])
 @pytest.mark.parametrize("V", B4_V)
-def test_cuda_b4_ragged_vocab(cuda, V):
+def test_cuda_b4_ragged_vocab(cuda, V, items, monkeypatch):
     """Every V around the tile edges, greedy and top-k for k in {1, 2, 50,
-    V}, with and without the aggregate; m = 8 (vector loads when V % 4 ==
-    0) and m = 9 (a coordinate a thread)."""
+    V}, with and without the aggregate; m = 8 (vector loads when V is
+    even) and m = 9 (a coordinate a thread). ``items=4`` holds the planner
+    to four coordinates a thread at m = 8, as it picks for large stacks."""
+    if items:
+        plan = vrmom_module.plan_tail
+        monkeypatch.setattr(vrmom_module, "plan_tail", lambda m, B, V, k: (
+            plan(m, B, V, k, items=items if m <= 8 else None)))
     for m in (8, 9):
         x = _stack(V + m, (m, 4, V), cuda)
         for k in sorted({0, 1, 2, 50, V} & set(range(V + 1))):

@@ -216,25 +216,26 @@ def test_b4_validates():
         aggregate_sample(torch.zeros(4, 2, 8), "median", top_k=9)
 
 
-@pytest.mark.parametrize("m,V,top_k,plan", [
-    (8, 151936, 0, (4, 1024, 149, 1)),      # the serving stack, greedy
-    (8, 151936, 50, (4, 1024, 149, 50)),
-    (8, 1024, 1024, (4, 1024, 1, 1024)),    # one whole tile
-    (8, 1025, 1025, (4, 1024, 2, 1024)),    # k above the tile: whole tiles
-    (1, 7, 2, (4, 1024, 1, 2)),
-    (9, 151936, 0, (1, 256, 594, 1)),       # m > 8: a coordinate a thread
-    (128, 257, 50, (1, 256, 2, 50)),
-    (128, 262144, 0, (1, 256, 1024, 1)),    # the widest V at m > 8
+@pytest.mark.parametrize("m,B,V,top_k,plan", [
+    (8, 4, 151936, 0, (2, 512, 297, 1)),     # the serving stack, greedy
+    (8, 4, 151936, 50, (2, 512, 297, 50)),
+    (8, 32, 151936, 0, (4, 1024, 149, 1)),   # past 2^21 coordinates
+    (8, 1, 512, 512, (2, 512, 1, 512)),      # one whole tile
+    (8, 1, 513, 513, (2, 512, 2, 512)),      # k above the tile: whole tiles
+    (1, 4, 7, 2, (2, 512, 1, 2)),
+    (9, 4, 151936, 0, (1, 256, 594, 1)),     # m > 8: a coordinate a thread
+    (128, 2, 257, 50, (1, 256, 2, 50)),
+    (128, 1, 262144, 0, (1, 256, 1024, 1)),  # the widest V at m > 8
 ])
-def test_b4_plan_tail(m, V, top_k, plan):
-    got = plan_tail(m, V, top_k)
+def test_b4_plan_tail(m, B, V, top_k, plan):
+    got = plan_tail(m, B, V, top_k)
     assert tuple(got) == plan
     assert got.tile == got.items * 256 and got.n_blk * got.tile >= V
 
 
 def test_b4_plan_tail_refuses_too_many_tiles():
     with pytest.raises(ValueError, match="tiles"):
-        plan_tail(9, 262145, 0)
+        plan_tail(9, 1, 262145, 0)
 
 
 @pytest.mark.parametrize("method,K,m", [("vrmom", 8, 8), ("vrmom", 64, 100),
