@@ -99,42 +99,6 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def kernels_in_calls(torch, fns) -> list:
-    """For each call in ``fns`` (after a warm-up call of each), the names of
-    the device kernels it runs, from ONE torch.profiler trace of the card:
-    a spin kernel (``torch.cuda._sleep``) before each call and after the
-    last marks where one call's kernels end. A trace with no device
-    activity at all is taken once more."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for fn in fns:
-                torch.cuda._sleep(1000)
-                fn()
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-        evs = sorted((ev for ev in prof.events()
-                      if ev.device_type == DeviceType.CUDA),
-                     key=lambda ev: ev.time_range.start)
-        if evs:
-            break
-    calls = []
-    for ev in evs:
-        if "spin_kernel" in ev.name:
-            calls.append([])
-        elif calls:
-            calls[-1].append(ev.name)
-    require(len(calls) == len(fns) + 1 and not calls[-1],
-            f"profiler trace not split into {len(fns)} calls: "
-            f"{[ev.name[:50] for ev in evs]}")
-    return calls[:-1]
-
-
 def ptxas_report(build) -> None:
     """Registers, static shared memory and spills of every kernel, from the
     ``-Xptxas -v`` log the build keeps beside each library (attention at
@@ -257,7 +221,7 @@ def phase_kernels(torch, dev):
             outb, aggregate_plain(xb.reshape(8, -1), method, K=8,
                                   k_trim=k_trim).reshape(4, V)),
             f"B1 {method} on a bf16 stack differs from its plain version")
-    plan = plan_tail(8, 4, V, 50)
+    plan = plan_tail(8, V, 50)
     print(f"[B1/B4] exact against the plain versions: {json.dumps(errs)}; "
           f"fused greedy == argmax(B1) == plain tail; top-50 order equal; "
           f"B4 tiles of {plan.tile} coordinates, {plan.n_blk} blocks a row, "
@@ -410,7 +374,9 @@ def phase_kernels(torch, dev):
                                               with_agg=False),
         "B3 python-int kv_len": lambda: decode_attention(qd, kc, vc,
                                                          kv_len=200)}
-    per_call = kernels_in_calls(torch, list(one_kernel.values()))
+    from repro_torch.device import kernels_in_calls
+
+    per_call = kernels_in_calls(list(one_kernel.values()))
     require(len(per_call) == len(one_kernel)
             and all(len(names) == 1 for names in per_call),
             f"one call should run one device kernel: "

@@ -137,9 +137,6 @@ def main() -> int:
     ap.add_argument("--src", required=True, help="a checkout's src directory")
     ap.add_argument("--tag", default="")
     ap.add_argument("--only", choices=("b1b4", "attn"), default=None)
-    ap.add_argument("--b4-items", type=int, default=0,
-                    help="coordinates a thread of B4 at m <= 8: 2 or 4 "
-                         "(default: its planner)")
     args = ap.parse_args()
     import torch
 
@@ -150,11 +147,6 @@ def main() -> int:
     from repro_torch.kernels import build
 
     build.build_all()
-    if args.b4_items:
-        vm = sys.modules["repro_torch.kernels.vrmom"]
-        plan = vm.plan_tail
-        vm.plan_tail = lambda m, B, V, k: plan(m, B, V, k,
-                                               items=args.b4_items)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)

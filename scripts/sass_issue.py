@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Instruction counts of a built kernel's SASS, and the issue bound they give.
+"""Instruction counts of a built kernel's SASS, and the time to issue them.
 
     python3 scripts/sass_issue.py LIB.so KERNEL [KERNEL ...] \
-        [--trips 4,8] [--per N] [--threads T]
+        [--skip LO-HI,...] [--trips 4,8] [--per N] [--threads T]
 
 Runs ``cuobjdump -sass`` on a library that ``repro_torch.kernels.build``
 made (or reads a saved dump, a ``.txt`` file), and for each function
@@ -21,9 +21,11 @@ one thread executes: the straight-line code once, each loop's body
 of the loops nested in it) as often as the product of the trip counts of
 the loops around and including it. ``--per N`` divides that by the N
 coordinates a thread handles. ``--threads T`` is how many threads run it:
-then the issue bound is T x (instructions a thread) / 32 warp
+then the issue time is T x (instructions a thread) / 32 warp
 instructions over the H100's issue rate, 132 SMs x 4 schedulers x one
-warp instruction a cycle at 1.98 GHz (its boost clock).
+warp instruction a cycle at 1.98 GHz (its boost clock). That is the
+least time THIS build's instructions take, not a bound on the function:
+another build may need fewer.
 
 NOPs and the padding after the last EXIT are not counted.
 """
@@ -153,7 +155,8 @@ def main() -> int:
               f"{per_coord:g}")
         if args.threads:
             us = args.threads * per_thread / 32 / ISSUE_PER_S * 1e6
-            print(f"  issue bound for {args.threads:g} threads: {us:.3f} us")
+            print(f"  issue time for {args.threads:g} threads at the peak "
+                  f"rate: {us:.3f} us")
     if not found:
         print(f"sass_issue.py: no function matches {args.kernel}",
               file=sys.stderr)

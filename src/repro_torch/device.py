@@ -1,7 +1,8 @@
-"""Device resolution shared by every entry point of the port."""
+"""Device resolution shared by every entry point of the port, and a check
+of which device kernels a call runs."""
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 
@@ -17,3 +18,40 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                 "port's plain PyTorch path on the host")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def kernels_in_calls(fns: Sequence[Callable[[], object]]) -> List[List[str]]:
+    """For each call in ``fns`` (after a warm-up call of each), the names of
+    the device kernels it runs, from ONE ``torch.profiler`` trace of the
+    card: a spin kernel (``torch.cuda._sleep``) before each call and after
+    the last marks where one call's kernels end. A trace with no device
+    activity at all is taken once more; a trace that does not split into
+    one group a call raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn in fns:
+                torch.cuda._sleep(1000)
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        evs = sorted((ev for ev in prof.events()
+                      if ev.device_type == DeviceType.CUDA),
+                     key=lambda ev: ev.time_range.start)
+        if evs:
+            break
+    calls: List[List[str]] = []
+    for ev in evs:
+        if "spin_kernel" in ev.name:
+            calls.append([])
+        elif calls:
+            calls[-1].append(ev.name)
+    if len(calls) != len(fns) + 1 or calls[-1]:
+        raise RuntimeError(f"profiler trace not split into {len(fns)} calls: "
+                           f"{[ev.name[:50] for ev in evs]}")
+    return calls[:-1]

@@ -55,15 +55,27 @@ __device__ __forceinline__ void cmpx(float& a, float& b) {
   b = hi;
 }
 
+// Sorts v ascending, NaN last. Every compare-exchange orders NaN, so any
+// sorting network gives the same sorted values.
 template <int N>
 __device__ __forceinline__ void sort_network(float (&v)[N]) {
-  // odd-even transposition sort: N phases, alternating even and odd pairs
+  if constexpr (N == 8) {
+    // Batcher's merge-exchange network: 19 comparators, depth 6
+    cmpx(v[0], v[2]); cmpx(v[1], v[3]); cmpx(v[4], v[6]); cmpx(v[5], v[7]);
+    cmpx(v[0], v[4]); cmpx(v[1], v[5]); cmpx(v[2], v[6]); cmpx(v[3], v[7]);
+    cmpx(v[0], v[1]); cmpx(v[2], v[3]); cmpx(v[4], v[5]); cmpx(v[6], v[7]);
+    cmpx(v[2], v[4]); cmpx(v[3], v[5]);
+    cmpx(v[1], v[4]); cmpx(v[3], v[6]);
+    cmpx(v[1], v[2]); cmpx(v[3], v[4]); cmpx(v[5], v[6]);
+  } else {
+    // odd-even transposition sort: N phases, alternating even and odd pairs
 #pragma unroll 1
-  for (int p = 0; p < N; p += 2) {
+    for (int p = 0; p < N; p += 2) {
 #pragma unroll
-    for (int i = 0; i + 1 < N; i += 2) cmpx(v[i], v[i + 1]);
+      for (int i = 0; i + 1 < N; i += 2) cmpx(v[i], v[i + 1]);
 #pragma unroll
-    for (int i = 1; i + 1 < N; i += 2) cmpx(v[i], v[i + 1]);
+      for (int i = 1; i + 1 < N; i += 2) cmpx(v[i], v[i + 1]);
+    }
   }
 }
 
@@ -82,14 +94,21 @@ __device__ __forceinline__ float median_sorted(const float (&v)[N], int m) {
 }
 
 // Aggregate v[0..m) (m <= N); v[m..N) is scratch. v is clobbered.
-template <int N>
+// M and KK, where not 0, fix a vrmom spec at compile time, m = M and
+// K = KK: the serving spec (m = K = 8) is such an instance, with no
+// branch on the method, the median indices folded and the count of
+// z <= Delta_k unrolled. Its bits are those of the instance that reads the
+// spec from P.
+template <int N, int M = 0, int KK = 0>
 __device__ __forceinline__ float aggregate_values(float (&v)[N],
                                                   const Params& P) {
-  const int m = P.m;
+  const int method = KK ? kVrmom : P.method;
+  const int m = M ? M : P.m;
+  const int K = KK ? KK : P.K;
 #pragma unroll
   for (int i = 0; i < N; ++i)
     if (i >= m) v[i] = nan_f32();
-  if (P.method == kMean) {
+  if (method == kMean) {
     float acc = 0.f;
 #pragma unroll
     for (int i = 0; i < N; ++i)
@@ -97,7 +116,7 @@ __device__ __forceinline__ float aggregate_values(float (&v)[N],
     return acc * (1.f / (float)m);
   }
   sort_network<N>(v);
-  if (P.method == kTrimmedMean) {
+  if (method == kTrimmedMean) {
     float acc = 0.f;
 #pragma unroll
     for (int i = 0; i < N; ++i)
@@ -105,7 +124,7 @@ __device__ __forceinline__ float aggregate_values(float (&v)[N],
     return acc * (1.f / (float)(m - 2 * P.k_trim));
   }
   const float med = median_sorted<N>(v, m);
-  if (P.method == kMedian) return med;
+  if (method == kMedian) return med;
   float dev[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) dev[i] = fabsf(v[i] - med);  // pads stay NaN
@@ -117,66 +136,11 @@ __device__ __forceinline__ float aggregate_values(float (&v)[N],
   for (int i = 0; i < N; ++i) {
     if (i < m) {
       const float z = (v[i] - med) / sd;
-      for (int k = 0; k < P.K; ++k) count += z <= P.deltas[k];
+      for (int k = 0; k < K; ++k) count += z <= P.deltas[k];
     }
   }
   // sum over rows of (count_i - K/2): a half-integer, exact in f32
-  const float total = 0.5f * (float)(2 * count - m * P.K);
-  const float out = med - s * total / P.denom;
-  return s <= P.eps ? med : out;
-}
-
-// Batcher's 19-comparator sorting network for 8 values (depth 6).
-__device__ __forceinline__ void sort8(float (&v)[8]) {
-  cmpx(v[0], v[2]); cmpx(v[1], v[3]); cmpx(v[4], v[6]); cmpx(v[5], v[7]);
-  cmpx(v[0], v[4]); cmpx(v[1], v[5]); cmpx(v[2], v[6]); cmpx(v[3], v[7]);
-  cmpx(v[0], v[1]); cmpx(v[2], v[3]); cmpx(v[4], v[5]); cmpx(v[6], v[7]);
-  cmpx(v[2], v[4]); cmpx(v[3], v[5]);
-  cmpx(v[1], v[4]); cmpx(v[3], v[6]);
-  cmpx(v[1], v[2]); cmpx(v[3], v[4]); cmpx(v[5], v[6]);
-}
-
-// vrmom at m = 8, K = 8 (the serving spec): the bits of
-// aggregate_values<8> with P.m == P.K == 8 in fewer instructions.
-// - Any sorting network gives the same sorted values: 19 comparators in
-//   place of the transposition network's 28.
-// - The MAD's two middle order statistics come from the two sorted halves
-//   of d = |v - med| when med is finite and no row is NaN: then
-//   d[3] <= d[2] <= d[1] <= d[0] and d[4] <= ... <= d[7] (rounding is
-//   monotone), and the r-th smallest of two sorted lists A, B is
-//   min over i of max(A_i, B_(r-i)). Otherwise d is sorted as before.
-// - The count of z <= Delta_k runs over a compile-time K.
-__device__ __forceinline__ float vrmom8(float (&v)[8], const Params& P) {
-  sort8(v);
-  const float med = 0.5f * (v[3] + v[4]);
-  float t[8], d[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    t[i] = v[i] - med;
-    d[i] = fabsf(t[i]);
-  }
-  float mad;
-  if (isfinite(med) && !isnan(v[7])) {
-    const float r3 = fminf(fminf(fminf(d[7], fmaxf(d[3], d[6])),
-                                 fminf(fmaxf(d[2], d[5]), fmaxf(d[1], d[4]))),
-                           d[0]);
-    const float r4 = fminf(fminf(fmaxf(d[3], d[7]), fmaxf(d[2], d[6])),
-                           fminf(fmaxf(d[1], d[5]), fmaxf(d[0], d[4])));
-    mad = 0.5f * (r3 + r4);
-  } else {
-    sort8(d);
-    mad = 0.5f * (d[3] + d[4]);
-  }
-  const float s = mad / kMadConst;
-  const float sd = fmaxf(s, P.eps);
-  int count = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float z = t[i] / sd;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) count += z <= P.deltas[k];
-  }
-  const float total = 0.5f * (float)(2 * count - 64);
+  const float total = 0.5f * (float)(2 * count - m * K);
   const float out = med - s * total / P.denom;
   return s <= P.eps ? med : out;
 }

@@ -2,9 +2,9 @@
 //
 // B1 `agg_kernel` replaces `_agg_2d` / `_kernel` of repro/kernels/vrmom.py
 // (the Pallas call at l.151): median / vrmom / trimmed_mean / mean of an
-// [m, C] stack over axis 0. One thread per coordinate, through the device
-// functions of agg.cuh: agg::vrmom8 at the serving spec (vrmom, m = 8,
-// K = 8), agg::aggregate_values otherwise; the two give the same bits.
+// [m, C] stack over axis 0. One thread per coordinate, through
+// agg::aggregate_values of agg.cuh (at the serving spec, vrmom at m = 8,
+// K = 8, its instance with the spec fixed at compile time: the same bits).
 //
 // B4 `tail_kernel` replaces `_tail_3d` / `_tail_kernel` (the Pallas call
 // at l.269): the same aggregate of an [m, B, V] logit stack, then greedy
@@ -27,13 +27,16 @@
 //
 // Bound on the H100: both kernels read the stack once (m * C * 4 bytes for
 // f32) and write little (B1: C values; B4: k ids per row, plus the [B, V]
-// aggregate only when asked). The per-coordinate sort and estimate take
-// ~500 instructions even on the fast path, so at m = 8 issuing them takes
-// longer than moving the bytes: instruction issue bounds both (PERF.md).
-// Design of B4: a thread loads every row of its ITEMS coordinates (one 8-
-// or 16-byte vector load a row along V in f32 at ITEMS = 2 or 4) before it
-// sorts any, so each thread keeps m * ITEMS loads in flight; no
-// intermediate but the per-tile records reaches device memory.
+// aggregate only when asked): the bytes bound both. The instructions this
+// build issues for a coordinate's sort and estimate take longer than the
+// bytes at m = 8, though the estimator itself needs fewer (PERF.md).
+// Design of B4: a thread loads every row of its coordinates (2 at m <= 8,
+// one 8-byte load a row along V in f32; 1 above) before it sorts any, so
+// each thread keeps m * 2 loads in flight; no intermediate but the
+// per-block records reaches device memory. The last block's merge follows
+// at most kMergeLists record lists a thread, so where V has more than
+// kMergeLists * kTailThreads tiles a block covers several tiles in turn
+// and keeps their best keys.
 #include <cstdint>
 
 #include "agg.cuh"
@@ -45,6 +48,11 @@ using u64 = unsigned long long;
 constexpr int kAggThreads = 256;
 constexpr int kTailThreads = 256;
 constexpr int kMergeLists = 4;  // record lists one thread of the merge follows
+
+// coordinates a thread of B4 aggregates: 2 where the m values of two fit
+// in registers (the 8-wide network), else 1
+template <int N>
+constexpr int kItems = N <= 8 ? 2 : 1;
 
 // -- (value, index) keys -----------------------------------------------------
 
@@ -103,14 +111,14 @@ __device__ __forceinline__ void block_sort_desc(u64* s) {
 
 // -- B1 ----------------------------------------------------------------------
 
-// One coordinate's aggregate: the m = 8, K = 8 vrmom path (FAST) or the
-// general one; both give the same bits.
+// One coordinate's aggregate; FAST: the serving spec (vrmom, m = 8,
+// K = 8) fixed at compile time, the same bits.
 template <int N, bool FAST>
 __device__ __forceinline__ float aggregate_coord(float (&v)[N],
                                                  const agg::Params& P) {
   if constexpr (FAST) {
-    static_assert(N == 8, "the fast path is vrmom at m = 8, K = 8");
-    return agg::vrmom8(v, P);
+    static_assert(N == 8, "the fast instance is vrmom at m = 8, K = 8");
+    return agg::aggregate_values<8, 8, 8>(v, P);
   } else {
     return agg::aggregate_values<N>(v, P);
   }
@@ -209,45 +217,58 @@ __device__ __forceinline__ void merge_row(const u64* __restrict__ rb,
   }
 }
 
-// grid (n_blk, B): block (t, b) aggregates coordinates
-// [t * TILE, (t + 1) * TILE) of row b, writes its best kk = min(top_k,
-// TILE) keys to rec[b][t], and the row's last block merges them.
-template <int N, typename T, int ITEMS, bool FAST>
+// grid (n_blk, B): block (t, b) aggregates the `chunks` tiles from tile
+// t * chunks on of row b (TILE coordinates each; one tile a block unless V
+// has more than kMergeLists * kTailThreads tiles), writes its best
+// kk = min(top_k, TILE) keys to rec[b][t], and the row's last block merges
+// them. Top-k over several tiles keeps the best TILE keys in keys[0, TILE)
+// and sorts each further tile's keys in with them in keys[0, 2 * TILE).
+template <int N, typename T, bool FAST>
 __global__ void __launch_bounds__(kTailThreads)
 tail_kernel(const T* __restrict__ x, T* __restrict__ agg_out,
             u64* __restrict__ rec, int* __restrict__ tickets,
             float* __restrict__ topv, int* __restrict__ topi, int B, int V,
-            int top_k, int kk, bool vec, agg::Params P) {
+            int top_k, int kk, int chunks, bool vec, agg::Params P) {
+  constexpr int ITEMS = kItems<N>;
   constexpr int TILE = kTailThreads * ITEMS;
-  extern __shared__ u64 keys[];  // [TILE], top_k > 1 only
+  extern __shared__ u64 keys[];  // [TILE] or [2 * TILE], top_k > 1 only
   __shared__ u64 red[2][kTailThreads / 32];
   __shared__ int ticket;
   const int b = blockIdx.y, n_blk = gridDim.x;
-  const int v0 = blockIdx.x * TILE + threadIdx.x * ITEMS;
   const long long stride = (long long)B * V;
 
-  float vals[ITEMS][N];
-  load_items<N, T, ITEMS>(x + (long long)b * V, stride, v0, V, vec,
-                          FAST ? N : P.m, vals);
   u64 best = 0;
+#pragma unroll 1
+  for (int c = 0; c < chunks; ++c) {
+    const long long t0 = ((long long)blockIdx.x * chunks + c) * TILE;
+    if (t0 >= V) break;  // the same for every thread of the block
+    const int v0 = (int)t0 + threadIdx.x * ITEMS;
+    float vals[ITEMS][N];
+    load_items<N, T, ITEMS>(x + (long long)b * V, stride, v0, V, vec,
+                            FAST ? N : P.m, vals);
+    u64* tile_keys = keys + (c == 0 ? 0 : TILE);
 #pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    u64 key = 0;
-    if (v0 + j < V) {
-      const float a = aggregate_coord<N, FAST>(vals[j], P);
-      if (agg_out != nullptr)
-        kern::store(agg_out + (long long)b * V + v0 + j, a);
-      key = pack(a, v0 + j);
+    for (int j = 0; j < ITEMS; ++j) {
+      u64 key = 0;
+      if (v0 + j < V) {
+        const float a = aggregate_coord<N, FAST>(vals[j], P);
+        if (agg_out != nullptr)
+          kern::store(agg_out + (long long)b * V + v0 + j, a);
+        key = pack(a, v0 + j);
+      }
+      if (top_k == 1) best = umax(best, key);
+      else tile_keys[threadIdx.x * ITEMS + j] = key;
     }
-    if (top_k == 1) best = umax(best, key);
-    else keys[threadIdx.x * ITEMS + j] = key;
+    if (top_k > 1) {
+      if (c == 0) block_sort_desc<TILE, kTailThreads>(keys);
+      else block_sort_desc<2 * TILE, kTailThreads>(keys);
+    }
   }
   u64* rb = rec + (long long)b * n_blk * kk;
   if (top_k == 1) {
     best = block_max<kTailThreads>(best, red[0]);
     if (threadIdx.x == 0) rb[blockIdx.x] = best;
   } else {
-    block_sort_desc<TILE, kTailThreads>(keys);
     for (int r = threadIdx.x; r < kk; r += kTailThreads)
       rb[(long long)blockIdx.x * kk + r] = keys[r];
   }
@@ -306,18 +327,33 @@ struct TailArgs {
   cudaStream_t s;
 };
 
-template <int N, typename T, int ITEMS, bool FAST = false>
+// The grid of plan_tail (vrmom.py): tiles of TILE coordinates, `chunks`
+// tiles a block so that a row has at most kMergeLists * kTailThreads
+// blocks, as few blocks as that allows.
+struct TailGrid {
+  int chunks, n_blk;
+};
+
+inline TailGrid tail_grid(int V, int tile) {
+  const int n_tiles = (V + tile - 1) / tile;
+  const int cap = kMergeLists * kTailThreads;
+  const int chunks = (n_tiles + cap - 1) / cap;
+  return {chunks, (n_tiles + chunks - 1) / chunks};
+}
+
+template <int N, typename T, bool FAST = false>
 void launch_tail(const TailArgs& a, const agg::Params& P) {
+  constexpr int ITEMS = kItems<N>;
   constexpr int TILE = kTailThreads * ITEMS;
-  const int n_blk = (a.V + TILE - 1) / TILE;
+  const TailGrid g = tail_grid(a.V, TILE);
   const int kk = a.top_k < TILE ? a.top_k : TILE;
   const bool vec = a.V % ITEMS == 0 &&
       reinterpret_cast<uintptr_t>(a.x) % (ITEMS * sizeof(T)) == 0;
-  const size_t smem = a.top_k > 1 ? TILE * sizeof(u64) : 0;
-  tail_kernel<N, T, ITEMS, FAST><<<dim3(n_blk, a.B), kTailThreads, smem,
-                                   a.s>>>(
+  const size_t smem =
+      a.top_k > 1 ? (g.chunks > 1 ? 2 : 1) * TILE * sizeof(u64) : 0;
+  tail_kernel<N, T, FAST><<<dim3(g.n_blk, a.B), kTailThreads, smem, a.s>>>(
       static_cast<const T*>(a.x), static_cast<T*>(a.agg_out), a.rec,
-      a.tickets, a.topv, a.topi, a.B, a.V, a.top_k, kk, vec, P);
+      a.tickets, a.topv, a.topi, a.B, a.V, a.top_k, kk, g.chunks, vec, P);
 }
 
 template <typename T>
@@ -331,15 +367,12 @@ bool dispatch_agg(const void* x, void* out, long long C, const agg::Params& P,
   return true;
 }
 
-// items: coordinates a thread aggregates (2 or 4 for m <= 8, else 1)
 template <typename T>
-bool dispatch_tail(const TailArgs& a, const agg::Params& P, int items) {
-  if (fast_spec(P) && items == 2) launch_tail<8, T, 2, true>(a, P);
-  else if (fast_spec(P) && items == 4) launch_tail<8, T, 4, true>(a, P);
-  else if (P.m <= 8 && items == 2) launch_tail<8, T, 2>(a, P);
-  else if (P.m <= 8 && items == 4) launch_tail<8, T, 4>(a, P);
-  else if (P.m <= 32 && items == 1) launch_tail<32, T, 1>(a, P);
-  else if (P.m <= 128 && items == 1) launch_tail<128, T, 1>(a, P);
+bool dispatch_tail(const TailArgs& a, const agg::Params& P) {
+  if (fast_spec(P)) launch_tail<8, T, true>(a, P);
+  else if (P.m <= 8) launch_tail<8, T>(a, P);
+  else if (P.m <= 32) launch_tail<32, T>(a, P);
+  else if (P.m <= 128) launch_tail<128, T>(a, P);
   else return false;
   return true;
 }
@@ -362,26 +395,23 @@ int agg_launch(const void* x, void* out, int dtype, int m, long long C,
   return (int)cudaGetLastError();
 }
 
-// One launch. items: 2 or 4 at m <= 8, 1 above (plan_tail in vrmom.py).
-// rec holds B * ceil(V / (256 * items)) * min(top_k, 256 * items) keys
-// (uninitialised); tickets B int32 counters, zero on entry and left zero.
-// agg_out may be null (no [B, V] aggregate is written then). topv / topi
-// are [B, top_k].
+// One launch. rec holds B * n_blk * min(top_k, tile) keys (uninitialised),
+// with tile = 512 coordinates at m <= 8 and 256 above, and n_blk as
+// tail_grid gives it (plan_tail in vrmom.py); tickets B int32 counters,
+// zero on entry and left zero. agg_out may be null (no [B, V] aggregate is
+// written then). topv / topi are [B, top_k].
 int agg_sample_launch(const void* x, void* agg_out, void* rec, int* tickets,
                       float* topv, int* topi, int dtype, int m, int B, int V,
-                      int top_k, int items, int method, int K, int k_trim,
-                      float eps, float denom, const float* deltas,
-                      void* stream) {
+                      int top_k, int method, int K, int k_trim, float eps,
+                      float denom, const float* deltas, void* stream) {
   if (K > agg::kMaxK || top_k < 1 || top_k > V) {
     return (int)cudaErrorInvalidValue;
   }
-  const int n_blk = (V + kTailThreads * items - 1) / (kTailThreads * items);
-  if (n_blk > kMergeLists * kTailThreads) return (int)cudaErrorInvalidValue;
   const agg::Params P = make_params(m, method, K, k_trim, eps, denom, deltas);
   const TailArgs a{x, agg_out, static_cast<u64*>(rec), tickets, topv, topi,
                    B, V, top_k, static_cast<cudaStream_t>(stream)};
-  const bool ok = dtype == 0 ? dispatch_tail<float>(a, P, items)
-                             : dispatch_tail<__nv_bfloat16>(a, P, items);
+  const bool ok = dtype == 0 ? dispatch_tail<float>(a, P)
+                             : dispatch_tail<__nv_bfloat16>(a, P);
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -6,14 +6,14 @@ call ``_agg_2d``, l.142/151) and ``aggregate_sample`` replaces
 (``csrc/vrmom.cu``) call one device function, ``agg::aggregate_values``
 (``csrc/agg.cuh``), the counterpart of the TPU kernel's ``_agg_block``, so
 fused greedy tokens are bit-identical to an argmax over ``aggregate``'s
-output; at the serving spec (vrmom, m = 8, K = 8) both take its fast path
-(``agg::vrmom8``), which gives the same bits in half the instructions. A
-thread sorts the m worker values of its coordinates in registers; the
-stack is read once with coalesced loads. B4 is one launch a call: the last
-block of each row merges the row's per-tile top-k records
-(:func:`plan_tail` sizes the tiles). Both read the stack once and write
-little; at m = 8 their instructions take longer than their bytes on the
-H100 (PERF.md).
+output; at the serving spec (vrmom, m = 8, K = 8) both run its instance
+with the spec fixed at compile time (the same bits). A thread sorts the m
+worker values of its coordinates in registers; the stack is read once
+with coalesced loads. B4 is one launch a call: the last block of each row
+merges the row's per-block top-k records (:func:`plan_tail` sizes the
+grid). Both read the stack once and write little; at m = 8 the
+instructions they issue take longer than their bytes on the H100
+(PERF.md).
 
 Each wrapper launches its kernel for a CUDA tensor, raises on anything
 the kernel does not take, and counts its launches in ``.launches`` (one
@@ -45,11 +45,11 @@ _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "agg_launch": [_B.P, _B.P, _B.I, _B.I, _B.LL, _B.I, _B.I, _B.I, _B.F,
                    _B.F, _B.P, _B.P],
-    # x, agg_out, rec, tickets, topv, topi, dtype, m, B, V, top_k, items,
-    # method, K, k_trim, eps, denom, deltas, stream
+    # x, agg_out, rec, tickets, topv, topi, dtype, m, B, V, top_k, method,
+    # K, k_trim, eps, denom, deltas, stream
     "agg_sample_launch": [_B.P, _B.P, _B.P, _B.P, _B.P, _B.P, _B.I, _B.I,
-                          _B.I, _B.I, _B.I, _B.I, _B.I, _B.I, _B.I, _B.F,
-                          _B.F, _B.P, _B.P],
+                          _B.I, _B.I, _B.I, _B.I, _B.I, _B.I, _B.F, _B.F,
+                          _B.P, _B.P],
 }
 TAIL_THREADS = 256  # kTailThreads
 MERGE_LISTS = 4     # kMergeLists: record lists per thread of the merge
@@ -59,28 +59,25 @@ _STATE = {}         # (device, stream, B, V, tile, kk) -> (rec, tickets)
 
 class TailPlan(NamedTuple):
     items: int   # coordinates a thread aggregates
-    tile: int    # coordinates a block covers
+    tile: int    # coordinates a tile holds
+    chunks: int  # tiles a block aggregates in turn
     n_blk: int   # blocks per row, each leaving one record list
     kk: int      # records a block leaves: min(k, tile)
 
 
-def plan_tail(m: int, B: int, V: int, top_k: int, items=None) -> TailPlan:
-    """B4's grid for an [m, B, V] stack, 256 threads a block. Where the m
-    values of several coordinates fit in registers (m <= 8) a thread
-    aggregates 2 coordinates (one 8-byte load a row in f32), or 4 (one
-    16-byte load) from 2^21 coordinates on, where the grid runs in several
-    waves anyway; above m = 8, one. (On an H100: 2 beat 4 and 1 at
-    B = 4, 4 beat 2 at B = 32, V = 151936; PERF.md.) The last block of a
-    row follows at most 4 record lists a thread, which caps V."""
-    if items is None:
-        items = 1 if m > 8 else 4 if B * V >= 1 << 21 else 2
+def plan_tail(m: int, V: int, top_k: int) -> TailPlan:
+    """B4's grid along a row of V coordinates, 256 threads a block (the
+    same for every row; ``tail_grid`` in csrc/vrmom.cu). Where the m values
+    of two coordinates fit in registers (m <= 8) a thread aggregates 2
+    (one 8-byte load a row in f32), above m = 8 one. The row's last block
+    follows at most 4 record lists a thread, so a row has at most 1,024
+    blocks: past 1,024 tiles a block aggregates several in turn."""
+    items = 1 if m > 8 else 2
     tile = TAIL_THREADS * items
-    n_blk = -(-V // tile)
-    if n_blk > MERGE_LISTS * TAIL_THREADS:
-        raise ValueError(f"aggregate_sample: V={V} needs {n_blk} tiles of "
-                         f"{tile}; the merge takes at most "
-                         f"{MERGE_LISTS * TAIL_THREADS}")
-    return TailPlan(items, tile, n_blk, min(max(top_k, 1), tile))
+    n_tiles = -(-V // tile)
+    chunks = -(-n_tiles // (MERGE_LISTS * TAIL_THREADS))
+    return TailPlan(items, tile, chunks, -(-n_tiles // chunks),
+                    min(max(top_k, 1), tile))
 
 
 def resolve_method(method: str, beta: float, m: int):
@@ -265,7 +262,7 @@ def aggregate_sample(x, method: str = "vrmom", K: int = 10, beta: float = 0.1,
         return aggregate_sample_plain(x, method, K, k_trim, top_k, eps,
                                       with_agg)
     _check_stack(x, "aggregate_sample")
-    plan = plan_tail(m, B, V, top_k)
+    plan = plan_tail(m, V, top_k)
     d, denom = _params(method, K, m)
     dev = x.device
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -277,8 +274,7 @@ def aggregate_sample(x, method: str = "vrmom", K: int = 10, beta: float = 0.1,
     err = _lib().agg_sample_launch(
         x.data_ptr(), agg.data_ptr() if with_agg else None, rec, tickets,
         topv.data_ptr(), topi.data_ptr(), _DTYPE_ID[x.dtype], m, B, V, k,
-        plan.items, _METHOD_ID[method], K, k_trim, eps, denom, d.ctypes.data,
-        stream)
+        _METHOD_ID[method], K, k_trim, eps, denom, d.ctypes.data, stream)
     _B.check(err, "aggregate_sample")
     aggregate_sample.launches += 1
     if top_k == 0:

@@ -15,7 +15,6 @@ of the output, 2^-9 relative, and in B2 the bf16 rounding of each softmax
 weight before P.V).
 """
 import dataclasses
-import sys
 
 import numpy as np
 import pytest
@@ -23,6 +22,7 @@ import torch
 
 from repro_torch.configs import get as get_arch
 from repro_torch.core.estimator import Estimator
+from repro_torch.device import kernels_in_calls
 from repro_torch.kernels import reset_launch_counts, launch_counts
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain,
@@ -35,8 +35,6 @@ from repro_torch.kernels.vrmom import (aggregate, aggregate_plain,
                                        resolve_method)
 from repro_torch.models import model as M
 from repro_torch.serve import RobustDecodeConfig, ServeEngine
-
-vrmom_module = sys.modules["repro_torch.kernels.vrmom"]
 
 torch.set_num_threads(1)
 
@@ -109,23 +107,16 @@ def _b4_check(x, method="vrmom", K=8, beta=0.1, top_k=0, with_agg=True):
     return got
 
 
-# B4 tiles: 512 coordinates a block at m <= 8 (1024 from 2^21 coordinates
-# on), 256 above
+# B4 tiles: 512 coordinates at m <= 8, 256 above
 B4_V = (1, 7, 255, 256, 257, 511, 512, 513, 1023, 1024, 1025, 5000, 151936)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("items", [None, 4])
 @pytest.mark.parametrize("V", B4_V)
-def test_cuda_b4_ragged_vocab(cuda, V, items, monkeypatch):
+def test_cuda_b4_ragged_vocab(cuda, V):
     """Every V around the tile edges, greedy and top-k for k in {1, 2, 50,
     V}, with and without the aggregate; m = 8 (vector loads when V is
-    even) and m = 9 (a coordinate a thread). ``items=4`` holds the planner
-    to four coordinates a thread at m = 8, as it picks for large stacks."""
-    if items:
-        plan = vrmom_module.plan_tail
-        monkeypatch.setattr(vrmom_module, "plan_tail", lambda m, B, V, k: (
-            plan(m, B, V, k, items=items if m <= 8 else None)))
+    even) and m = 9 (a coordinate a thread)."""
     for m in (8, 9):
         x = _stack(V + m, (m, 4, V), cuda)
         for k in sorted({0, 1, 2, 50, V} & set(range(V + 1))):
@@ -133,6 +124,19 @@ def test_cuda_b4_ragged_vocab(cuda, V, items, monkeypatch):
                 if V == 151936 and k == V and (m == 9 or with_agg):
                     continue  # one whole-vocabulary sort is enough
                 _b4_check(x, top_k=k, with_agg=with_agg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,V", [(8, 524288), (8, 524289), (8, 600000),
+                                 (9, 262144), (9, 262145), (9, 300001)])
+def test_cuda_b4_blocks_of_several_tiles(cuda, m, V):
+    """Past 1,024 tiles a row (V > 524,288 at m <= 8, V > 262,144 above) a
+    block aggregates several tiles in turn; k = 600 keeps more keys than
+    one tile holds. Batches of 1 and 2."""
+    for B in (1, 2):
+        x = _stack(V + m + B, (m, B, V), cuda)
+        for k in (0, 1, 2, 50, 600):
+            _b4_check(x, top_k=k, with_agg=k in (0, 600))
 
 
 # a trimmed mean needs m >= 3 (one row trimmed per end, one left)
@@ -234,25 +238,12 @@ def test_cuda_b4_repeat_and_interleaved_shapes(cuda):
     _b4_check(xb, top_k=50)
 
 
-def _kernels_in_one_call(torch_, fn):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch_.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch_.cuda.synchronize()
-    return [ev.name for ev in prof.events()
-            if ev.device_type == DeviceType.CUDA]
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [0, 50])
 def test_cuda_b4_one_kernel_a_call(cuda, k):
     x = 4.0 * torch.randn((8, 4, 151936), device=cuda)
-    names = _kernels_in_one_call(torch, lambda: aggregate_sample(
-        x, "vrmom", K=8, top_k=k, with_agg=False))
+    [names] = kernels_in_calls([lambda: aggregate_sample(
+        x, "vrmom", K=8, top_k=k, with_agg=False)])
     assert len(names) == 1 and "tail_kernel" in names[0], names
 
 

@@ -216,26 +216,37 @@ def test_b4_validates():
         aggregate_sample(torch.zeros(4, 2, 8), "median", top_k=9)
 
 
-@pytest.mark.parametrize("m,B,V,top_k,plan", [
-    (8, 4, 151936, 0, (2, 512, 297, 1)),     # the serving stack, greedy
-    (8, 4, 151936, 50, (2, 512, 297, 50)),
-    (8, 32, 151936, 0, (4, 1024, 149, 1)),   # past 2^21 coordinates
-    (8, 1, 512, 512, (2, 512, 1, 512)),      # one whole tile
-    (8, 1, 513, 513, (2, 512, 2, 512)),      # k above the tile: whole tiles
-    (1, 4, 7, 2, (2, 512, 1, 2)),
-    (9, 4, 151936, 0, (1, 256, 594, 1)),     # m > 8: a coordinate a thread
-    (128, 2, 257, 50, (1, 256, 2, 50)),
-    (128, 1, 262144, 0, (1, 256, 1024, 1)),  # the widest V at m > 8
+@pytest.mark.parametrize("m,V,top_k,plan", [
+    (8, 151936, 0, (2, 512, 1, 297, 1)),     # the serving stack, greedy
+    (8, 151936, 50, (2, 512, 1, 297, 50)),
+    (8, 512, 512, (2, 512, 1, 1, 512)),      # one whole tile
+    (8, 513, 513, (2, 512, 1, 2, 512)),      # k above the tile: whole tiles
+    (1, 7, 2, (2, 512, 1, 1, 2)),
+    (9, 151936, 0, (1, 256, 1, 594, 1)),     # m > 8: a coordinate a thread
+    (128, 257, 50, (1, 256, 1, 2, 50)),
+    (128, 262144, 0, (1, 256, 1, 1024, 1)),  # 1,024 tiles: one a block
+    (9, 262145, 0, (1, 256, 2, 513, 1)),     # past 1,024: two a block
+    (8, 524289, 50, (2, 512, 2, 513, 50)),
+    (8, 600000, 0, (2, 512, 2, 586, 1)),
+    (8, 2 ** 28, 0, (2, 512, 512, 1024, 1)),
 ])
-def test_b4_plan_tail(m, B, V, top_k, plan):
-    got = plan_tail(m, B, V, top_k)
+def test_b4_plan_tail(m, V, top_k, plan):
+    got = plan_tail(m, V, top_k)
     assert tuple(got) == plan
-    assert got.tile == got.items * 256 and got.n_blk * got.tile >= V
+    assert got.tile == got.items * 256
 
 
-def test_b4_plan_tail_refuses_too_many_tiles():
-    with pytest.raises(ValueError, match="tiles"):
-        plan_tail(9, 1, 262145, 0)
+@pytest.mark.parametrize("m", [1, 8, 9, 128])
+def test_b4_plan_tail_blocks_cover_the_row(m):
+    """Every V: at most 1,024 blocks a row, each starting inside the row,
+    together covering it."""
+    for V in [1, 2, 255, 256, 257, 511, 512, 513] + [
+            t * 1024 * s + d for t in (256, 512) for s in (1, 2, 3, 7)
+            for d in (-1, 0, 1)]:
+        p = plan_tail(m, V, 0)
+        span = p.chunks * p.tile
+        assert p.n_blk <= 1024 and p.n_blk * span >= V, (m, V, p)
+        assert (p.n_blk - 1) * span < V, (m, V, p)  # no empty block
 
 
 @pytest.mark.parametrize("method,K,m", [("vrmom", 8, 8), ("vrmom", 64, 100),
