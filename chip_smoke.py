@@ -6,13 +6,15 @@
 Phase 1 builds the four CUDA kernels from the sources in the checkout
 and prints each kernel's registers, shared memory and spills. Phase 2
 holds each kernel against its plain PyTorch version at the shapes the
-serving path gives it (B1 in f32 and bf16 for all four methods; B3 also
+serving path gives it (B1 in f32 and bf16 for all four methods, also at
+K = 10, at m = 3 and 100, on a ragged C and a misaligned base; B3 also
 at every length around its 32-key chunk edges and at batch 32, bitwise
 equal to the same rows at batch 4; B2 in bf16 at every head dim with
 ragged S and T), checks that B2 and B3 give the same bits on a second
 call and that one B3 call with a python-int length, and one B4 call
 (greedy or top-50), is one device kernel, and times kernel, plain
-version and (for attention) one PyTorch library call as a yardstick.
+version and (for attention) one PyTorch library call as a yardstick, on
+device time only, each call after a read-only flush of L2.
 Phase 3 serves qwen3-1.7b at full width (28 layers, bf16, seeded random
 weights) through ``ServeEngine.generate`` with robust replicated
 decoding (m = 8 replicas, VRMOM, alpha = 0.25): greedy tokens must be
@@ -39,6 +41,10 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak
+# device spin before each timed call: ~2 ms at the H100's 1.98 GHz for a
+# kernel, ~20 ms for a plain version (many launches, more host time)
+SPIN_CYCLES = 4_000_000
+PLAIN_SPIN_CYCLES = 40_000_000
 
 # the port's kernels by their device names (csrc/*.cu)
 PORT_KERNELS = ("agg_kernel", "tail_kernel", "flash_fwd_wgmma",
@@ -66,24 +72,36 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def timed_ms(fn, torch, iters: int = 20, flush=None) -> float:
-    """Median CUDA-event time of one call; ``flush`` runs before each
-    start event so every call finds a cold L2."""
+def make_flush(torch, dev):
+    """A callable that leaves L2 cold: it sums a 128 MB buffer written once
+    here, so L2 then holds clean lines only (``scripts/kernel_ab.py
+    --flush read``; a write flush leaves dirty lines that the timed
+    kernel's loads may have to write back, PERF.md)."""
+    buf = torch.ones(32 * 2 ** 20, dtype=torch.float32, device=dev)
+    return lambda: buf.sum()
+
+
+def timed_ms(fn, torch, flush, iters: int = 20,
+             spin: int = SPIN_CYCLES) -> float:
+    """Median device time of one call, from a cold L2: the device spins
+    ``spin`` cycles after the flush and before the start event, so the
+    host has enqueued the call before the device reaches it and the
+    events bracket device work only (``scripts/kernel_ab.py``'s timer)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    pairs = []
+    times = []
     for _ in range(iters):
-        if flush is not None:
-            flush()
+        flush()
+        torch.cuda._sleep(spin)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
         e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
 
 
 def bound(nbytes: float, bf16_flops: float = 0.0):
@@ -166,11 +184,7 @@ def phase_kernels(torch, dev):
                                            aggregate_sample_plain, plan_tail)
 
     g = torch.Generator(device=dev).manual_seed(1234)
-    scratch = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
-
-    def flush():
-        scratch.fill_(1)
-
+    flush = make_flush(torch, dev)
     rec = {}
     V = 151936
 
@@ -209,10 +223,11 @@ def phase_kernels(torch, dev):
     # other worker counts and bf16
     for m, C in ((3, 4 * 4096), (100, 65536)):
         xm = torch.randn((m, C), generator=g, device=dev)
-        for method in ("vrmom", "median"):
-            require(torch.equal(aggregate(xm, method, K=8),
-                                aggregate_plain(xm, method, K=8)),
-                    f"B1 {method} at m={m} differs from its plain version")
+        for method, Kq in (("vrmom", 8), ("vrmom", 10), ("median", 8)):
+            require(torch.equal(aggregate(xm, method, K=Kq),
+                                aggregate_plain(xm, method, K=Kq)),
+                    f"B1 {method} K={Kq} at m={m} differs from its plain "
+                    f"version")
     xb = x.to(torch.bfloat16)
     for method in ("vrmom", "median", "trimmed_mean", "mean"):
         outb = aggregate(xb, method, K=8, beta=0.25)
@@ -221,17 +236,32 @@ def phase_kernels(torch, dev):
             outb, aggregate_plain(xb.reshape(8, -1), method, K=8,
                                   k_trim=k_trim).reshape(4, V)),
             f"B1 {method} on a bf16 stack differs from its plain version")
+    # K = 10 (the Estimator's default), C not a multiple of the vector
+    # width, and a stack whose base is not 16-byte aligned
+    buf = torch.randn(8 * (V + 1) + 1, generator=g, device=dev)
+    for what, xs, Kq in (
+            ("K=10", x2, 10),
+            (f"C={V + 1}", buf[:8 * (V + 1)].view(8, V + 1), 8),
+            ("misaligned base", buf[1:1 + 8 * V].view(8, V), 8)):
+        for method in ("vrmom", "median", "trimmed_mean", "mean"):
+            k_trim = 2 if method == "trimmed_mean" else 0
+            require(torch.equal(aggregate(xs, method, K=Kq, beta=0.25),
+                                aggregate_plain(xs, method, K=Kq,
+                                                k_trim=k_trim)),
+                    f"B1 {method} ({what}) differs from its plain version")
     plan = plan_tail(8, V, 50)
     print(f"[B1/B4] exact against the plain versions: {json.dumps(errs)}; "
-          f"fused greedy == argmax(B1) == plain tail; top-50 order equal; "
+          f"also at K=10, m=3, m=100, bf16, C={V + 1} and a misaligned "
+          f"base; fused greedy == argmax(B1) == plain tail; top-50 order "
+          f"equal; "
           f"B4 tiles of {plan.tile} coordinates, {plan.n_blk} blocks a row, "
           f"{8 * plan.tile} bytes of dynamic shared memory a block for "
           f"top-k")
 
     stack_bytes = x.numel() * 4
-    t_b1 = timed_ms(lambda: aggregate(x, "vrmom", K=8), torch, flush=flush)
+    t_b1 = timed_ms(lambda: aggregate(x, "vrmom", K=8), torch, flush)
     t_b1p = timed_ms(lambda: aggregate_plain(x2, "vrmom", K=8), torch,
-                     iters=5, flush=flush)
+                     flush, iters=5, spin=PLAIN_SPIN_CYCLES)
     b1_bound = bound(stack_bytes + 4 * V * 4)
     rec["aggregate"] = dict(
         name="B1 aggregate (vrmom, m=8, [8,4,151936] f32)", route="cuda",
@@ -241,10 +271,10 @@ def phase_kernels(torch, dev):
         bound_ms=b1_bound[0], bound_by=b1_bound[1], library_ms=None)
     t_b4 = timed_ms(lambda: aggregate_sample(x, "vrmom", K=8,
                                              with_agg=False),
-                    torch, flush=flush)
+                    torch, flush)
     t_b4p = timed_ms(lambda: aggregate_sample_plain(x, "vrmom", K=8,
                                                     with_agg=False),
-                     torch, iters=5, flush=flush)
+                     torch, flush, iters=5, spin=PLAIN_SPIN_CYCLES)
     b4_bound = bound(stack_bytes + 4 * 4)
     rec["aggregate_sample"] = dict(
         name="B4 aggregate_sample (vrmom greedy, m=8, [8,4,151936] f32)",
@@ -290,12 +320,12 @@ def phase_kernels(torch, dev):
           f"dh 32/64/128 at S,T = 100,150 and 193,193, causal and not, ok; "
           f"{smem} bytes of dynamic shared memory per block at dh 128")
     t_b2 = timed_ms(lambda: flash_attention(q, k, v, causal=True), torch,
-                    flush=flush)
+                    flush)
     t_b2p = timed_ms(lambda: flash_attention_plain(q, k, v, causal=True),
-                     torch, iters=5, flush=flush)
+                     torch, flush, iters=5, spin=PLAIN_SPIN_CYCLES)
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
     t_b2l = timed_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), torch, flush=flush)
+        qt, kt, vt, is_causal=True, enable_gqa=True), torch, flush)
     pairs = 4 * 16 * sum(min(i + 1, 192) for i in range(192))
     b2_bound = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
                      4 * 128 * pairs)
@@ -384,13 +414,13 @@ def phase_kernels(torch, dev):
     print("[one call = one device kernel] " + "; ".join(
         f"{what}: {names[0][:60]}"
         for what, names in zip(one_kernel, per_call)))
-    t_b3 = timed_ms(lambda: decode_attention(qd, kc, vc), torch, flush=flush)
+    t_b3 = timed_ms(lambda: decode_attention(qd, kc, vc), torch, flush)
     full = lengths(None, 4, T, dev)
     t_b3p = timed_ms(lambda: decode_attention_plain(qd, kc, vc, full), torch,
-                     iters=10, flush=flush)
+                     flush, iters=10, spin=PLAIN_SPIN_CYCLES)
     qdt, kct, vct = (a.transpose(1, 2).contiguous() for a in (qd, kc, vc))
     t_b3l = timed_ms(lambda: F.scaled_dot_product_attention(
-        qdt, kct, vct, enable_gqa=True), torch, flush=flush)
+        qdt, kct, vct, enable_gqa=True), torch, flush)
     b3_bound = bound(2 * (kc.numel() + vc.numel() + 2 * qd.numel()),
                      4 * 128 * 16 * 4 * T)
     rec["decode_attention"] = dict(
@@ -400,7 +430,6 @@ def phase_kernels(torch, dev):
         replaces="src/repro/kernels/decode_attention.py:158",
         max_abs_err=e3, ms=t_b3, plain_ms=t_b3p, bound_ms=b3_bound[0],
         bound_by=b3_bound[1], library_ms=t_b3l)
-    del scratch
     return rec
 
 

@@ -9,22 +9,32 @@ working tree: run parent, change, change, parent, each in its own
 process. Builds that checkout's kernels, then prints one JSON line at the
 serving shapes:
 
-- B1: vrmom (K = 8) over an [8, 4, 151936] f32 logit stack (the unfused
-  robust tail);
+- B1: vrmom over an [8, 4, 151936] logit stack (the unfused robust tail)
+  at K = 8 in f32 and bf16 and at K = 10 in f32, and over a [100, 65536]
+  f32 stack at K = 10 (the paper path's spec, m = 100);
 - B4: the same stack, greedy and top-50, without the [B, V] aggregate
   (the fused robust tail), and greedy over [8, 32, 151936]; beside
   them ``stack_sum_*``, one ``torch.sum`` over the stack's worker axis,
-  the time a library kernel takes to read the same bytes;
+  and ``stack_read_b4``, one ``torch.sum`` over all of it (a contiguous
+  read), the time a library kernel takes to read the same bytes;
 - B2: causal, q [4,192,16,128], k/v [4,192,8,128] bf16 (prefill);
 - B3: q [4,1,16,128] over a [4,216,8,128] bf16 cache, python-int length
   216 (a decode step), and the same at batch 32 (the replicated path).
+
+With B1 it also logs the card's SM clock under B1's load: B1 runs back
+to back for ~3 s over a [8, 64 * 151936] f32 stack while ``nvidia-smi``
+samples the clock every 50 ms (``b1_load_*``), so a time can be read
+against the clock the card held, not its 1.98 GHz boost.
 
 ``*_ms`` is device time: the median of CUDA events around one call, with
 a cold L2 and the device spinning ~2 ms before the start event, so the
 host has enqueued the call before the device reaches it and the events
 bracket device work only (one SDPA call on the same inputs is timed the
-same way). ``chip_smoke.py`` times with events alone, so a wrapper whose
-host time exceeds its kernel's counts there. ``*_host_us`` is the
+same way; ``chip_smoke.py`` times the same way). ``--flush read`` (the
+default) empties L2 by reading a 128 MB buffer written once at set-up,
+which leaves L2 holding clean lines only; ``--flush fill`` writes 64 MB
+(the earlier timer), which leaves up to 50 MB of dirty lines that a
+kernel's loads may have to write back first. ``*_host_us`` is the
 wrapper's host time per call: the device spins ~50 ms, long enough that
 no call waits on it, while the host makes 200 calls. ``--only b1b4``
 or ``--only attn`` times one group.
@@ -43,6 +53,17 @@ SPIN_CYCLES = 4_000_000      # ~2 ms of device spin at the H100's 1.98 GHz
 HOST_SPIN_CYCLES = 100_000_000
 HOST_CALLS = 200
 V = 151936                   # qwen3 vocabulary
+
+
+def make_flush(torch, dev, how: str):
+    """A callable that leaves L2 cold: ``read`` sums a 128 MB buffer
+    written once here (L2 then holds clean lines only); ``fill`` writes
+    64 MB (L2 then holds up to 50 MB of dirty lines)."""
+    if how == "read":
+        buf = torch.ones(32 * 2 ** 20, dtype=torch.float32, device=dev)
+        return lambda: buf.sum()
+    buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    return lambda: buf.fill_(1)
 
 
 def device_ms(fn, torch, flush, iters: int = 50) -> float:
@@ -78,6 +99,47 @@ def host_us(fn, torch, reps: int = 5) -> float:
     return statistics.median(per_call)
 
 
+def loaded_clock(out, torch, dev, g, seconds: float = 3.0) -> None:
+    """B1 back to back over a large stack while nvidia-smi samples the SM
+    clock and the power draw; the first and last sixth of the samples
+    (ramping) are dropped."""
+    from repro_torch.kernels.vrmom import aggregate
+
+    x = 4.0 * torch.randn((8, 64 * V), generator=g, device=dev)
+    aggregate(x, "vrmom", K=8)
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        time.sleep(0.5)
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        t0, n = time.perf_counter(), 0
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(20):
+                aggregate(x, "vrmom", K=8)
+            n += 20
+            torch.cuda.synchronize()
+        e.record()
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+    rows = [[float(v) for v in line.split(",")]
+            for line in smi.communicate()[0].splitlines()
+            if line.strip() and "N/A" not in line]
+    rows = rows[len(rows) // 6:len(rows) - len(rows) // 6]
+    out["b1_load_us_per_call"] = s.elapsed_time(e) * 1e3 / n
+    if not rows:  # nvidia-smi gave no reading
+        return
+    clk = sorted(r[0] for r in rows)
+    out["b1_load_sm_mhz_median"] = statistics.median(clk)
+    out["b1_load_sm_mhz_range"] = [clk[0], clk[-1]]
+    out["b1_load_sm_mhz_max"] = rows[0][1]
+    out["b1_load_power_w_median"] = statistics.median(r[2] for r in rows)
+
+
 def time_b1b4(out, torch, dev, g, flush) -> None:
     from repro_torch.kernels.vrmom import aggregate, aggregate_sample
 
@@ -86,7 +148,10 @@ def time_b1b4(out, torch, dev, g, flush) -> None:
         calls = {f"b4_b{B}_greedy": lambda x=x: aggregate_sample(
             x, "vrmom", K=8, with_agg=False)}
         if B == 4:
+            xb = x.to(torch.bfloat16)
             calls["b1_b4"] = lambda: aggregate(x, "vrmom", K=8)
+            calls["b1_b4_k10"] = lambda: aggregate(x, "vrmom", K=10)
+            calls["b1_b4_bf16"] = lambda: aggregate(xb, "vrmom", K=8)
             calls["b4_b4_top50"] = lambda: aggregate_sample(
                 x, "vrmom", K=8, top_k=50, with_agg=False)
         for name, fn in calls.items():
@@ -95,6 +160,13 @@ def time_b1b4(out, torch, dev, g, flush) -> None:
         # a yardstick of the read alone: one PyTorch reduction of the stack
         out[f"stack_sum_b{B}_ms"] = device_ms(lambda x=x: x.sum(0), torch,
                                               flush)
+        if B == 4:
+            out["stack_read_b4_ms"] = device_ms(lambda: x.sum(), torch,
+                                                flush)
+    x = torch.randn((100, 65536), generator=g, device=dev)
+    out["b1_m100_k10_ms"] = device_ms(lambda: aggregate(x, "vrmom", K=10),
+                                      torch, flush)
+    loaded_clock(out, torch, dev, g)
 
 
 def time_attn(out, torch, dev, g, flush) -> None:
@@ -137,6 +209,7 @@ def main() -> int:
     ap.add_argument("--src", required=True, help="a checkout's src directory")
     ap.add_argument("--tag", default="")
     ap.add_argument("--only", choices=("b1b4", "attn"), default=None)
+    ap.add_argument("--flush", choices=("read", "fill"), default="read")
     args = ap.parse_args()
     import torch
 
@@ -149,12 +222,8 @@ def main() -> int:
     build.build_all()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    scratch = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
-
-    def flush():
-        scratch.fill_(1)
-
-    out = {"tag": args.tag, "src": args.src,
+    flush = make_flush(torch, dev, args.flush)
+    out = {"tag": args.tag, "src": args.src, "flush": args.flush,
            "card": subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"], capture_output=True, text=True

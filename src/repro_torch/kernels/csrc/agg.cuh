@@ -9,7 +9,8 @@
 // owns whole coordinates: it holds the m worker values of one coordinate
 // in registers, sorts them with a compile-time network over a width N
 // (padded with NaN, which sorts past the m real rows), and evaluates the
-// estimator in f32.
+// estimator in f32. The networks are Batcher's: 19 comparators at N = 8,
+// 191 at N = 32, 1,471 at N = 128.
 //
 // The sort is the plain version's (torch.sort): NaN ranks above every
 // number, so a NaN row sorts last and counts like any other. Each
@@ -24,6 +25,19 @@
 // z <= Delta_k, and out = med - s * total / (m * psi_sum(K)) with the
 // denominator one f32 computed on the host; s <= eps returns the median.
 // Built with --fmad=false so no multiply-add is contracted.
+//
+// The count of z <= Delta_k runs on the FP32 adders, not on compares (on
+// sm_90 compares, min/max and integer adds issue at half the rate of an
+// FP32 add): with S = 2^s large enough that every float z != Delta_k has
+// |z - Delta_k| >= 1 / S (s = 24 - the least exponent of a nonzero
+// delta), z' = z * S and Delta'_k = Delta_k * S are exact (an overflow of
+// z' keeps its sign against a finite Delta'_k), so fl(z' - Delta'_k) is 0
+// where z == Delta_k and at least 1 in size elsewhere, and saturating it
+// to [0, 1] gives [z > Delta_k] exactly. A NaN z is taken as +inf first
+// (above every delta, as the brute count has it: NaN <= Delta is false).
+// An odd K has the delta 0, whose neighbours are subnormal: there
+// [z > 0] is the saturation of z' * 2^126 * 2^126. The count is
+// m * K - sum [z > Delta_k], the brute count's integer on every input.
 #pragma once
 
 #include "common.cuh"
@@ -42,7 +56,10 @@ struct Params {
   int k_trim;     // trimmed mean: rows dropped at each end
   float eps;      // degenerate-scale guard
   float denom;    // f32(m * psi_sum(K)), computed in float64 on the host
-  float deltas[kMaxK];  // f32(ndtri(k / (K + 1))), k = 1..K, ascending
+  float scale;    // S = 2^s (the count's scale)
+  int zero_k;     // the k with Delta_k == 0 (odd K), else -1
+  // f32(ndtri(k / (K + 1))) * S, k = 1..K, ascending
+  float table[kMaxK];
 };
 
 __device__ __forceinline__ float nan_f32() { return __int_as_float(0x7fffffff); }
@@ -55,10 +72,36 @@ __device__ __forceinline__ void cmpx(float& a, float& b) {
   b = hi;
 }
 
+// Batcher's odd-even merge of v[LO, LO + LEN), whose two halves are
+// sorted, comparing elements R apart and then, recursively, the odd and
+// even subsequences.
+template <int N, int LO, int LEN, int R>
+__device__ __forceinline__ void batcher_merge(float (&v)[N]) {
+  constexpr int STEP = 2 * R;
+  if constexpr (STEP < LEN) {
+    batcher_merge<N, LO, LEN, STEP>(v);
+    batcher_merge<N, LO + R, LEN, STEP>(v);
+#pragma unroll
+    for (int i = LO + R; i + R < LO + LEN; i += STEP) cmpx(v[i], v[i + R]);
+  } else {
+    cmpx(v[LO], v[LO + R]);
+  }
+}
+
+template <int N, int LO, int LEN>
+__device__ __forceinline__ void batcher_sort(float (&v)[N]) {
+  if constexpr (LEN > 1) {
+    batcher_sort<N, LO, LEN / 2>(v);
+    batcher_sort<N, LO + LEN / 2, LEN / 2>(v);
+    batcher_merge<N, LO, LEN, 1>(v);
+  }
+}
+
 // Sorts v ascending, NaN last. Every compare-exchange orders NaN, so any
 // sorting network gives the same sorted values.
 template <int N>
 __device__ __forceinline__ void sort_network(float (&v)[N]) {
+  static_assert((N & (N - 1)) == 0, "the networks sort powers of two");
   if constexpr (N == 8) {
     // Batcher's merge-exchange network: 19 comparators, depth 6
     cmpx(v[0], v[2]); cmpx(v[1], v[3]); cmpx(v[4], v[6]); cmpx(v[5], v[7]);
@@ -68,14 +111,8 @@ __device__ __forceinline__ void sort_network(float (&v)[N]) {
     cmpx(v[1], v[4]); cmpx(v[3], v[6]);
     cmpx(v[1], v[2]); cmpx(v[3], v[4]); cmpx(v[5], v[6]);
   } else {
-    // odd-even transposition sort: N phases, alternating even and odd pairs
-#pragma unroll 1
-    for (int p = 0; p < N; p += 2) {
-#pragma unroll
-      for (int i = 0; i + 1 < N; i += 2) cmpx(v[i], v[i + 1]);
-#pragma unroll
-      for (int i = 1; i + 1 < N; i += 2) cmpx(v[i], v[i + 1]);
-    }
+    // odd-even merge sort: 191 comparators at N = 32, 1,471 at N = 128
+    batcher_sort<N, 0, N>(v);
   }
 }
 
@@ -96,12 +133,12 @@ __device__ __forceinline__ float median_sorted(const float (&v)[N], int m) {
 // Aggregate v[0..m) (m <= N); v[m..N) is scratch. v is clobbered.
 // M and KK, where not 0, fix a vrmom spec at compile time, m = M and
 // K = KK: the serving spec (m = K = 8) is such an instance, with no
-// branch on the method, the median indices folded and the count of
-// z <= Delta_k unrolled. Its bits are those of the instance that reads the
-// spec from P.
+// branch on the method, the median indices folded and the count
+// unrolled. Its bits are those of the instance that reads the spec from P.
 template <int N, int M = 0, int KK = 0>
 __device__ __forceinline__ float aggregate_values(float (&v)[N],
                                                   const Params& P) {
+  static_assert(KK % 2 == 0, "an odd K has a zero delta: runtime K only");
   const int method = KK ? kVrmom : P.method;
   const int m = M ? M : P.m;
   const int K = KK ? KK : P.K;
@@ -131,14 +168,35 @@ __device__ __forceinline__ float aggregate_values(float (&v)[N],
   sort_network<N>(dev);
   const float s = median_sorted<N>(dev, m) / kMadConst;
   const float sd = fmaxf(s, P.eps);
-  int count = 0;
+  // v <- z * S, NaN as +inf; gt <- sum over rows and k of [z > Delta_k]
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    if (i < m) {
-      const float z = (v[i] - med) / sd;
-      for (int k = 0; k < K; ++k) count += z <= P.deltas[k];
+  for (int i = 0; i < N; ++i)
+    if (i < m) v[i] = fminf((v[i] - med) / sd * P.scale, INFINITY);
+  float gt = 0.f;
+  if constexpr (KK != 0) {
+#pragma unroll
+    for (int k = 0; k < KK; ++k) {
+      const float d = P.table[k];
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        if (i < m) gt += __saturatef(v[i] - d);
+    }
+  } else {
+#pragma unroll 1
+    for (int k = 0; k < K; ++k) {
+      const float d = P.table[k];
+      if (k != P.zero_k) {
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+          if (i < m) gt += __saturatef(v[i] - d);
+      } else {
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+          if (i < m) gt += __saturatef(v[i] * 0x1p126f * 0x1p126f);
+      }
     }
   }
+  const int count = m * K - (int)gt;
   // sum over rows of (count_i - K/2): a half-integer, exact in f32
   const float total = 0.5f * (float)(2 * count - m * K);
   const float out = med - s * total / P.denom;

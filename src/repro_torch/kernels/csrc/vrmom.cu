@@ -2,9 +2,9 @@
 //
 // B1 `agg_kernel` replaces `_agg_2d` / `_kernel` of repro/kernels/vrmom.py
 // (the Pallas call at l.151): median / vrmom / trimmed_mean / mean of an
-// [m, C] stack over axis 0. One thread per coordinate, through
-// agg::aggregate_values of agg.cuh (at the serving spec, vrmom at m = 8,
-// K = 8, its instance with the spec fixed at compile time: the same bits).
+// [m, C] stack over axis 0, through agg::aggregate_values of agg.cuh (at
+// the serving spec, vrmom at m = 8, K = 8, its instance with the spec fixed
+// at compile time: the same bits).
 //
 // B4 `tail_kernel` replaces `_tail_3d` / `_tail_kernel` (the Pallas call
 // at l.269): the same aggregate of an [m, B, V] logit stack, then greedy
@@ -27,9 +27,15 @@
 //
 // Bound on the H100: both kernels read the stack once (m * C * 4 bytes for
 // f32) and write little (B1: C values; B4: k ids per row, plus the [B, V]
-// aggregate only when asked): the bytes bound both. The instructions this
-// build issues for a coordinate's sort and estimate take longer than the
-// bytes at m = 8, though the estimator itself needs fewer (PERF.md).
+// aggregate only when asked): the bytes bound both. At the serving shape
+// neither comes near it, nor does a torch.sum over the same stack; what
+// holds them there is not measured (PERF.md).
+// Design of B1: a thread a coordinate, a block 256 of them, each thread
+// loading its coordinate's m values itself (coalesced across the warp),
+// so the registers stay few (27 at the serving spec) and the hardware's
+// block scheduler overlaps one block's loads with another's arithmetic.
+// Neither a persistent grid nor a shared-memory copy pipeline beat it
+// (PERF.md).
 // Design of B4: a thread loads every row of its coordinates (2 at m <= 8,
 // one 8-byte load a row along V in f32; 1 above) before it sorts any, so
 // each thread keeps m * 2 loads in flight; no intermediate but the
@@ -37,6 +43,8 @@
 // at most kMergeLists record lists a thread, so where V has more than
 // kMergeLists * kTailThreads tiles a block covers several tiles in turn
 // and keeps their best keys.
+#include <algorithm>
+#include <cmath>
 #include <cstdint>
 
 #include "agg.cuh"
@@ -124,10 +132,11 @@ __device__ __forceinline__ float aggregate_coord(float (&v)[N],
   }
 }
 
+// Block b aggregates coordinates [b * kAggThreads, ...), a thread one.
 template <int N, typename T, bool FAST>
 __global__ void __launch_bounds__(kAggThreads)
 agg_kernel(const T* __restrict__ x, T* __restrict__ out, long long C,
-           agg::Params P) {
+           const __grid_constant__ agg::Params P) {
   const long long c = (long long)blockIdx.x * kAggThreads + threadIdx.x;
   if (c >= C) return;
   float v[N];
@@ -228,7 +237,8 @@ __global__ void __launch_bounds__(kTailThreads)
 tail_kernel(const T* __restrict__ x, T* __restrict__ agg_out,
             u64* __restrict__ rec, int* __restrict__ tickets,
             float* __restrict__ topv, int* __restrict__ topi, int B, int V,
-            int top_k, int kk, int chunks, bool vec, agg::Params P) {
+            int top_k, int kk, int chunks, bool vec,
+            const __grid_constant__ agg::Params P) {
   constexpr int ITEMS = kItems<N>;
   constexpr int TILE = kTailThreads * ITEMS;
   extern __shared__ u64 keys[];  // [TILE] or [2 * TILE], top_k > 1 only
@@ -299,7 +309,22 @@ agg::Params make_params(int m, int method, int K, int k_trim, float eps,
   P.k_trim = k_trim;
   P.eps = eps;
   P.denom = denom;
-  for (int k = 0; k < agg::kMaxK; ++k) P.deltas[k] = k < K ? deltas[k] : 0.f;
+  // the count's scale: 2^(24 - the least exponent of a nonzero delta), so
+  // that a float z != Delta_k lies at least 1 / S from it
+  int e_min = 0;
+  P.zero_k = -1;
+  for (int k = 0; k < K && method == agg::kVrmom; ++k) {
+    if (deltas[k] == 0.f) {
+      P.zero_k = k;
+      continue;
+    }
+    int e = 0;
+    std::frexp(deltas[k], &e);  // |delta| in [2^(e-1), 2^e)
+    e_min = std::min(e_min, e - 1);
+  }
+  P.scale = std::ldexp(1.f, 24 - e_min);
+  for (int k = 0; k < agg::kMaxK; ++k)
+    P.table[k] = k < K ? deltas[k] * P.scale : 0.f;
   return P;
 }
 

@@ -9,11 +9,12 @@ fused greedy tokens are bit-identical to an argmax over ``aggregate``'s
 output; at the serving spec (vrmom, m = 8, K = 8) both run its instance
 with the spec fixed at compile time (the same bits). A thread sorts the m
 worker values of its coordinates in registers; the stack is read once
-with coalesced loads. B4 is one launch a call: the last block of each row
-merges the row's per-block top-k records (:func:`plan_tail` sizes the
-grid). Both read the stack once and write little; at m = 8 the
-instructions they issue take longer than their bytes on the H100
-(PERF.md).
+with coalesced loads, a thread a coordinate in B1. B4 is one launch a
+call: the last block of each row merges the row's per-block top-k
+records (:func:`plan_tail` sizes the grid). Both read the stack once and
+write little, so their bound on the H100 is their bytes; at the serving
+shape both take well over twice that, and what holds them there is not
+measured (PERF.md).
 
 Each wrapper launches its kernel for a CUDA tensor, raises on anything
 the kernel does not take, and counts its launches in ``.launches`` (one
@@ -43,6 +44,7 @@ MAX_K = 64   # agg::kMaxK
 _METHOD_ID = {"mean": 0, "median": 1, "trimmed_mean": 2, "vrmom": 3}
 _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
+    # x, out, dtype, m, C, method, K, k_trim, eps, denom, deltas, stream
     "agg_launch": [_B.P, _B.P, _B.I, _B.I, _B.LL, _B.I, _B.I, _B.I, _B.F,
                    _B.F, _B.P, _B.P],
     # x, agg_out, rec, tickets, topv, topi, dtype, m, B, V, top_k, method,
@@ -225,8 +227,11 @@ def aggregate(x, method: str = "vrmom", K: int = 10, beta: float = 0.1,
     _check_stack(x, "aggregate")
     d, denom = _params(method, K, m)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    C = x[0].numel()
+    if C == 0:
+        return out
     err = _lib().agg_launch(
-        x.data_ptr(), out.data_ptr(), _DTYPE_ID[x.dtype], m, x[0].numel(),
+        x.data_ptr(), out.data_ptr(), _DTYPE_ID[x.dtype], m, C,
         _METHOD_ID[method], K, k_trim, eps, denom, d.ctypes.data,
         _B.stream_handle(x.device))
     _B.check(err, "aggregate")

@@ -65,6 +65,167 @@ def test_cuda_b1_matches_plain(cuda, method, m):
     torch.testing.assert_close(got.reshape(-1), want, rtol=0, atol=0)
 
 
+def _b1_same(x2, method, K=8, beta=None):
+    """B1 against its plain version on an [m, C] stack, bitwise (NaN at
+    the same places)."""
+    m = x2.shape[0]
+    if beta is None:
+        beta = 0.1 if m >= 10 else 1.0 / m + 1e-6
+    _, k_trim = resolve_method(method, beta, m)
+    got = aggregate(x2, method, K=K, beta=beta)
+    assert got.dtype == x2.dtype
+    _same(got, aggregate_plain(x2, method, K=K, k_trim=k_trim))
+    return got
+
+
+# C around B1's tiles of 256 coordinates and around widths of 16 bytes
+# (4 f32, 8 bf16)
+B1_C = (1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 255, 256, 257, 1023, 1024,
+        1025, 4 * 151936 - 1, 4 * 151936, 4 * 151936 + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", B1_C)
+def test_cuda_b1_ragged_and_misaligned(cuda, C, dtype):
+    """C around 16-byte widths and the tile's span, and the same stacks
+    at a base one element past 16-byte alignment, m = 7 and 8, every
+    method."""
+    dt = getattr(torch, dtype)
+    for m in (7, 8):
+        buf = _stack(C + m, (m * C + 1,), cuda).to(dt)
+        for x2 in (buf[:m * C].view(m, C), buf[1:].view(m, C)):
+            for method in METHODS:
+                _b1_same(x2, method)
+            _b1_same(x2, "vrmom", K=10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 7, 8, 9, 31, 32, 33, 100, 128])
+def test_cuda_b1_worker_counts_and_levels(cuda, m):
+    """Every sorting network's width and its edges, K in {1, 8, 10, 64}
+    (K = 1: the zero delta of an odd K), every method, f32 and bf16."""
+    x = _stack(m, (m, 3001), cuda)
+    for dt in (torch.float32, torch.bfloat16):
+        xd = x.to(dt)
+        for method in METHODS:
+            if method == "trimmed_mean" and m < 3:
+                continue
+            for K in ((1, 8, 10, 64) if method == "vrmom" else (8,)):
+                _b1_same(xd, method, K=K)
+
+
+def _delta_edge_stack(K, C, seed, device):
+    """[8, C] stacks whose plain z meet the deltas exactly: rows
+    (lo, -kMad, -kMad, -p, p, kMad, kMad, hi) in a shuffled order give
+    med = 0 and MAD = kMad, so s = 1 and z = x; p is a positive delta
+    below kMad, lo and hi deltas or their neighbours one ulp away."""
+    from repro_torch.core.vrmom import _MAD_CONST, deltas
+
+    rng = np.random.RandomState(seed)
+    d = deltas(K).astype(np.float32)
+    kmad = np.float32(_MAD_CONST)
+    p = rng.choice(d[(d > 0) & (d < kmad)], C)
+
+    def near(v):
+        step = rng.randint(-1, 2, v.shape)
+        return np.where(step < 0, np.nextafter(v, np.float32(-np.inf)),
+                        np.where(step > 0, np.nextafter(v, np.float32(
+                            np.inf)), v)).astype(np.float32)
+
+    lo = near(rng.choice(d[d < -kmad], C))
+    hi = near(rng.choice(d[d > kmad], C))
+    rows = np.stack([lo, -kmad + 0 * p, -kmad + 0 * p, -p, p, kmad + 0 * p,
+                     kmad + 0 * p, hi]).astype(np.float32)
+    for c in range(C):
+        rows[:, c] = rows[rng.permutation(8), c]
+    return torch.from_numpy(rows).to(device), d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [8, 10])
+def test_cuda_b1_count_at_delta_edges(cuda, K):
+    """z == Delta_k bit for bit (the <= edge of the count, where the
+    saturating add gives 0), at
+    the serving instance (K = 8) and the runtime-K one; B4's aggregate
+    and greedy pick agree."""
+    x2, d = _delta_edge_stack(K, 4096, K, cuda)
+    # the plain version's z are the stack itself (med 0, s 1): many meet a
+    # delta exactly
+    xs = torch.sort(x2.cpu(), dim=0).values
+    med = 0.5 * (xs[3] + xs[4])
+    assert torch.all(med == 0)
+    hits = torch.isin(x2.cpu(), torch.from_numpy(d))
+    assert hits.sum() > 4096
+    got = _b1_same(x2, "vrmom", K=K)
+    agg, tok = aggregate_sample(x2.view(8, 4, 1024), "vrmom", K=K)
+    _same(agg.reshape(-1), got)
+    assert torch.equal(tok, torch.argmax(got.view(4, 1024), -1).to(
+        torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [3, 8, 9])
+def test_cuda_b1_infinite_and_nan_medians(cuda, m):
+    """Columns whose median is +-inf or NaN, and columns with a finite
+    median but an infinite MAD (s = inf: z is +-0 or NaN, and the sign of
+    the count decides the output), mixed with ordinary ones."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    C = 4000
+    x = 4.0 * torch.randn((m, C), device=cuda, generator=g)
+    kind = torch.randint(0, 6, (C,), device=cuda, generator=g)
+    big = m // 2 + 1                       # more than half the rows
+    inf, nan = float("inf"), float("nan")
+    rows = torch.rand((m, C), device=cuda, generator=g).argsort(0) < big
+    x = torch.where(rows & (kind == 1), inf, x)    # med = +inf
+    x = torch.where(rows & (kind == 2), -inf, x)   # med = -inf
+    x = torch.where(rows & (kind == 3), nan, x)    # med = NaN
+    # kind 4: half the rows -inf, half +inf, the middle finite: s = inf
+    lo = torch.rand((m, C), device=cuda, generator=g).argsort(0)
+    x = torch.where((kind == 4) & (lo < (m - 1) // 2), -inf, x)
+    x = torch.where((kind == 4) & (lo >= m - (m - 1) // 2), inf, x)
+    x = torch.where((kind == 5) & (lo == 0), nan, x)
+    for method in METHODS:
+        for K in ((8, 10) if method == "vrmom" else (8,)):
+            _b1_same(x, method, K=K)
+            _b1_same(x.to(torch.bfloat16), method, K=K)
+    agg, tok = aggregate_sample(x.view(m, 4, C // 4), "vrmom", K=10)
+    _same(agg.reshape(-1), aggregate(x, "vrmom", K=10))
+    assert torch.equal(tok, torch.argmax(agg, -1).to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,K,dtype", [(8, 8, "float32"), (8, 10, "float32"),
+                                       (8, 8, "bfloat16"), (3, 10, "float32"),
+                                       (100, 10, "float32")])
+def test_cuda_b4_aggregate_equals_b1(cuda, m, K, dtype):
+    """B4's with_agg aggregate is B1's bitwise, and its greedy pick is
+    argmax(B1), at the serving instance and the runtime-spec ones."""
+    x = _stack(m + K, (m, 4, 5003), cuda).to(getattr(torch, dtype))
+    b1 = aggregate(x, "vrmom", K=K)
+    agg, tok = aggregate_sample(x, "vrmom", K=K)
+    _same(agg, b1)
+    # in bf16 the pick is made on the f32 aggregate, before it is rounded
+    want = (torch.argmax(b1, -1).to(torch.int32) if dtype == "float32"
+            else aggregate_sample_plain(x, "vrmom", K=K)[1])
+    assert torch.equal(tok, want)
+
+
+@pytest.mark.cuda
+def test_cuda_b1_one_kernel_a_call(cuda):
+    """The serving stack, a misaligned ragged stack and m = 100: one
+    device kernel a call."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = 4.0 * torch.randn((8, 4 * 151936), device=cuda, generator=g)
+    buf = torch.randn(8 * 1001 + 1, device=cuda, generator=g)
+    x100 = torch.randn((100, 4096), device=cuda, generator=g)
+    calls = [lambda: aggregate(x, "vrmom", K=8),
+             lambda: aggregate(buf[1:].view(8, 1001), "vrmom", K=10),
+             lambda: aggregate(x100, "median")]
+    for names in kernels_in_calls(calls):
+        assert len(names) == 1 and "agg_kernel" in names[0], names
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [0, 1, 50])
 def test_cuda_b4_matches_plain(cuda, k):

@@ -83,6 +83,23 @@ def test_b1_plain_matches_pallas_flat(method, m, no_launch):
     _check(method, got, want)
 
 
+@pytest.mark.parametrize("K", [1, 2, 5, 10, 64])
+@pytest.mark.parametrize("m", [3, 8])
+def test_b1_plain_matches_pallas_across_K(m, K, no_launch):
+    """vrmom at the K the kernel takes at run time, odd K (whose middle
+    delta is 0) included: the plain version that the card holds B1 to
+    bitwise agrees with the Pallas kernel. K = 3 (mod 4) is not among
+    them: its deltas hold ndtri(0.75), the MAD constant, and a row at one
+    MAD from the median then has z on that delta, where XLA's rewrite of
+    ``mad / _MAD_CONST`` into a multiply by the reciprocal moves z by an
+    ulp against the IEEE division that the port keeps (ROADMAP.md §C)."""
+    x = _stack(100 + K, (m, 45))
+    want = np.asarray(aggregate_pallas(jnp.asarray(x), "vrmom", K=K,
+                                       interpret=True))
+    got = aggregate(torch.from_numpy(x), "vrmom", K=K).numpy()
+    _check("vrmom", got, want)
+
+
 @pytest.mark.parametrize("method", METHODS)
 def test_b1_plain_matches_pallas_logit_stack(method, no_launch):
     """[m, B, V] replica-logit stacks: trailing dims are coordinates."""
