@@ -21,6 +21,17 @@ decoding (m = 8 replicas, VRMOM, alpha = 0.25): greedy tokens must be
 identical under the none, signflip and gaussian attacks, fused and
 unfused, shared and replicated replica compute, and every kernel must
 have launched on that path.
+Phase 4 drives the paper's statistical path (RCSL, Algorithm 1, with
+plug-in sandwich CIs, replications batched into tensors): B1/B4 at
+K = 65 and 100 bitwise against their plain versions; the acceptance cell
+of BENCH_inference.json (linear, gaussian attack, alpha = 0.1, VRMOM K =
+10, 200 replications, n 200, m 100, p 5, 6 rounds), whose coverage must
+lie within 0.03 of 0.95; PAPER_LINREG (p 30, n 1000, m 100, 10 rounds)
+at 500 replications under the gaussian attack, where VRMOM-RCSL's RMSE
+must be below MOM-RCSL's on the same draws; PAPER_LOGREG_BALANCED with
+label flipping; B1 on one chunk's statistics bitwise against its plain
+version, a cell on the kernel against the same cell on the plain
+Estimator, and the times of the path and of B1 at its shape.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it lists every kernel with its launches, error and times. Any
@@ -30,6 +41,7 @@ without the repository beside it, the script exits non-zero.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -603,6 +615,214 @@ def profile_generate(torch, eng, batch, gen_ms: float) -> None:
                   f"({dev_us / count:7.2f} us each)  {key[:70]}")
 
 
+def phase_paper(torch, dev, card: str):
+    """Phase 4: the paper path. Returns (B1 launches on the path, the
+    B1 record at the path's shape)."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.paper_glm import (PAPER_LINREG,
+                                               PAPER_LOGREG_BALANCED)
+    from repro_torch.core import attacks, rcsl as R
+    from repro_torch.core.estimator import Estimator
+    from repro_torch.infer import coverage_run, sandwich as S
+    from repro_torch.kernels.vrmom import (aggregate, aggregate_plain,
+                                           aggregate_sample,
+                                           aggregate_sample_plain)
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+    flush = make_flush(torch, dev)
+
+    # -- (a) B1/B4 above K = 64 ---------------------------------------------
+    V = 151936
+    x = 4.0 * torch.randn((8, 4, V), generator=g, device=dev)
+    x101 = torch.randn((101, 65536), generator=g, device=dev)
+    for Kq in (64, 65, 100):
+        require(torch.equal(aggregate(x, "vrmom", K=Kq),
+                            aggregate_plain(x.reshape(8, -1), "vrmom",
+                                            K=Kq).reshape(4, V)),
+                f"B1 vrmom K={Kq} [8,4,{V}] differs from its plain version")
+        require(torch.equal(aggregate(x101, "vrmom", K=Kq),
+                            aggregate_plain(x101, "vrmom", K=Kq)),
+                f"B1 vrmom K={Kq} [101,65536] differs from its plain version")
+        agg, tok = aggregate_sample(x, "vrmom", K=Kq)
+        _, tok_p = aggregate_sample_plain(x, "vrmom", K=Kq)
+        _, tv, ti = aggregate_sample(x, "vrmom", K=Kq, top_k=50,
+                                     with_agg=False)
+        _, pv, pi = aggregate_sample_plain(x, "vrmom", K=Kq, top_k=50)
+        require(torch.equal(tok, tok_p) and torch.equal(ti, pi)
+                and torch.equal(tv, pv)
+                and torch.equal(agg, aggregate(x, "vrmom", K=Kq)),
+                f"B4 at K={Kq} differs from its plain tail or from B1")
+    t_k100 = timed_ms(lambda: aggregate(x, "vrmom", K=100), torch, flush)
+    t_b4_k100 = timed_ms(lambda: aggregate_sample(x, "vrmom", K=100,
+                                                  with_agg=False),
+                         torch, flush)
+    print(f"[paper] (a) B1 and B4 (greedy, top-50) at K = 64, 65, 100 on "
+          f"[8,4,{V}] and B1 on [101,65536]: bitwise equal to the plain "
+          f"versions; device ms at K = 100 on [8,4,{V}] f32: B1 "
+          f"{t_k100:.5f}, B4 greedy {t_b4_k100:.5f} ({card})")
+
+    def cell(name, **kw):
+        t0 = time.perf_counter()
+        c = coverage_run(device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s = c.summary()
+        require(c.covered.shape == (kw["reps"], kw["p"])
+                and all(math.isfinite(s[k])
+                        for k in ("coverage", "mean_width", "rmse")),
+                f"{name}: non-finite or misshapen results {s}")
+        print(f"[paper] {name}: coverage {s['coverage']:.4f}, mean width "
+              f"{s['mean_width']:.6f}, RMSE {s['rmse']:.6f}, {kw['reps']} "
+              f"replications in {wall:.3f} s wall = "
+              f"{kw['reps'] / wall:.1f} replications/s ({card})")
+        return c, s, wall
+
+    acc = dict(model="linear", attack="gaussian", alpha=0.1, K=10,
+               level=0.95, reps=200, N_per_machine=200, m_workers=100, p=5,
+               rounds=6, batch_size=200, seed=0)
+
+    # every replication in one chunk: X is 6.06 GB of f32 at 500
+    def paper(cfg, **kw):
+        return dict(model=cfg.model, K=cfg.K, reps=cfg.reps,
+                    N_per_machine=cfg.n_per_machine, m_workers=cfg.m_workers,
+                    p=cfg.p, rounds=10, mu_x=cfg.mu_x, batch_size=cfg.reps,
+                    seed=1, **kw)
+
+    # warm-up at the cells' own size: cuBLAS and cuSOLVER set-up and the
+    # allocator's blocks of several GB out of the timed cells
+    coverage_run(device=dev, **paper(PAPER_LINREG, attack="gaussian",
+                                     alpha=0.1, estimator="vrmom"))
+    torch.cuda.synchronize()
+
+    # ---- the main path: counts from 0 ----------------------------------
+    K.reset_launch_counts()
+    c_acc, s_acc, _ = cell("(b) BENCH_inference acceptance cell, linear/"
+                           "gaussian/a0.1/vrmom K=10", estimator="vrmom",
+                           **acc)
+    c_v, s_v, wall_v = cell("(c) PAPER_LINREG gaussian a0.1 VRMOM-RCSL",
+                            **paper(PAPER_LINREG, attack="gaussian",
+                                    alpha=0.1, estimator="vrmom"))
+    _, s_m, _ = cell("(c) PAPER_LINREG gaussian a0.1 MOM-RCSL",
+                     **paper(PAPER_LINREG, attack="gaussian", alpha=0.1,
+                             estimator="median"))
+    cell("(c) PAPER_LOGREG_BALANCED labelflip a0.1 VRMOM-RCSL",
+         **paper(PAPER_LOGREG_BALANCED, attack="none", alpha=0.1,
+                 labelflip=True, estimator="vrmom"))
+    counts = K.launch_counts()
+    # ---------------------------------------------------------------------
+    require(abs(s_acc["coverage"] - 0.95) <= 0.03,
+            f"acceptance cell coverage {s_acc['coverage']} not within 0.03 "
+            f"of 0.95")
+    require(s_v["rmse"] < s_m["rmse"],
+            f"PAPER_LINREG: VRMOM-RCSL RMSE {s_v['rmse']} not below "
+            f"MOM-RCSL's {s_m['rmse']}")
+    # three a cell (one chunk each) for the statistics, one a round of the
+    # MOM cell
+    want = 3 * 4 + 10
+    require(counts["aggregate"] == want,
+            f"B1 launches on the paper path {counts['aggregate']}, expected "
+            f"{want}")
+    print(f"[paper] gates: acceptance coverage {s_acc['coverage']:.4f} "
+          f"within 0.03 of 0.95; PAPER_LINREG RMSE VRMOM {s_v['rmse']:.6f} < "
+          f"MOM {s_m['rmse']:.6f}; main-path launches {json.dumps(counts)}")
+
+    # -- (d) the kernel against its plain version on this path -------------
+    cfg = PAPER_LINREG
+    R_chunk = cfg.reps
+    theta_star = R.paper_theta_star(cfg.p, device=dev)
+    shards = R.make_shards(g, N_per_machine=cfg.n_per_machine,
+                           m_workers=cfg.m_workers, p=cfg.p,
+                           theta_star=theta_star, reps=R_chunk, device=dev)
+    prob = R.LinearRegressionProblem()
+    stats = S.machine_stats(prob, theta_star.expand(R_chunk, cfg.p), shards)
+    mask = attacks.byzantine_mask(cfg.m_workers + 1, 0.1, device=dev)
+    stats = S.corrupt_stats(g, stats, mask, "gaussian")
+    del shards
+    iu = torch.triu_indices(cfg.p, cfg.p, device=dev)
+    m1 = cfg.m_workers + 1
+
+    def stack(t):  # [R, m+1, ..] -> the [m+1, R·d] stack the Estimator makes
+        return torch.movedim(t, 1, 0).reshape(m1, -1).contiguous()
+
+    tri = stack(stats.grad2[..., iu[0], iu[1]].float())
+    g1 = stack(stats.grad1.float())
+    errs = {}
+    for what, st in (("grad2 triangle", tri), ("grad1", g1),
+                     ("hessian triangle",
+                      stack(stats.hessian[..., iu[0], iu[1]].float()))):
+        got, want_st = (aggregate(st, "vrmom", K=10),
+                        aggregate_plain(st, "vrmom", K=10))
+        errs[what] = max_err(got, want_st)
+        require(torch.equal(got, want_st),
+                f"B1 on one chunk's {what} stack {tuple(st.shape)} differs "
+                f"from its plain version")
+    del stats
+    c_t, _, _ = cell("(d) acceptance cell on the plain Estimator",
+                     estimator=Estimator("vrmom", K=10, backend="torch"),
+                     **acc)
+
+    def bounds(c):
+        mid = R.paper_theta_star(5, device=dev) + c.err
+        return mid - c.width / 2, mid + c.width / 2
+
+    (lo_k, hi_k), (lo_t, hi_t) = bounds(c_acc), bounds(c_t)
+    d_bounds = max(max_err(lo_k, lo_t), max_err(hi_k, hi_t))
+    flips = int((c_acc.covered != c_t.covered).sum())
+    print(f"[paper] (d) B1 on one PAPER_LINREG chunk's statistics "
+          f"({tuple(tri.shape)} and {tuple(g1.shape)} f32, vrmom K=10): bitwise "
+          f"equal to the plain version; acceptance cell, Estimator cuda vs "
+          f"torch: largest CI-bound difference {d_bounds:.3g}, {flips} of "
+          f"{c_acc.covered.numel()} coverage flags differ")
+
+    # -- (e) times -----------------------------------------------------------
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        coverage_run(device=dev, **paper(PAPER_LINREG, attack="gaussian",
+                                         alpha=0.1, estimator="vrmom"))
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us, ev.count, ev.key))
+    if rows:
+        busy = sum(r[0] for r in rows) / 1e6
+        print(f"[paper] (e) one PAPER_LINREG VRMOM cell profiled: device busy "
+              f"{busy:.4f} s of {prof_wall:.3f} s profiled wall "
+              f"({100 * busy / prof_wall:.1f}% busy; unprofiled wall "
+              f"{wall_v:.3f} s) ({card})")
+        for us, n, key in sorted(rows, reverse=True)[:10]:
+            print(f"[paper] {us / 1e3:9.3f} ms {n:6d}x  {key[:90]}")
+    else:
+        print("[paper] (e) device busy share: not measured (the profiler "
+              "recorded no device activity)")
+    what = f"[{m1},{R_chunk}*{cfg.p * (cfg.p + 1) // 2}]"
+    t_k = timed_ms(lambda: aggregate(tri, "vrmom", K=10), torch, flush)
+    t_p = timed_ms(lambda: aggregate_plain(tri, "vrmom", K=10), torch,
+                   flush, iters=5, spin=PLAIN_SPIN_CYCLES)
+    b = bound(tri.numel() * 4 + tri.shape[1] * 4)
+    print(f"[paper] (e) B1 vrmom K=10 on {what} f32: {t_k * 1e3:.1f} us "
+          f"device, plain {t_p:.3f} ms, bytes bound {b[0] * 1e3:.1f} us "
+          f"({tri.numel() * 4 / 1e6:.1f} MB read); {counts['aggregate']} "
+          f"launches on the path ({card})")
+    rec = dict(
+        name=f"B1 aggregate on the paper path (vrmom K=10, {what} f32: "
+             f"PAPER_LINREG statistics)", route="cuda",
+        source="src/repro_torch/kernels/csrc/vrmom.cu",
+        replaces="src/repro/kernels/vrmom.py:142",
+        max_abs_err=errs["grad2 triangle"], ms=t_k, plain_ms=t_p, bound_ms=b[0], bound_by=b[1], library_ms=None)
+    return counts["aggregate"], rec
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside the script; "
@@ -623,9 +843,14 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}"
           f", CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     try:
+        t0 = time.perf_counter()
         phase_build()
         rec = phase_kernels(torch, dev)
         counts = phase_serve(torch, dev)
+        t3 = time.perf_counter()
+        paper_launches, paper_rec = phase_paper(torch, dev, card)
+        print(f"[time] phases 1-3 {t3 - t0:.1f} s, phase 4 "
+              f"{time.perf_counter() - t3:.1f} s")
     except (CheckFailed, AssertionError) as exc:
         print(f"chip_smoke.py: check failed: {exc}", file=sys.stderr)
         return 1
@@ -633,6 +858,7 @@ def main() -> int:
     for name in ("aggregate", "aggregate_sample", "flash_attention",
                  "decode_attention"):
         kernels.append(dict(rec[name], launches=counts[name]))
+    kernels.append(dict(paper_rec, launches=paper_launches))
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

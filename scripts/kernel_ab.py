@@ -10,10 +10,12 @@ process. Builds that checkout's kernels, then prints one JSON line at the
 serving shapes:
 
 - B1: vrmom over an [8, 4, 151936] logit stack (the unfused robust tail)
-  at K = 8 in f32 and bf16 and at K = 10 in f32, and over a [100, 65536]
-  f32 stack at K = 10 (the paper path's spec, m = 100);
+  at K = 8 in f32 and bf16 and at K = 10 and 100 in f32, over a
+  [100, 65536] f32 stack at K = 10, and over [101, 250 * 465] at K = 10
+  (one chunk's statistics on the paper path);
 - B4: the same stack, greedy and top-50, without the [B, V] aggregate
-  (the fused robust tail), and greedy over [8, 32, 151936]; beside
+  (the fused robust tail), greedy at K = 100, and greedy over
+  [8, 32, 151936]; beside
   them ``stack_sum_*``, one ``torch.sum`` over the stack's worker axis,
   and ``stack_read_b4``, one ``torch.sum`` over all of it (a contiguous
   read), the time a library kernel takes to read the same bytes;
@@ -166,6 +168,19 @@ def time_b1b4(out, torch, dev, g, flush) -> None:
     x = torch.randn((100, 65536), generator=g, device=dev)
     out["b1_m100_k10_ms"] = device_ms(lambda: aggregate(x, "vrmom", K=10),
                                       torch, flush)
+    # the paper path: one chunk's statistics, [101, 250 * 465] at K = 10
+    xp = torch.randn((101, 250 * 465), generator=g, device=dev)
+    out["b1_paper_k10_ms"] = device_ms(lambda: aggregate(xp, "vrmom", K=10),
+                                       torch, flush)
+    # K = 100 (a checkout whose kernels stop at K = 64 raises: null)
+    x = 4.0 * torch.randn((8, 4, V), generator=g, device=dev)
+    for name, fn in (("b1_b4_k100", lambda: aggregate(x, "vrmom", K=100)),
+                     ("b4_b4_greedy_k100", lambda: aggregate_sample(
+                         x, "vrmom", K=100, with_agg=False))):
+        try:
+            out[f"{name}_ms"] = device_ms(fn, torch, flush)
+        except ValueError:
+            out[f"{name}_ms"] = None
     loaded_clock(out, torch, dev, g)
 
 

@@ -1,8 +1,8 @@
 """repro_torch — the PyTorch + CUDA port of ``repro``.
 
-The package mirrors ``repro``'s layout (``configs``, ``core``,
-``kernels``, ``models``, ``serve``) so every module has a named
-counterpart. It imports ``torch``, numpy and scipy only — never JAX and
+The package mirrors ``repro``'s layout (``configs``, ``core``, ``data``,
+``dist``, ``infer``, ``kernels``, ``models``, ``serve``) so every module
+has a named counterpart. It imports ``torch``, numpy and scipy only — never JAX and
 nothing of ``repro``. Every kernel that ``repro`` wrote in Pallas for the
 TPU is a CUDA C++ kernel here (``kernels/csrc``), built with ``nvcc`` for
 ``sm_90a`` at first use and bound through ``ctypes``; each sits beside a
@@ -10,8 +10,10 @@ plain PyTorch version of the same function, which a wrapper runs only for
 a tensor on the CPU.
 
 Entry points (``serve.ServeEngine``, ``models.model.init``,
-``convert.params_from_jax``) run on the card unless the caller passes
-``device="cpu"``; with no card and no device they raise.
+``convert.params_from_jax``, ``infer.coverage_run``,
+``core.rcsl.make_shards``) run on the card unless the caller passes
+``device="cpu"``; with no card and no device they raise. ``core.rcsl.rcsl``
+and ``infer.infer`` run where their tensors live.
 """
 from .device import resolve_device
 

@@ -1,6 +1,8 @@
-"""The estimator core: VRMOM constants, coordinate-wise aggregators, the
-backend-dispatched ``Estimator`` and the attack zoo."""
-from . import aggregators, attacks, estimator, vrmom
+"""The estimator core: VRMOM (estimator and theory), coordinate-wise
+aggregators, the backend-dispatched ``Estimator``, the attack zoo and RCSL
+(Algorithm 1)."""
+from . import aggregators, attacks, estimator, rcsl, vrmom
 from .estimator import Estimator
 
-__all__ = ["aggregators", "attacks", "estimator", "vrmom", "Estimator"]
+__all__ = ["aggregators", "attacks", "estimator", "rcsl", "vrmom",
+           "Estimator"]

@@ -15,8 +15,6 @@ import warnings
 
 import torch
 
-from .vrmom import _MAD_CONST, deltas, denominator
-
 __all__ = ["mean", "median", "trimmed_mean", "vrmom"]
 
 
@@ -51,16 +49,6 @@ def trimmed_mean(x, beta: float = 0.1, axis: int = 0):
 
 def vrmom(x, K: int = 10, axis: int = 0, eps: float = 1e-12):
     """VRMOM, eq. (7), with the MAD scale: f32 math, x's dtype out."""
-    xf = torch.movedim(x, axis, 0).float()
-    m = xf.shape[0]
-    dev = xf.device
-    med = _middle(torch.sort(xf, dim=0).values, 0)
-    mad = _middle(torch.sort(torch.abs(xf - med[None]), dim=0).values, 0)
-    s = mad / torch.tensor(_MAD_CONST, dtype=torch.float32, device=dev)
-    z = (xf - med[None]) / torch.clamp_min(s, eps)[None]
-    d = torch.from_numpy(deltas(K)).to(dev)
-    counts = torch.sum(z[..., None] <= d, dim=-1).float()
-    total = torch.sum(counts - K / 2.0, dim=0)
-    corr = s * total / torch.tensor(denominator(m, K), dtype=torch.float32,
-                                    device=dev)
-    return torch.where(s <= eps, med, med - corr).to(x.dtype)
+    from . import vrmom as _V  # which imports this module
+
+    return _V.vrmom(x, K=K, axis=axis, scale="mad", eps=eps)

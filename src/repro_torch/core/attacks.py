@@ -16,8 +16,8 @@ Attack = Callable[[Optional[torch.Generator], torch.Tensor, torch.Tensor],
                   torch.Tensor]
 
 __all__ = ["byzantine_mask", "gaussian", "omniscient", "alie", "ipm", "mimic",
-           "bitflip", "signflip", "zero", "wrong_value", "get", "REGISTRY",
-           "OMNISCIENT_ATTACKS"]
+           "bitflip", "signflip", "zero", "wrong_value", "get", "attack_stack",
+           "REGISTRY", "OMNISCIENT_ATTACKS"]
 
 
 def byzantine_mask(m_plus_1: int, alpha: float, device=None) -> torch.Tensor:
@@ -135,3 +135,23 @@ OMNISCIENT_ATTACKS = ("omniscient", "alie", "ipm", "mimic")
 
 def get(name: str) -> Attack:
     return REGISTRY[name]
+
+
+def attack_stack(name: str, generator, v, mask, axis: int = 0):
+    """Apply attack ``name`` to a stack whose worker axis is ``axis``; the
+    axes before it are independent replications. Every attack but
+    ``mimic`` works coordinate by coordinate, so the replications ride as
+    extra coordinates of one call. ``mimic`` picks one victim row over all
+    of a replication's coordinates, so it runs one replication at a
+    time."""
+    fn = get(name)
+    if axis == 0:
+        return fn(generator, v, mask)
+    lead = v.shape[:axis]
+    v2 = v.reshape((-1,) + v.shape[axis:])
+    if name == "mimic":
+        out = torch.stack([fn(generator, r, mask) for r in v2])
+    else:
+        out = torch.movedim(fn(generator, torch.movedim(v2, 1, 0), mask),
+                            0, 1)
+    return out.reshape(lead + out.shape[1:])

@@ -57,6 +57,20 @@ class Estimator(NamedTuple):
     beta: float = 0.1
     backend: str = "auto"
 
+    @classmethod
+    def coerce(cls, spec, **defaults) -> "Estimator":
+        """Normalize a method name or an Estimator into an Estimator.
+
+        ``defaults`` are constructor overrides applied only when coercing
+        from a string — an explicit Estimator is taken verbatim.
+        """
+        if isinstance(spec, cls):
+            return spec
+        if isinstance(spec, str):
+            return cls(method=spec, **defaults)
+        raise TypeError(
+            f"expected a method name or an Estimator, got {type(spec)!r}")
+
     @property
     def coordinatewise(self) -> bool:
         return self.method in COORDINATEWISE_METHODS

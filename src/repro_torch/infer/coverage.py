@@ -1,0 +1,122 @@
+"""Monte-Carlo coverage harness for the plug-in CIs, the port of
+``repro.infer.coverage``.
+
+Reproduces the statistical side of the paper's Section 4: for a (model,
+attack, Byzantine fraction, aggregator) cell, run ``reps`` full
+replications — simulate sharded data, run RCSL under attack, compute
+plug-in CIs under the *same* attack on the reported statistics
+(``infer.sandwich``), and record whether each coordinate of theta* landed
+inside its interval — then report empirical coverage, mean CI width and
+RMSE.
+
+The replications run ``batch_size`` at a time as tensors with a leading
+replication axis: one chunk's data is ``[batch_size, m+1, n, p]``, and
+each coordinate-wise aggregation of the chunk is one ``[m+1,
+batch_size·d]`` stack (B1 on the card). One ``torch.Generator``, seeded
+with ``seed``, draws the chunks' data and attacks in order, so two cells
+with the same seed and shapes see the same shards and attack draws.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Union
+
+import torch
+
+from ..core import rcsl as R
+from ..core.estimator import Estimator
+from ..device import resolve_device
+from .sandwich import infer
+
+__all__ = ["CoverageCell", "coverage_run"]
+
+
+class CoverageCell(NamedTuple):
+    """Raw per-replication outcomes of one coverage cell.
+
+    covered: ``[reps, p]`` bool — theta*_l inside [lower_l, upper_l].
+    width:   ``[reps, p]`` CI widths.
+    err:     ``[reps, p]`` estimation errors theta_hat - theta*.
+    """
+
+    covered: torch.Tensor
+    width: torch.Tensor
+    err: torch.Tensor
+
+    def summary(self) -> dict:
+        """Host-side scalars for tables."""
+        return {
+            "coverage": float(self.covered.float().mean()),
+            "coverage_per_coord": [float(c) for c in
+                                   self.covered.float().mean(dim=0)],
+            "mean_width": float(self.width.mean()),
+            "rmse": float(torch.sqrt(torch.mean(self.err ** 2))),
+            "reps": int(self.covered.shape[0]),
+        }
+
+
+def coverage_run(
+    model: str = "linear",
+    attack: str = "gaussian",
+    alpha: float = 0.1,
+    estimator: Union[str, Estimator] = "vrmom",
+    K: int = 10,
+    level: float = 0.95,
+    reps: int = 200,
+    N_per_machine: int = 200,
+    m_workers: int = 100,
+    p: int = 5,
+    rounds: int = 6,
+    mu_x: float = 0.0,
+    labelflip: bool = False,
+    simultaneous: bool = False,
+    seed: int = 0,
+    batch_size: int = 16,
+    device=None,
+    assumed_alpha: Optional[float] = None,
+) -> CoverageCell:
+    """Run one coverage cell; see the module docstring.
+
+    ``device=None`` is the card (it raises where there is none);
+    ``device="cpu"`` runs the plain path on the host. ``assumed_alpha``:
+    the contamination the analyst plugs into the CI inflation, apart from
+    the true ``alpha`` (``infer``'s knob; ``None`` assumes the truth).
+    Replicating over several devices (``repro``'s ``mesh``) is not ported
+    (ROADMAP.md, queue A5).
+    """
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    theta_star = R.paper_theta_star(p, device=dev)
+    problem = (R.LinearRegressionProblem() if model == "linear"
+               else R.LogisticRegressionProblem())
+    covered, width, err = [], [], []
+    for start in range(0, reps, batch_size):
+        b = min(batch_size, reps - start)
+        shards = R.make_shards(gen, N_per_machine=N_per_machine,
+                               m_workers=m_workers, p=p,
+                               theta_star=theta_star, model=model,
+                               mu_x=mu_x, reps=b, device=dev)
+        theta_hat, _ = R.rcsl(problem, shards, gen, alpha=alpha,
+                              attack=attack, aggregator=estimator, K=K,
+                              rounds=rounds, labelflip=labelflip)
+        shards_rep, stat_attack = shards, attack
+        if labelflip:
+            # Label-flip Byzantine machines report *honest* statistics
+            # computed on flipped-label data (paper 4.2.2): flip their
+            # shard labels before machine_stats, and layer no registry
+            # attack on top.
+            mask = R.attacks.byzantine_mask(m_workers + 1, alpha, device=dev)
+            shards_rep = R.Shards(
+                X=shards.X,
+                Y=torch.where(mask[:, None], 1.0 - shards.Y, shards.Y))
+            stat_attack = "none"
+        res = infer(problem, shards_rep, theta_hat, estimator=estimator, K=K,
+                    level=level, simultaneous=simultaneous, alpha=alpha,
+                    attack=stat_attack, generator=gen,
+                    assumed_alpha=assumed_alpha)
+        del shards, shards_rep  # free the chunk before the next is drawn
+        covered.append((res.ci.lower <= theta_star)
+                       & (theta_star <= res.ci.upper))
+        width.append(res.ci.upper - res.ci.lower)
+        err.append(theta_hat - theta_star)
+    return CoverageCell(covered=torch.cat(covered), width=torch.cat(width),
+                        err=torch.cat(err))

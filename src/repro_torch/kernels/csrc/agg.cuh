@@ -38,13 +38,22 @@
 // An odd K has the delta 0, whose neighbours are subnormal: there
 // [z > 0] is the saturation of z' * 2^126 * 2^126. The count is
 // m * K - sum [z > Delta_k], the brute count's integer on every input.
+// The argument holds at any K: S only grows as the least |Delta_k|
+// shrinks (2^31 at K = 100, whose least is |ndtri(50/101)| ~ 0.0124), and
+// the sum of m * K ones stays exact in f32 while m * K <= 2^24, which the
+// host checks (vrmom.py ``count_table``: K up to 131,072 at m = 128).
+// The scaled deltas travel by value in Params up to K = kMaxK, where each
+// add takes its delta from the constant bank; above, they live in device
+// memory, read through the read-only path (one address across a warp).
+// Device memory for every K cost the serving spec 5 % in B1 and 9 % in B4
+// (PERF.md).
 #pragma once
 
 #include "common.cuh"
 
 namespace agg {
 
-constexpr int kMaxK = 64;
+constexpr int kMaxK = 64;  // deltas that travel by value
 constexpr float kMadConst = 0.6744897501960817f;
 
 enum Method : int { kMean = 0, kMedian = 1, kTrimmedMean = 2, kVrmom = 3 };
@@ -52,15 +61,52 @@ enum Method : int { kMean = 0, kMedian = 1, kTrimmedMean = 2, kVrmom = 3 };
 struct Params {
   int m;          // worker rows
   int method;     // Method
-  int K;          // VRMOM quantile levels (<= kMaxK)
+  int K;          // VRMOM quantile levels
   int k_trim;     // trimmed mean: rows dropped at each end
   float eps;      // degenerate-scale guard
   float denom;    // f32(m * psi_sum(K)), computed in float64 on the host
   float scale;    // S = 2^s (the count's scale)
   int zero_k;     // the k with Delta_k == 0 (odd K), else -1
-  // f32(ndtri(k / (K + 1))) * S, k = 1..K, ascending
+  // f32(ndtri(k / (K + 1))) * S, k = 1..K, ascending: in `table` where
+  // K <= kMaxK, else in device memory at `table_ext`
   float table[kMaxK];
+  const float* table_ext;
 };
+
+// The deltas of a runtime K: by value, or from device memory.
+struct ByValue {
+  const Params& P;
+  __device__ __forceinline__ float operator()(int k) const {
+    return P.table[k];
+  }
+};
+struct InMemory {
+  const float* t;
+  __device__ __forceinline__ float operator()(int k) const {
+    return __ldg(t + k);
+  }
+};
+
+// sum over the m rows of v (z * S) and the K levels of [z > Delta_k]
+template <int N, typename Delta>
+__device__ __forceinline__ float count_above(const float (&v)[N], int m,
+                                             int K, int zero_k, Delta delta) {
+  float gt = 0.f;
+#pragma unroll 1
+  for (int k = 0; k < K; ++k) {
+    const float d = delta(k);
+    if (k != zero_k) {
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        if (i < m) gt += __saturatef(v[i] - d);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        if (i < m) gt += __saturatef(v[i] * 0x1p126f * 0x1p126f);
+    }
+  }
+  return gt;
+}
 
 __device__ __forceinline__ float nan_f32() { return __int_as_float(0x7fffffff); }
 
@@ -181,20 +227,10 @@ __device__ __forceinline__ float aggregate_values(float (&v)[N],
       for (int i = 0; i < N; ++i)
         if (i < m) gt += __saturatef(v[i] - d);
     }
+  } else if (K <= kMaxK) {
+    gt = count_above<N>(v, m, K, P.zero_k, ByValue{P});
   } else {
-#pragma unroll 1
-    for (int k = 0; k < K; ++k) {
-      const float d = P.table[k];
-      if (k != P.zero_k) {
-#pragma unroll
-        for (int i = 0; i < N; ++i)
-          if (i < m) gt += __saturatef(v[i] - d);
-      } else {
-#pragma unroll
-        for (int i = 0; i < N; ++i)
-          if (i < m) gt += __saturatef(v[i] * 0x1p126f * 0x1p126f);
-      }
-    }
+    gt = count_above<N>(v, m, K, P.zero_k, InMemory{P.table_ext});
   }
   const int count = m * K - (int)gt;
   // sum over rows of (count_i - K/2): a half-integer, exact in f32

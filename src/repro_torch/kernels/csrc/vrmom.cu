@@ -43,7 +43,6 @@
 // at most kMergeLists record lists a thread, so where V has more than
 // kMergeLists * kTailThreads tiles a block covers several tiles in turn
 // and keeps their best keys.
-#include <algorithm>
 #include <cmath>
 #include <cstdint>
 
@@ -300,8 +299,13 @@ tail_kernel(const T* __restrict__ x, T* __restrict__ agg_out,
 
 // -- host side ---------------------------------------------------------------
 
+// The count's scale S, the zero delta's index and the scaled table come
+// from the host (vrmom.py ``count_table``), which also checks that the
+// count is exact at this m and K: `table` (host memory, copied into the
+// parameters) where K <= kMaxK, else `table_ext` (device memory).
 agg::Params make_params(int m, int method, int K, int k_trim, float eps,
-                        float denom, const float* deltas) {
+                        float denom, float scale, int zero_k,
+                        const float* table, const float* table_ext) {
   agg::Params P;
   P.m = m;
   P.method = method;
@@ -309,23 +313,20 @@ agg::Params make_params(int m, int method, int K, int k_trim, float eps,
   P.k_trim = k_trim;
   P.eps = eps;
   P.denom = denom;
-  // the count's scale: 2^(24 - the least exponent of a nonzero delta), so
-  // that a float z != Delta_k lies at least 1 / S from it
-  int e_min = 0;
-  P.zero_k = -1;
-  for (int k = 0; k < K && method == agg::kVrmom; ++k) {
-    if (deltas[k] == 0.f) {
-      P.zero_k = k;
-      continue;
-    }
-    int e = 0;
-    std::frexp(deltas[k], &e);  // |delta| in [2^(e-1), 2^e)
-    e_min = std::min(e_min, e - 1);
-  }
-  P.scale = std::ldexp(1.f, 24 - e_min);
+  P.scale = scale;
+  P.zero_k = zero_k;
   for (int k = 0; k < agg::kMaxK; ++k)
-    P.table[k] = k < K ? deltas[k] * P.scale : 0.f;
+    P.table[k] = table != nullptr && k < K ? table[k] : 0.f;
+  P.table_ext = table_ext;
   return P;
+}
+
+// the brute count's integer needs m * K <= 2^24 (agg.cuh)
+bool valid_spec(int m, int method, int K, const float* table,
+                const float* table_ext) {
+  if (method != agg::kVrmom) return true;
+  return K >= 1 && (long long)m * K <= (1LL << 24) &&
+         (K <= agg::kMaxK ? table != nullptr : table_ext != nullptr);
 }
 
 // vrmom at m = 8, K = 8: the serving spec, which takes the fast path
@@ -407,11 +408,17 @@ bool dispatch_tail(const TailArgs& a, const agg::Params& P) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (input and output alike).
+// vrmom only (else null): table, the K scaled deltas in host memory
+// where K <= 64; table_ext, the same in device memory above.
 int agg_launch(const void* x, void* out, int dtype, int m, long long C,
                int method, int K, int k_trim, float eps, float denom,
-               const float* deltas, void* stream) {
-  if (K > agg::kMaxK) return (int)cudaErrorInvalidValue;
-  const agg::Params P = make_params(m, method, K, k_trim, eps, denom, deltas);
+               float scale, int zero_k, const float* table,
+               const float* table_ext, void* stream) {
+  if (!valid_spec(m, method, K, table, table_ext)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const agg::Params P = make_params(m, method, K, k_trim, eps, denom, scale,
+                                    zero_k, table, table_ext);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool ok = dtype == 0
       ? dispatch_agg<float>(x, out, C, P, s)
@@ -428,11 +435,15 @@ int agg_launch(const void* x, void* out, int dtype, int m, long long C,
 int agg_sample_launch(const void* x, void* agg_out, void* rec, int* tickets,
                       float* topv, int* topi, int dtype, int m, int B, int V,
                       int top_k, int method, int K, int k_trim, float eps,
-                      float denom, const float* deltas, void* stream) {
-  if (K > agg::kMaxK || top_k < 1 || top_k > V) {
+                      float denom, float scale, int zero_k,
+                      const float* table, const float* table_ext,
+                      void* stream) {
+  if (!valid_spec(m, method, K, table, table_ext) || top_k < 1 ||
+      top_k > V) {
     return (int)cudaErrorInvalidValue;
   }
-  const agg::Params P = make_params(m, method, K, k_trim, eps, denom, deltas);
+  const agg::Params P = make_params(m, method, K, k_trim, eps, denom, scale,
+                                    zero_k, table, table_ext);
   const TailArgs a{x, agg_out, static_cast<u64*>(rec), tickets, topv, topi,
                    B, V, top_k, static_cast<cudaStream_t>(stream)};
   const bool ok = dtype == 0 ? dispatch_tail<float>(a, P)

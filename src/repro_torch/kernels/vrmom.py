@@ -16,6 +16,10 @@ write little, so their bound on the H100 is their bytes; at the serving
 shape both take well over twice that, and what holds them there is not
 measured (PERF.md).
 
+vrmom takes any K whose count stays exact (m * K <= 2^24,
+:func:`count_table`): the scaled deltas travel in the launch parameters up
+to K = 64 and sit in device memory above (csrc/agg.cuh).
+
 Each wrapper launches its kernel for a CUDA tensor, raises on anything
 the kernel does not take, and counts its launches in ``.launches`` (one
 per call). For a tensor on the CPU it runs the plain PyTorch version
@@ -37,25 +41,26 @@ from .ref import f32_scalar
 
 __all__ = ["aggregate", "aggregate_sample", "aggregate_plain",
            "aggregate_sample_plain", "resolve_method", "plan_tail",
-           "TailPlan", "MAX_M", "MAX_K"]
+           "TailPlan", "count_table", "MAX_M", "MAX_K_BY_VALUE"]
 
 MAX_M = 128  # widest sorting network compiled (csrc/vrmom.cu)
-MAX_K = 64   # agg::kMaxK
+MAX_K_BY_VALUE = 64  # agg::kMaxK: deltas passed in the launch parameters
 _METHOD_ID = {"mean": 0, "median": 1, "trimmed_mean": 2, "vrmom": 3}
 _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
-    # x, out, dtype, m, C, method, K, k_trim, eps, denom, deltas, stream
+    # x, out, dtype, m, C, method, K, k_trim, eps, denom, scale, zero_k,
+    # table, table_ext, stream
     "agg_launch": [_B.P, _B.P, _B.I, _B.I, _B.LL, _B.I, _B.I, _B.I, _B.F,
-                   _B.F, _B.P, _B.P],
+                   _B.F, _B.F, _B.I, _B.P, _B.P, _B.P],
     # x, agg_out, rec, tickets, topv, topi, dtype, m, B, V, top_k, method,
-    # K, k_trim, eps, denom, deltas, stream
+    # K, k_trim, eps, denom, scale, zero_k, table, table_ext, stream
     "agg_sample_launch": [_B.P, _B.P, _B.P, _B.P, _B.P, _B.P, _B.I, _B.I,
                           _B.I, _B.I, _B.I, _B.I, _B.I, _B.I, _B.F, _B.F,
-                          _B.P, _B.P],
+                          _B.F, _B.I, _B.P, _B.P, _B.P],
 }
 TAIL_THREADS = 256  # kTailThreads
 MERGE_LISTS = 4     # kMergeLists: record lists per thread of the merge
-_PARAMS = {}        # (method, K, m) -> (deltas [MAX_K] f32, denominator)
+_PARAMS = {}        # (method, K, m, device) -> Params
 _STATE = {}         # (device, stream, B, V, tile, kk) -> (rec, tickets)
 
 
@@ -179,21 +184,60 @@ def _check_stack(x, what: str):
                          f"widest sorting network the kernel compiles")
 
 
-def _params(method: str, K: int, m: int):
-    """(deltas [MAX_K] f32, denominator) of a spec, computed once."""
-    key = (method, K, m)
+def count_table(K: int):
+    """(table, S, zero_k): how B1/B4 count z <= Delta_k on the FP32 adders
+    (csrc/agg.cuh). S = 2^(24 - e), e the least exponent of a nonzero
+    delta (at most 0), so every float z != Delta_k lies at least 1 / S from
+    it; ``table`` holds the f32 deltas times S (exact: S is a power of
+    two), ascending; ``zero_k`` is the index of the delta 0 of an odd K,
+    else -1."""
+    d = deltas(K)
+    nz = d[d != 0]
+    e_min = min(0, int(np.frexp(np.abs(nz))[1].min()) - 1) if nz.size else 0
+    scale = np.float32(2.0 ** (24 - e_min))
+    zero = np.flatnonzero(d == 0)
+    return d * scale, scale, int(zero[0]) if zero.size else -1
+
+
+class _Params(NamedTuple):
+    denom: float
+    scale: float
+    zero_k: int
+    table: object  # the K scaled deltas: numpy f32 for K <= 64 (copied into
+    # the launch parameters), else a tensor on the device; None: no vrmom
+
+
+def _params(method: str, K: int, m: int, device) -> _Params:
+    """The launch parameters of a spec on one device, computed once. The
+    count is the brute count's integer while its sum of m * K ones is exact
+    in f32 (m * K <= 2^24); a larger spec raises."""
+    key = (method, K, m, device)
     hit = _PARAMS.get(key)
     if hit is not None:
         return hit
-    if method == "vrmom" and not 1 <= K <= MAX_K:
-        raise ValueError(f"vrmom kernel takes 1 <= K <= {MAX_K}, got K={K}")
-    d = np.zeros(MAX_K, np.float32)
-    denom = np.float32(0.0)
-    if method == "vrmom":
-        d[:K] = deltas(K)
-        denom = denominator(m, K)
-    hit = _PARAMS[key] = (d, float(denom))
+    if method != "vrmom":
+        hit = _Params(0.0, 1.0, -1, None)
+    else:
+        if K < 1 or m * K > 2 ** 24:
+            raise ValueError(
+                f"vrmom kernel: K={K} at m={m} — the count of z <= Delta_k "
+                f"sums m * K ones in f32, exact only up to 2^24 "
+                f"(and K >= 1)")
+        table, scale, zero_k = count_table(K)
+        if K > MAX_K_BY_VALUE:
+            table = torch.from_numpy(table).to(device)
+        hit = _Params(float(denominator(m, K)), float(scale), zero_k, table)
+    _PARAMS[key] = hit
     return hit
+
+
+def _table_ptrs(p: _Params):
+    """(table, table_ext) arguments of a launch: host or device memory."""
+    if p.table is None:
+        return None, None
+    if isinstance(p.table, np.ndarray):
+        return p.table.ctypes.data, None
+    return None, p.table.data_ptr()
 
 
 def _launch_state(device, stream: int, B: int, V: int, plan: TailPlan):
@@ -225,15 +269,15 @@ def aggregate(x, method: str = "vrmom", K: int = 10, beta: float = 0.1,
         return aggregate_plain(x.reshape(m, -1), method, K, k_trim,
                                eps).reshape(shape)
     _check_stack(x, "aggregate")
-    d, denom = _params(method, K, m)
+    p = _params(method, K, m, x.device)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     C = x[0].numel()
     if C == 0:
         return out
     err = _lib().agg_launch(
         x.data_ptr(), out.data_ptr(), _DTYPE_ID[x.dtype], m, C,
-        _METHOD_ID[method], K, k_trim, eps, denom, d.ctypes.data,
-        _B.stream_handle(x.device))
+        _METHOD_ID[method], K, k_trim, eps, p.denom, p.scale, p.zero_k,
+        *_table_ptrs(p), _B.stream_handle(x.device))
     _B.check(err, "aggregate")
     aggregate.launches += 1
     return out
@@ -268,7 +312,7 @@ def aggregate_sample(x, method: str = "vrmom", K: int = 10, beta: float = 0.1,
                                       with_agg)
     _check_stack(x, "aggregate_sample")
     plan = plan_tail(m, V, top_k)
-    d, denom = _params(method, K, m)
+    p = _params(method, K, m, x.device)
     dev = x.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     rec, tickets = _launch_state(dev, stream, B, V, plan)[:2]
@@ -279,7 +323,8 @@ def aggregate_sample(x, method: str = "vrmom", K: int = 10, beta: float = 0.1,
     err = _lib().agg_sample_launch(
         x.data_ptr(), agg.data_ptr() if with_agg else None, rec, tickets,
         topv.data_ptr(), topi.data_ptr(), _DTYPE_ID[x.dtype], m, B, V, k,
-        _METHOD_ID[method], K, k_trim, eps, denom, d.ctypes.data, stream)
+        _METHOD_ID[method], K, k_trim, eps, p.denom, p.scale, p.zero_k,
+        *_table_ptrs(p), stream)
     _B.check(err, "aggregate_sample")
     aggregate_sample.launches += 1
     if top_k == 0:

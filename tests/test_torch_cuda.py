@@ -143,7 +143,25 @@ def _delta_edge_stack(K, C, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [8, 10])
+@pytest.mark.parametrize("K", [63, 64, 65, 100, 128, 257])
+@pytest.mark.parametrize("m", [8, 101])
+def test_cuda_b1_b4_any_K(cuda, m, K):
+    """K around the 64 the kernels took before and up to 257 (the deltas'
+    table in device memory; the count's scale 2^31 from K = 100 on): B1,
+    B4's aggregate and B4's greedy pick bitwise equal to the plain
+    versions, f32 and bf16."""
+    x = _stack(m * K, (m, 4, 2051), cuda)
+    for dt in (torch.float32, torch.bfloat16):
+        xd = x.to(dt)
+        b1 = _b1_same(xd.reshape(m, -1), "vrmom", K=K)
+        agg, tok = aggregate_sample(xd, "vrmom", K=K)
+        _same(agg.reshape(-1), b1)
+        _, want = aggregate_sample_plain(xd, "vrmom", K=K)
+        assert torch.equal(tok, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [8, 10, 100, 257])
 def test_cuda_b1_count_at_delta_edges(cuda, K):
     """z == Delta_k bit for bit (the <= edge of the count, where the
     saturating add gives 0), at

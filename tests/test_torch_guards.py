@@ -22,6 +22,9 @@ import torch
 
 from repro_torch import convert
 from repro_torch.configs import get as get_arch
+from repro_torch.core.rcsl import (LinearRegressionProblem, make_shards,
+                                   paper_theta_star, rcsl)
+from repro_torch.infer import coverage_run
 from repro_torch.kernels import build
 from repro_torch.models import model as M
 from repro_torch.serve import ServeEngine
@@ -79,6 +82,27 @@ def test_entry_points_need_a_device_without_a_card(no_card):
         convert.params_from_jax({}, cfg)
     eng = ServeEngine(cfg, params, max_len=16, device="cpu")
     assert eng.device.type == "cpu"
+
+
+def test_paper_path_needs_a_device_without_a_card(no_card):
+    """coverage_run, make_shards and paper_theta_star run on the card
+    unless given a device; rcsl runs where its tensors live."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        coverage_run(reps=2, batch_size=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_shards(0, N_per_machine=10, m_workers=3, p=2,
+                    theta_star=torch.ones(2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paper_theta_star(3)
+    theta = paper_theta_star(2, device="cpu")
+    sh = make_shards(0, N_per_machine=20, m_workers=4, p=2,
+                     theta_star=theta, device="cpu")
+    est, _ = rcsl(LinearRegressionProblem(), sh, rounds=1)
+    assert est.device.type == "cpu"
+    cell = coverage_run(reps=2, N_per_machine=20, m_workers=4, p=2,
+                        rounds=1, batch_size=2, attack="none", alpha=0.0,
+                        device="cpu")
+    assert cell.covered.device.type == "cpu"
 
 
 def test_c_entry_points_exist_in_sources():

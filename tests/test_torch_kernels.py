@@ -32,7 +32,8 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.vrmom import (_params, aggregate, aggregate_plain,
                                        aggregate_sample,
-                                       aggregate_sample_plain, plan_tail)
+                                       aggregate_sample_plain, count_table,
+                                       plan_tail)
 
 torch.set_num_threads(1)
 
@@ -83,21 +84,64 @@ def test_b1_plain_matches_pallas_flat(method, m, no_launch):
     _check(method, got, want)
 
 
-@pytest.mark.parametrize("K", [1, 2, 5, 10, 64])
+@pytest.mark.parametrize("K", [1, 2, 5, 10, 64, 65, 100, 128])
 @pytest.mark.parametrize("m", [3, 8])
 def test_b1_plain_matches_pallas_across_K(m, K, no_launch):
     """vrmom at the K the kernel takes at run time, odd K (whose middle
-    delta is 0) included: the plain version that the card holds B1 to
-    bitwise agrees with the Pallas kernel. K = 3 (mod 4) is not among
-    them: its deltas hold ndtri(0.75), the MAD constant, and a row at one
-    MAD from the median then has z on that delta, where XLA's rewrite of
-    ``mad / _MAD_CONST`` into a multiply by the reciprocal moves z by an
-    ulp against the IEEE division that the port keeps (ROADMAP.md §C)."""
+    delta is 0) and K above 64 (the paper's Table 1 reaches 100) included:
+    the plain version that the card holds B1 to bitwise agrees with the
+    Pallas kernel. K = 3 (mod 4) is not among them: its deltas hold
+    ndtri(0.75), the MAD constant, and a row at one MAD from the median
+    then has z on that delta, where XLA's rewrite of ``mad / _MAD_CONST``
+    into a multiply by the reciprocal moves z by an ulp against the IEEE
+    division that the port keeps (pinned by
+    ``test_b1_mad_reciprocal_fault_at_k3``)."""
     x = _stack(100 + K, (m, 45))
     want = np.asarray(aggregate_pallas(jnp.asarray(x), "vrmom", K=K,
                                        interpret=True))
     got = aggregate(torch.from_numpy(x), "vrmom", K=K).numpy()
     _check("vrmom", got, want)
+
+
+def _vrmom_oracle(x, K, mad_reciprocal=False):
+    """B1's vrmom in numpy f32, one IEEE op at a time; ``mad_reciprocal``
+    multiplies the MAD by f32(1 / ndtri(0.75)) instead of dividing, as
+    XLA compiles the reference's ``mad / _MAD_CONST``. Returns (out,
+    count, s, denom)."""
+    f = np.float32
+    m = x.shape[0]
+    xs = np.sort(x, axis=0)
+    med = f(0.5) * (xs[(m - 1) // 2] + xs[m // 2])
+    ds = np.sort(np.abs(xs - med), axis=0)
+    mad = f(0.5) * (ds[(m - 1) // 2] + ds[m // 2])
+    kmad = f(0.6744897501960817)
+    s = mad * (f(1) / kmad) if mad_reciprocal else mad / kmad
+    z = (xs - med) / np.maximum(s, f(1e-12))
+    count = (z[..., None] <= deltas(K)).sum(axis=(0, -1))
+    total = f(0.5) * (2 * count - m * K).astype(np.float32)
+    denom = denominator(m, K)
+    return med - s * total / denom, count, s, denom
+
+
+def test_b1_mad_reciprocal_fault_at_k3(no_launch):
+    """The reference divides by the MAD constant with a reciprocal multiply
+    (ROADMAP.md §C). At m = 3, K = 3 (seed 103, 45 columns) the plain
+    version equals an IEEE-division oracle bit for bit, and the Pallas
+    kernel is one count off it at column 25, where the reciprocal oracle
+    reproduces it; every other column agrees to 1e-5."""
+    x = _stack(103, (3, 45))
+    got = aggregate(torch.from_numpy(x), "vrmom", K=3).numpy()
+    want, count, s, denom = _vrmom_oracle(x, 3)
+    np.testing.assert_array_equal(got, want)
+    pallas = np.asarray(aggregate_pallas(jnp.asarray(x), "vrmom", K=3,
+                                         interpret=True))
+    recip, count_r, _, _ = _vrmom_oracle(x, 3, mad_reciprocal=True)
+    assert np.flatnonzero(count_r != count).tolist() == [25]
+    assert abs(int(count_r[25]) - int(count[25])) == 1
+    off = np.abs(pallas - got)
+    assert off[25] == pytest.approx(float(s[25] / denom), rel=1e-5)
+    assert off[25] > 0.02 and np.delete(off, 25).max() < 1e-5
+    np.testing.assert_allclose(pallas, recip, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("method", METHODS)
@@ -205,6 +249,19 @@ def test_b4_greedy_matches_pallas(method, m, no_launch):
     np.testing.assert_array_equal(agg.numpy(), b1.numpy())
 
 
+@pytest.mark.parametrize("m", [3, 8])
+def test_b4_greedy_matches_pallas_at_k100(m, no_launch):
+    """Greedy over a vrmom aggregate at K = 100, above the 64 the kernels
+    took before."""
+    x = _stack(300 + m, (m, 4, 300))
+    agg_j, want = aggregate_sample_pallas(jnp.asarray(x), "vrmom", K=100,
+                                          interpret=True)
+    agg, got = aggregate_sample(torch.from_numpy(x), "vrmom", K=100)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_allclose(agg.numpy(), np.asarray(agg_j), rtol=1e-5,
+                               atol=1e-5)
+
+
 @pytest.mark.parametrize("k", [1, 5, 17])
 def test_b4_topk_matches_pallas_with_ties(k, no_launch):
     x = _tied_logits(21, 8, 3, 257)
@@ -267,18 +324,56 @@ def test_b4_plan_tail_blocks_cover_the_row(m):
 
 
 @pytest.mark.parametrize("method,K,m", [("vrmom", 8, 8), ("vrmom", 64, 100),
-                                        ("vrmom", 1, 3), ("median", 10, 8)])
+                                        ("vrmom", 1, 3), ("vrmom", 100, 101),
+                                        ("vrmom", 257, 128),
+                                        ("median", 10, 8)])
 def test_b4_params_cached(method, K, m):
-    first = _params(method, K, m)
-    assert _params(method, K, m) is first  # computed once per spec
-    d, denom = first
-    assert d.dtype == np.float32 and d.shape == (64,)
-    if method == "vrmom":
-        np.testing.assert_array_equal(d[:K], deltas(K))
-        assert np.all(d[K:] == 0) and np.all(np.diff(d[:K]) > 0)
-        assert denom == float(denominator(m, K))
-    else:
-        assert np.all(d == 0) and denom == 0.0
+    cpu = torch.device("cpu")
+    first = _params(method, K, m, cpu)
+    assert _params(method, K, m, cpu) is first  # computed once per spec
+    if method != "vrmom":
+        assert first.table is None and first.denom == 0.0
+        return
+    table, scale, zero_k = count_table(K)
+    assert first.denom == float(denominator(m, K))
+    assert (first.scale, first.zero_k) == (float(scale), zero_k)
+    if K <= 64:  # copied into the launch parameters
+        assert isinstance(first.table, np.ndarray)
+        np.testing.assert_array_equal(first.table, table)
+    else:  # read from device memory
+        assert first.table.dtype == torch.float32
+        np.testing.assert_array_equal(first.table.numpy(), table)
+    assert first.table.shape == (K,)
+
+
+@pytest.mark.parametrize("K", [1, 3, 8, 10, 64, 65, 100, 128, 257])
+def test_b1_count_table_is_exact(K):
+    """The count on the FP32 adders (csrc/agg.cuh) needs the scaled deltas
+    exact and every float z != Delta_k at least 1 / S from Delta_k: the
+    float neighbours of each delta, scaled, lie at least 1 away."""
+    table, scale, zero_k = count_table(K)
+    d = deltas(K)
+    assert table.dtype == np.float32 and np.all(np.isfinite(table))
+    assert np.log2(scale) == int(np.log2(scale)) >= 24
+    np.testing.assert_array_equal(table / scale, d)  # exact: S = 2^s
+    assert np.all(np.diff(table) > 0)
+    assert zero_k == (K // 2 if K % 2 else -1)
+    nz = d[d != 0]
+    for toward in (np.float32(-np.inf), np.float32(np.inf)):
+        gap = np.abs(np.nextafter(nz, toward) - nz).astype(np.float64)
+        assert np.all(gap * float(scale) >= 1.0)
+    if K == 100:  # the least |Delta_k| is |ndtri(50/101)| ~ 0.0124
+        assert scale == 2.0 ** 31
+
+
+def test_b1_refuses_a_count_that_cannot_be_exact():
+    """m * K ones must sum exactly in f32: 2^24 at most."""
+    cpu = torch.device("cpu")
+    _params("vrmom", 2 ** 17, 128, cpu)  # 2^24 exactly: taken
+    with pytest.raises(ValueError, match="2\\^24"):
+        _params("vrmom", 2 ** 17 + 1, 128, cpu)
+    with pytest.raises(ValueError, match="K >= 1"):
+        _params("vrmom", 0, 8, cpu)
 
 
 def test_b4_plain_ranks_nan_first_like_torch():
