@@ -9,7 +9,8 @@ holds each kernel against its plain PyTorch version at the shapes the
 serving path gives it (B1 in f32 and bf16 for all four methods, also at
 K = 10, at m = 3 and 100, on a ragged C and a misaligned base; B3 also
 at every length around its 32-key chunk edges and at batch 32, bitwise
-equal to the same rows at batch 4; B2 in bf16 at every head dim with
+equal to the same rows at batch 4, and at head dims 96 and 112 with query
+groups 9 and 16 in every kv dtype; B2 in bf16 at every head dim with
 ragged S and T), checks that B2 and B3 give the same bits on a second
 call and that one B3 call with a python-int length, and one B4 call
 (greedy or top-50), is one device kernel, and times kernel, plain
@@ -32,6 +33,20 @@ must be below MOM-RCSL's on the same draws; PAPER_LOGREG_BALANCED with
 label flipping; B1 on one chunk's statistics bitwise against its plain
 version, a cell on the kernel against the same cell on the plain
 Estimator, and the times of the path and of B1 at its shape.
+Phase 5 serves, one at a time and each freed before the next, the configs
+that reach B2's and B3's wider instances, at full width through
+``ServeEngine.generate`` with seeded random weights and the workload of
+phase 3: starcoder2-7b (B3 at query group 9), minitron-4b (B4 over a
+256000 vocabulary), phi-3-vision-4.2b with 256 stub patches before the
+prompt (B2 and B3 at head dim 96) and llama3-405b at full width cut to 2
+of its 126 layers (B3 at group 16). Greedy tokens must be equal across
+none, signflip and gaussian and fused and unfused within each layout
+(shared and replicated); where the two layouts part, the step must be a
+near-tie (its top-2 gap within the layouts' logit difference) and their
+teacher-forced logits must agree within 5e-2 of the largest logit. The
+new instances must have run (launch counters, and the template arguments
+of the device kernels in a trace of a prefill and a decode step), and
+each is held against its plain version and timed at its shape.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it lists every kernel with its launches, error and times. Any
@@ -65,6 +80,14 @@ PORT_KERNELS = ("agg_kernel", "tail_kernel", "flash_fwd_wgmma",
 # workload of phase 3
 N_PROMPTS, PROMPT_LEN, NEW_TOKENS = 4, 192, 24
 MAX_LEN = PROMPT_LEN + NEW_TOKENS
+
+# phase 5: (config, layers kept or None for all of them)
+WIDE_CONFIGS = (("starcoder2-7b", None), ("minitron-4b", None),
+                ("phi-3-vision-4.2b", None), ("llama3-405b", 2))
+# shared vs replicated teacher-forced logits, over the largest |logit|:
+# cuBLAS may round a batch-32 product unlike a batch-4 one, and bf16
+# rounds at other places through the depth (phase 3's prefill tolerance)
+LAYOUT_TOL = 5e-2
 
 
 class CheckFailed(Exception):
@@ -131,8 +154,8 @@ def max_err(a, b) -> float:
 
 def ptxas_report(build) -> None:
     """Registers, static shared memory and spills of every kernel, from the
-    ``-Xptxas -v`` log the build keeps beside each library (attention at
-    head dim 128 only, the slice's width)."""
+    ``-Xptxas -v`` log the build keeps beside each library (attention: the
+    bf16 instances at head dims 96 and 128, which the serving paths run)."""
     import re
     import shutil
 
@@ -158,11 +181,13 @@ def ptxas_report(build) -> None:
                 sm = re.search(r"(\d+) bytes smem", line)
                 info[cur]["smem"] = sm.group(1) if sm else "0"
         for name, r in info.items():
-            if lib != "vrmom" and "ILi128E" not in name:
-                continue
             if demangle:
                 name = subprocess.run([demangle, name], capture_output=True,
                                       text=True).stdout.strip()
+            if lib != "vrmom" and not re.search(
+                    r"wgmma<(96|128)>|kernel<(96|128), \d+, __nv_bfloat16, "
+                    r"__nv_bfloat16>|ILi(96|128)E", name):
+                continue
             print(f"[ptxas] {lib}: {r['regs']} registers, {r['smem']} bytes "
                   f"static smem, {r['spill']} bytes spilled, {r['stack']} "
                   f"bytes stack  {name[:100]}")
@@ -189,7 +214,8 @@ def phase_kernels(torch, dev):
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain,
                                                       lengths)
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                     flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.vrmom import (aggregate, aggregate_plain,
                                            aggregate_sample,
@@ -313,7 +339,7 @@ def phase_kernels(torch, dev):
     torch.testing.assert_close(out.float(), ref, atol=atol, rtol=rtol)
     require(torch.equal(out, flash_attention(q, k, v, causal=True)),
             "B2: two calls on the same inputs differ")
-    for dh in (32, 64, 128):
+    for dh in HEAD_DIMS:
         for S, T in ((100, 150), (193, 193)):
             qr, kr, vr = (torch.randn((2, n, h, dh), generator=g, device=dev
                                       ).to(torch.bfloat16)
@@ -329,7 +355,7 @@ def phase_kernels(torch, dev):
     smem = 5 * 64 * 128 * 2 + 1024
     print(f"[B2] causal [4,192,16,128] x [4,192,8,128] bf16 (wgmma) max err "
           f"{e2:.3g} (tolerance {atol} + {rtol}*|ref|), bitwise repeatable; "
-          f"dh 32/64/128 at S,T = 100,150 and 193,193, causal and not, ok; "
+          f"dh {HEAD_DIMS} at S,T = 100,150 and 193,193, causal and not, ok; "
           f"{smem} bytes of dynamic shared memory per block at dh 128")
     t_b2 = timed_ms(lambda: flash_attention(q, k, v, causal=True), torch,
                     flush)
@@ -406,9 +432,38 @@ def phase_kernels(torch, dev):
         require(torch.equal(out32, by4),
                 "B3 at batch 32 differs bitwise from the same rows at "
                 "batch 4")
+    # the head dims past 128's instance and the 16-head group bound, in
+    # every kv dtype, with per-row lengths around the chunk edges
+    lens_w = torch.tensor([T, 33, 1, 64], dtype=torch.int32, device=dev)
+    for dh in (96, 112):
+        for G in (9, 16):
+            qw = torch.randn((4, 1, 2 * G, dh), generator=g, device=dev
+                             ).to(torch.bfloat16)
+            kw, vw = (torch.randn((4, T, 2, dh), generator=g, device=dev)
+                      for _ in range(2))
+            kws = vws = None
+            for kv in ("float32", "bfloat16", "int8"):
+                if kv == "int8":
+                    kw, vw = (torch.randint(-127, 128, (4, T, 2, dh),
+                                            generator=g, device=dev,
+                                            dtype=torch.int8)
+                              for _ in range(2))
+                    kws, vws = (0.02 * torch.rand((4, T), generator=g,
+                                                  device=dev)
+                                for _ in range(2))
+                else:
+                    kw, vw = kw.to(getattr(torch, kv)), vw.to(
+                        getattr(torch, kv))
+                torch.testing.assert_close(
+                    decode_attention(qw, kw, vw, kv_len=lens_w, k_scale=kws,
+                                     v_scale=vws).float(),
+                    decode_attention_plain(qw.float(), kw, vw, lens_w, kws,
+                                           vws),
+                    atol=atol, rtol=rtol)
     print(f"[B3] q [4,1,16,128] over [4,{T},8,128] bf16 max err {e3:.3g}; "
           f"lengths 0..{T} at every chunk edge (scalar and per row), int8 + "
-          f"scales, batch 32 == batch 4 bitwise, repeat calls bitwise equal")
+          f"scales, batch 32 == batch 4 bitwise, repeat calls bitwise equal; "
+          f"dh 96 and 112 at G 9 and 16 in f32, bf16 and int8 caches ok")
     one_kernel = {
         "B4 greedy": lambda: aggregate_sample(x, "vrmom", K=8,
                                               with_agg=False),
@@ -613,6 +668,315 @@ def profile_generate(torch, eng, batch, gen_ms: float) -> None:
         if any(k in key for k in PORT_KERNELS):
             print(f"[profile] port kernel {dev_us / 1e3:8.3f} ms {count:5d}x "
                   f"({dev_us / count:7.2f} us each)  {key[:70]}")
+
+
+def attn_record(torch, flush, name, q, k, v, *, decode: bool):
+    """B2 (``decode=False``, causal) or B3 (a python-int length, the whole
+    cache) at one shape: held against its plain version, timed beside the
+    plain version and SDPA. Returns the record of the ``kernels`` line,
+    without launches."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain,
+                                                      lengths)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    B, S, H, dh = q.shape
+    T = k.shape[1]
+    if decode:
+        full = lengths(None, B, T, q.device)
+
+        def run():
+            return decode_attention(q, k, v, kv_len=T)
+
+        def plain():
+            return decode_attention_plain(q, k, v, full)
+        ref = decode_attention_plain(q.float(), k.float(), v.float(), full)
+        flops = 4 * dh * H * B * T
+    else:
+        def run():
+            return flash_attention(q, k, v, causal=True)
+
+        def plain():
+            return flash_attention_plain(q, k, v, causal=True)
+        ref = flash_attention_plain(q.float(), k.float(), v.float(),
+                                    causal=True)
+        flops = 4 * dh * B * H * sum(min(i + 1, T) for i in range(S))
+    out = run()
+    err = max_err(out, ref)
+    # bf16 output against the f32 plain version of the same bf16 inputs,
+    # as in phase 2
+    torch.testing.assert_close(out.float(), ref, atol=1e-2, rtol=1e-2)
+    require(torch.equal(out, run()), f"{name}: two calls differ")
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    b = bound(2 * (2 * q.numel() + k.numel() + v.numel()), flops)
+    return dict(
+        name=name, route="cuda",
+        source="src/repro_torch/kernels/csrc/" + (
+            "decode_attention.cu" if decode else "flash_attention.cu"),
+        replaces="src/repro/kernels/" + (
+            "decode_attention.py:158" if decode else
+            "flash_attention.py:76"),
+        max_abs_err=err, ms=timed_ms(run, torch, flush),
+        plain_ms=timed_ms(plain, torch, flush, iters=5,
+                          spin=PLAIN_SPIN_CYCLES),
+        bound_ms=b[0], bound_by=b[1],
+        library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=not decode, enable_gqa=True), torch,
+            flush))
+
+
+def layout_check(torch, cfg, params, batch, max_len, shared, replicated,
+                 m=8) -> str:
+    """Shared (batch B) against replicated (batch m·B) replica compute,
+    teacher-forced on the shared layout's tokens up to the first step where
+    the layouts' tokens part (the last step if they never do): their logits
+    must agree within LAYOUT_TOL of the largest |logit|, and a parting
+    step must be a near-tie, its top-2 gap within twice the largest
+    difference of the two layouts' logits in that row."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import robust as R
+
+    apart = (shared != replicated).any(0).nonzero()
+    t = int(apart[0]) if len(apart) else shared.shape[1] - 1
+    require(t >= 1, "the layouts part at token 0, which both sample off the "
+                    "same prefill logits")
+    B = shared.shape[0]
+    with torch.inference_mode():
+        _, cs = M.prefill(params, cfg, batch, cache_len=max_len,
+                          last_only=True)
+        cr = R.flatten_replicas(R.stack_replicas(cs, m), m)
+        for i in range(t):
+            tok = shared[:, i]
+            ls, cs = M.decode_step(params, cfg, cs, tok)
+            lr, cr = M.decode_step(params, cfg, cr, tok.repeat(m))
+    ls, lr = ls.float(), lr[:B].float()
+    rel = max_err(ls, lr) / float(ls.abs().max())
+    require(rel <= LAYOUT_TOL and bool(torch.isfinite(lr).all()),
+            f"shared vs replicated logits at step {t}: max err / max |logit| "
+            f"= {rel}")
+    what = (f"logits at step {t}, teacher-forced: max err / max |logit| = "
+            f"{rel:.3g} (tolerance {LAYOUT_TOL})")
+    if not len(apart):
+        return "tokens identical; " + what
+    rows = (shared[:, t] != replicated[:, t]).nonzero()[:, 0].tolist()
+    for r in rows:
+        top2 = torch.topk(ls[r], 2).values
+        gap = float(top2[0] - top2[1])
+        diff = float((ls[r] - lr[r]).abs().max())
+        require(gap <= 2 * diff, f"layouts part at step {t}, row {r}, with "
+                                 f"a top-2 gap {gap} above twice their "
+                                 f"logit difference {diff}")
+        what += (f"; row {r} parts at step {t}: top-2 gap {gap:.4g}, largest "
+                 f"layout difference {diff:.4g} (a near-tie)")
+    return "tokens part; " + what
+
+
+def phase_configs(torch, dev, card: str):
+    """Phase 5: the configs that reach B2's and B3's wider instances,
+    served one at a time at full width. Returns the ``kernels`` records of
+    the new instances, with the launches of their config's main path."""
+    import dataclasses
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core.estimator import Estimator
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.device import kernel_instance
+    from repro_torch.models import model as M
+    from repro_torch.serve import RobustDecodeConfig, ServeEngine
+
+    flush = make_flush(torch, dev)
+    records = []
+    for name, depth in WIDE_CONFIGS:
+        t_cfg = time.perf_counter()
+        cfg = get_arch(name)
+        if depth is not None:
+            print(f"[configs] {name}: depth cut to {depth} of "
+                  f"{cfg.n_layers} layers (the whole model does not fit one "
+                  f"card); every width as published")
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        params = M.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+        torch.cuda.synchronize()
+        n_params = M.param_count(params)
+        g = torch.Generator(device=dev).manual_seed(1)
+        batch = {"tokens": torch.randint(0, cfg.vocab,
+                                         (N_PROMPTS, PROMPT_LEN),
+                                         generator=g, device=dev)}
+        n_prefix = 0
+        if cfg.family == "vlm":
+            n_prefix = cfg.vision.n_patches
+            batch["patches"] = (0.02 * torch.randn(
+                (N_PROMPTS, n_prefix, cfg.d_model), generator=g,
+                device=dev)).to(torch.bfloat16)
+        max_len = n_prefix + PROMPT_LEN + NEW_TOKENS
+        dh, G = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+        print(f"[configs] {name} [{cfg.family}]: {cfg.n_layers} layers, d "
+              f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} (G {G}), "
+              f"dh {dh}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+              f"{n_params / 1e9:.3f} B params bf16 "
+              f"({2 * n_params / 1e9:.2f} GB); {N_PROMPTS} x "
+              f"({n_prefix} patches + {PROMPT_LEN} tokens), {NEW_TOKENS} new")
+
+        def rcfg(**kw):
+            return RobustDecodeConfig(**{**dict(m=8, estimator="vrmom", K=8,
+                                                alpha=0.25), **kw})
+
+        def engine(robust, **kw):
+            return ServeEngine(cfg, params, max_len=max_len, robust=robust,
+                               device=dev, **kw)
+
+        runs = {
+            "shared": [("none", engine(rcfg())),
+                       ("signflip", engine(rcfg(attack="signflip"))),
+                       ("gaussian", engine(rcfg(attack="gaussian"))),
+                       ("signflip unfused", engine(rcfg(attack="signflip",
+                                                        fuse_tail=False)))],
+            "replicated": [
+                ("signflip", engine(rcfg(attack="signflip",
+                                         share_replica_compute=False))),
+                ("gaussian unfused", engine(rcfg(
+                    attack="gaussian", fuse_tail=False,
+                    share_replica_compute=False)))],
+        }
+        runs["shared"][0][1].generate(batch, 2)  # warm-up
+        torch.cuda.synchronize()
+
+        # ---- this config's main path: counts from 0 --------------------
+        K.reset_launch_counts()
+        toks, per_run = {}, {}
+        for layout, rs in runs.items():
+            for what, eng in rs:
+                before = K.launch_counts()
+                t0 = time.perf_counter()
+                toks[layout, what] = eng.generate(batch, NEW_TOKENS)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                after = K.launch_counts()
+                per_run[layout, what] = (ms, {k: after[k] - before[k]
+                                              for k in after})
+        counts = K.launch_counts()
+        # ------------------------------------------------------------------
+        ref = toks["shared", "none"]
+        require(ref.shape == (N_PROMPTS, NEW_TOKENS)
+                and bool(((ref >= 0) & (ref < cfg.vocab)).all()),
+                f"{name}: tokens of shape {tuple(ref.shape)} or outside the "
+                f"vocabulary")
+        for (layout, what), tk in toks.items():
+            base = toks[layout, runs[layout][0][0]]
+            same = torch.equal(tk, base)
+            ms, delta = per_run[layout, what]
+            print(f"[configs] {name} {layout:10s} {what:17s} {ms:9.1f} ms  "
+                  f"identical in layout={same}  launches={json.dumps(delta)}")
+            require(same, f"{name}: greedy tokens of {layout} '{what}' differ "
+                          f"from {layout} '{runs[layout][0][0]}'")
+        fused = per_run["shared", "signflip"][1]
+        require(fused["flash_attention"] == cfg.n_layers
+                and fused["decode_attention"] == cfg.n_layers
+                * (NEW_TOKENS - 1)
+                and fused["aggregate_sample"] == NEW_TOKENS
+                and fused["aggregate"] == 0,
+                f"{name}: fused greedy launches {fused}")
+        for k_name in ("aggregate", "aggregate_sample", "flash_attention",
+                       "decode_attention"):
+            require(counts[k_name] > 0, f"{name}: kernel {k_name} never "
+                                        f"launched on the main path")
+        print(f"[configs] {name} shared vs replicated: " + layout_check(
+            torch, cfg, params, batch, max_len, ref,
+            toks["replicated", "signflip"]))
+
+        # ---- the instances that ran, by the device kernels' names: one
+        # trace of a prefill and a decode step (thousands of kernels; the
+        # tracer may drop a trace's first events, so the names are read as
+        # a set, not split per call as kernels_in_calls does)
+        eng = runs["shared"][0][1]
+        _, caches = eng.prefill(batch)
+        with torch.inference_mode(), profile(
+                activities=[ProfilerActivity.CUDA]) as prof:
+            eng.prefill(batch)
+            M.decode_step(params, cfg, caches, ref[:, 0])
+            torch.cuda.synchronize()
+        ran = {ev.name for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA}
+        flash = {kernel_instance(n, "flash_fwd_wgmma") for n in ran} - {None}
+        dec = {kernel_instance(n, "decode_split_kernel")
+               for n in ran} - {None}
+        want_dec = (dh, 8 if G <= 8 else 16)
+        require(flash == {(dh,)} and dec == {want_dec},
+                f"{name}: instances {flash} (B2) and {dec} (B3), expected "
+                f"{(dh,)} and {want_dec}")
+        print(f"[configs] {name} instances: B2 flash_fwd_wgmma<{dh}> "
+              f"(prefill), B3 decode_split_kernel<{want_dec[0]}, "
+              f"{want_dec[1]}> (decode step)")
+
+        # ---- prefill on the kernel path against the plain path -----------
+        eng_p = engine(rcfg(estimator=Estimator(method="vrmom", K=8,
+                                                backend="torch")),
+                       attn_backend="torch")
+        lk, _ = eng.prefill(batch)
+        lp, _ = eng_p.prefill(batch)
+        rel = max_err(lk, lp) / float(lp.float().abs().max())
+        require(rel <= 5e-2 and bool(torch.isfinite(lk.float()).all()),
+                f"{name}: prefill logits kernel vs plain: {rel}")
+        pre = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eng.prefill(batch)
+            torch.cuda.synchronize()
+            pre.append((time.perf_counter() - t0) * 1e3)
+        prefill_ms = statistics.median(pre)
+        gen_ms = per_run["shared", "none"][0]
+        print(f"[configs] {name}: prefill logits kernel vs plain path max "
+              f"err / max|logit| = {rel:.3g} (tolerance 5e-2); robust m=8 "
+              f"vrmom greedy generate {gen_ms:.1f} ms, prefill "
+              f"{prefill_ms:.1f} ms, decode "
+              f"{(gen_ms - prefill_ms) / (NEW_TOKENS - 1):.2f} ms/token, "
+              f"{N_PROMPTS * NEW_TOKENS / (gen_ms / 1e3):.1f} tok/s; "
+              f"main-path launches {json.dumps(counts)} ({card})")
+
+        # ---- the new instances at this config's shapes --------------------
+        def rand(*shape):
+            return torch.randn(shape, generator=g, device=dev
+                               ).to(torch.bfloat16)
+
+        Hkv, H = cfg.n_kv_heads, cfg.n_heads
+        S = n_prefix + PROMPT_LEN
+        new = []
+        if dh == 96:
+            new.append((f"B2 flash_attention (causal, {name}: q "
+                        f"[{N_PROMPTS},{S},{H},{dh}] bf16)",
+                        dict(q=rand(N_PROMPTS, S, H, dh),
+                             k=rand(N_PROMPTS, S, Hkv, dh),
+                             v=rand(N_PROMPTS, S, Hkv, dh), decode=False),
+                        "flash_attention"))
+        if dh == 96 or G > 8:
+            new.append((f"B3 decode_attention ({name}: dh {dh}, G {G}, q "
+                        f"[{N_PROMPTS},1,{H},{dh}], cache "
+                        f"[{N_PROMPTS},{max_len},{Hkv},{dh}] bf16)",
+                        dict(q=rand(N_PROMPTS, 1, H, dh),
+                             k=rand(N_PROMPTS, max_len, Hkv, dh),
+                             v=rand(N_PROMPTS, max_len, Hkv, dh),
+                             decode=True),
+                        "decode_attention"))
+        for rec_name, kw, kernel in new:
+            rec = attn_record(torch, flush, rec_name, **kw)
+            rec["launches"] = counts[kernel]
+            print(f"[configs] {rec_name}: {rec['ms'] * 1e3:.2f} us device, "
+                  f"bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}),"
+                  f" SDPA {rec['library_ms'] * 1e3:.2f} us, plain "
+                  f"{rec['plain_ms']:.3f} ms, max err {rec['max_abs_err']:.3g}"
+                  f" ({card})")
+            records.append(rec)
+        del runs, eng, eng_p, params, caches, lk, lp
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"[time] phase 5 {name}: {time.perf_counter() - t_cfg:.1f} s")
+    return records
 
 
 def phase_paper(torch, dev, card: str):
@@ -843,14 +1207,25 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}"
           f", CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     try:
-        t0 = time.perf_counter()
+        t_all = t0 = time.perf_counter()
+
+        def lap(what):
+            nonlocal t0
+            t = time.perf_counter()
+            print(f"[time] {what} {t - t0:.1f} s")
+            t0 = t
+
         phase_build()
+        lap("phase 1 (build)")
         rec = phase_kernels(torch, dev)
+        lap("phase 2 (kernels)")
         counts = phase_serve(torch, dev)
-        t3 = time.perf_counter()
+        lap("phase 3 (serve qwen3-1.7b)")
         paper_launches, paper_rec = phase_paper(torch, dev, card)
-        print(f"[time] phases 1-3 {t3 - t0:.1f} s, phase 4 "
-              f"{time.perf_counter() - t3:.1f} s")
+        lap("phase 4 (paper path)")
+        config_recs = phase_configs(torch, dev, card)
+        lap("phase 5 (configs)")
+        print(f"[time] all phases {time.perf_counter() - t_all:.1f} s")
     except (CheckFailed, AssertionError) as exc:
         print(f"chip_smoke.py: check failed: {exc}", file=sys.stderr)
         return 1
@@ -859,6 +1234,7 @@ def main() -> int:
                  "decode_attention"):
         kernels.append(dict(rec[name], launches=counts[name]))
     kernels.append(dict(paper_rec, launches=paper_launches))
+    kernels.extend(config_recs)
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

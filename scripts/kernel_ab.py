@@ -21,7 +21,17 @@ serving shapes:
   read), the time a library kernel takes to read the same bytes;
 - B2: causal, q [4,192,16,128], k/v [4,192,8,128] bf16 (prefill);
 - B3: q [4,1,16,128] over a [4,216,8,128] bf16 cache, python-int length
-  216 (a decode step), and the same at batch 32 (the replicated path).
+  216 (a decode step), and the same at batch 32 (the replicated path);
+- ``--only configs``: B2 and B3 at the instances that the wider configs
+  reach (a checkout before them refuses these shapes): B2 causal at
+  phi-3-vision-4.2b's prefill (q/k/v [4,448,32,96]: 256 patches and 192
+  tokens) and at dh 112 (q/k/v [4,192,32,112], zamba2-7b's head dim);
+  B3 at batch 4 and 32 for phi-3-vision (q [B,1,32,96] over
+  [B,472,32,96]), starcoder2-7b (G 9: q [B,1,36,128] over [B,216,4,128]),
+  llama3-405b (G 16: q [B,1,128,128] over [B,216,8,128]) and dh 112
+  (q [B,1,32,112] over [B,216,32,112]); and, to see what B3's time at
+  G 16 grows with, G 16 over a one-chunk cache (T = 32) and G 8 (q
+  [B,1,64,128] over [B,216,8,128]).
 
 With B1 it also logs the card's SM clock under B1's load: B1 runs back
 to back for ~3 s over a [8, 64 * 151936] f32 stack while ``nvidia-smi``
@@ -39,7 +49,8 @@ which leaves L2 holding clean lines only; ``--flush fill`` writes 64 MB
 kernel's loads may have to write back first. ``*_host_us`` is the
 wrapper's host time per call: the device spins ~50 ms, long enough that
 no call waits on it, while the host makes 200 calls. ``--only b1b4``
-or ``--only attn`` times one group.
+``--only attn`` or ``--only configs`` times one group (the default:
+b1b4 and attn).
 """
 from __future__ import annotations
 
@@ -184,7 +195,24 @@ def time_b1b4(out, torch, dev, g, flush) -> None:
     loaded_clock(out, torch, dev, g)
 
 
-def time_attn(out, torch, dev, g, flush) -> None:
+# (key, S = T, H, Hkv, dh) of B2, causal; (key, T, H, Hkv, dh) of B3, timed
+# at batch 4 and 32
+ATTN_SHAPES = {
+    "attn": ([("b2", 192, 16, 8, 128)], [("b3", 216, 16, 8, 128)]),
+    "configs": ([("b2_phi3v_dh96", 448, 32, 32, 96),
+                 ("b2_dh112", 192, 32, 32, 112)],
+                [("b3_phi3v_dh96", 472, 32, 32, 96),
+                 ("b3_starcoder2_g9", 216, 36, 4, 128),
+                 ("b3_llama3_g16", 216, 128, 8, 128),
+                 ("b3_dh112", 216, 32, 32, 112),
+                 # what B3's time at G 16 grows with: one 32-key chunk
+                 # (a one-record merge), and G 8 on the 8-head instance
+                 ("b3_g16_t32", 32, 128, 8, 128),
+                 ("b3_g8_t216", 216, 64, 8, 128)]),
+}
+
+
+def time_attn(out, torch, dev, g, flush, group: str) -> None:
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import decode_attention
@@ -198,32 +226,36 @@ def time_attn(out, torch, dev, g, flush) -> None:
         return lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True)
 
-    q, k, v = rand(4, 192, 16, 128), rand(4, 192, 8, 128), rand(4, 192, 8, 128)
+    b2_shapes, b3_shapes = ATTN_SHAPES[group]
+    for key, S, H, Hkv, dh in b2_shapes:
+        q, k, v = rand(4, S, H, dh), rand(4, S, Hkv, dh), rand(4, S, Hkv, dh)
 
-    def b2():
-        return flash_attention(q, k, v, causal=True)
+        def b2():
+            return flash_attention(q, k, v, causal=True)
 
-    out["b2_ms"] = device_ms(b2, torch, flush)
-    out["b2_sdpa_ms"] = device_ms(sdpa(q, k, v, True), torch, flush)
-    out["b2_host_us"] = host_us(b2, torch)
-    for B in (4, 32):
-        q = rand(B, 1, 16, 128)
-        k, v = rand(B, 216, 8, 128), rand(B, 216, 8, 128)
+        out[f"{key}_ms"] = device_ms(b2, torch, flush)
+        out[f"{key}_sdpa_ms"] = device_ms(sdpa(q, k, v, True), torch, flush)
+        out[f"{key}_host_us"] = host_us(b2, torch)
+    for key, T, H, Hkv, dh in b3_shapes:
+        for B in (4, 32):
+            q = rand(B, 1, H, dh)
+            k, v = rand(B, T, Hkv, dh), rand(B, T, Hkv, dh)
 
-        def b3():
-            return decode_attention(q, k, v, kv_len=216)
+            def b3():
+                return decode_attention(q, k, v, kv_len=T)
 
-        out[f"b3_b{B}_ms"] = device_ms(b3, torch, flush)
-        out[f"b3_b{B}_sdpa_ms"] = device_ms(sdpa(q, k, v, False), torch,
-                                            flush)
-        out[f"b3_b{B}_host_us"] = host_us(b3, torch)
+            out[f"{key}_b{B}_ms"] = device_ms(b3, torch, flush)
+            out[f"{key}_b{B}_sdpa_ms"] = device_ms(sdpa(q, k, v, False),
+                                                   torch, flush)
+            out[f"{key}_b{B}_host_us"] = host_us(b3, torch)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", required=True, help="a checkout's src directory")
     ap.add_argument("--tag", default="")
-    ap.add_argument("--only", choices=("b1b4", "attn"), default=None)
+    ap.add_argument("--only", choices=("b1b4", "attn", "configs"),
+                    default=None)
     ap.add_argument("--flush", choices=("read", "fill"), default="read")
     args = ap.parse_args()
     import torch
@@ -246,7 +278,9 @@ def main() -> int:
     if args.only in (None, "b1b4"):
         time_b1b4(out, torch, dev, g, flush)
     if args.only in (None, "attn"):
-        time_attn(out, torch, dev, g, flush)
+        time_attn(out, torch, dev, g, flush, "attn")
+    if args.only == "configs":
+        time_attn(out, torch, dev, g, flush, "configs")
     print(json.dumps(out))
     return 0
 

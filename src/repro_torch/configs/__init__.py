@@ -1,15 +1,5 @@
-"""Ported architecture configs. ``get(name)``."""
-from . import qwen3_1_7b
-from .base import ArchConfig
+"""Ported architecture configs. ``get(name)`` / ``list_archs()``."""
+from .base import ArchConfig, VisionStubConfig
+from .registry import ARCHS, get, list_archs
 
-ARCHS = {m.CONFIG.name: m.CONFIG for m in (qwen3_1_7b,)}
-
-
-def get(name: str) -> ArchConfig:
-    if name not in ARCHS:
-        raise KeyError(f"architecture {name!r} is not ported yet (see "
-                       f"ROADMAP.md, queue A); ported: {sorted(ARCHS)}")
-    return ARCHS[name]
-
-
-__all__ = ["ArchConfig", "ARCHS", "get"]
+__all__ = ["ArchConfig", "VisionStubConfig", "ARCHS", "get", "list_archs"]

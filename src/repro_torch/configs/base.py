@@ -1,22 +1,30 @@
-"""Architecture configuration (dense family).
+"""Architecture configuration (dense and vlm families).
 
 ``repro.configs.base`` imports JAX, so the port re-declares the fields of
-``ArchConfig`` that the dense decoder reads. Field names, defaults and
+``ArchConfig`` that the decoder reads. Field names, defaults and
 ``reduced()`` follow ``repro`` so a config means the same model on both
-sides.
+sides. The training-only fields (``optimizer``, ``remat_block``, ...) come
+with training (ROADMAP.md, A4).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-FAMILIES = ("dense",)
+FAMILIES = ("dense", "vlm")
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionStubConfig:
+    """VLM frontend stub: precomputed patch embeddings [B, n_patches, d]."""
+
+    n_patches: int = 256
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # only "dense" is ported so far
+    family: str  # "dense" | "vlm" (a dense LM behind stub patch embeddings)
     n_layers: int
     d_model: int
     n_heads: int
@@ -29,6 +37,7 @@ class ArchConfig:
     qk_norm: bool = False
     sliding_window: Optional[int] = None
     tie_embeddings: bool = True
+    vision: Optional[VisionStubConfig] = None
     norm_eps: float = 1e-5
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
@@ -46,7 +55,7 @@ class ArchConfig:
         if self.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {self.family!r} is not ported yet (see ROADMAP.md, "
-                f"queue A); ported families: {FAMILIES}")
+                f"A7); ported families: {FAMILIES}")
 
     @property
     def head_dim(self) -> int:
@@ -54,9 +63,11 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: 2 layers, d_model 128, <= 4 heads, head dim
-        32, vocab 512, f32 — the same cut ``repro``'s ``reduced()`` makes
-        for the dense family."""
+        32, vocab 512, f32, 4 stub patches — the same cut ``repro``'s
+        ``reduced()`` makes for the dense and vlm families."""
         n_heads = min(self.n_heads, 4)
+        vision = None if self.vision is None else VisionStubConfig(
+            n_patches=4)
         return dataclasses.replace(
             self,
             name=self.name + "-smoke",
@@ -69,6 +80,7 @@ class ArchConfig:
             vocab=512,
             sliding_window=(min(self.sliding_window, 16)
                             if self.sliding_window else None),
+            vision=vision,
             param_dtype="float32",
             compute_dtype="float32",
             attn_chunk=16,

@@ -1,0 +1,38 @@
+"""Registry of the ported architectures (``repro.configs.registry``'s
+counterpart): ``ARCHS``, ``get(name)``, ``list_archs()``.
+
+``repro`` registers ten architectures; the port holds the dense and vlm
+ones. The others need model families that are not ported yet, and asking
+for one raises, naming the family and ROADMAP.md's item for it."""
+from . import (llama3_405b, minitron_4b, phi_3_vision_4_2b, qwen3_1_7b,
+               starcoder2_7b)
+
+ARCHS = {
+    m.CONFIG.name: m.CONFIG
+    for m in (qwen3_1_7b, starcoder2_7b, phi_3_vision_4_2b, minitron_4b,
+              llama3_405b)
+}
+
+# repro's other architectures, by the family each one waits on
+NOT_PORTED = {
+    "whisper-medium": "encdec",
+    "zamba2-7b": "hybrid",
+    "granite-moe-3b-a800m": "moe",
+    "mixtral-8x7b": "moe",
+    "mamba2-2.7b": "ssm",
+}
+
+
+def get(name: str):
+    if name in ARCHS:
+        return ARCHS[name]
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"architecture {name!r} needs the {NOT_PORTED[name]} family, "
+            f"which is not ported yet (see ROADMAP.md, A7)")
+    raise KeyError(f"unknown architecture {name!r}; ported: "
+                   f"{list_archs()}")
+
+
+def list_archs():
+    return sorted(ARCHS)

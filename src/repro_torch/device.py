@@ -2,7 +2,8 @@
 of which device kernels a call runs."""
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Union
+import re
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -60,3 +61,17 @@ def kernels_in_calls(fns: Sequence[Callable[[], object]]) -> List[List[str]]:
             return calls[:-1]
     raise RuntimeError(f"profiler trace not split into {len(fns)} calls: "
                        f"{[ev.name[:50] for ev in evs]}")
+
+
+def kernel_instance(name: str, kernel: str) -> Optional[Tuple[int, ...]]:
+    """The integer template arguments of a device kernel's name, demangled
+    (``decode_split_kernel<96, 16, ...>``) or mangled
+    (``decode_split_kernelILi96ELi16E...``): which instance of ``kernel``
+    ran. None for another kernel."""
+    m = re.search(rf"{kernel}<([\d, ]+)[,>]", name)
+    if m:
+        return tuple(int(a) for a in m.group(1).split(",") if a.strip())
+    m = re.search(rf"{kernel}I((?:Li\d+E)+)", name)
+    if m:
+        return tuple(int(a) for a in re.findall(r"Li(\d+)E", m.group(1)))
+    return None

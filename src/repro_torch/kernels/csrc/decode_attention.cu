@@ -36,10 +36,19 @@
 //   with the G query rows (pre-scaled by log2(e) / sqrt(dh) in shared
 //   memory); two shuffles finish each score, three more give the warp's
 //   max and sum over its keys, and P.V runs over the warp's keys with each
-//   lane owning dh / 32 output dims, p broadcast by shuffle. The four warp
+//   lane owning DP / 32 output dims, p broadcast by shuffle. The four warp
 //   states merge in warp order into the chunk's record. Tensor cores would
 //   waste >= 8x here: the group is G = 2 rows at the slice shape and the
 //   smallest mma tile has 16.
+// - Head dims 32, 64 and 128 compute at their own width (DP = dh). Head
+//   dims 96 and 112 compute at DP = 128: the copies bring the dh real
+//   columns of each row (a whole number of 16-byte pieces in every kv
+//   dtype), the columns past dh of every shared tile and of q are zeros
+//   written once, so they add nothing to a score, and their P.V outputs
+//   are never written to a record. The scale is 1 / sqrt(dh), the true dh.
+// - The group bound is a template parameter: G <= 8 runs the instance with
+//   8-entry score and accumulator arrays, 8 < G <= 16 the one with 16, so
+//   a small group pays nothing for the large ones.
 // - Merge in the same launch, in a fixed order. Every 32-key chunk leaves
 //   its own f32 record (m, l, acc[G][dh]) in the scratch buffer; the block
 //   fences, takes a ticket from its (row, kv head) counter, and the block
@@ -62,13 +71,17 @@ constexpr int kChunk = 32;                   // keys per chunk record
 constexpr int kKeysPerWarp = kChunk / kWarps;
 constexpr int kLanesPerKey = 32 / kKeysPerWarp;  // 4 lanes share a key row
 constexpr int kStages = 2;                   // chunk tiles in flight
-constexpr int kMaxGroup = 8;                 // query heads per kv head
+constexpr int kMaxGroup = 16;                // query heads per kv head, at most
 constexpr int kMergeBatch = 4;               // records the merge loads at once
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int DH, typename TKV>
 struct Cfg {
-  static constexpr int kRowBytes = DH * (int)sizeof(TKV);
+  // compute width: dh 96 and 112 run at 128 with zero columns past dh
+  static constexpr int kDP = DH <= 32 ? 32 : DH <= 64 ? 64 : 128;
+  static constexpr int kSrcBytes = DH * (int)sizeof(TKV);  // a row in memory
+  static_assert(kSrcBytes % 16 == 0 && DH <= kDP, "16-byte row pieces");
+  static constexpr int kRowBytes = kDP * (int)sizeof(TKV);  // a shared row
   static constexpr int kPitch = kRowBytes + 16;  // padded: no bank conflicts
   static constexpr int kTile = kChunk * kPitch;  // bytes of one K or V tile
   // scores: lane s of a key reads pieces s, s + 4, ... of its row
@@ -76,14 +89,14 @@ struct Cfg {
   static constexpr int kPiece = kSlice < 16 ? kSlice : 16;
   static constexpr int kPieces = kSlice / kPiece;
   static constexpr int kEpp = kPiece / (int)sizeof(TKV);
-  static constexpr int kDpl = DH / 32;  // P.V: output dims per lane
+  static constexpr int kDpl = kDP / 32;  // P.V: output dims per lane
   // dynamic shared memory: the tiles, q (f32) and the warps' partial acc
   static int smem(int G) {
-    return kStages * 2 * kTile + G * DH * 4 * (1 + kWarps);
+    return kStages * 2 * kTile + G * kDP * 4 * (1 + kWarps);
   }
 };
 
-template <int DH, typename TQ, typename TKV>
+template <int DH, int MAXG, typename TQ, typename TKV>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                     const TKV* __restrict__ v,
@@ -96,7 +109,7 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   using C = Cfg<DH, TKV>;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float ksc_s[kStages][kChunk], vsc_s[kStages][kChunk];
-  __shared__ float mw[kWarps][kMaxGroup], lw[kWarps][kMaxGroup];
+  __shared__ float mw[kWarps][MAXG], lw[kWarps][MAXG];
   __shared__ int ticket;
 
   const int kvh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
@@ -110,12 +123,12 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   const int c_end = min(c_begin + chunks_per_split, n_act);
 
   float* qs = reinterpret_cast<float*>(smem + kStages * 2 * C::kTile);
-  float* accw = qs + G * DH;  // [kWarps][G][DH]
-  const long long row_bytes = (long long)Hkv * C::kRowBytes;  // a position
+  float* accw = qs + G * C::kDP;  // [kWarps][G][DP]
+  const long long row_bytes = (long long)Hkv * C::kSrcBytes;  // a position
   const char* kb = reinterpret_cast<const char*>(k)
-      + (long long)b * Tk * row_bytes + (long long)kvh * C::kRowBytes;
+      + (long long)b * Tk * row_bytes + (long long)kvh * C::kSrcBytes;
   const char* vb = reinterpret_cast<const char*>(v)
-      + (long long)b * Tk * row_bytes + (long long)kvh * C::kRowBytes;
+      + (long long)b * Tk * row_bytes + (long long)kvh * C::kSrcBytes;
   const float* ksb = k_scale ? k_scale + (long long)b * Tk : nullptr;
   const float* vsb = v_scale ? v_scale + (long long)b * Tk : nullptr;
   const int bk = b * Hkv + kvh;
@@ -129,8 +142,8 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     const int n = min(kChunk, len - t0);
     unsigned char* kt = smem + st * 2 * C::kTile;
     unsigned char* vt = kt + C::kTile;
-    for (int i = tid; i < kChunk * C::kRowBytes / 16; i += kThreads) {
-      const int j = i / (C::kRowBytes / 16), off = i % (C::kRowBytes / 16) * 16;
+    for (int i = tid; i < kChunk * C::kSrcBytes / 16; i += kThreads) {
+      const int j = i / (C::kSrcBytes / 16), off = i % (C::kSrcBytes / 16) * 16;
       if (j < n) {
         const long long src = (long long)(t0 + j) * row_bytes + off;
         kern::cp_async16(kern::smem_addr(kt + j * C::kPitch + off), kb + src);
@@ -142,13 +155,28 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     if (vsb && tid >= 32 && tid - 32 < n)
       kern::cp_async4(kern::smem_addr(&vsc_s[st][tid - 32]), vsb + t0 + tid - 32);
   };
+  if constexpr (C::kDP != DH) {
+    // the columns past dh of every row of every tile: zero once (the
+    // copies never write them; the first barrier orders these stores)
+    constexpr int kPad = (C::kRowBytes - C::kSrcBytes) / 16;
+    for (int i = tid; i < kStages * 2 * kChunk * kPad; i += kThreads)
+      *reinterpret_cast<uint4*>(smem + i / kPad * C::kPitch + C::kSrcBytes
+                                + i % kPad * 16) = make_uint4(0, 0, 0, 0);
+  }
   for (int c = c_begin; c < c_begin + kStages; ++c) {
     if (c < c_end) stage(c);
     kern::cp_async_commit();
   }
   const TQ* qb = q + ((long long)b * H + kvh * G) * DH;
-  for (int i = tid; i < G * DH; i += kThreads)
-    qs[i] = kern::to_f32(qb[i]) * qscale;
+  if constexpr (C::kDP == DH) {
+    for (int i = tid; i < G * DH; i += kThreads)
+      qs[i] = kern::to_f32(qb[i]) * qscale;
+  } else {
+    for (int i = tid; i < G * C::kDP; i += kThreads) {
+      const int g = i / C::kDP, d = i % C::kDP;
+      qs[i] = d < DH ? kern::to_f32(qb[g * DH + d]) * qscale : 0.f;
+    }
+  }
 
   for (int c = c_begin; c < c_end; ++c) {
     const int st = (c - c_begin) % kStages, t0 = c * kChunk;
@@ -162,9 +190,9 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     const int j = warp * kKeysPerWarp + lane / kLanesPerKey;
     const int sl = lane % kLanesPerKey;
     const bool valid = j < n;
-    float sc[kMaxGroup];
+    float sc[MAXG];
 #pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) sc[g] = 0.f;
+    for (int g = 0; g < MAXG; ++g) sc[g] = 0.f;
     if (valid) {
 #pragma unroll
       for (int pc = 0; pc < C::kPieces; ++pc) {
@@ -173,9 +201,9 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
         kern::load_vec<TKV, C::kEpp>(reinterpret_cast<const TKV*>(
             kt + j * C::kPitch + piece * C::kPiece), kf);
 #pragma unroll
-        for (int g = 0; g < kMaxGroup; ++g) {
+        for (int g = 0; g < MAXG; ++g) {
           if (g >= G) break;
-          const float* qg = qs + g * DH + piece * C::kEpp;
+          const float* qg = qs + g * C::kDP + piece * C::kEpp;
 #pragma unroll
           for (int e = 0; e < C::kEpp; ++e) sc[g] += qg[e] * kf[e];
         }
@@ -184,9 +212,9 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     const float kscale = ksb && valid ? ksc_s[st][j] : 1.f;
     const float vscale = vsb && valid ? vsc_s[st][j] : 1.f;
     // softmax over the warp's keys, P.V over its lanes' dims
-    float acc[kMaxGroup][C::kDpl];
+    float acc[MAXG][C::kDpl];
 #pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) {
+    for (int g = 0; g < MAXG; ++g) {
       if (g >= G) break;
       float x = sc[g];
       x += __shfl_xor_sync(0xffffffffu, x, 1);
@@ -216,7 +244,7 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
       kern::load_vec<TKV, C::kDpl>(reinterpret_cast<const TKV*>(
           vt + (warp * kKeysPerWarp + jj) * C::kPitch) + lane * C::kDpl, vf);
 #pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g) {
+      for (int g = 0; g < MAXG; ++g) {
         if (g >= G) break;
         const float pj = __shfl_sync(0xffffffffu, sc[g], jj * kLanesPerKey);
 #pragma unroll
@@ -224,11 +252,11 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
       }
     }
 #pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) {
+    for (int g = 0; g < MAXG; ++g) {
       if (g >= G) break;
 #pragma unroll
       for (int e = 0; e < C::kDpl; ++e)
-        accw[(warp * G + g) * DH + lane * C::kDpl + e] = acc[g][e];
+        accw[(warp * G + g) * C::kDP + lane * C::kDpl + e] = acc[g][e];
     }
     __syncthreads();  // the stage is consumed, the warps' partials are in
     if (c + kStages < c_end) stage(c + kStages);
@@ -238,6 +266,7 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     float* rc = part_bk + (long long)c * rec;
     for (int i = tid; i < G * DH; i += kThreads) {
       const int g = i / DH;
+      const int ai = C::kDP == DH ? i : g * C::kDP + i % DH;  // i in accw
       float m = mw[0][g];
 #pragma unroll
       for (int w = 1; w < kWarps; ++w) m = fmaxf(m, mw[w][g]);
@@ -246,7 +275,7 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
       for (int w = 0; w < kWarps; ++w) {
         const float wt = exp2f(mw[w][g] - m);  // 0 for a warp with no key
         l += lw[w][g] * wt;
-        a += accw[w * G * DH + i] * wt;
+        a += accw[w * G * C::kDP + ai] * wt;
       }
       rc[i] = a;
       if (i % DH == 0) {
@@ -319,15 +348,16 @@ struct Args {
   cudaStream_t s;
 };
 
-template <int DH, typename TQ, typename TKV>
+template <int DH, int MAXG, typename TQ, typename TKV>
 int launch(const Args& a) {
   using C = Cfg<DH, TKV>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_split_kernel<DH, TQ, TKV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, C::smem(kMaxGroup));
+      decode_split_kernel<DH, MAXG, TQ, TKV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::smem(MAXG));
   if (attr != cudaSuccess) return (int)attr;
-  decode_split_kernel<DH, TQ, TKV><<<dim3(a.Hkv, a.B, a.n_split), kThreads,
-                                     C::smem(a.H / a.Hkv), a.s>>>(
+  decode_split_kernel<DH, MAXG, TQ, TKV><<<dim3(a.Hkv, a.B, a.n_split),
+                                           kThreads, C::smem(a.H / a.Hkv),
+                                           a.s>>>(
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), a.ks, a.vs, a.lens, a.len_all,
       static_cast<TQ*>(a.o), a.part, a.tickets, a.Tk, a.H, a.Hkv,
@@ -337,12 +367,21 @@ int launch(const Args& a) {
 
 constexpr int kBadArg = (int)cudaErrorInvalidValue;
 
+// the instance with the smallest group bound that holds G
+template <int DH, typename TQ, typename TKV>
+int dispatch_group(const Args& a) {
+  return a.H / a.Hkv <= 8 ? launch<DH, 8, TQ, TKV>(a)
+                          : launch<DH, 16, TQ, TKV>(a);
+}
+
 template <typename TQ, typename TKV>
 int dispatch_dh(int dh, const Args& a) {
   switch (dh) {
-    case 32: return launch<32, TQ, TKV>(a);
-    case 64: return launch<64, TQ, TKV>(a);
-    case 128: return launch<128, TQ, TKV>(a);
+    case 32: return dispatch_group<32, TQ, TKV>(a);
+    case 64: return dispatch_group<64, TQ, TKV>(a);
+    case 96: return dispatch_group<96, TQ, TKV>(a);
+    case 112: return dispatch_group<112, TQ, TKV>(a);
+    case 128: return dispatch_group<128, TQ, TKV>(a);
     default: return kBadArg;
   }
 }
@@ -361,8 +400,8 @@ int dispatch_kv(int kv_dtype, int dh, const Args& a) {
 
 extern "C" {
 
-// q_dtype: 0 = float32, 1 = bfloat16; kv_dtype: 0 = float32,
-// 1 = bfloat16, 2 = int8 (then k_scale / v_scale are [B, T] f32, else
+// dh: 32, 64, 96, 112 or 128; H / Hkv at most 16. q_dtype: 0 = float32,
+// 1 = bfloat16; kv_dtype: 0 = float32, 1 = bfloat16, 2 = int8 (then k_scale / v_scale are [B, T] f32, else
 // null). lens: [B] int32 valid lengths, or null and then len_all for every
 // row (both clamped to [0, T] in the kernel). part: f32 scratch of
 // B * Hkv * n_chunks * G * (dh + 2) floats, n_chunks = ceil(T / 32) (at

@@ -20,8 +20,10 @@
 // block walks 64-key tiles:
 // - S = Q.K^T on the tensor cores, wgmma m64n64k16 (dh / 16 k-steps) with
 //   Q and the K tile in shared memory in wgmma's 128-byte-swizzled
-//   K-major layout (64-column panels of 64 rows x 128 bytes; dh 32 is
-//   zero-padded to one panel), addressed by wgmma descriptors.
+//   K-major layout (ceil(dh / 64) 64-column panels of 64 rows x 128
+//   bytes; the columns of the last panel past dh, at dh 32, 96 and 112,
+//   are zeros written once and never copied over), addressed by wgmma
+//   descriptors.
 // - Online softmax on the f32 accumulator fragment: each thread holds two
 //   rows of its warp's 16 and reduces max and sum over the quad that
 //   shares them. The diagonal tile and the rows and keys past S and T are
@@ -29,8 +31,10 @@
 // - O += P.V on the tensor cores: P rounded to bf16 in registers is
 //   wgmma's register A operand (the accumulator fragment of S is already
 //   A's layout), V (64 keys x dh) the shared-memory B operand read
-//   MN-major through the descriptor's transpose bit. O stays in f32
-//   registers (64 a thread at dh 128).
+//   MN-major through the descriptor's transpose bit, 64 output columns a
+//   panel (a padded panel's zero columns give zeros that are not
+//   stored). O stays in f32 registers (64 a thread at dh 96 to 128).
+// - The softmax scale is 1 / sqrt(dh), the true dh, at every width.
 // - K/V tiles are double-buffered in dynamic shared memory and filled by
 //   16-byte cp.async (zero-filled past T), the next tile's copy in flight
 //   while this one is computed: Q 16 KB + 2 stages x (K + V) 64 KB at
@@ -42,8 +46,10 @@
 // block per (16-query tile, batch * head), 32-key tiles staged in shared
 // memory as f32 (K with a padded row so the per-key dot products of a warp
 // hit distinct banks); each warp owns 4 query rows, lane j scores key j
-// for all of them, and each lane accumulates dh / 32 output dimensions on
-// the CUDA cores. Causal blocks stop at the last key their rows can see.
+// for all of them, and each lane accumulates ceil(dh / 32) output
+// dimensions on the CUDA cores (at dh 112 the last one only on lanes 0-15:
+// the V columns past dh are left unset and their sums are never stored).
+// Causal blocks stop at the last key their rows can see.
 #include "common.cuh"
 
 namespace {
@@ -62,10 +68,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, int S,
               int Tk, int H, int Hkv, int causal, float scale) {
   using T = float;
-  constexpr int kDpl = DH / 32;  // output dims per lane
+  constexpr int kDpl = (DH + 31) / 32;  // output dims per lane
   __shared__ float qs[kRows][DH];
   __shared__ float ks[kKeys][DH + 1];
-  __shared__ float vs[kKeys][DH];
+  __shared__ float vs[kKeys][kDpl * 32];
   __shared__ float ps[kWarps][kRowsPerWarp][kKeys];
 
   const int bh = blockIdx.y;
@@ -149,7 +155,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     T* orow = o + (((long long)b * S + qi) * H + h) * DH;
 #pragma unroll
     for (int i = 0; i < kDpl; ++i)
-      kern::store(orow + lane + 32 * i, acc[r][i] * inv);
+      if (DH % 32 == 0 || lane + 32 * i < DH)
+        kern::store(orow + lane + 32 * i, acc[r][i] * inv);
   }
 }
 
@@ -236,7 +243,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 template <int DH>
 struct Shape {
-  static constexpr int kPanels = DH < 64 ? 1 : DH / 64;  // dh 32: padded
+  static constexpr int kPanels = (DH + 63) / 64;  // the last one padded
   static constexpr int kTile = kPanels * kPanel;         // 64 rows, bytes
   static constexpr int kSmem = 5 * kTile + 1024;  // Q, 2 x (K, V), align
 };
@@ -263,7 +270,7 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
   const int row0 = q0 + warp * 16 + lane / 4, row1 = row0 + 8;
   const int tq = lane % 4;
 
-  if (DH < 64) {  // zero the padded columns once; no copy writes them
+  if (DH % 64 != 0) {  // zero the padded columns once; no copy writes them
     uint4* z = reinterpret_cast<uint4*>(smem_raw + (base - raw));
     for (int i = tid; i < 5 * kTile / 16; i += 128) z[i] = make_uint4(0, 0, 0, 0);
     __syncthreads();
@@ -318,7 +325,7 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
     fence();
 #pragma unroll
-    for (int kk = 0; kk < kPanels * 4; ++kk) {
+    for (int kk = 0; kk < DH / 16; ++kk) {  // zero columns past dh skipped
       const uint32_t off = (kk / 4) * kPanel + (kk % 4) * 32;
       mma_ss(s, desc(sQ + off, 16, 1024), desc(kt + off, 16, 1024), kk > 0);
     }
@@ -436,7 +443,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int dtype,
 extern "C" {
 
 // dtype: 0 = float32 (CUDA-core body), 1 = bfloat16 (wgmma body); q, k,
-// v and out alike.
+// v and out alike. dh: 32, 64, 96, 112 or 128.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int dtype, int B, int S, int Tk, int H, int Hkv,
                         int dh, int causal, void* stream) {
@@ -446,6 +453,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   switch (dh) {
     case 32: err = launch<32>(q, k, v, o, dtype, B, S, Tk, H, Hkv, causal, s); break;
     case 64: err = launch<64>(q, k, v, o, dtype, B, S, Tk, H, Hkv, causal, s); break;
+    case 96: err = launch<96>(q, k, v, o, dtype, B, S, Tk, H, Hkv, causal, s); break;
+    case 112: err = launch<112>(q, k, v, o, dtype, B, S, Tk, H, Hkv, causal, s); break;
     case 128: err = launch<128>(q, k, v, o, dtype, B, S, Tk, H, Hkv, causal, s); break;
     default: return (int)cudaErrorInvalidValue;
   }

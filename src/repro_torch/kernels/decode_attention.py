@@ -12,9 +12,10 @@ block of each (row, kv head) merges the chunks in order, in the same
 launch. :func:`plan_splits` picks the split; one call is one launch.
 
 The wrapper launches the kernel for CUDA tensors (q f32/bf16, cache
-f32/bf16/int8, dh in {32, 64, 128}, H / Hkv <= 8, contiguous), raises on
-anything else, and counts launches in ``decode_attention.launches``; for
-CPU tensors it runs ``decode_attention_plain``. A python-int ``kv_len``
+f32/bf16/int8, dh in ``HEAD_DIMS``, H / Hkv <= ``MAX_GROUP``, contiguous),
+raises on anything else, and counts launches in
+``decode_attention.launches``; for CPU tensors it runs
+``decode_attention_plain``. A python-int ``kv_len``
 goes to the kernel as a scalar argument, so a call makes no other device
 work. Calls of one shape on one stream share their scratch and ticket
 counters, so they must be ordered on that stream.
@@ -30,8 +31,8 @@ from . import build as _B
 __all__ = ["decode_attention", "decode_attention_plain", "lengths",
            "plan_splits", "SplitPlan", "HEAD_DIMS", "MAX_GROUP", "CHUNK"]
 
-HEAD_DIMS = (32, 64, 128)
-MAX_GROUP = 8  # query heads per kv head (kMaxGroup)
+HEAD_DIMS = (32, 64, 96, 112, 128)  # the instances csrc compiles
+MAX_GROUP = 16  # query heads per kv head (kMaxGroup)
 _Q_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 CHUNK = 32      # keys per chunk record (kChunk)
@@ -160,9 +161,9 @@ def decode_attention(q, k, v, *, kv_len=None, k_scale=None, v_scale=None):
         raise ValueError("decode_attention: k and v must be 16-byte aligned")
     G = H // Hkv
     if dh not in HEAD_DIMS or G > MAX_GROUP:
-        raise ValueError(f"decode_attention: head dim {dh} (want one of "
-                         f"{HEAD_DIMS}) or group {G} (max {MAX_GROUP}) not "
-                         f"compiled")
+        raise ValueError(f"decode_attention: head dim {dh} (instances: "
+                         f"{HEAD_DIMS}) or group {G} (at most {MAX_GROUP}) "
+                         f"is not compiled; see ROADMAP.md, queue B")
     # a scalar length goes by value; a vector by pointer (clamped in-kernel)
     lens, len_all = None, T
     if isinstance(kv_len, int):

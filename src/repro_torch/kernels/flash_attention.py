@@ -11,7 +11,7 @@ f32 inputs take a CUDA-core body. At the prefill shapes it moves ~9.4 MB
 per layer, so the H100 bound is bandwidth.
 
 The wrapper launches the kernel for CUDA tensors (f32 or bf16, dh in
-{32, 64, 128}, contiguous), raises on anything else, and counts launches
+``HEAD_DIMS``, contiguous), raises on anything else, and counts launches
 in ``flash_attention.launches``; for CPU tensors it runs
 ``flash_attention_plain``. Dispatch policy lives in
 ``models/attn_backend.py``.
@@ -24,7 +24,7 @@ from . import build as _B
 
 __all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 96, 112, 128)  # the instances csrc compiles
 _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "flash_attention_fwd": [_B.P, _B.P, _B.P, _B.P, _B.I, _B.I, _B.I, _B.I,
@@ -82,7 +82,9 @@ def flash_attention(q, k, v, *, causal: bool = True):
                          "aligned")
     B, S, H, dh = q.shape
     if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {dh} not in {HEAD_DIMS}")
+        raise ValueError(f"flash_attention: head dim {dh} is not compiled "
+                         f"(instances: {HEAD_DIMS}; see ROADMAP.md, queue "
+                         f"B)")
     out = torch.empty_like(q)
     lib = _B.load("flash_attention", _SIGNATURES)
     err = lib.flash_attention_fwd(

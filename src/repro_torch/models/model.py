@@ -1,13 +1,16 @@
-"""Model API, dense family (``repro.models.model``'s counterpart).
+"""Model API, dense and vlm families (``repro.models.model``'s
+counterpart).
 
     init(cfg, generator, device=None)               -> params
     prefill(params, cfg, batch, ...)                -> (logits, caches)
     init_cache(cfg, batch, max_len, device=None)    -> caches
     decode_step(params, cfg, caches, token)         -> (logits [B, V], caches)
 
-``batch`` is ``{"tokens": [B, S] int tensor}``. ``init`` runs on the card
-unless ``device`` names another one (with no card it raises). Only the
-dense family exists (``ArchConfig`` refuses the others).
+``batch`` is ``{"tokens": [B, S] int tensor}``, with ``"patches"``
+[B, n_patches, D] for a vlm (prepended; the logits and the cache cover
+the prefix). ``init`` runs on the card unless ``device`` names another one
+(with no card it raises). The dense and vlm families share the decoder
+stack; ``ArchConfig`` refuses the others.
 """
 from __future__ import annotations
 
@@ -23,9 +26,8 @@ def prefill(params, cfg, batch, window="cfg", cache_len=None,
             last_only: bool = False):
     """``last_only``: logits of the final position only, [B, 1, V] (the
     serving path never builds [B, S, V])."""
-    h, caches = transformer.forward(params, cfg, batch["tokens"],
-                                    window=window, make_cache=True,
-                                    cache_len=cache_len)
+    h, caches = transformer.forward(params, cfg, batch, window=window,
+                                    make_cache=True, cache_len=cache_len)
     if last_only:
         h = h[:, -1:]
     return transformer.unembed(params, cfg, h), caches

@@ -1,10 +1,12 @@
-"""Decoder-only stack, dense family.
+"""Decoder-only stack, dense and vlm families.
 
 Parameters are a plain dict in ``repro``'s layout: ``embed`` [V, D]
-(tied unembedding), ``layers`` with every leaf stacked [L, ...], and
-``norm_f``. Where ``repro`` scans the stacked layers with ``lax.scan``,
-the port loops over them in Python; caches stay stacked
-[L, B, T, Hkv, dh] as in ``repro``.
+(tied unembedding, or ``lm_head`` [D, V]), ``layers`` with every leaf
+stacked [L, ...], and ``norm_f``. Where ``repro`` scans the stacked
+layers with ``lax.scan``, the port loops over them in Python; caches stay
+stacked [L, B, T, Hkv, dh] as in ``repro``. A vlm is the dense stack with
+stub patch embeddings [B, n_patches, D] prepended to the token
+embeddings; positions and the cache run over the prefix.
 """
 from __future__ import annotations
 
@@ -53,6 +55,18 @@ def _embed_tokens(p, cfg, tokens):
     return p["embed"][tokens].to(getattr(torch, cfg.compute_dtype))
 
 
+def embed_inputs(p, cfg, batch):
+    """tokens (+ stub patch embeddings for a vlm) -> (h [B, S, D],
+    n_prefix): the patches come first, cast to the compute dtype."""
+    h = _embed_tokens(p, cfg, batch["tokens"])
+    n_prefix = 0
+    if cfg.family == "vlm" and "patches" in batch:
+        patches = batch["patches"].to(h.dtype)
+        h = torch.cat([patches, h], dim=1)
+        n_prefix = patches.shape[1]
+    return h, n_prefix
+
+
 def unembed(p, cfg, h):
     w = p["embed"].t() if cfg.tie_embeddings else p["lm_head"]
     return h @ w
@@ -63,12 +77,13 @@ def _ffn(lp, h, cfg):
     return h + swiglu(hn, **lp["mlp"])
 
 
-def forward(p, cfg, tokens, *, window="cfg", make_cache=False,
+def forward(p, cfg, batch, *, window="cfg", make_cache=False,
             cache_len=None):
-    """Forward over tokens [B, S]. Returns (final normed hidden [B, S, D],
-    stacked caches or None); ``unembed`` turns hidden into logits."""
-    h = _embed_tokens(p, cfg, tokens)
-    B, S = tokens.shape
+    """Forward over ``batch`` (``tokens`` [B, S], and ``patches`` for a
+    vlm). Returns (final normed hidden [B, n_prefix + S, D], stacked caches
+    or None); ``unembed`` turns hidden into logits."""
+    h, _ = embed_inputs(p, cfg, batch)
+    B, S = h.shape[:2]
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
     caches = []
     for i in range(cfg.n_layers):

@@ -1,8 +1,9 @@
 """Prefill-then-decode serving engine (``repro.serve.engine``'s port).
 
-``generate`` prefills a [B, S] prompt batch, samples the first token off
-the prefill logits, then decodes in a plain Python loop (``repro`` scans
-with ``lax.scan``; CUDA graphs of the step are later work). With a
+``generate`` prefills a [B, S] prompt batch (after a vlm's stub patch
+embeddings), samples the first token off the prefill logits, then decodes
+in a plain Python loop (``repro`` scans with ``lax.scan``; CUDA graphs of
+the step are later work). With a
 ``RobustDecodeConfig`` every token — the first one included — comes from
 the robust aggregate of an m-replica logit stack (``serve.robust``).
 
@@ -106,30 +107,46 @@ class ServeEngine:
         self._replicated = (robust is not None
                             and not robust.share_replica_compute)
 
-    def _tokens(self, batch):
-        toks = batch["tokens"]
-        if not torch.is_tensor(toks):
-            toks = torch.from_numpy(np.asarray(toks))
-        return toks.to(device=self.device, dtype=torch.long)
+    def _inputs(self, batch):
+        """(the batch on the engine's device, its prompt length). The prompt
+        length counts a vlm's patch prefix, which takes cache positions as
+        tokens do (``repro`` counts the tokens only, ROADMAP.md §C)."""
+        def dev(x):
+            return (x if torch.is_tensor(x)
+                    else torch.from_numpy(np.asarray(x))).to(self.device)
 
-    @torch.inference_mode()
-    def prefill(self, batch):
-        """-> (last-position logits [B, V], stacked caches)."""
-        logits, caches = M.prefill(self.params, self.cfg,
-                                   {"tokens": self._tokens(batch)},
-                                   window=self.window, cache_len=self.max_len,
-                                   last_only=True)
-        return logits[:, -1], caches
+        inputs = {"tokens": dev(batch["tokens"]).long()}
+        n = inputs["tokens"].shape[1]
+        if "patches" in batch:
+            inputs["patches"] = dev(batch["patches"])
+            if self.cfg.family == "vlm":
+                n += inputs["patches"].shape[1]
+        return inputs, n
 
     def _check_capacity(self, prompt_len: int, n_tokens: int) -> None:
         # prompt + one K/V write per decode step (the first token samples
-        # off the prefill logits); past max_len the linear cache would
-        # clamp to its last slot and corrupt attention
+        # off the prefill logits); past max_len the prefill cache would
+        # drop the prompt's last positions and the linear cache clamp to
+        # its last slot, corrupting attention
         need = prompt_len + n_tokens - 1
         if need > self.max_len:
             raise ValueError(
                 f"prompt {prompt_len} + {n_tokens} tokens needs {need} "
                 f"cache slots > max_len {self.max_len}")
+
+    def _prefill(self, inputs):
+        logits, caches = M.prefill(self.params, self.cfg, inputs,
+                                   window=self.window, cache_len=self.max_len,
+                                   last_only=True)
+        return logits[:, -1], caches
+
+    @torch.inference_mode()
+    def prefill(self, batch):
+        """-> (last-position logits [B, V], stacked caches). ``batch``:
+        ``tokens`` [B, S], and ``patches`` [B, n_patches, D] for a vlm."""
+        inputs, prompt_len = self._inputs(batch)
+        self._check_capacity(prompt_len, 1)
+        return self._prefill(inputs)
 
     def _first_token(self, logits, generator, sc):
         """Token 0 from the prefill logits. With a robust config they go
@@ -170,11 +187,11 @@ class ServeEngine:
 
         ``generator`` (on the engine's device) drives sampling and attack
         noise; None seeds a fresh one with 0."""
-        toks_in = self._tokens(batch)
-        self._check_capacity(toks_in.shape[1], n_tokens)
+        inputs, prompt_len = self._inputs(batch)
+        self._check_capacity(prompt_len, n_tokens)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        logits, caches = self.prefill({"tokens": toks_in})
+        logits, caches = self._prefill(inputs)
         tok = self._first_token(logits, generator, sampling)
         out = [tok]
         if self._replicated and n_tokens > 1:

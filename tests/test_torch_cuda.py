@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.configs import get as get_arch
 from repro_torch.core.estimator import Estimator
-from repro_torch.device import kernels_in_calls
+from repro_torch.device import kernel_instance, kernels_in_calls
 from repro_torch.kernels import reset_launch_counts, launch_counts
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain,
@@ -426,9 +426,12 @@ def test_cuda_b4_one_kernel_a_call(cuda, k):
     assert len(names) == 1 and "tail_kernel" in names[0], names
 
 
+HEAD_DIMS = (32, 64, 96, 112, 128)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", HEAD_DIMS)
 def test_cuda_b2_matches_plain(cuda, causal, dh):
     g = torch.Generator(device=cuda).manual_seed(dh)
     q = torch.randn(2, 50, 8, dh, device=cuda, generator=g)
@@ -481,13 +484,14 @@ def _cache(g, B, T, Hkv, dh, kv, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G", [1, 2, 8])
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 2, 8, 9, 16])
+@pytest.mark.parametrize("dh", HEAD_DIMS)
 @pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
 def test_cuda_b3_split_boundaries(cuda, kv, dh, G):
     """Per-row lengths at every split edge (one row each) and the same
     lengths as a scalar kv_len: against the plain version, f32 q at 1e-4
-    and bf16 q at 1e-2 + 1e-2 * |ref|."""
+    and bf16 q at 1e-2 + 1e-2 * |ref|. G 9 and 16 run the instance with
+    the 16-head group bound; dh 96 and 112 compute on 128 columns."""
     g = torch.Generator(device=cuda).manual_seed(dh + G)
     B, T, Hkv = len(SPLIT_LENS), 216, 2
     k, v, ks, vs = _cache(g, B, T, Hkv, dh, kv, cuda)
@@ -549,7 +553,7 @@ def test_cuda_attention_repeat_calls_bitwise_equal(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,T", [(100, 150), (193, 193), (64, 64)])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", HEAD_DIMS)
 def test_cuda_b2_bf16_tensor_cores(cuda, dh, causal, S, T):
     """The wgmma body, ragged S and T: against the f32 plain version of
     the same bf16 inputs at 1e-2 + 1e-2 * |ref| (P is rounded to bf16
@@ -564,6 +568,69 @@ def test_cuda_b2_bf16_tensor_cores(cuda, dh, causal, S, T):
         got.float(), flash_attention_plain(q.float(), k.float(), v.float(),
                                            causal=causal),
         rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,H,Hkv", [(96, 32, 32), (112, 32, 32),
+                                      (128, 36, 4), (128, 128, 8),
+                                      (96, 18, 2), (112, 16, 1)])
+def test_cuda_new_instances_launch(cuda, dh, H, Hkv):
+    """A CUDA tensor at a head dim or group the first instances refused
+    launches its kernel: the counter counts one launch a call, and the
+    device kernel that ran is the instance for that head dim (and, in B3,
+    the 16-head group bound past G = 8)."""
+    g = torch.Generator(device=cuda).manual_seed(dh + H)
+    q = torch.randn(2, 40, H, dh, device=cuda, generator=g).bfloat16()
+    k, v = (torch.randn(2, 40, Hkv, dh, device=cuda, generator=g).bfloat16()
+            for _ in range(2))
+    qd = q[:, :1].contiguous()
+    calls = [lambda: flash_attention(q, k, v, causal=True),
+             lambda: decode_attention(qd, k, v, kv_len=33)]
+    reset_launch_counts()
+    for call in calls:
+        call()
+    counts = launch_counts()
+    assert counts["flash_attention"] == 1 and counts["decode_attention"] == 1
+    names = kernels_in_calls(calls)
+    assert [kernel_instance(n, "flash_fwd_wgmma")
+            for n in names[0]] == [(dh,)]
+    maxg = 8 if H // Hkv <= 8 else 16
+    assert [kernel_instance(n, "decode_split_kernel")
+            for n in names[1]] == [(dh, maxg)]
+
+
+@pytest.mark.cuda
+def test_cuda_uncompiled_shapes_raise(cuda):
+    """A head dim or group with no instance raises, naming ROADMAP, and
+    launches nothing."""
+    q = torch.zeros(1, 4, 32, 80, device=cuda, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 4, 32, 80, device=cuda, dtype=torch.bfloat16)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="ROADMAP"):
+        flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        decode_attention(q[:, :1].contiguous(), kv, kv)
+    q32 = torch.zeros(1, 1, 32, 128, device=cuda, dtype=torch.bfloat16)
+    kv1 = torch.zeros(1, 4, 1, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        decode_attention(q32, kv1, kv1)
+    assert launch_counts()["flash_attention"] == 0
+    assert launch_counts()["decode_attention"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_b3_group_instances_agree(cuda):
+    """G <= 8 run on the 16-head instance would give the same bits as on the
+    8-head one: the same group served as 2 kv heads of 8 (the 8 bound) and
+    as heads of a G = 16 call whose other half is another query."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    k, v, _, _ = _cache(g, 4, 216, 1, 128, "bfloat16", cuda)
+    q16 = torch.randn(4, 1, 16, 128, device=cuda, generator=g).bfloat16()
+    both = decode_attention(q16, k, v, kv_len=150)
+    lo = decode_attention(q16[:, :, :8].contiguous(), k, v, kv_len=150)
+    hi = decode_attention(q16[:, :, 8:].contiguous(), k, v, kv_len=150)
+    torch.testing.assert_close(both, torch.cat([lo, hi], dim=2), rtol=0,
+                               atol=0)
 
 
 @pytest.mark.cuda

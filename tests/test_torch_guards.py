@@ -24,6 +24,7 @@ from repro_torch import convert
 from repro_torch.configs import get as get_arch
 from repro_torch.core.rcsl import (LinearRegressionProblem, make_shards,
                                    paper_theta_star, rcsl)
+from repro_torch.device import kernel_instance
 from repro_torch.infer import coverage_run
 from repro_torch.kernels import build
 from repro_torch.models import model as M
@@ -137,3 +138,21 @@ def test_chip_smoke_fails_without_a_card_or_alone(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_kernel_instance_reads_both_name_forms():
+    """Which instance of a kernel ran, from its device name as the profiler
+    gives it, demangled or mangled."""
+    demangled = ("void (anonymous namespace)::decode_split_kernel<96, 16, "
+                 "__nv_bfloat16, signed char>(__nv_bfloat16 const*)")
+    assert kernel_instance(demangled, "decode_split_kernel") == (96, 16)
+    assert kernel_instance(
+        "_ZN12_GLOBAL__N_119decode_split_kernelILi112ELi8EfaEEv",
+        "decode_split_kernel") == (112, 8)
+    assert kernel_instance(
+        "void (anonymous namespace)::wg::flash_fwd_wgmma<96>("
+        "__nv_bfloat16 const*)", "flash_fwd_wgmma") == (96,)
+    assert kernel_instance(
+        "_ZN12_GLOBAL__N_12wg15flash_fwd_wgmmaILi112EEEvPK",
+        "flash_fwd_wgmma") == (112,)
+    assert kernel_instance("tail_kernel<8>", "flash_fwd_wgmma") is None

@@ -12,6 +12,8 @@ are held at 1e-5, about two f32 ulps at these magnitudes.
 The CUDA kernels against their plain versions on the card are in
 ``tests/test_torch_cuda.py``.
 """
+import importlib
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -534,3 +536,76 @@ def test_b3_empty_row_is_zero():
     out = decode_attention_plain(q, kv, kv, torch.tensor([0, 8],
                                                          dtype=torch.int32))
     assert torch.all(out[0] == 0) and torch.all(torch.isfinite(out[1]))
+
+
+# ---------------------------------------------------------------------------
+# B2 / B3 at the head dims and query groups of the wider configs: dh 96
+# (phi-3-vision), dh 112 (zamba2), G 9 (starcoder2-7b), G 16 (llama3-405b)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh,H,Hkv", [(96, 4, 4), (112, 8, 2), (96, 18, 2),
+                                      (112, 16, 1)])
+def test_b2_plain_matches_pallas_wide_heads(dh, H, Hkv, causal, no_launch):
+    rs = np.random.RandomState(dh + H)
+    S = T = 20  # ragged against the 16-row blocks
+    q = rs.randn(2, S, H, dh).astype(np.float32)
+    k = rs.randn(2, T, Hkv, dh).astype(np.float32)
+    v = rs.randn(2, T, Hkv, dh).astype(np.float32)
+    want = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=causal, blk_q=16, blk_k=16,
+                              interpret=True))
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), causal=causal).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _kv_cache(rs, B, T, Hkv, dh, kv):
+    """(k, v, k_scale, v_scale) as numpy for JAX and torch for the port.
+    A bf16 cache holds values that bf16 represents exactly, given to JAX
+    as ``ml_dtypes.bfloat16``."""
+    if kv == "int8":
+        k8, v8 = (rs.randint(-127, 128, size=(B, T, Hkv, dh)).astype(np.int8)
+                  for _ in range(2))
+        ks, vs = ((rs.rand(B, T) * 0.02 + 1e-3).astype(np.float32)
+                  for _ in range(2))
+        return ((k8, v8, ks, vs),
+                tuple(torch.from_numpy(a) for a in (k8, v8, ks, vs)))
+    k, v = (torch.from_numpy(rs.randn(B, T, Hkv, dh).astype(np.float32))
+            .to(getattr(torch, kv)) for _ in range(2))
+    if kv == "float32":
+        return (k.numpy(), v.numpy(), None, None), (k, v, None, None)
+    return ((k.float().numpy().astype(ml_dtypes.bfloat16),
+             v.float().numpy().astype(ml_dtypes.bfloat16), None, None),
+            (k, v, None, None))
+
+
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("G", [9, 16])
+@pytest.mark.parametrize("dh", [96, 112])
+def test_b3_plain_matches_pallas_wide_heads(dh, G, kv, no_launch):
+    """f32 queries over an f32, bf16 or int8 cache (both sides widen the
+    cache to f32 before the products), per-row lengths around a chunk
+    edge."""
+    rs = np.random.RandomState(dh + G)
+    B, T, Hkv = 3, 40, 2
+    q = rs.randn(B, 1, G * Hkv, dh).astype(np.float32)
+    (jk, jv, jks, jvs), (tk, tv, tks, tvs) = _kv_cache(rs, B, T, Hkv, dh, kv)
+    lens = np.array([5, 40, 33], np.int32)
+    want = np.asarray(j_decode(
+        jnp.asarray(q), jnp.asarray(jk), jnp.asarray(jv), kv_len=lens,
+        k_scale=None if jks is None else jnp.asarray(jks),
+        v_scale=None if jvs is None else jnp.asarray(jvs), interpret=True))
+    got = decode_attention(torch.from_numpy(q), tk, tv,
+                           kv_len=torch.from_numpy(lens), k_scale=tks,
+                           v_scale=tvs).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_wrappers_name_their_compiled_instances():
+    """What the CUDA instances take, which the card tests hold: dh 96 and
+    112 beside 32, 64 and 128, and query groups up to 16."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
+    assert fa.HEAD_DIMS == da.HEAD_DIMS == (32, 64, 96, 112, 128)
+    assert da.MAX_GROUP == 16

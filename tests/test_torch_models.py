@@ -66,14 +66,24 @@ def _close(got, want, tol=1e-4):
                                rtol=tol, atol=tol)
 
 
-def test_config_mirrors_repro():
-    jc, tc = j_get_arch("qwen3-1.7b"), t_get_arch("qwen3-1.7b")
+def _field(cfg, name):
+    """A config field, with a nested config (``vision``) as a dict."""
+    v = getattr(cfg, name)
+    return dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
+
+
+@pytest.mark.parametrize("name", ["qwen3-1.7b", "minitron-4b",
+                                  "starcoder2-7b", "llama3-405b",
+                                  "phi-3-vision-4.2b"])
+def test_config_mirrors_repro(name):
+    jc, tc = j_get_arch(name), t_get_arch(name)
     for f in dataclasses.fields(tc):
-        assert getattr(tc, f.name) == getattr(jc, f.name), f.name
+        assert _field(tc, f.name) == _field(jc, f.name), f.name
     jr, tr = jc.reduced(), tc.reduced()
     for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
-              "d_ff", "vocab", "param_dtype", "compute_dtype", "attn_chunk"):
-        assert getattr(tr, f) == getattr(jr, f), f
+              "d_ff", "vocab", "param_dtype", "compute_dtype", "attn_chunk",
+              "vision"):
+        assert _field(tr, f) == _field(jr, f), f
 
 
 @pytest.mark.parametrize("last_only", [True, False])
