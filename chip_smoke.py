@@ -17,11 +17,23 @@ call and that one B3 call with a python-int length, and one B4 call
 version and (for attention) one PyTorch library call as a yardstick, on
 device time only, each call after a read-only flush of L2.
 Phase 3 serves qwen3-1.7b at full width (28 layers, bf16, seeded random
-weights) through ``ServeEngine.generate`` with robust replicated
-decoding (m = 8 replicas, VRMOM, alpha = 0.25): greedy tokens must be
-identical under the none, signflip and gaussian attacks, fused and
-unfused, shared and replicated replica compute, and every kernel must
-have launched on that path.
+weights) with robust replicated decoding (m = 8 replicas, VRMOM, alpha =
+0.25) through ``ServeEngine.generate``, which captures one decode step as
+a CUDA graph and replays it every token, and through
+``generate_python_loop``, the eager loop: greedy tokens must be identical
+between the two and across none/signflip/gaussian x fused/unfused x
+shared/replicated (and plain), temperature and top-50 tokens identical
+between graph and eager from one seed, and every kernel must have
+launched on that path. For both it prints decode ms/token, the capture
+time, host launches and device kernels a token and the device-busy share
+of one profiled generate. Every call of the main path runs under
+torch.profiler, and its launches are the port's device kernels in that
+trace: a replay calls no kernel wrapper, so the wrappers count only
+eager launches. On the eager loop the trace must hold exactly what the
+wrappers counted, kernel by kernel; each graph generate must launch,
+kernel by kernel, what the eager loop launches, with no decode kernel
+counted by a wrapper (every step a replay); a call whose trace lost an
+event is run and traced again.
 Phase 4 drives the paper's statistical path (RCSL, Algorithm 1, with
 plug-in sandwich CIs, replications batched into tensors): B1/B4 at
 K = 65 and 100 bitwise against their plain versions; the acceptance cell
@@ -39,12 +51,15 @@ that reach B2's and B3's wider instances, at full width through
 phase 3: starcoder2-7b (B3 at query group 9), minitron-4b (B4 over a
 256000 vocabulary), phi-3-vision-4.2b with 256 stub patches before the
 prompt (B2 and B3 at head dim 96) and llama3-405b at full width cut to 2
-of its 126 layers (B3 at group 16). Greedy tokens must be equal across
+of its 126 layers (B3 at group 16). Greedy tokens must be equal between
+``generate`` (graph) and ``generate_python_loop`` (eager) and across
 none, signflip and gaussian and fused and unfused within each layout
-(shared and replicated); where the two layouts part, the step must be a
-near-tie (its top-2 gap within the layouts' logit difference) and their
+(shared and replicated), their launches are traced and held against
+each other and the wrappers' counts, and both are timed and profiled, all
+as in phase 3; where the two layouts part, the step must be a near-tie
+(its top-2 gap within the layouts' logit difference) and their
 teacher-forced logits must agree within 5e-2 of the largest logit. The
-new instances must have run (launch counters, and the template arguments
+new instances must have run (traced launches, and the template arguments
 of the device kernels in a trace of a prefill and a decode step), and
 each is held against its plain version and timed at its shape.
 
@@ -76,10 +91,18 @@ PLAIN_SPIN_CYCLES = 40_000_000
 # the port's kernels by their device names (csrc/*.cu)
 PORT_KERNELS = ("agg_kernel", "tail_kernel", "flash_fwd_wgmma",
                 "flash_fwd_f32", "decode_split_kernel")
+# each wrapper and the device kernels it launches, one a call
+WRAPPER_KERNELS = {"aggregate": ("agg_kernel",),
+                   "aggregate_sample": ("tail_kernel",),
+                   "flash_attention": ("flash_fwd_wgmma", "flash_fwd_f32"),
+                   "decode_attention": ("decode_split_kernel",)}
 
 # workload of phase 3
 N_PROMPTS, PROMPT_LEN, NEW_TOKENS = 4, 192, 24
 MAX_LEN = PROMPT_LEN + NEW_TOKENS
+
+# traces of one main-path call before a lost event fails the check
+TRACE_TRIES = 8
 
 # phase 5: (config, layers kept or None for all of them)
 WIDE_CONFIGS = (("starcoder2-7b", None), ("minitron-4b", None),
@@ -500,9 +523,86 @@ def phase_kernels(torch, dev):
     return rec
 
 
-def phase_serve(torch, dev):
-    """Full-width qwen3-1.7b robust serving through ServeEngine.generate.
-    Returns the kernel launch counts of the main path."""
+def traced_call(torch, K, fn):
+    """(result, host ms to a synchronised end under the tracer, the
+    launches the wrappers counted, the launches in the call's
+    torch.profiler trace: each wrapper's device kernels, eager or
+    replayed)."""
+    from repro_torch.device import device_kernel_counts
+
+    before = K.launch_counts()
+    t0 = time.perf_counter()
+    out, ran = device_kernel_counts(fn, PORT_KERNELS)
+    ms = (time.perf_counter() - t0) * 1e3
+    after = K.launch_counts()
+    traced = {w: sum(ran[k] for k in ks) for w, ks in WRAPPER_KERNELS.items()}
+    return out, ms, {k: after[k] - before[k] for k in after}, traced
+
+
+def add_counts(total: dict, more: dict) -> None:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def graph_and_eager(torch, K, eng, batch, what: str, sampling=None,
+                    seed=None):
+    """One engine's ``generate_python_loop`` and its ``generate`` twice, on
+    one batch, each call traced. The loop is the eager baseline; the first
+    generate runs one step eagerly on the capture stream, captures the
+    step and replays it; the second only replays. Tokens must be identical
+    (with ``sampling``, from one ``seed`` each). The loop's trace must hold
+    what the wrappers counted, each generate's trace the same, kernel by
+    kernel, and the second generate's wrappers must count no decode kernel
+    (its steps all replays). The tracer loses a run of events from some
+    traces of tens of thousands (on an H100, about one phase-5 trace in
+    seven): a call whose trace differs is run and traced again,
+    ``TRACE_TRIES`` times in all, before the check fails. ``launches``:
+    the three complete traces together."""
+    from repro_torch.serve.engine import GREEDY
+
+    args = (batch, NEW_TOKENS) if sampling is None else (
+        batch, NEW_TOKENS, sampling)
+    retraced = 0
+
+    def traced(fn, want=None):
+        nonlocal retraced
+        for _ in range(TRACE_TRIES):
+            kw = {} if seed is None else dict(generator=torch.Generator(
+                device=eng.device).manual_seed(seed))
+            out, ms, counted, ran = traced_call(torch, K,
+                                                lambda: fn(*args, **kw))
+            if ran == (counted if want is None else want):
+                return out, ms, counted, ran
+            retraced += 1
+            print(f"[trace] '{what}' {fn.__name__}: the trace holds "
+                  f"{ran}, expected {counted if want is None else want}; "
+                  f"traced again")
+        raise CheckFailed(f"'{what}' {fn.__name__}: {TRACE_TRIES} traces "
+                          f"differ from the launches expected")
+
+    eager, eager_ms, eager_c, eager_t = traced(eng.generate_python_loop)
+    first, first_ms, _, first_t = traced(eng.generate, eager_c)
+    graph, graph_ms, graph_c, graph_t = traced(eng.generate, eager_c)
+    require(graph_c["decode_attention"] == 0 and eager_t[
+        "decode_attention"] > 0, f"'{what}': a replayed generate's wrappers "
+                                 f"counted {graph_c}: a decode step ran "
+                                 f"eagerly")
+    launches = {}
+    for t in (first_t, graph_t, eager_t):
+        add_counts(launches, t)
+    st = eng.graphs[sampling or GREEDY]
+    return dict(toks=graph, first_ms=first_ms, graph_ms=graph_ms,
+                eager_ms=eager_ms, graph_n=graph_t, eager_n=eager_t,
+                graph_counted=graph_c, launches=launches,
+                capture_s=st.capture_s, retraced=retraced,
+                same=torch.equal(first, graph) and torch.equal(graph, eager))
+
+
+def phase_serve(torch, dev, card: str):
+    """Full-width qwen3-1.7b robust serving: ``ServeEngine.generate`` (the
+    decode step captured once and replayed every token) against
+    ``generate_python_loop`` (eager). Returns the kernel launch counts of
+    the main path."""
     from repro_torch import kernels as K
     from repro_torch.configs import get as get_arch
     from repro_torch.core.estimator import Estimator
@@ -533,72 +633,85 @@ def phase_serve(torch, dev):
         return ServeEngine(cfg, params, max_len=MAX_LEN, robust=robust,
                            device=dev, **kw)
 
-    runs = [
-        ("plain", engine(None)),
-        ("robust none", engine(rcfg())),
-        ("robust signflip", engine(rcfg(attack="signflip"))),
-        ("robust gaussian", engine(rcfg(attack="gaussian"))),
-        ("robust signflip unfused", engine(rcfg(attack="signflip",
-                                                fuse_tail=False))),
-        ("robust signflip replicated", engine(rcfg(
-            attack="signflip", share_replica_compute=False))),
-    ]
-    runs[1][1].generate(batch, 2)  # warm-up: cuBLAS handles, allocator
+    runs = [("plain", engine(None))]
+    for share in (True, False):
+        for fuse in (True, False):
+            for attack in ("none", "signflip", "gaussian"):
+                runs.append((f"{attack} {'fused' if fuse else 'unfused'} "
+                             f"{'shared' if share else 'replicated'}",
+                             engine(rcfg(attack=attack, fuse_tail=fuse,
+                                         share_replica_compute=share))))
+    # warm-up (cuBLAS handles, allocator): a 2-token generate runs its one
+    # step eagerly and captures nothing
+    runs[1][1].generate_python_loop(batch, 2)
+    runs[1][1].generate(batch, 2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    # ---- the main path: counts from 0 ----------------------------------
+    # ---- the main path: counts from 0; launches from its traces ---------
     K.reset_launch_counts()
-    results = {}
-    for name, eng in runs:
-        before = K.launch_counts()
-        t0 = time.perf_counter()
-        toks = eng.generate(batch, NEW_TOKENS)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        after = K.launch_counts()
-        results[name] = (toks, ms, {k: after[k] - before[k] for k in after})
-    t0 = time.perf_counter()
-    temp = runs[1][1].generate(batch, NEW_TOKENS,
-                               sampling=Sampling("temperature", 1.0))
-    torch.cuda.synchronize()
-    temp_ms = (time.perf_counter() - t0) * 1e3
-    counts = K.launch_counts()
+    results = {name: graph_and_eager(torch, K, eng, batch, name)
+               for name, eng in runs}
+    eng_s = dict(runs)["gaussian fused shared"]
+    sampled = {sc.method: graph_and_eager(torch, K, eng_s, batch,
+                                          f"{sc.method} sampling", sc, 7)
+               for sc in (Sampling("temperature", 1.0),
+                          Sampling("top_k", 1.0, top_k=50))}
+    counted = K.launch_counts()
     # ---------------------------------------------------------------------
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = {}
+    for r in list(results.values()) + list(sampled.values()):
+        add_counts(counts, r["launches"])
 
-    ref_toks = results["robust none"][0]
+    ref_toks = results["none fused shared"]["toks"]
     require(ref_toks.shape == (N_PROMPTS, NEW_TOKENS),
             f"tokens shape {tuple(ref_toks.shape)}")
     require(bool(((ref_toks >= 0) & (ref_toks < cfg.vocab)).all()),
             "tokens out of the vocabulary")
-    require(bool(((temp >= 0) & (temp < cfg.vocab)).all()),
-            "temperature tokens out of the vocabulary")
-    for name, (toks, ms, delta) in results.items():
-        same = torch.equal(toks, ref_toks)
-        print(f"[serve] {name:28s} {ms:9.1f} ms  identical={same}  "
-              f"launches={json.dumps(delta)}")
-        require(same, f"greedy tokens of '{name}' differ from 'robust none'")
-    fused = results["robust signflip"][2]
+    for name, r in results.items():
+        same = torch.equal(r["toks"], ref_toks)
+        print(f"[serve] {name:27s} traced walls: graph {r['first_ms']:7.1f} "
+              f"ms (capture {r['capture_s'] * 1e3:6.1f} ms), replayed "
+              f"{r['graph_ms']:6.1f} ms, eager {r['eager_ms']:7.1f} ms; graph"
+              f" == eager {r['same']}, == 'none fused shared' {same}; traced "
+              f"launches a generate {json.dumps(r['graph_n'])}, counted by "
+              f"the wrappers when replayed {json.dumps(r['graph_counted'])}"
+              f"; calls traced again {r['retraced']}")
+        require(r["same"], f"'{name}': generate (graph) and "
+                           f"generate_python_loop (eager) tokens differ")
+        require(same, f"greedy tokens of '{name}' differ from 'none fused "
+                      f"shared'")
+    for method, r in sampled.items():
+        require(r["same"] and bool(((r["toks"] >= 0)
+                                    & (r["toks"] < cfg.vocab)).all()),
+                f"{method} sampling, one seed: graph and eager tokens "
+                f"differ or leave the vocabulary")
+    print("[serve] temperature and top-50 sampling under the gaussian "
+          "attack, one seed: graph tokens == eager tokens, traced launches "
+          "equal")
+    fused = results["signflip fused shared"]["graph_n"]
     require(fused["flash_attention"] == cfg.n_layers
             and fused["decode_attention"] == cfg.n_layers * (NEW_TOKENS - 1)
             and fused["aggregate_sample"] == NEW_TOKENS
             and fused["aggregate"] == 0,
             f"fused greedy launches {fused}, expected B2 {cfg.n_layers}, B3 "
             f"{cfg.n_layers * (NEW_TOKENS - 1)}, B4 {NEW_TOKENS}")
-    unfused = results["robust signflip unfused"][2]
+    unfused = results["signflip unfused shared"]["graph_n"]
     require(unfused["aggregate"] == NEW_TOKENS
             and unfused["aggregate_sample"] == 0,
             f"unfused launches {unfused}")
-    print(f"[serve] temperature sampling {temp_ms:.1f} ms; main-path "
-          f"launches {json.dumps(counts)}; peak memory {peak_gb:.2f} GB")
+    print(f"[serve] main-path launches {json.dumps(counts)} (the port's "
+          f"device kernels in the traces of its calls, replays included; "
+          f"the wrappers counted {json.dumps(counted)}, eager launches "
+          f"only); peak memory {peak_gb:.2f} GB")
     for name in ("aggregate", "aggregate_sample", "flash_attention",
                  "decode_attention"):
         require(counts[name] > 0, f"kernel {name} never launched on the "
                                   f"main path")
 
     # ---- prefill on the kernel path against the plain path -------------
-    eng_k = runs[1][1]
+    eng_k = dict(runs)["none fused shared"]
     eng_p = engine(rcfg(estimator=Estimator(method="vrmom", K=8,
                                             backend="torch")),
                    attn_backend="torch")
@@ -613,33 +726,76 @@ def phase_serve(torch, dev):
           f"max|logit| = {rel:.3g} (tolerance 5e-2)")
 
     # ---- end-to-end timings ----------------------------------------------
-    pre = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        eng_k.prefill(batch)
-        torch.cuda.synchronize()
-        pre.append((time.perf_counter() - t0) * 1e3)
-    prefill_ms = statistics.median(pre)
-    gen_ms = results["robust none"][1]
-    decode_ms = (gen_ms - prefill_ms) / (NEW_TOKENS - 1)
-    print(f"[serve] robust m=8 vrmom greedy, B={N_PROMPTS}, prompt "
-          f"{PROMPT_LEN}, {NEW_TOKENS} new tokens: generate {gen_ms:.1f} ms, "
-          f"prefill {prefill_ms:.1f} ms, decode {decode_ms:.2f} ms/token, "
-          f"{N_PROMPTS * NEW_TOKENS / (gen_ms / 1e3):.1f} tok/s")
-    profile_generate(torch, eng_k, batch, gen_ms)
+    prefill_ms = prefill_median(torch, eng_k, batch)
+    report_decode(torch, "[serve] qwen3-1.7b robust m=8 vrmom greedy "
+                  f"(none fused shared), B={N_PROMPTS}, prompt "
+                  f"{PROMPT_LEN}", eng_k, batch, prefill_ms, card)
     return counts
 
 
-def profile_generate(torch, eng, batch, gen_ms: float) -> None:
-    """Device time of one robust greedy generate by kernel (torch.profiler,
-    CUPTI), against the unprofiled wall time: the device's busy share and
-    the kernels that take it."""
+def prefill_median(torch, eng, batch) -> float:
+    pre = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eng.prefill(batch)
+        torch.cuda.synchronize()
+        pre.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(pre)
+
+
+def report_decode(torch, what, eng, batch, prefill_ms, card) -> None:
+    """Decode ms/token, capture time, launches a token and the device-busy
+    share, for the graph (a generate of replays only) and the eager loop,
+    untraced: the capture of a generate after the engine's graphs are
+    dropped, the median of three walls of each (a shared host's spread),
+    and one profiled call of each."""
+    eng.graphs.clear()
+    eng.generate(batch, NEW_TOKENS)  # one eager step, the capture, replays
+    capture_ms = next(iter(eng.graphs.values())).capture_s * 1e3
+    per = {}
+    for mode, fn in (
+            ("graph", lambda: eng.generate(batch, NEW_TOKENS)),
+            ("eager", lambda: eng.generate_python_loop(batch, NEW_TOKENS))):
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(walls)
+        print(f"{what}, {mode} generate walls {walls[0]:.1f}, "
+              f"{walls[1]:.1f}, {walls[2]:.1f} ms: median {ms:.1f}")
+        p = profile_generate(torch, fn, f"{mode} generate", ms)
+        per[mode] = (ms, p)
+    for mode, (ms, p) in per.items():
+        decode = (ms - prefill_ms) / (NEW_TOKENS - 1)
+        busy = ("not measured" if p is None else
+                f"{100 * p['busy_ms'] / ms:.1f}% device-busy")
+        launches = ("not measured" if p is None else
+                    f"{p['host_launches'] / NEW_TOKENS:.1f} host launches "
+                    f"({p['graphs']} graph launches in all) and "
+                    f"{p['device_ops'] / NEW_TOKENS:.0f} device kernels a "
+                    f"token")
+        cap = f", capture {capture_ms:.1f} ms" if mode == "graph" else ""
+        print(f"{what}, {NEW_TOKENS} new tokens, {mode}: generate "
+              f"{ms:.1f} ms, prefill {prefill_ms:.1f} ms, decode "
+              f"{decode:.2f} ms/token, "
+              f"{N_PROMPTS * NEW_TOKENS / (ms / 1e3):.1f} tok/s{cap}; "
+              f"{launches}; {busy} ({card})")
+
+
+def profile_generate(torch, fn, label: str, gen_ms: float):
+    """Device time of one generate by kernel (torch.profiler, CUPTI),
+    against the unprofiled wall: the device's busy share, the kernels that
+    take it, the host's launch calls (kernels and graphs) and the device
+    kernels run. Returns those numbers, or None if the trace holds no
+    device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng.generate(batch, NEW_TOKENS)
+        fn()
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
@@ -652,22 +808,28 @@ def profile_generate(torch, eng, batch, gen_ms: float) -> None:
             rows.append((dev_us, ev.count, ev.key))
     launches = sum(ev.count for ev in prof.key_averages()
                    if ev.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                 "cudaLaunchKernelExC"))
+                                 "cudaLaunchKernelExC", "cudaGraphLaunch"))
+    graphs = sum(ev.count for ev in prof.key_averages()
+                 if ev.key == "cudaGraphLaunch")
     if not rows:
-        print("[profile] device time: not measured (the profiler recorded "
-              "no device activity)")
-        return
+        print(f"[profile] {label}: device time not measured (the profiler "
+              f"recorded no device activity)")
+        return None
     busy_ms = sum(r[0] for r in rows) / 1e3
-    print(f"[profile] one generate: device busy {busy_ms:.1f} ms of "
-          f"{gen_ms:.1f} ms unprofiled wall ({100 * busy_ms / gen_ms:.1f}% "
-          f"busy); {launches} kernel launches "
-          f"({launches / NEW_TOKENS:.0f} per token)")
+    device_ops = sum(r[1] for r in rows)
+    print(f"[profile] {label}: device busy {busy_ms:.1f} ms of {gen_ms:.1f} "
+          f"ms unprofiled wall ({100 * busy_ms / gen_ms:.1f}% busy); "
+          f"{launches} host launch calls ({launches / NEW_TOKENS:.1f} per "
+          f"token; {graphs} of them graph launches), {device_ops} device "
+          f"kernels ({device_ops / NEW_TOKENS:.0f} per token)")
     for dev_us, count, key in sorted(rows, reverse=True)[:12]:
         print(f"[profile] {dev_us / 1e3:8.2f} ms {count:6d}x  {key[:90]}")
     for dev_us, count, key in rows:
         if any(k in key for k in PORT_KERNELS):
             print(f"[profile] port kernel {dev_us / 1e3:8.3f} ms {count:5d}x "
                   f"({dev_us / count:7.2f} us each)  {key[:70]}")
+    return dict(busy_ms=busy_ms, host_launches=launches, graphs=graphs,
+                device_ops=device_ops)
 
 
 def attn_record(torch, flush, name, q, k, v, *, decode: bool):
@@ -844,38 +1006,44 @@ def phase_configs(torch, dev, card: str):
                     attack="gaussian", fuse_tail=False,
                     share_replica_compute=False)))],
         }
-        runs["shared"][0][1].generate(batch, 2)  # warm-up
+        warm = runs["shared"][0][1]
+        warm.generate_python_loop(batch, 2)  # warm-up
+        warm.generate(batch, 2)
         torch.cuda.synchronize()
 
-        # ---- this config's main path: counts from 0 --------------------
+        # ---- this config's main path: counts from 0; launches from its
+        # traces ------------------------------------------------------------
         K.reset_launch_counts()
-        toks, per_run = {}, {}
-        for layout, rs in runs.items():
-            for what, eng in rs:
-                before = K.launch_counts()
-                t0 = time.perf_counter()
-                toks[layout, what] = eng.generate(batch, NEW_TOKENS)
-                torch.cuda.synchronize()
-                ms = (time.perf_counter() - t0) * 1e3
-                after = K.launch_counts()
-                per_run[layout, what] = (ms, {k: after[k] - before[k]
-                                              for k in after})
-        counts = K.launch_counts()
+        res = {(layout, what): graph_and_eager(torch, K, eng, batch,
+                                               f"{name} {layout} {what}")
+               for layout, rs in runs.items() for what, eng in rs}
+        counted = K.launch_counts()
         # ------------------------------------------------------------------
-        ref = toks["shared", "none"]
+        counts = {}
+        for r in res.values():
+            add_counts(counts, r["launches"])
+        ref = res["shared", "none"]["toks"]
         require(ref.shape == (N_PROMPTS, NEW_TOKENS)
                 and bool(((ref >= 0) & (ref < cfg.vocab)).all()),
                 f"{name}: tokens of shape {tuple(ref.shape)} or outside the "
                 f"vocabulary")
-        for (layout, what), tk in toks.items():
-            base = toks[layout, runs[layout][0][0]]
-            same = torch.equal(tk, base)
-            ms, delta = per_run[layout, what]
-            print(f"[configs] {name} {layout:10s} {what:17s} {ms:9.1f} ms  "
-                  f"identical in layout={same}  launches={json.dumps(delta)}")
+        for (layout, what), r in res.items():
+            base = res[layout, runs[layout][0][0]]["toks"]
+            same = torch.equal(r["toks"], base)
+            print(f"[configs] {name} {layout:10s} {what:17s} traced walls:"
+                  f" graph {r['first_ms']:7.1f} ms (capture "
+                  f"{r['capture_s'] * 1e3:6.1f} ms), replayed "
+                  f"{r['graph_ms']:6.1f} ms, eager {r['eager_ms']:7.1f} ms; "
+                  f"graph == eager {r['same']}, identical in layout={same}; "
+                  f"traced launches a generate {json.dumps(r['graph_n'])}, "
+                  f"counted by the wrappers when replayed "
+                  f"{json.dumps(r['graph_counted'])}; calls traced again "
+                  f"{r['retraced']}")
+            require(r["same"], f"{name}: {layout} '{what}' generate (graph) "
+                               f"and generate_python_loop (eager) differ")
             require(same, f"{name}: greedy tokens of {layout} '{what}' differ "
                           f"from {layout} '{runs[layout][0][0]}'")
-        fused = per_run["shared", "signflip"][1]
+        fused = res["shared", "signflip"]["graph_n"]
         require(fused["flash_attention"] == cfg.n_layers
                 and fused["decode_attention"] == cfg.n_layers
                 * (NEW_TOKENS - 1)
@@ -888,7 +1056,7 @@ def phase_configs(torch, dev, card: str):
                                         f"launched on the main path")
         print(f"[configs] {name} shared vs replicated: " + layout_check(
             torch, cfg, params, batch, max_len, ref,
-            toks["replicated", "signflip"]))
+            res["replicated", "signflip"]["toks"]))
 
         # ---- the instances that ran, by the device kernels' names: one
         # trace of a prefill and a decode step (thousands of kernels; the
@@ -923,21 +1091,13 @@ def phase_configs(torch, dev, card: str):
         rel = max_err(lk, lp) / float(lp.float().abs().max())
         require(rel <= 5e-2 and bool(torch.isfinite(lk.float()).all()),
                 f"{name}: prefill logits kernel vs plain: {rel}")
-        pre = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            eng.prefill(batch)
-            torch.cuda.synchronize()
-            pre.append((time.perf_counter() - t0) * 1e3)
-        prefill_ms = statistics.median(pre)
-        gen_ms = per_run["shared", "none"][0]
         print(f"[configs] {name}: prefill logits kernel vs plain path max "
-              f"err / max|logit| = {rel:.3g} (tolerance 5e-2); robust m=8 "
-              f"vrmom greedy generate {gen_ms:.1f} ms, prefill "
-              f"{prefill_ms:.1f} ms, decode "
-              f"{(gen_ms - prefill_ms) / (NEW_TOKENS - 1):.2f} ms/token, "
-              f"{N_PROMPTS * NEW_TOKENS / (gen_ms / 1e3):.1f} tok/s; "
-              f"main-path launches {json.dumps(counts)} ({card})")
+              f"err / max|logit| = {rel:.3g} (tolerance 5e-2); main-path "
+              f"launches {json.dumps(counts)} (traced; the wrappers counted "
+              f"{json.dumps(counted)}) ({card})")
+        report_decode(torch, f"[configs] {name} robust m=8 vrmom greedy "
+                      f"(shared none)", eng, batch,
+                      prefill_median(torch, eng, batch), card)
 
         # ---- the new instances at this config's shapes --------------------
         def rand(*shape):
@@ -1219,7 +1379,7 @@ def main() -> int:
         lap("phase 1 (build)")
         rec = phase_kernels(torch, dev)
         lap("phase 2 (kernels)")
-        counts = phase_serve(torch, dev)
+        counts = phase_serve(torch, dev, card)
         lap("phase 3 (serve qwen3-1.7b)")
         paper_launches, paper_rec = phase_paper(torch, dev, card)
         lap("phase 4 (paper path)")

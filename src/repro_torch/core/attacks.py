@@ -8,6 +8,7 @@ attack (it must live on ``v``'s device).
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -58,20 +59,32 @@ def _honest_moments(v, mask):
     return mean, torch.sqrt(torch.clamp_min(var, 0.0))
 
 
+@functools.lru_cache(maxsize=32)
+def _alie_z(n: int, device) -> torch.Tensor:
+    """[n + 1] f32: ALIE's default z for each count of corrupted rows out
+    of n, the plotting-position quantile of ``repro.core.attacks.alie``
+    floored at 0.2 (float64, rounded to f32 as a python-float factor of an
+    f32 tensor is). Copied to the device once, so the attack reads its
+    count there and a CUDA graph can capture it."""
+    from scipy.special import ndtri
+
+    zs = []
+    for m in range(n + 1):
+        n_h = max(n - m, 1.0)
+        s = float(n // 2 + 1) - m
+        q = min(max((n_h - s + 1.0) / (n_h + 1.0), 0.5), 1.0 - 1e-6)
+        zs.append(max(float(ndtri(q)), 0.2))
+    return torch.tensor(zs, dtype=torch.float32, device=device)
+
+
 def alie(generator, v, mask, z=None):
     """ALIE (Baruch et al. 2019): Byzantine rows at honest_mean + z *
     honest_std. The default z is the plotting-position quantile of
     ``repro.core.attacks.alie``, floored at 0.2."""
-    from scipy.special import ndtri
-
     mean, std = _honest_moments(v, mask)
     if z is None:
-        n = v.shape[0]
-        m = float(mask.sum())
-        n_h = max(n - m, 1.0)
-        s = float(n // 2 + 1) - m
-        q = min(max((n_h - s + 1.0) / (n_h + 1.0), 0.5), 1.0 - 1e-6)
-        z = max(float(ndtri(q)), 0.2)
+        count = mask.to(v.device).sum().reshape(1)
+        z = torch.index_select(_alie_z(v.shape[0], v.device), 0, count)
     corrupt = (mean + z * std).to(v.dtype)
     return _apply(mask, v, corrupt.expand_as(v))
 
@@ -89,8 +102,8 @@ def mimic(generator, v, mask):
     dev = torch.sum((v.float() - mean) ** 2, dim=tuple(range(1, v.ndim)))
     dev = torch.where(mask.to(v.device), torch.full_like(dev, -float("inf")),
                       dev)
-    victim = torch.argmax(dev)
-    return _apply(mask, v, v[victim][None].expand_as(v))
+    victim = torch.argmax(dev).reshape(1)  # stays on the device
+    return _apply(mask, v, torch.index_select(v, 0, victim).expand_as(v))
 
 
 def bitflip(generator, v, mask, n_dims: int = 5):

@@ -100,8 +100,16 @@ def denominator(m: int, K: int) -> np.float32:
 
 def _f32(value, like):
     """A 0-d tensor: dividing by it is an IEEE division on the card too,
-    where a python float divisor becomes a reciprocal multiply."""
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
+    where a python float divisor becomes a reciprocal multiply. Filled on
+    the device (no host-to-device copy, so a CUDA graph can capture it)."""
+    return torch.full((), float(value), dtype=like.dtype, device=like.device)
+
+
+@functools.lru_cache(maxsize=64)
+def _deltas_on(K: int, device, dtype):
+    """The K deltas on ``device``, copied there once (the first call of a
+    captured step runs eagerly, so a replay never copies)."""
+    return torch.from_numpy(_deltas_cached(K)).to(device, dtype)
 
 
 def mom(xbar, axis: int = 0):
@@ -162,7 +170,7 @@ def vrmom(xbar, K: int = 10, axis: int = 0, scale="mad",
     mu_hat = _median(x, axis)
     s = _resolve_scale(x, axis, scale, master_samples, mu_hat)
     s = torch.broadcast_to(s.to(x.dtype), mu_hat.shape)
-    d = torch.from_numpy(_deltas_cached(K)).to(x.device, x.dtype)
+    d = _deltas_on(K, x.device, x.dtype)
     z = (x - mu_hat.unsqueeze(axis)) / torch.clamp_min(s, eps).unsqueeze(axis)
     # count via comparisons (exact; avoids ceil edge cases at Phi in {0,1})
     counts = torch.sum(z.unsqueeze(-1) <= d, dim=-1).to(x.dtype)

@@ -3,7 +3,7 @@ of which device kernels a call runs."""
 from __future__ import annotations
 
 import re
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -61,6 +61,34 @@ def kernels_in_calls(fns: Sequence[Callable[[], object]]) -> List[List[str]]:
             return calls[:-1]
     raise RuntimeError(f"profiler trace not split into {len(fns)} calls: "
                        f"{[ev.name[:50] for ev in evs]}")
+
+
+def device_kernel_counts(fn: Callable[[], object], names: Sequence[str],
+                         tries: int = 3) -> Tuple[object, Dict[str, int]]:
+    """(``fn()``, for each of ``names`` the device kernels whose name holds
+    it) from one ``torch.profiler`` trace of the call: the kernels that
+    ran on the card, those a CUDA graph's replay launched as well as eager
+    launches. As in :func:`kernels_in_calls`, the trace opens with a small
+    fill run to completion (the tracer has dropped a trace's first device
+    event), and a trace with no device event at all is taken again, with
+    ``fn`` called again, up to ``tries`` times in all, before this
+    raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
+            out = fn()
+            torch.cuda.synchronize()
+        # the raw events: no per-event parsing, which a trace of thousands
+        # of launches would spend seconds on
+        ran = [ev.name() for ev in prof.profiler.kineto_results.events()
+               if ev.device_type() == DeviceType.CUDA]
+        if ran:
+            return out, {n: sum(n in k for k in ran) for n in names}
+    raise RuntimeError(f"{tries} profiler traces held no device event")
 
 
 def kernel_instance(name: str, kernel: str) -> Optional[Tuple[int, ...]]:

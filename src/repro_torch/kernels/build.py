@@ -132,6 +132,18 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
 
 
+def count_launch(fn) -> None:
+    """Add one to ``fn.launches`` for a kernel launched now. A launch made
+    while a CUDA graph is being captured on the current stream only
+    records the kernel, and a replay of the graph runs it without calling
+    the wrapper, so neither is counted here: the counts are the eager
+    launches, and a replay's kernels are read from a profiler trace."""
+    import torch
+
+    if not torch.cuda.is_current_stream_capturing():
+        fn.launches += 1
+
+
 def stream_handle(device) -> ctypes.c_void_p:
     import torch
 

@@ -14,8 +14,8 @@ launch. :func:`plan_splits` picks the split; one call is one launch.
 The wrapper launches the kernel for CUDA tensors (q f32/bf16, cache
 f32/bf16/int8, dh in ``HEAD_DIMS``, H / Hkv <= ``MAX_GROUP``, contiguous),
 raises on anything else, and counts launches in
-``decode_attention.launches``; for CPU tensors it runs
-``decode_attention_plain``. A python-int ``kv_len``
+``decode_attention.launches`` (eager ones: ``build.count_launch``); for
+CPU tensors it runs ``decode_attention_plain``. A python-int ``kv_len``
 goes to the kernel as a scalar argument, so a call makes no other device
 work. Calls of one shape on one stream share their scratch and ticket
 counters, so they must be ordered on that stream.
@@ -187,7 +187,7 @@ def decode_attention(q, k, v, *, kv_len=None, k_scale=None, v_scale=None):
         part, tickets, _Q_DTYPE[q.dtype], _KV_DTYPE[k.dtype], B, T, H, Hkv,
         dh, n_split, cps, stream)
     _B.check(err, "decode_attention")
-    decode_attention.launches += 1
+    _B.count_launch(decode_attention)
     return out
 
 

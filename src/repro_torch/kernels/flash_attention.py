@@ -12,8 +12,8 @@ per layer, so the H100 bound is bandwidth.
 
 The wrapper launches the kernel for CUDA tensors (f32 or bf16, dh in
 ``HEAD_DIMS``, contiguous), raises on anything else, and counts launches
-in ``flash_attention.launches``; for CPU tensors it runs
-``flash_attention_plain``. Dispatch policy lives in
+in ``flash_attention.launches`` (eager ones: ``build.count_launch``); for
+CPU tensors it runs ``flash_attention_plain``. Dispatch policy lives in
 ``models/attn_backend.py``.
 """
 from __future__ import annotations
@@ -92,7 +92,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
         _DTYPE_ID[q.dtype], B, S, k.shape[1], H, k.shape[2], dh, int(causal),
         _B.stream_handle(q.device))
     _B.check(err, "flash_attention")
-    flash_attention.launches += 1
+    _B.count_launch(flash_attention)
     return out
 
 

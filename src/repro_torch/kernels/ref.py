@@ -44,8 +44,9 @@ def ref_trimmed_mean(x, beta: float = 0.1):
 def f32_scalar(value, device):
     """A 0-d f32 tensor on ``device``. Dividing by it is a true IEEE
     division on every device; dividing a CUDA tensor by a python float
-    multiplies by its reciprocal instead, which can round differently."""
-    return torch.tensor(value, dtype=torch.float32, device=device)
+    multiplies by its reciprocal instead, which can round differently.
+    Filled on the device: no host-to-device copy."""
+    return torch.full((), float(value), dtype=torch.float32, device=device)
 
 
 def ref_vrmom(x, K: int = 10, eps: float = 1e-12):

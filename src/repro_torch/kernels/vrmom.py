@@ -22,10 +22,11 @@ to K = 64 and sit in device memory above (csrc/agg.cuh).
 
 Each wrapper launches its kernel for a CUDA tensor, raises on anything
 the kernel does not take, and counts its launches in ``.launches`` (one
-per call). For a tensor on the CPU it runs the plain PyTorch version
-beside it (``aggregate_plain`` / ``aggregate_sample_plain``), which
-repeats the kernel's arithmetic op for op. Selection follows torch's
-order: value descending, index ascending, NaN above every number.
+per eager call: ``build.count_launch``). For a tensor on the CPU it runs
+the plain PyTorch version beside it (``aggregate_plain`` /
+``aggregate_sample_plain``), which repeats the kernel's arithmetic op
+for op. Selection follows torch's order: value descending, index
+ascending, NaN above every number.
 Dispatch policy lives in ``core.estimator.Estimator``.
 """
 from __future__ import annotations
@@ -279,7 +280,7 @@ def aggregate(x, method: str = "vrmom", K: int = 10, beta: float = 0.1,
         _METHOD_ID[method], K, k_trim, eps, p.denom, p.scale, p.zero_k,
         *_table_ptrs(p), _B.stream_handle(x.device))
     _B.check(err, "aggregate")
-    aggregate.launches += 1
+    _B.count_launch(aggregate)
     return out
 
 
@@ -326,7 +327,7 @@ def aggregate_sample(x, method: str = "vrmom", K: int = 10, beta: float = 0.1,
         _METHOD_ID[method], K, k_trim, eps, p.denom, p.scale, p.zero_k,
         *_table_ptrs(p), stream)
     _B.check(err, "aggregate_sample")
-    aggregate_sample.launches += 1
+    _B.count_launch(aggregate_sample)
     if top_k == 0:
         return agg, topi[:, 0]
     return agg, topv, topi

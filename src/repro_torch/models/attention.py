@@ -11,7 +11,11 @@ kernels (``kernels/flash_attention``, ``kernels/decode_attention``).
 The cache is written in place (``attn_decode`` stores the new K/V row
 into the cache tensors it was given) where ``repro`` returned an updated
 copy: the serving loop never needs the old cache, and a copy per step
-would move the whole cache.
+would move the whole cache. ``KVCache.pos`` is a per-row ``[B]`` int32
+tensor on the cache's device (``repro``'s ``vectorize_pos`` form): each
+row writes its own slot and masks to its own length, and nothing in a
+decode step reads a position on the host, so a CUDA graph can capture
+the step. The positions advance functionally (``pos + 1``, a new tensor).
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .layers import dense_init, rmsnorm, rope
+from .layers import apply_rope, dense_init, rmsnorm, rope_tables
 
 NEG_INF = -1e30
 
@@ -31,7 +35,7 @@ KV_DTYPES = ("float32", "bfloat16", "int8")
 class KVCache(NamedTuple):
     k: torch.Tensor  # [B, T, Hkv, dh] ([L, B, T, Hkv, dh] when stacked)
     v: torch.Tensor
-    pos: int  # tokens already written (every row at the same position)
+    pos: torch.Tensor  # [B] int32: tokens written to each row
     # int8 KV only: per-(row, position) f32 dequant scales [B, T]
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
@@ -90,16 +94,25 @@ def _out_proj(out, wo):
     return out.reshape(out.shape[:2] + (H * dh,)) @ wo.reshape(H * dh, D)
 
 
-def _qkv(p, x, cfg, positions):
+def rotary(cfg, positions):
+    """The rotary (cos, sin) tables at ``positions`` [B, S], or None for a
+    config without RoPE (or no positions): made once and passed to every
+    layer."""
+    if not cfg.rope or positions is None:
+        return None
+    return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def _qkv(p, x, cfg, rot):
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    if cfg.rope and positions is not None:
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+    if rot is not None:
+        q = apply_rope(q, *rot)
+        k = apply_rope(k, *rot)
     return q, k, v
 
 
@@ -120,8 +133,9 @@ def mha(q, k, v, *, causal: bool, window: Optional[int], chunk: int,
         # a narrower cache (bf16 under an f32 model) upcasts exactly, as
         # JAX's type promotion does inside its einsums
         k, v = k.to(q.dtype), v.to(q.dtype)
-    scale = 1.0 / torch.sqrt(torch.tensor(float(dh), device=q.device)
-                             ).to(q.dtype)
+    # filled on the device: no host-to-device copy in a captured step
+    scale = 1.0 / torch.sqrt(torch.full((), float(dh), dtype=torch.float32,
+                                        device=q.device)).to(q.dtype)
     kv_pos = torch.arange(T, device=q.device)
     row_valid = None
     if torch.is_tensor(kv_len) and kv_len.ndim > 0:
@@ -151,15 +165,19 @@ def mha(q, k, v, *, causal: bool, window: Optional[int], chunk: int,
 
 
 def attn_forward(p, x, cfg, *, positions, causal=True, window="cfg",
-                 make_cache=False, cache_len=None):
+                 make_cache=False, cache_len=None, rot=None, out=None):
     """Full-sequence attention (prefill). Returns (out [B,S,D], cache or
-    None). ``window`` overrides cfg.sliding_window when given."""
+    None). ``window`` overrides cfg.sliding_window when given; ``rot``:
+    the forward's :func:`rotary` tables (else made from ``positions``);
+    ``out``: a cache of the shape made here to copy the cache into and
+    return in its place."""
     from . import attn_backend as AB
 
     window = cfg.sliding_window if window == "cfg" else window
-    q, k, v = _qkv(p, x, cfg, positions)
-    out = AB.full_attention(q, k, v, cfg, causal=causal, window=window)
-    out = _out_proj(out, p["wo"])
+    q, k, v = _qkv(p, x, cfg, rot if rot is not None
+                   else rotary(cfg, positions))
+    o = _out_proj(AB.full_attention(q, k, v, cfg, causal=causal,
+                                    window=window), p["wo"])
     cache = None
     if make_cache:
         S = k.shape[1]
@@ -178,18 +196,25 @@ def attn_forward(p, x, cfg, *, positions, causal=True, window="cfg",
         dt = kv_dtype(cfg)
         ck, ks = quantize_kv(ck, dt)
         cv, vs = quantize_kv(cv, dt)
-        cache = KVCache(k=ck.contiguous(), v=cv.contiguous(), pos=S,
+        pos = torch.full((k.shape[0],), S, dtype=torch.int32,
+                         device=k.device)
+        cache = KVCache(k=ck.contiguous(), v=cv.contiguous(), pos=pos,
                         k_scale=ks, v_scale=vs)
-    return out, cache
+        if out is not None:
+            for dst, src in zip(out, cache):
+                if dst is not None:
+                    dst.copy_(src)
+            cache = out
+    return o, cache
 
 
 def _pad_time(x, T):
     S = x.shape[1]
     if S == T:
         return x
-    pad = torch.zeros((x.shape[0], T - S) + x.shape[2:], dtype=x.dtype,
-                      device=x.device)
-    return torch.cat([x, pad], dim=1)
+    out = x.new_zeros((x.shape[0], T) + x.shape[2:])
+    out[:, :S] = x
+    return out
 
 
 def init_cache(cfg, batch: int, max_len: int, window: Optional[int] = None,
@@ -203,31 +228,83 @@ def init_cache(cfg, batch: int, max_len: int, window: Optional[int] = None,
         ks = torch.zeros((batch, T), dtype=torch.float32, device=device)
         vs = torch.zeros((batch, T), dtype=torch.float32, device=device)
     return KVCache(k=torch.zeros(shape, dtype=dt, device=device),
-                   v=torch.zeros(shape, dtype=dt, device=device), pos=0,
+                   v=torch.zeros(shape, dtype=dt, device=device),
+                   pos=torch.zeros((batch,), dtype=torch.int32, device=device),
                    k_scale=ks, v_scale=vs)
 
 
-def attn_decode(p, x1, cfg, cache: KVCache, *, window="cfg"):
-    """Single-token decode. x1: [B, 1, D]. Writes the new K/V row into
-    ``cache`` in place; returns (out [B, 1, D], cache advanced by one)."""
+def row_pos(pos, B: int, device) -> torch.Tensor:
+    """``pos`` as a [B] int32 tensor on ``device``: a python int or a 0-d
+    tensor broadcasts (filled on the device, no host-to-device copy)."""
+    if not torch.is_tensor(pos):
+        return torch.full((B,), int(pos), dtype=torch.int32, device=device)
+    pos = pos.to(device=device, dtype=torch.int32)
+    if pos.ndim == 0:
+        return pos.expand(B)
+    if pos.shape != (B,):
+        raise ValueError(f"pos of shape {tuple(pos.shape)} for {B} rows")
+    return pos
+
+
+class DecodeAt(NamedTuple):
+    """What one decode step derives from the rows' positions, once for
+    every layer (``decode_at``)."""
+
+    rot: Optional[tuple]   # rotary (cos, sin) [B, 1, 1, dh/2], or None
+    index: torch.Tensor    # [B] int64: row * T + slot, the flat cache row
+    kv_len: torch.Tensor   # [B] int32: valid cache length after the write
+
+
+def decode_at(cfg, pos, T: int, window) -> DecodeAt:
+    """Per-row slots and lengths of a decode step at ``pos`` [B] int32 over
+    caches of T slots. A ring cache (``window``) puts position p at p % T
+    and is whole once p >= T; a linear cache writes slot min(p, T - 1) and
+    holds p + 1 positions."""
+    B = pos.shape[0]
+    if window:
+        slot = torch.remainder(pos, T)
+        kv_len = torch.clamp(pos + 1, max=T)
+    else:
+        slot = torch.clamp(pos, max=T - 1)
+        kv_len = pos + 1
+    index = torch.arange(B, device=pos.device) * T + slot
+    return DecodeAt(rotary(cfg, pos[:, None]), index, kv_len)
+
+
+def _write_rows(cache, index, rows):
+    """Store ``rows`` [B, ...] at the flat rows ``index`` of ``cache``
+    [B, T, ...] in place (an indexed write on the device)."""
+    cache.view((-1,) + cache.shape[2:]).index_copy_(0, index, rows)
+
+
+def decode_layer(p, x1, cfg, k_cache, v_cache, k_scale, v_scale,
+                 at: DecodeAt):
+    """One layer of a decode step at ``at``: writes the new K/V row (and
+    int8 scales) of each row into the caches in place; returns
+    out [B, 1, D]."""
     from . import attn_backend as AB
 
-    window = cfg.sliding_window if window == "cfg" else window
-    pos = cache.pos
-    B = x1.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x1.device)
-    q, k, v = _qkv(p, x1, cfg, positions)
-    T = cache.k.shape[1]
-    slot = pos % T if window else min(pos, T - 1)
-    k, ks1 = quantize_kv(k, cache.k.dtype)
-    v, vs1 = quantize_kv(v, cache.v.dtype)
-    cache.k[:, slot] = k[:, 0]
-    cache.v[:, slot] = v[:, 0]
+    q, k, v = _qkv(p, x1, cfg, at.rot)
+    k, ks1 = quantize_kv(k, k_cache.dtype)
+    v, vs1 = quantize_kv(v, v_cache.dtype)
+    _write_rows(k_cache, at.index, k[:, 0])
+    _write_rows(v_cache, at.index, v[:, 0])
     if ks1 is not None:
-        cache.k_scale[:, slot] = ks1[:, 0]
-        cache.v_scale[:, slot] = vs1[:, 0]
-    # ring: all T slots valid once pos >= T; linear: the first pos+1 slots
-    kv_len = min(pos + 1, T) if window else pos + 1
-    out = AB.decode_attention(q, cache.k, cache.v, cfg, kv_len=kv_len,
-                              k_scale=cache.k_scale, v_scale=cache.v_scale)
-    return _out_proj(out, p["wo"]), cache._replace(pos=pos + 1)
+        _write_rows(k_scale, at.index, ks1[:, 0])
+        _write_rows(v_scale, at.index, vs1[:, 0])
+    out = AB.decode_attention(q, k_cache, v_cache, cfg, kv_len=at.kv_len,
+                              k_scale=k_scale, v_scale=v_scale)
+    return _out_proj(out, p["wo"])
+
+
+def attn_decode(p, x1, cfg, cache: KVCache, *, window="cfg"):
+    """Single-token decode. x1: [B, 1, D]. ``cache.pos`` is a per-row [B]
+    vector (a scalar broadcasts): each row writes its K/V at its own slot
+    and attends to its own length. Writes into ``cache`` in place; returns
+    (out [B, 1, D], cache with ``pos + 1``)."""
+    window = cfg.sliding_window if window == "cfg" else window
+    pos = row_pos(cache.pos, x1.shape[0], x1.device)
+    at = decode_at(cfg, pos, cache.k.shape[1], window)
+    out = decode_layer(p, x1, cfg, cache.k, cache.v, cache.k_scale,
+                       cache.v_scale, at)
+    return out, cache._replace(pos=pos + 1)

@@ -31,18 +31,29 @@ def rmsnorm(x, scale, eps=1e-5):
     return (xf * torch.rsqrt(var + eps)).to(dt) * scale
 
 
-def rope(x, positions, theta: float = 10000.0):
-    """Half-split rotary embedding. x: [..., S, H, dh]; positions: [..., S]."""
-    dh = x.shape[-1]
+def rope_tables(positions, dh: int, theta: float = 10000.0):
+    """(cos, sin) [..., S, 1, dh/2] f32 of the half-split rotary embedding
+    at ``positions`` [..., S]: made once a forward or a decode step and
+    read by every layer's q and k."""
     half = dh // 2
-    exponent = torch.arange(half, dtype=torch.float32, device=x.device) / half
+    exponent = torch.arange(half, dtype=torch.float32,
+                            device=positions.device) / half
     freqs = 1.0 / (theta ** exponent)
     ang = positions.float()[..., None] * freqs  # [..., S, half]
-    cos = torch.cos(ang)[..., None, :]  # [..., S, 1, half]
-    sin = torch.sin(ang)[..., None, :]
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def apply_rope(x, cos, sin):
+    """Rotate x [..., S, H, dh] by the tables of :func:`rope_tables`."""
+    half = x.shape[-1] // 2
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def rope(x, positions, theta: float = 10000.0):
+    """Half-split rotary embedding. x: [..., S, H, dh]; positions: [..., S]."""
+    return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
 
 
 def swiglu(x, w_gate, w_up, w_down):

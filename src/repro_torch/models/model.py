@@ -6,11 +6,13 @@ counterpart).
     init_cache(cfg, batch, max_len, device=None)    -> caches
     decode_step(params, cfg, caches, token)         -> (logits [B, V], caches)
 
-``batch`` is ``{"tokens": [B, S] int tensor}``, with ``"patches"``
-[B, n_patches, D] for a vlm (prepended; the logits and the cache cover
-the prefix). ``init`` runs on the card unless ``device`` names another one
-(with no card it raises). The dense and vlm families share the decoder
-stack; ``ArchConfig`` refuses the others.
+Caches carry ``pos`` as a per-row [B] int32 device tensor (a scalar
+broadcasts); ``decode_step`` writes K/V in place and returns ``pos + 1``
+as a new tensor. ``batch`` is ``{"tokens": [B, S] int tensor}``, with
+``"patches"`` [B, n_patches, D] for a vlm (prepended; the logits and the
+cache cover the prefix). ``init`` runs on the card unless ``device``
+names another one (with no card it raises). The dense and vlm families
+share the decoder stack; ``ArchConfig`` refuses the others.
 """
 from __future__ import annotations
 
@@ -23,11 +25,14 @@ def init(cfg, generator, device=None):
 
 
 def prefill(params, cfg, batch, window="cfg", cache_len=None,
-            last_only: bool = False):
+            last_only: bool = False, out=None):
     """``last_only``: logits of the final position only, [B, 1, V] (the
-    serving path never builds [B, S, V])."""
+    serving path never builds [B, S, V]). ``out``: stacked caches [L, B,
+    ...] of the shape the prefill makes, to write the caches into (and
+    return) instead of allocating them."""
     h, caches = transformer.forward(params, cfg, batch, window=window,
-                                    make_cache=True, cache_len=cache_len)
+                                    make_cache=True, cache_len=cache_len,
+                                    out=out)
     if last_only:
         h = h[:, -1:]
     return transformer.unembed(params, cfg, h), caches

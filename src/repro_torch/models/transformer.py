@@ -78,24 +78,39 @@ def _ffn(lp, h, cfg):
 
 
 def forward(p, cfg, batch, *, window="cfg", make_cache=False,
-            cache_len=None):
+            cache_len=None, out=None):
     """Forward over ``batch`` (``tokens`` [B, S], and ``patches`` for a
     vlm). Returns (final normed hidden [B, n_prefix + S, D], stacked caches
-    or None); ``unembed`` turns hidden into logits."""
+    or None); ``unembed`` turns hidden into logits. With ``make_cache``,
+    ``out`` (stacked caches [L, B, ...]) takes each layer's cache as it is
+    made and is returned, where otherwise the layers' caches are stacked
+    into new tensors."""
     h, _ = embed_inputs(p, cfg, batch)
     B, S = h.shape[:2]
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
+    rot = A.rotary(cfg, positions)  # once for every layer
     caches = []
     for i in range(cfg.n_layers):
         lp = layer_params(p["layers"], i)
         attn_out, cache = A.attn_forward(
             lp["attn"], rmsnorm(h, lp["norm_attn"], cfg.norm_eps), cfg,
             positions=positions, window=window, make_cache=make_cache,
-            cache_len=cache_len)
+            cache_len=cache_len, rot=rot,
+            out=None if out is None else _layer_cache(out, i))
         h = _ffn(lp, h + attn_out, cfg)
-        caches.append(cache)
+        if out is None:
+            caches.append(cache)
     h = rmsnorm(h, p["norm_f"], cfg.norm_eps)
-    return h, _stack(caches) if make_cache else None
+    if not make_cache:
+        return h, None
+    return h, out if out is not None else _stack(caches)
+
+
+def _layer_cache(caches, i: int):
+    """Layer ``i``'s view of stacked caches (``pos`` is shared)."""
+    return caches._replace(**{f: None if getattr(caches, f) is None
+                              else getattr(caches, f)[i]
+                              for f in ("k", "v", "k_scale", "v_scale")})
 
 
 def _stack(caches):
@@ -119,24 +134,28 @@ def init_cache(cfg, batch_size: int, max_len: int, window="cfg",
         return None if x is None else \
             x[None].expand((cfg.n_layers,) + x.shape).contiguous()
 
-    return A.KVCache(k=st(one.k), v=st(one.v), pos=0, k_scale=st(one.k_scale),
-                     v_scale=st(one.v_scale))
+    return A.KVCache(k=st(one.k), v=st(one.v), pos=one.pos,
+                     k_scale=st(one.k_scale), v_scale=st(one.v_scale))
 
 
 def decode_step(p, cfg, caches, token, *, window="cfg"):
-    """One decode step. token: [B] int. Writes each layer's new K/V row into
-    the stacked ``caches`` in place; returns (logits [B, V], caches
-    advanced by one position)."""
+    """One decode step. token: [B] int; ``caches.pos`` [B] int32 (a scalar
+    broadcasts), one position a row shared by every layer. The rows' slots,
+    lengths and rotary tables are made once (``attention.decode_at``) and
+    read by every layer; each layer's new K/V row is written into the
+    stacked ``caches`` in place. Returns (logits [B, V], caches with
+    ``pos + 1``, a new tensor: the caller's ``pos`` is left as it was)."""
+    window = cfg.sliding_window if window == "cfg" else window
+    pos = A.row_pos(caches.pos, token.shape[0], token.device)
+    at = A.decode_at(cfg, pos, caches.k.shape[2], window)
     h = _embed_tokens(p, cfg, token[:, None])
     for i in range(cfg.n_layers):
         lp = layer_params(p["layers"], i)
-        cache = A.KVCache(
-            k=caches.k[i], v=caches.v[i], pos=caches.pos,
-            k_scale=None if caches.k_scale is None else caches.k_scale[i],
-            v_scale=None if caches.v_scale is None else caches.v_scale[i])
-        attn_out, _ = A.attn_decode(
+        attn_out = A.decode_layer(
             lp["attn"], rmsnorm(h, lp["norm_attn"], cfg.norm_eps), cfg,
-            cache, window=window)
+            caches.k[i], caches.v[i],
+            None if caches.k_scale is None else caches.k_scale[i],
+            None if caches.v_scale is None else caches.v_scale[i], at)
         h = _ffn(lp, h + attn_out, cfg)
     h = rmsnorm(h, p["norm_f"], cfg.norm_eps)
-    return unembed(p, cfg, h)[:, 0], caches._replace(pos=caches.pos + 1)
+    return unembed(p, cfg, h)[:, 0], caches._replace(pos=pos + 1)

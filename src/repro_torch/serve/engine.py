@@ -1,11 +1,17 @@
 """Prefill-then-decode serving engine (``repro.serve.engine``'s port).
 
 ``generate`` prefills a [B, S] prompt batch (after a vlm's stub patch
-embeddings), samples the first token off the prefill logits, then decodes
-in a plain Python loop (``repro`` scans with ``lax.scan``; CUDA graphs of
-the step are later work). With a
-``RobustDecodeConfig`` every token — the first one included — comes from
-the robust aggregate of an m-replica logit stack (``serve.robust``).
+embeddings) into cache buffers the engine keeps for that batch size,
+samples the first token off the prefill logits, then decodes. ``repro``
+decodes all tokens in one ``lax.scan`` dispatch; on the card the port's
+counterpart captures ONE decode step (embed, layers, unembed, attack,
+aggregate, sample, the advance of the positions) into a CUDA graph over
+those buffers, once per sampling config, and replays it every token: a
+token is one graph launch from the host instead of thousands of kernel
+launches. On the CPU the same step runs eagerly. ``generate_python_loop``
+keeps the eager per-token loop under ``repro``'s name: the baseline. With
+a ``RobustDecodeConfig`` every token — the first one included — comes
+from the robust aggregate of an m-replica logit stack (``serve.robust``).
 
 The engine runs on the card unless the caller passes ``device="cpu"``;
 with no card and no device it raises. On the card the default backends
@@ -17,6 +23,8 @@ or top-k token (the aggregation kernel for temperature sampling or with
 from __future__ import annotations
 
 import dataclasses
+import time
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -24,10 +32,12 @@ import torch
 
 from ..device import resolve_device
 from ..models import model as M
+from ..models import transformer as T
+from ..models.attention import KVCache
 from . import robust as R
 
 __all__ = ["Sampling", "GREEDY", "sample_tokens", "categorical",
-           "ServeEngine"]
+           "ServeEngine", "DecodeBuffers", "StepGraph", "MAX_GRAPHS"]
 
 
 class Sampling(NamedTuple):
@@ -69,6 +79,78 @@ def _to_device(tree, device):
             for k, v in tree.items()}
 
 
+_CACHE_FIELDS = ("k", "v", "k_scale", "v_scale")
+
+# captured steps an engine keeps, one per sampling config (the least
+# recently used goes first); they share one memory pool
+MAX_GRAPHS = 4
+
+
+class DecodeBuffers:
+    """The static buffers a decode step reads and writes, for one batch
+    size B; the prefill of every generate writes into them.
+
+    ``caches``: stacked caches [L, m * B, ...] (m = 1 unless the replicas
+    run replicated, replica-major as ``robust.flatten_replicas`` lays them
+    out) with ``pos`` [m * B]; the prefill writes replica 0's rows and
+    :meth:`replicate` copies them to the others. ``tok`` [B]: the token
+    the next step reads; ``out`` [max_len, B] int32: token t of the
+    generate in row t; ``t`` [1]: the next row.
+    """
+
+    def __init__(self, cfg, batch: int, m: int, max_len: int, window,
+                 device):
+        # the slots the prefill makes: a ring of `window`, else max_len
+        self.caches = T.init_cache(cfg, m * batch, window or max_len,
+                                   window=None, device=device)
+        self.m, self.batch = m, batch
+        self.tok = torch.zeros((batch,), dtype=torch.int32, device=device)
+        self.out = torch.zeros((max_len, batch), dtype=torch.int32,
+                               device=device)
+        self.t = torch.zeros((1,), dtype=torch.int64, device=device)
+
+    def rows(self) -> KVCache:
+        """Replica 0's caches [L, B, ...]: views the prefill writes."""
+        B = self.batch
+        return self.caches._replace(
+            pos=self.caches.pos[:B],
+            **{f: getattr(self.caches, f)[:, :B] for f in _CACHE_FIELDS
+               if getattr(self.caches, f) is not None})
+
+    def replicate(self) -> None:
+        """Copy replica 0's caches into the other m - 1."""
+        if self.m == 1:
+            return
+        for f in _CACHE_FIELDS:
+            x = getattr(self.caches, f)
+            if x is not None:
+                r = x.view((x.shape[0], self.m, -1) + x.shape[2:])
+                r[:, 1:].copy_(r[:, :1])
+        r = self.caches.pos.view(self.m, -1)
+        r[1:].copy_(r[:1])
+
+    def start(self, tok) -> None:
+        """Token 0 in; the next step writes row 1."""
+        self.tok.copy_(tok)
+        self.out[0].copy_(tok)
+        self.t.fill_(1)
+
+
+class StepGraph:
+    """One decode step captured as a CUDA graph over the engine's
+    ``DecodeBuffers``. ``generator``: the graph's own generator, registered
+    with the graph; the caller's state is copied in before the replays and
+    back after them. ``capture_s``: host seconds of the capture;
+    ``replays``: replays so far."""
+
+    def __init__(self, device):
+        self.graph = torch.cuda.CUDAGraph()
+        self.generator = torch.Generator(device=device)
+        self.graph.register_generator_state(self.generator)
+        self.capture_s = None
+        self.replays = 0
+
+
 class ServeEngine:
     """Holds (cfg, params) on one device and serves fixed-batch requests.
 
@@ -106,6 +188,15 @@ class ServeEngine:
         self.robust = robust
         self._replicated = (robust is not None
                             and not robust.share_replica_compute)
+        # the decode step's buffers, for one batch size at a time, and the
+        # step captured over them by sampling config (the engine fixes
+        # max_len, robust config and layout, window and kv dtype): at most
+        # MAX_GRAPHS, the least recently used dropped first, all in one
+        # memory pool (they never run at once)
+        self.buffers: Optional[DecodeBuffers] = None
+        self.graphs: "OrderedDict[Sampling, StepGraph]" = OrderedDict()
+        self.capture_stream = None
+        self._pool = None
 
     def _inputs(self, batch):
         """(the batch on the engine's device, its prompt length). The prompt
@@ -134,10 +225,10 @@ class ServeEngine:
                 f"prompt {prompt_len} + {n_tokens} tokens needs {need} "
                 f"cache slots > max_len {self.max_len}")
 
-    def _prefill(self, inputs):
+    def _prefill(self, inputs, out=None):
         logits, caches = M.prefill(self.params, self.cfg, inputs,
                                    window=self.window, cache_len=self.max_len,
-                                   last_only=True)
+                                   last_only=True, out=out)
         return logits[:, -1], caches
 
     @torch.inference_mode()
@@ -180,19 +271,139 @@ class ServeEngine:
                                         + logits_f.shape[1:])
         return R.robust_sample(logits_r, rcfg, generator, sc), caches
 
+    def _step(self, buf: DecodeBuffers, generator, sc) -> None:
+        """One decode step over ``buf``: reads ``buf.tok`` and the caches,
+        writes the next token into ``buf.tok`` and row ``buf.t`` of
+        ``buf.out``, and advances the positions and ``buf.t``. Nothing
+        reads a device value on the host, so a CUDA graph captures it
+        whole."""
+        tok, caches = self._decode_step(buf.tok, buf.caches, generator, sc)
+        buf.caches.pos.copy_(caches.pos)
+        buf.out.index_copy_(0, buf.t, tok[None])
+        buf.t.add_(1)
+        buf.tok.copy_(tok)
+
+    def _buffers(self, batch: int) -> DecodeBuffers:
+        """The buffers for ``batch`` rows; another batch size replaces them
+        and drops the steps captured over them."""
+        if self.buffers is None or self.buffers.batch != batch:
+            self.graphs.clear()
+            self.buffers = None  # freed before the new ones are made
+            window = (self.cfg.sliding_window if self.window == "cfg"
+                      else self.window)
+            self.buffers = DecodeBuffers(
+                self.cfg, batch, self.robust.m if self._replicated else 1,
+                self.max_len, window, self.device)
+        return self.buffers
+
+    def _capture(self, buf: DecodeBuffers, sc) -> StepGraph:
+        """Capture one step on the capture stream, where the step has just
+        run eagerly: B3's and B4's scratch and tickets for that stream,
+        cuBLAS's workspace, each kernel's one-time attribute set-up and
+        every table the step caches exist before the capture begins
+        (PyTorch's side-stream warm-up). A capture that fails raises."""
+        t0 = time.perf_counter()
+        st = StepGraph(self.device)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        try:
+            with torch.cuda.graph(st.graph, pool=self._pool,
+                                  stream=self.capture_stream):
+                self._step(buf, st.generator, sc)
+        except Exception as exc:
+            self._pool = None  # a failed capture leaves its pool unusable
+            raise RuntimeError(
+                "capturing the decode step as a CUDA graph failed; a step "
+                "must make no host-to-device copy and read no device "
+                "value on the host") from exc
+        st.capture_s = time.perf_counter() - t0
+        self.graphs[sc] = st
+        while len(self.graphs) > MAX_GRAPHS:
+            self.graphs.popitem(last=False)
+        return st
+
+    def _decode(self, buf: DecodeBuffers, steps: int, generator,
+                sc) -> None:
+        """``steps`` decode steps over ``buf``. On the card: the first step
+        of a new sampling config runs eagerly on the capture stream and is
+        then captured; every other step is a replay, which advances the
+        caller's generator exactly as the eager step does."""
+        if self.device.type != "cuda":
+            for _ in range(steps):
+                self._step(buf, generator, sc)
+            return
+        st = self.graphs.get(sc)
+        if st is None:
+            if self.capture_stream is None:
+                self.capture_stream = torch.cuda.Stream(self.device)
+            current = torch.cuda.current_stream(self.device)
+            self.capture_stream.wait_stream(current)
+            with torch.cuda.stream(self.capture_stream):
+                self._step(buf, generator, sc)
+            current.wait_stream(self.capture_stream)
+            steps -= 1
+            if steps == 0:
+                return
+            st = self._capture(buf, sc)
+        else:
+            self.graphs.move_to_end(sc)
+        st.generator.set_state(generator.get_state())
+        for _ in range(steps):
+            st.graph.replay()
+        generator.set_state(st.generator.get_state())
+        st.replays += steps
+
+    def _generator(self, generator):
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        return generator
+
+    def _start(self, batch, n_tokens: int, sampling, generator):
+        """Prefill into new caches and token 0: -> (caches, tok [B],
+        generator)."""
+        inputs, prompt_len = self._inputs(batch)
+        self._check_capacity(prompt_len, n_tokens)
+        generator = self._generator(generator)
+        logits, caches = self._prefill(inputs)
+        return caches, self._first_token(logits, generator, sampling), \
+            generator
+
     @torch.inference_mode()
     def generate(self, batch, n_tokens: int, sampling: Sampling = GREEDY,
                  generator: Optional[torch.Generator] = None):
-        """Prefill + decode loop -> tokens [B, n_tokens] int32.
+        """Prefill + decode -> tokens [B, n_tokens] int32.
 
-        ``generator`` (on the engine's device) drives sampling and attack
-        noise; None seeds a fresh one with 0."""
+        The prefill writes its caches straight into the engine's
+        ``DecodeBuffers`` for this batch size. On the card the decode step
+        is captured once per sampling config (``self.graphs``) and
+        replayed for every token, each replay writing its token into a
+        [max_len, B] buffer; one host sync at the end. There is no eager
+        fallback: a capture or replay that fails raises. On the CPU the
+        same step runs eagerly. ``generator`` (on the engine's device)
+        drives sampling and attack noise; None seeds a fresh one with 0.
+        The same seed gives the same tokens as ``generate_python_loop``."""
         inputs, prompt_len = self._inputs(batch)
         self._check_capacity(prompt_len, n_tokens)
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
-        logits, caches = self._prefill(inputs)
-        tok = self._first_token(logits, generator, sampling)
+        generator = self._generator(generator)
+        buf = self._buffers(inputs["tokens"].shape[0])
+        logits, _ = self._prefill(inputs, out=buf.rows())
+        buf.replicate()
+        buf.start(self._first_token(logits, generator, sampling))
+        self._decode(buf, n_tokens - 1, generator, sampling)
+        toks = buf.out[:n_tokens].t().contiguous()
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return toks
+
+    @torch.inference_mode()
+    def generate_python_loop(self, batch, n_tokens: int,
+                             sampling: Sampling = GREEDY,
+                             generator: Optional[torch.Generator] = None):
+        """Same semantics as ``generate``, decoded eagerly one step at a
+        time from the host (every kernel of every step a launch of its
+        own): the baseline ``generate``'s replays are held against."""
+        caches, tok, generator = self._start(batch, n_tokens, sampling,
+                                             generator)
         out = [tok]
         if self._replicated and n_tokens > 1:
             caches = R.flatten_replicas(

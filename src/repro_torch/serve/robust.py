@@ -24,7 +24,7 @@ import torch
 from ..core import attacks as ATK
 from ..core.estimator import Estimator
 from ..models import model as M
-from ..models.attention import KVCache
+from ..models.attention import KVCache, row_pos
 
 __all__ = ["RobustDecodeConfig", "replica_mask", "stack_replicas",
            "flatten_replicas", "unflatten_replicas", "robust_logits",
@@ -104,27 +104,34 @@ def _map(caches: KVCache, fn) -> KVCache:
 
 def stack_replicas(caches: KVCache, m: int) -> KVCache:
     """Stacked caches [L, B, ...] -> a leading replica dim [m, L, B, ...]
-    (a broadcast view; ``pos`` is shared)."""
-    return _map(caches, lambda x: x[None].expand((m,) + x.shape))
+    (broadcast views); ``pos`` [B] becomes [m, B] (a scalar broadcasts to
+    every row first)."""
+    pos = row_pos(caches.pos, caches.k.shape[1], caches.k.device)
+    return _map(caches, lambda x: x[None].expand((m,) + x.shape))._replace(
+        pos=pos[None].expand(m, pos.shape[0]))
 
 
 def flatten_replicas(rep: KVCache, m: int) -> KVCache:
     """[m, L, B, ...] -> [L, m * B, ...], replica-major: row r * B + b is
-    replica r of sequence b. Every cache leaf has its batch dim at 1."""
+    replica r of sequence b. Every cache leaf has its batch dim at 1;
+    ``pos`` [m, B] becomes [m * B], so each flat row keeps its length.
+    Replicas that share memory (``stack_replicas``' broadcast) are copied
+    apart, as decode writes each row in place."""
     def one(x):
         x = x.movedim(0, 1)
-        return x.reshape((x.shape[0], m * x.shape[2]) + x.shape[3:])
+        return x.reshape((x.shape[0], m * x.shape[2]) + x.shape[3:]
+                         ).contiguous()
 
-    return _map(rep, one)
+    return _map(rep, one)._replace(pos=rep.pos.reshape(-1).contiguous())
 
 
 def unflatten_replicas(flat: KVCache, m: int) -> KVCache:
-    """Inverse of :func:`flatten_replicas`."""
+    """Inverse of :func:`flatten_replicas` (``pos`` [m * B] -> [m, B])."""
     def one(x):
         x = x.reshape((x.shape[0], m, x.shape[1] // m) + x.shape[2:])
         return x.movedim(1, 0)
 
-    return _map(flat, one)
+    return _map(flat, one)._replace(pos=flat.pos.reshape(m, -1))
 
 
 def _attack(logits_r, rcfg: RobustDecodeConfig, generator):

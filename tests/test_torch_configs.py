@@ -137,7 +137,8 @@ def test_prefill_logits_match(name, variant):
     _close(tl, jl)
     _close(tcache.k, jcache.k)
     _close(tcache.v, jcache.v)
-    assert tcache.pos == n == int(np.asarray(jcache.pos).ravel()[0])
+    assert tcache.pos.tolist() == [n] * B
+    assert n == int(np.asarray(jcache.pos).ravel()[0])
 
 
 @pytest.mark.parametrize("name,variant", CASES, ids=IDS)

@@ -22,7 +22,8 @@ import torch
 
 from repro_torch.configs import get as get_arch
 from repro_torch.core.estimator import Estimator
-from repro_torch.device import kernel_instance, kernels_in_calls
+from repro_torch.device import (device_kernel_counts, kernel_instance,
+                                kernels_in_calls)
 from repro_torch.kernels import reset_launch_counts, launch_counts
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain,
@@ -39,6 +40,9 @@ from repro_torch.serve import RobustDecodeConfig, ServeEngine
 torch.set_num_threads(1)
 
 METHODS = ("median", "vrmom", "trimmed_mean", "mean")
+# the port's device kernels, by a part of their names (csrc/*.cu)
+DEVICE_KERNELS = ("flash_fwd", "decode_split_kernel", "tail_kernel",
+                  "agg_kernel")
 
 
 @pytest.fixture
@@ -639,7 +643,9 @@ def test_cuda_engine_kernels_match_plain_path(cuda, kv_dtype):
     """The reduced model served on the card: the kernel path (flash
     attention, decode attention, fused tail) gives the same greedy tokens
     as the plain path (torch attention, torch estimator), and every kernel
-    ran."""
+    ran: the profiler's trace holds each launch, replayed or eager; the
+    wrappers count the eager ones (the prefill, token 0 and the step run
+    before the capture)."""
     cfg = dataclasses.replace(get_arch("qwen3-1.7b").reduced(),
                               kv_dtype=kv_dtype)
     params = M.init(cfg, torch.Generator(device=cuda).manual_seed(0),
@@ -652,10 +658,243 @@ def test_cuda_engine_kernels_match_plain_path(cuda, kv_dtype):
     fused = ServeEngine(cfg, params, max_len=40, attn_backend="flash",
                         robust=RobustDecodeConfig(m=8, attack="signflip"),
                         device=cuda)
-    toks = fused.generate(batch, 10)
+    toks, ran = device_kernel_counts(lambda: fused.generate(batch, 10),
+                                     DEVICE_KERNELS)
     counts = launch_counts()
+    assert ran == {"flash_fwd": cfg.n_layers,
+                   "decode_split_kernel": cfg.n_layers * 9,
+                   "tail_kernel": 10, "agg_kernel": 0}
     assert counts["flash_attention"] == cfg.n_layers
-    assert counts["decode_attention"] == cfg.n_layers * 9
-    assert counts["aggregate_sample"] == 10
+    assert counts["decode_attention"] == cfg.n_layers
+    assert counts["aggregate_sample"] == 2
     torch.testing.assert_close(toks, plain.generate(batch, 10), rtol=0,
+                               atol=0)
+
+
+# -- the decode step captured as a CUDA graph and replayed (ServeEngine) -----
+
+def _served(cuda):
+    cfg = get_arch("qwen3-1.7b").reduced()
+    params = M.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                    device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 12), generator=g,
+                                     device=cuda)}
+    return cfg, params, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [True, False], ids=["shared",
+                                                      "replicated"])
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
+@pytest.mark.parametrize("attack", ["none", "signflip", "gaussian", "alie",
+                                    "mimic"])
+def test_cuda_replay_equals_eager_greedy(cuda, attack, fuse, share):
+    """``generate`` (one eager step on the capture stream, then replays of
+    the captured step) gives the eager loop's greedy tokens bitwise, under
+    every kind of attack: none, deterministic, random (gaussian) and
+    omniscient (alie, mimic: statistics of the honest rows on the
+    device)."""
+    _replay_equals_eager(cuda, RobustDecodeConfig(
+        m=8, attack=attack, fuse_tail=fuse, share_replica_compute=share))
+
+
+@pytest.mark.cuda
+def test_cuda_replay_equals_eager_plain(cuda):
+    _replay_equals_eager(cuda, None)
+
+
+def _replay_equals_eager(cuda, robust):
+    cfg, params, batch = _served(cuda)
+    eng = ServeEngine(cfg, params, max_len=40, robust=robust, device=cuda)
+    got = eng.generate(batch, 10,
+                       generator=torch.Generator(device=cuda).manual_seed(5))
+    want = eng.generate_python_loop(
+        batch, 10, generator=torch.Generator(device=cuda).manual_seed(5))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    (st,) = eng.graphs.values()
+    assert st.graph is not None and st.replays == 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attack", ["none", "gaussian"])
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
+@pytest.mark.parametrize("method", ["top_k", "temperature"])
+def test_cuda_replay_equals_eager_sampled(cuda, method, fuse, attack):
+    """Top-k and temperature sampling (and the gaussian attack's noise)
+    draw from the caller's generator inside the replayed graph as in the
+    eager step: one seed, the same tokens, the generator in the same state
+    after, and again on a second generate that reuses the graph."""
+    from repro_torch.serve import Sampling
+
+    cfg, params, batch = _served(cuda)
+    sc = (Sampling("top_k", 1.3, top_k=5) if method == "top_k"
+          else Sampling("temperature", 1.5))
+    eng = ServeEngine(cfg, params, max_len=40, device=cuda,
+                      robust=RobustDecodeConfig(m=8, attack=attack,
+                                                fuse_tail=fuse))
+    ga = torch.Generator(device=cuda).manual_seed(9)
+    gb = torch.Generator(device=cuda).manual_seed(9)
+    for _ in range(2):
+        got = eng.generate(batch, 10, sc, generator=ga)
+        want = eng.generate_python_loop(batch, 10, sc, generator=gb)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert torch.equal(ga.get_state(), gb.get_state())
+    assert len(eng.graphs) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
+def test_cuda_tickets_zero_after_replays(cuda, fuse):
+    """B3's and B4's ticket counters, which a replay reuses as captured,
+    read zero after 50 replays: the engine's (made on its capture stream,
+    which PyTorch may hand out again from its pool) and every other."""
+    import sys
+
+    cfg, params, batch = _served(cuda)
+    eng = ServeEngine(cfg, params, max_len=64, device=cuda,
+                      robust=RobustDecodeConfig(m=8, fuse_tail=fuse))
+    eng.generate(batch, 52)  # token 0, one eager step, 50 replays
+    (st,) = eng.graphs.values()
+    assert st.replays == 50
+    torch.cuda.synchronize()
+    stream = eng.capture_stream.cuda_stream
+    dec = sys.modules["repro_torch.kernels.decode_attention"]._STATE
+    tail = sys.modules["repro_torch.kernels.vrmom"]._STATE
+    assert any(k[1] == stream for k in dec)
+    if fuse:
+        assert any(k[1] == stream for k in tail)
+    tickets = [v[5] for v in dec.values()] + [v[3] for v in tail.values()]
+    for t in tickets:
+        assert int(t.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_second_generate_reuses_graph(cuda):
+    """A second generate of the same signature replays the graph it has
+    over the same buffers (every step a replay: the trace holds every
+    decode kernel, the wrappers count none), on new prompts too, with a
+    fresh engine's tokens."""
+    cfg, params, batch = _served(cuda)
+    other = {"tokens": torch.flip(batch["tokens"], dims=(1,))}
+    rc = RobustDecodeConfig(m=8, attack="signflip")
+    eng = ServeEngine(cfg, params, max_len=40, robust=rc, device=cuda)
+    first = eng.generate(batch, 10)
+    (st,) = eng.graphs.values()
+    graph, buf = st.graph, eng.buffers
+    reset_launch_counts()
+    again, ran = device_kernel_counts(lambda: eng.generate(batch, 10),
+                                      DEVICE_KERNELS)
+    counts = launch_counts()
+    assert ran["decode_split_kernel"] == cfg.n_layers * 9
+    assert ran["tail_kernel"] == 10
+    assert counts["decode_attention"] == 0
+    assert counts["aggregate_sample"] == 1  # token 0, off the prefill
+    moved = eng.generate(other, 10)
+    (st2,) = eng.graphs.values()
+    assert st2 is st and st.graph is graph and st.replays == 8 + 9 + 9
+    assert eng.buffers is buf
+    torch.testing.assert_close(first, again, rtol=0, atol=0)
+    fresh = ServeEngine(cfg, params, max_len=40, robust=rc, device=cuda)
+    torch.testing.assert_close(again, fresh.generate(batch, 10), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(moved, fresh.generate(other, 10), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [True, False], ids=["shared",
+                                                      "replicated"])
+def test_cuda_sampling_graphs_share_buffers_and_evict(cuda, share):
+    """Each sampling config captures its own step over the one set of
+    buffers (and one memory pool); past MAX_GRAPHS the least recently
+    used is dropped. Interleaved, every generate gives the eager loop's
+    tokens from one seed."""
+    from repro_torch.serve import Sampling
+    from repro_torch.serve.engine import GREEDY, MAX_GRAPHS
+
+    cfg, params, batch = _served(cuda)
+    eng = ServeEngine(cfg, params, max_len=40, device=cuda,
+                      robust=RobustDecodeConfig(
+                          m=8, attack="gaussian",
+                          share_replica_compute=share))
+    order = [GREEDY, Sampling("top_k", 1.3, top_k=5),
+             Sampling("temperature", 1.5), GREEDY,
+             Sampling("temperature", 0.7), Sampling("top_k", 1.0, top_k=3),
+             Sampling("top_k", 1.3, top_k=5)]
+    buf = None
+    for i, sc in enumerate(order):
+        got = eng.generate(batch, 10, sc,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(i))
+        want = eng.generate_python_loop(
+            batch, 10, sc, generator=torch.Generator(device=cuda)
+            .manual_seed(i))
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        buf = buf or eng.buffers
+        assert eng.buffers is buf and len(eng.graphs) <= MAX_GRAPHS
+    assert MAX_GRAPHS == 4
+    # top-k 5 went when top-k 3 came in (greedy, used again at step 3,
+    # stayed), then temperature 1.5 when top-k 5 was captured again
+    assert list(eng.graphs) == [GREEDY, Sampling("temperature", 0.7),
+                                Sampling("top_k", 1.0, top_k=3),
+                                Sampling("top_k", 1.3, top_k=5)]
+
+
+@pytest.mark.cuda
+def test_cuda_generate_prefills_into_the_buffers(cuda):
+    """The prefill writes straight into the engine's buffers: a second
+    generate allocates at its peak well under one stacked cache of 8
+    layers (a layer's padded K/V passes through; a prefill into new caches
+    would hold all layers', then stack them); a new batch size replaces
+    the buffers and drops the steps captured over them."""
+    cfg, params, batch = _served(cuda)
+    cfg = dataclasses.replace(cfg, n_layers=8)
+    params = M.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                    device=cuda)
+    eng = ServeEngine(cfg, params, max_len=4096, device=cuda)
+    eng.generate(batch, 4)
+    cache_bytes = sum(x.numel() * x.element_size()
+                      for x in eng.buffers.caches if x is not None)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = eng.generate(batch, 4)
+    assert torch.cuda.max_memory_allocated() - base < cache_bytes // 2
+    torch.testing.assert_close(got, eng.generate_python_loop(batch, 4),
+                               rtol=0, atol=0)
+    one = {"tokens": batch["tokens"][:1]}
+    got1 = eng.generate(one, 4)
+    assert eng.buffers.batch == 1 and eng.buffers.tok.shape == (1,)
+    (st,) = eng.graphs.values()
+    assert st.replays == 2
+    torch.testing.assert_close(got1, eng.generate_python_loop(one, 4),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_capture_of_a_host_read_raises(cuda, monkeypatch):
+    """A step that reads a device value on the host cannot be captured:
+    ``generate`` raises and does not fall back to the eager loop (only the
+    eager first step ran)."""
+    import repro_torch.serve.engine as E
+
+    real = E.sample_tokens
+
+    def reads_host(logits, generator, sc):
+        tok = real(logits, generator, sc)
+        int(tok[0])  # a device value read on the host
+        return tok
+
+    cfg, params, batch = _served(cuda)
+    monkeypatch.setattr(E, "sample_tokens", reads_host)
+    eng = ServeEngine(cfg, params, max_len=40, device=cuda)
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="capturing the decode step"):
+        eng.generate(batch, 10)
+    assert launch_counts()["decode_attention"] == cfg.n_layers
+    assert not eng.graphs
+    monkeypatch.setattr(E, "sample_tokens", real)
+    torch.testing.assert_close(eng.generate(batch, 10),
+                               eng.generate_python_loop(batch, 10), rtol=0,
                                atol=0)

@@ -99,7 +99,7 @@ def test_prefill_logits_match(models, backend, last_only):
     _close(tl, jl)
     _close(tc.k, jc.k)
     _close(tc.v, jc.v)
-    assert tc.pos == 12
+    assert tc.pos.dtype == torch.int32 and tc.pos.tolist() == [12] * 2
 
 
 @pytest.mark.parametrize("kv_dtype", KV_DTYPES)
@@ -119,7 +119,8 @@ def test_teacher_forced_decode_matches(models, backend, kv_dtype):
         jl, jc = _j_decode(jp, jcfg, jc, jnp.asarray(feed[:, s], jnp.int32))
         tl, tc = TM.decode_step(tp, tcfg, tc, torch.from_numpy(feed[:, s]))
         _close(tl, jl, tol)
-    assert tc.pos == 18 and int(np.asarray(jc.pos).ravel()[0]) == 18
+    assert tc.pos.tolist() == [18] * 2
+    assert int(np.asarray(jc.pos).ravel()[0]) == 18
     if kv_dtype == "int8":
         assert tc.k.dtype == torch.int8
         for a, b in ((tc.k, jc.k), (tc.v, jc.v)):

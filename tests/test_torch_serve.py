@@ -174,7 +174,8 @@ def test_robust_decode_step_shared_equals_replicated(slice_setup):
     # batch m*B against batch B: the matmuls may sum in another order
     torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(torch.argmax(a, -1), torch.argmax(b, -1))
-    assert new.k.shape[0] == 8 and new.pos == S + 1
+    # pos is per row, tiled over the replicas: [m, B]
+    assert new.k.shape[0] == 8 and new.pos.tolist() == [[S + 1] * B] * 8
     flat = TR.flatten_replicas(new, 8)
     torch.testing.assert_close(TR.unflatten_replicas(flat, 8).k, new.k)
 
