@@ -62,6 +62,26 @@ teacher-forced logits must agree within 5e-2 of the largest logit. The
 new instances must have run (traced launches, and the template arguments
 of the device kernels in a trace of a prefill and a decode step), and
 each is held against its plain version and timed at its shape.
+Phase 6 serves qwen3-1.7b at full width through continuous batching:
+``Scheduler(decode_block=8)`` over ``ServeEngine(max_len=512,
+n_slots=32)`` with robust m = 8 VRMOM K = 8 shared fused replicas and a
+``MetricsRegistry``, 64 requests made with numpy (prompts 32..320,
+budgets 16..64) and one too long for a slot, which must come back
+rejected. Each admission prefills at batch 1 (B2) into its slot; each
+block replays the pool's captured step 8 times. Every completion must
+have its budget; the tokens must be identical under signflip and
+gaussian at alpha 0.25, the signflip disagreement histogram must count
+exactly the live tokens with mean exactly 0.25, and the tokens of 8
+requests must equal a solo generate or part only at a near-tie
+(``layout_check`` at batch 1 against 32). Its main path (a traced drain
+and a temperature round, which runs B1 inside the replayed step) must
+launch what the blocks imply, kernel by kernel. It prints tokens/s of a
+drain, TTFT and decode-step percentiles from the registry, the capture,
+host launch calls, device kernels and the device-busy share of one
+profiled block, and the kv_bytes_per_slot gauge, and adds B3 at the
+pool's batch 32 with ragged lengths (beside SDPA with the same mask), B4
+with ``with_agg``, B1 at the pool's stack and B2 at batch 1 to the
+``kernels`` line.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it lists every kernel with its launches, error and times. Any
@@ -107,6 +127,14 @@ TRACE_TRIES = 8
 # phase 5: (config, layers kept or None for all of them)
 WIDE_CONFIGS = (("starcoder2-7b", None), ("minitron-4b", None),
                 ("phi-3-vision-4.2b", None), ("llama3-405b", 2))
+# phase 6, continuous batching: qwen3-1.7b at full width through the
+# scheduler; 64 requests of prompt 32..320 and budget 16..64 tokens (numpy
+# seed 6) and one that cannot fit a slot; pool tokens held against a solo
+# generate on the first POOL_SOLO requests
+POOL_SLOTS, POOL_MAX_LEN, POOL_BLOCK = 32, 512, 8
+POOL_REQUESTS, POOL_SOLO = 64, 8
+POOL_PROMPT, POOL_NEW = (32, 320), (16, 64)
+
 # shared vs replicated teacher-forced logits, over the largest |logit|:
 # cuBLAS may round a batch-32 product unlike a batch-4 one, and bf16
 # rounds at other places through the depth (phase 3's prefill tolerance)
@@ -784,11 +812,14 @@ def report_decode(torch, what, eng, batch, prefill_ms, card) -> None:
               f"{launches}; {busy} ({card})")
 
 
-def profile_generate(torch, fn, label: str, gen_ms: float):
-    """Device time of one generate by kernel (torch.profiler, CUPTI),
-    against the unprofiled wall: the device's busy share, the kernels that
-    take it, the host's launch calls (kernels and graphs) and the device
-    kernels run. Returns those numbers, or None if the trace holds no
+def profile_generate(torch, fn, label: str, gen_ms: float,
+                     tokens: int = NEW_TOKENS):
+    """Device time of one generate (or one pool block of ``tokens`` steps)
+    by kernel (torch.profiler, CUPTI), against the unprofiled wall: the
+    device's busy share, the kernels that take it, the host's launch calls
+    (kernels and graphs) and the device kernels run, and each port
+    kernel's device µs a call (``kernel_us``, by the names of
+    PORT_KERNELS). Returns those numbers, or None if the trace holds no
     device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -801,6 +832,9 @@ def profile_generate(torch, fn, label: str, gen_ms: float):
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue  # host-side ops; their kernels are listed on their own
+        if getattr(ev, "is_user_annotation", False) or \
+                ev.key.startswith("serve."):
+            continue  # a span's range (obs.trace), not device work
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
@@ -819,17 +853,21 @@ def profile_generate(torch, fn, label: str, gen_ms: float):
     device_ops = sum(r[1] for r in rows)
     print(f"[profile] {label}: device busy {busy_ms:.1f} ms of {gen_ms:.1f} "
           f"ms unprofiled wall ({100 * busy_ms / gen_ms:.1f}% busy); "
-          f"{launches} host launch calls ({launches / NEW_TOKENS:.1f} per "
+          f"{launches} host launch calls ({launches / tokens:.1f} per "
           f"token; {graphs} of them graph launches), {device_ops} device "
-          f"kernels ({device_ops / NEW_TOKENS:.0f} per token)")
+          f"kernels ({device_ops / tokens:.0f} per token)")
     for dev_us, count, key in sorted(rows, reverse=True)[:12]:
         print(f"[profile] {dev_us / 1e3:8.2f} ms {count:6d}x  {key[:90]}")
+    kernel_us = {}
     for dev_us, count, key in rows:
-        if any(k in key for k in PORT_KERNELS):
-            print(f"[profile] port kernel {dev_us / 1e3:8.3f} ms {count:5d}x "
-                  f"({dev_us / count:7.2f} us each)  {key[:70]}")
+        for k in PORT_KERNELS:
+            if k in key:
+                kernel_us[k] = dev_us / count
+                print(f"[profile] port kernel {dev_us / 1e3:8.3f} ms "
+                      f"{count:5d}x ({dev_us / count:7.2f} us each)  "
+                      f"{key[:70]}")
     return dict(busy_ms=busy_ms, host_launches=launches, graphs=graphs,
-                device_ops=device_ops)
+                device_ops=device_ops, kernel_us=kernel_us)
 
 
 def attn_record(torch, flush, name, q, k, v, *, decode: bool):
@@ -891,13 +929,14 @@ def attn_record(torch, flush, name, q, k, v, *, decode: bool):
 
 
 def layout_check(torch, cfg, params, batch, max_len, shared, replicated,
-                 m=8) -> str:
+                 m=8, what="shared vs replicated") -> str:
     """Shared (batch B) against replicated (batch m·B) replica compute,
     teacher-forced on the shared layout's tokens up to the first step where
     the layouts' tokens part (the last step if they never do): their logits
     must agree within LAYOUT_TOL of the largest |logit|, and a parting
     step must be a near-tie, its top-2 gap within twice the largest
-    difference of the two layouts' logits in that row."""
+    difference of the two layouts' logits in that row. Phase 6 holds a
+    solo generate (batch 1) against the pool (batch 32) with m = 32."""
     from repro_torch.models import model as M
     from repro_torch.serve import robust as R
 
@@ -917,23 +956,22 @@ def layout_check(torch, cfg, params, batch, max_len, shared, replicated,
     ls, lr = ls.float(), lr[:B].float()
     rel = max_err(ls, lr) / float(ls.abs().max())
     require(rel <= LAYOUT_TOL and bool(torch.isfinite(lr).all()),
-            f"shared vs replicated logits at step {t}: max err / max |logit| "
-            f"= {rel}")
-    what = (f"logits at step {t}, teacher-forced: max err / max |logit| = "
+            f"{what} logits at step {t}: max err / max |logit| = {rel}")
+    note = (f"logits at step {t}, teacher-forced: max err / max |logit| = "
             f"{rel:.3g} (tolerance {LAYOUT_TOL})")
     if not len(apart):
-        return "tokens identical; " + what
+        return "tokens identical; " + note
     rows = (shared[:, t] != replicated[:, t]).nonzero()[:, 0].tolist()
     for r in rows:
         top2 = torch.topk(ls[r], 2).values
         gap = float(top2[0] - top2[1])
         diff = float((ls[r] - lr[r]).abs().max())
-        require(gap <= 2 * diff, f"layouts part at step {t}, row {r}, with "
-                                 f"a top-2 gap {gap} above twice their "
-                                 f"logit difference {diff}")
-        what += (f"; row {r} parts at step {t}: top-2 gap {gap:.4g}, largest "
+        require(gap <= 2 * diff, f"{what}: tokens part at step {t}, row "
+                                 f"{r}, with a top-2 gap {gap} above twice "
+                                 f"their logit difference {diff}")
+        note += (f"; row {r} parts at step {t}: top-2 gap {gap:.4g}, largest "
                  f"layout difference {diff:.4g} (a near-tie)")
-    return "tokens part; " + what
+    return "tokens part; " + note
 
 
 def phase_configs(torch, dev, card: str):
@@ -1137,6 +1175,381 @@ def phase_configs(torch, dev, card: str):
         torch.cuda.empty_cache()
         print(f"[time] phase 5 {name}: {time.perf_counter() - t_cfg:.1f} s")
     return records
+
+
+def pool_requests(vocab: int):
+    """Phase 6's requests, made with numpy from seed 6: POOL_REQUESTS of
+    uniform prompt length and budget, and one whose prompt + budget +
+    block overshoot cannot fit a slot."""
+    import numpy as np
+
+    rs = np.random.RandomState(6)
+    reqs = []
+    for _ in range(POOL_REQUESTS):
+        S = int(rs.randint(POOL_PROMPT[0], POOL_PROMPT[1] + 1))
+        n = int(rs.randint(POOL_NEW[0], POOL_NEW[1] + 1))
+        reqs.append((rs.randint(0, vocab, size=(S,)).astype(np.int32), n))
+    big = rs.randint(0, vocab, size=(POOL_MAX_LEN - 40,)).astype(np.int32)
+    return reqs, (big, 48)
+
+
+def drain(torch, sched, reqs, oversized=None):
+    """Submit ``reqs`` ((prompt, budget) each, and ``oversized``) to the
+    scheduler and run it dry -> (completions in request order, the
+    oversized one's or None, synchronised wall seconds)."""
+    from repro_torch.serve import Request
+
+    uids = [sched.submit(Request(tokens=p, max_new_tokens=n))
+            for p, n in reqs]
+    big = None if oversized is None else sched.submit(
+        Request(tokens=oversized[0], max_new_tokens=oversized[1]))
+    t0 = time.perf_counter()
+    done = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return ([done[u] for u in uids], None if big is None else done[big],
+            wall)
+
+
+def pool_b3_record(torch, flush, lens, H, Hkv, dh, T, g, dev):
+    """B3 at the pool's shape: q [32, 1, H, dh] over a [32, T, Hkv, dh] bf16
+    cache with the pool's ragged per-row lengths, against its plain
+    version, timed beside SDPA with the same per-row mask. The bound counts
+    the cache rows the lengths reach."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+
+    B = lens.shape[0]
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+               for shape in ((B, 1, H, dh), (B, T, Hkv, dh),
+                             (B, T, Hkv, dh)))
+    out = decode_attention(q, k, v, kv_len=lens)
+    ref = decode_attention_plain(q.float(), k.float(), v.float(), lens)
+    torch.testing.assert_close(out.float(), ref, atol=1e-2, rtol=1e-2)
+    rows = [decode_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                             kv_len=lens[i:i + 1]) for i in range(B)]
+    require(torch.equal(out, torch.cat(rows)),
+            "B3 at batch 32 with ragged lengths differs bitwise from the "
+            "same rows at batch 1")
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[
+        :, None, None, :]
+    keys = int(lens.sum())
+    b = bound(2 * (2 * keys * Hkv * dh + 2 * q.numel()), 4 * dh * H * keys)
+    return dict(
+        name=f"B3 decode_attention (pool: q [{B},1,{H},{dh}], cache "
+             f"[{B},{T},{Hkv},{dh}] bf16, ragged lengths {int(lens.min())}.."
+             f"{int(lens.max())})", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:158",
+        max_abs_err=max_err(out, ref),
+        ms=timed_ms(lambda: decode_attention(q, k, v, kv_len=lens), torch,
+                    flush),
+        plain_ms=timed_ms(lambda: decode_attention_plain(q, k, v, lens),
+                          torch, flush, iters=5, spin=PLAIN_SPIN_CYCLES),
+        bound_ms=b[0], bound_by=b[1],
+        library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), torch, flush))
+
+
+def pool_tail_records(torch, flush, B, V, g, dev):
+    """B4 greedy with ``with_agg`` (the obs path) and B1 (the temperature
+    tail) on the pool's [8, B, V] f32 stack, each against its plain
+    version, bitwise."""
+    from repro_torch.kernels.vrmom import (aggregate, aggregate_plain,
+                                           aggregate_sample,
+                                           aggregate_sample_plain)
+
+    x = 4.0 * torch.randn((8, B, V), generator=g, device=dev)
+    x2 = x.reshape(8, -1)
+    agg, tok = aggregate_sample(x, "vrmom", K=8, with_agg=True)
+    _, tok_off = aggregate_sample(x, "vrmom", K=8, with_agg=False)
+    agg_p, tok_p = aggregate_sample_plain(x, "vrmom", K=8)
+    b1 = aggregate(x, "vrmom", K=8)
+    b1_p = aggregate_plain(x2, "vrmom", K=8).reshape(B, V)
+    require(torch.equal(tok, tok_p) and torch.equal(tok, tok_off)
+            and torch.equal(agg, agg_p) and torch.equal(agg, b1)
+            and torch.equal(b1, b1_p),
+            f"B4 with_agg / B1 at [8,{B},{V}] differ from their plain "
+            f"versions, from each other, or with_agg changed the tokens")
+    b4 = bound(x.numel() * 4 + B * V * 4 + B * 4)
+    b1b = bound(x.numel() * 4 + B * V * 4)
+    src = dict(route="cuda", source="src/repro_torch/kernels/csrc/vrmom.cu",
+               library_ms=None)
+    return {
+        "aggregate_sample": dict(
+            src, name=f"B4 aggregate_sample (vrmom greedy with_agg, pool: "
+                      f"m=8, [8,{B},{V}] f32)",
+            replaces="src/repro/kernels/vrmom.py:242",
+            max_abs_err=max_err(agg, agg_p),
+            ms=timed_ms(lambda: aggregate_sample(x, "vrmom", K=8,
+                                                 with_agg=True), torch, flush),
+            plain_ms=timed_ms(lambda: aggregate_sample_plain(x, "vrmom", K=8),
+                              torch, flush, iters=5, spin=PLAIN_SPIN_CYCLES),
+            bound_ms=b4[0], bound_by=b4[1]),
+        "aggregate": dict(
+            src, name=f"B1 aggregate (vrmom K=8, pool's temperature tail: "
+                      f"[8,{B},{V}] f32)",
+            replaces="src/repro/kernels/vrmom.py:142",
+            max_abs_err=max_err(b1, b1_p),
+            ms=timed_ms(lambda: aggregate(x, "vrmom", K=8), torch, flush),
+            plain_ms=timed_ms(lambda: aggregate_plain(x2, "vrmom", K=8),
+                              torch, flush, iters=5, spin=PLAIN_SPIN_CYCLES),
+            bound_ms=b1b[0], bound_by=b1b[1])}
+
+
+def phase_pool(torch, dev, card: str):
+    """Phase 6: continuous batching. Full-width qwen3-1.7b (seeded weights)
+    behind ``Scheduler`` over a 32-slot pool (robust m = 8, VRMOM K = 8,
+    shared replicas, fused tail, obs on), the pool's decode step captured
+    once and replayed every token. Returns the ``kernels`` records of the
+    phase with the launches of its main path."""
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get as get_arch
+    from repro_torch.device import device_kernel_counts
+    from repro_torch.models import model as M
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve import (GREEDY, Request, RobustDecodeConfig,
+                                   Sampling, Scheduler, ServeEngine)
+
+    t_phase = time.perf_counter()
+    cfg = get_arch("qwen3-1.7b")
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    L, Hkv, dh, H = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    reqs, oversized = pool_requests(cfg.vocab)
+    budget = sum(n for _, n in reqs)
+    # rates the disagreement histogram counts: a request is active for
+    # ceil((n - 1) / block) blocks of POOL_BLOCK steps after admission
+    live = POOL_BLOCK * sum(-(-(n - 1) // POOL_BLOCK) for _, n in reqs)
+    slot_bytes = L * 2 * POOL_MAX_LEN * Hkv * dh * 2
+    print(f"[pool] {cfg.name} at full width, ServeEngine(max_len="
+          f"{POOL_MAX_LEN}, n_slots={POOL_SLOTS}, robust m=8 vrmom K=8 "
+          f"shared fused, obs), Scheduler(decode_block={POOL_BLOCK}), greedy;"
+          f" {POOL_REQUESTS} requests, prompts {POOL_PROMPT[0]}.."
+          f"{POOL_PROMPT[1]} (mean {np.mean([len(p) for p, _ in reqs]):.1f})"
+          f", budgets {POOL_NEW[0]}..{POOL_NEW[1]} ({budget} tokens), + one "
+          f"of {len(oversized[0])} + {oversized[1]} tokens; KV reckoned "
+          f"{slot_bytes / 1e6:.1f} MB a slot ({L} layers x K,V x "
+          f"{POOL_MAX_LEN} x {Hkv} x {dh} x 2 B), "
+          f"{POOL_SLOTS * slot_bytes / 1e9:.2f} GB a pool, beside "
+          f"{2 * M.param_count(params) / 1e9:.2f} GB of weights")
+
+    def rcfg(attack):
+        return RobustDecodeConfig(m=8, estimator="vrmom", K=8, alpha=0.25,
+                                  attack=attack)
+
+    engines, scheds = {}, {}
+    for attack in ("none", "signflip", "gaussian"):
+        engines[attack] = ServeEngine(cfg, params, max_len=POOL_MAX_LEN,
+                                      n_slots=POOL_SLOTS,
+                                      robust=rcfg(attack),
+                                      obs=MetricsRegistry(), device=dev)
+        scheds[attack] = Scheduler(engines[attack], decode_block=POOL_BLOCK)
+    eng, sched = engines["none"], scheds["none"]
+    reg = eng.obs
+    gauge = reg.gauges["serve.kv_bytes_per_slot"]
+    require(gauge == slot_bytes + 4,
+            f"serve.kv_bytes_per_slot {gauge}, reckoned {slot_bytes} + 4 "
+            f"(the slot's int32 position)")
+
+    # ---- round 1: set-up (first prefills, the eager first step and the
+    # capture of the pool's step); round 2 timed -------------------------
+    comp1, rej, wall1 = drain(torch, sched, reqs, oversized)
+    capture_ms = eng.pool_graphs[GREEDY].capture_s * 1e3
+    comp2, _, wall2 = drain(torch, sched, reqs)
+    toks = [c.tokens for c in comp2]
+    require(rej.finished_by == "rejected" and rej.tokens == [],
+            f"the oversized request finished by {rej.finished_by}")
+    require(all(c.finished_by == "length" and len(c.tokens) == n
+                for c, (_, n) in zip(comp2, reqs)),
+            "a completion lacks its budget of tokens")
+    require(all(0 <= t < cfg.vocab for c in comp2 for t in c.tokens),
+            "pool tokens outside the vocabulary")
+    require(toks == [c.tokens for c in comp1],
+            "the pool's tokens differ between two drains of the same "
+            "requests")
+    ttft, step = (reg.histograms[n] for n in ("serve.ttft_s",
+                                              "serve.decode_step_s"))
+    print(f"[pool] drain {budget} tokens in {wall2:.3f} s = "
+          f"{budget / wall2:.1f} tok/s (round 2; round 1 with set-up "
+          f"{wall1:.3f} s); TTFT p50 {ttft.percentile(50) * 1e3:.1f} ms p95 "
+          f"{ttft.percentile(95) * 1e3:.1f} ms ({ttft.count} samples, queue "
+          f"wait included); decode step p50 {step.percentile(50) * 1e3:.2f}"
+          f" ms p95 {step.percentile(95) * 1e3:.2f} ms ({step.count} blocks);"
+          f" compile_s {reg.gauges['serve.compile_s']:.4f} s (last set-up "
+          f"sample); capture {capture_ms:.1f} ms; kv_bytes_per_slot gauge "
+          f"{gauge:.0f} B; rejected {reg.counters['serve.rejected']:.0f}, "
+          f"admitted {reg.counters['serve.admitted']:.0f} ({card})")
+
+    # ---- the robustness contract through the pool ----------------------
+    for attack in ("signflip", "gaussian"):
+        got, _, wall = drain(torch, scheds[attack], reqs)
+        h = engines[attack].obs.histograms["serve.replica_disagreement"]
+        require([c.tokens for c in got] == toks,
+                f"pool tokens under {attack} differ from 'none'")
+        print(f"[pool] {attack} a=0.25: tokens identical to none; "
+              f"disagreement histogram {h.count} rates (live tokens "
+              f"{live}), mean {h.mean:.6f}; drain with set-up {wall:.3f} s")
+        if attack == "signflip":
+            require(h.count == live and h.mean == 0.25,
+                    f"signflip disagreement: {h.count} rates of mean "
+                    f"{h.mean}, expected {live} of mean 0.25")
+    h = reg.histograms.get("serve.replica_disagreement")
+    require(h is not None and h.count == 2 * live and h.mean == 0.0,
+            f"'none' disagreement: {h and h.snapshot()}")
+
+    # ---- pool vs solo generate ------------------------------------------
+    for i, (p, n) in enumerate(reqs[:POOL_SOLO]):
+        batch = {"tokens": torch.from_numpy(p)[None].to(dev)}
+        solo = eng.generate(batch, n)
+        pooled = torch.tensor([toks[i]], dtype=solo.dtype, device=dev)
+        if torch.equal(solo, pooled):
+            continue
+        print(f"[pool] request {i} (prompt {len(p)}): solo vs pool " +
+              layout_check(torch, cfg, params, batch, POOL_MAX_LEN, solo,
+                           pooled, m=POOL_SLOTS, what="solo vs pool"))
+    print(f"[pool] {POOL_SOLO} requests: pool tokens checked against a solo "
+          f"generate (parting only at near-ties)")
+
+    # ---- the main path: counts from 0; launches from its traces ---------
+    calls = []
+    real = eng.decode_pool
+
+    def counted(pool, cur, n, **kw):
+        calls.append(n)
+        return real(pool, cur, n, **kw)
+
+    eng.decode_pool = counted
+    K.reset_launch_counts()
+    launches, retraced = {}, 0
+    temp = Sampling("temperature", 1.0)
+    short = [(p, POOL_BLOCK + 1) for p, _ in reqs[:POOL_SLOTS]]
+    for what, sampling, rs, b1_per_step in (
+            ("greedy drain", GREEDY, reqs, 0),
+            ("temperature round, capture", temp, short, 1),
+            ("temperature round, replays", temp, short, 1)):
+        sched.sampling = sampling
+        for _ in range(TRACE_TRIES):
+            calls.clear()
+            (got, _, _), ran = device_kernel_counts(
+                lambda: drain(torch, sched, rs), PORT_KERNELS)
+            traced = {w: sum(ran[k] for k in ks)
+                      for w, ks in WRAPPER_KERNELS.items()}
+            steps = sum(calls)
+            first = len(rs)  # token 0 of each admission
+            want = dict(flash_attention=L * first,
+                        decode_attention=L * steps,
+                        aggregate_sample=0 if b1_per_step else first + steps,
+                        aggregate=(first + steps) * b1_per_step)
+            if traced == want:
+                break
+            retraced += 1
+            print(f"[trace] pool '{what}': the trace holds {traced}, "
+                  f"expected {want}; run and traced again")
+        else:
+            raise CheckFailed(f"pool '{what}': {TRACE_TRIES} traces differ "
+                              f"from the launches expected")
+        if sampling == GREEDY:
+            require([c.tokens for c in got] == toks,
+                    "the traced drain's tokens differ")
+        require(all(len(c.tokens) == n and all(0 <= t < cfg.vocab
+                                                for t in c.tokens)
+                    for c, (_, n) in zip(got, rs)),
+                f"'{what}': completions lack their budget or leave the "
+                f"vocabulary")
+        add_counts(launches, traced)
+        print(f"[pool] {what}: traced launches {json.dumps(traced)} over "
+              f"{len(calls)} blocks of {POOL_BLOCK}")
+    counted_k = K.launch_counts()
+    del eng.decode_pool
+    require(counted_k["decode_attention"] == L, f"the wrappers counted "
+            f"{counted_k}: B3 should run eagerly only in the first step of "
+            f"the temperature capture ({L}); every other step a replay")
+    for name in ("aggregate", "aggregate_sample", "flash_attention",
+                 "decode_attention"):
+        require(launches[name] > 0 and counted_k[name] > 0,
+                f"kernel {name} never launched on the pool's main path")
+    print(f"[pool] main-path launches {json.dumps(launches)} (traced, "
+          f"replays included; the wrappers counted {json.dumps(counted_k)}, "
+          f"eager launches only); calls traced again {retraced}")
+
+    # ---- one block at steady state, profiled: every slot live ------------
+    prof_out = {}
+    for label, sampling in (("greedy", GREEDY), ("temperature", temp)):
+        sched.sampling = sampling
+        for p, _ in reqs[:POOL_SLOTS]:
+            sched.submit(Request(tokens=p, max_new_tokens=6 * POOL_BLOCK))
+        sched.step()  # admits every slot, one block
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            sched.step()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        lens = torch.clamp(sched.pool.caches.pos[:POOL_SLOTS] + 1,
+                           max=POOL_MAX_LEN).clone()
+        ms = statistics.median(walls)
+        p = profile_generate(torch, sched.step, f"pool {label} block "
+                             f"({POOL_SLOTS} slots live, {POOL_BLOCK} steps)",
+                             ms, tokens=POOL_BLOCK)
+        sched.run()
+        prof_out[label] = (ms, p, lens)
+        print(f"[pool] {label} block walls {walls[0]:.2f}, {walls[1]:.2f}, "
+              f"{walls[2]:.2f} ms: {ms / POOL_BLOCK:.3f} ms a step of "
+              f"{POOL_SLOTS} tokens; " + (
+                  "not measured" if p is None else
+                  f"{p['host_launches'] / POOL_BLOCK:.2f} host launch calls "
+                  f"a step ({p['graphs']} graph launches a block), "
+                  f"{p['device_ops'] / POOL_BLOCK:.0f} device kernels a "
+                  f"step, {100 * p['busy_ms'] / ms:.1f}% device-busy") +
+              f" ({card})")
+    require(prof_out["greedy"][1] is None
+            or prof_out["greedy"][1]["graphs"] == POOL_BLOCK,
+            "the profiled greedy block is not one graph launch a step")
+
+    # ---- the kernels at the pool's shapes -------------------------------
+    flush = make_flush(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(66)
+    records = {"decode_attention": pool_b3_record(
+        torch, flush, prof_out["greedy"][2], H, Hkv, dh, POOL_MAX_LEN, g,
+        dev)}
+    records.update(pool_tail_records(torch, flush, POOL_SLOTS, cfg.vocab, g,
+                                     dev))
+    S = int(np.median([len(p) for p, _ in reqs]))
+    records["flash_attention"] = attn_record(
+        torch, flush, f"B2 flash_attention (causal, admission: q "
+        f"[1,{S},{H},{dh}] bf16, the median prompt)",
+        *(torch.randn((1, S, h, dh), generator=g, device=dev).to(
+            torch.bfloat16) for h in (H, Hkv, Hkv)), decode=False)
+    in_loop = {"decode_attention": ("greedy", "decode_split_kernel"),
+               "aggregate_sample": ("greedy", "tail_kernel"),
+               "aggregate": ("temperature", "agg_kernel"),
+               "flash_attention": (None, None)}
+    out = []
+    for name, rec in records.items():
+        rec["launches"] = launches[name]
+        cfg_name, kern = in_loop[name]
+        p = prof_out[cfg_name][1] if cfg_name else None
+        us = None if p is None else p["kernel_us"].get(kern)
+        print(f"[pool] {rec['name']}: {rec['ms'] * 1e3:.2f} us device cold,"
+              f" in the replayed loop " + ("not measured" if us is None
+                                           else f"{us:.2f} us") +
+              f", bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}), "
+              f"library " + ("none" if rec["library_ms"] is None else
+                             f"{rec['library_ms'] * 1e3:.2f} us") +
+              f", plain {rec['plain_ms']:.3f} ms, max err "
+              f"{rec['max_abs_err']:.3g}, launches {rec['launches']} "
+              f"({card})")
+        out.append(rec)
+    del engines, scheds, eng, sched, params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"[time] phase 6 in all: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def phase_paper(torch, dev, card: str):
@@ -1385,6 +1798,8 @@ def main() -> int:
         lap("phase 4 (paper path)")
         config_recs = phase_configs(torch, dev, card)
         lap("phase 5 (configs)")
+        pool_recs = phase_pool(torch, dev, card)
+        lap("phase 6 (continuous batching)")
         print(f"[time] all phases {time.perf_counter() - t_all:.1f} s")
     except (CheckFailed, AssertionError) as exc:
         print(f"chip_smoke.py: check failed: {exc}", file=sys.stderr)
@@ -1395,6 +1810,7 @@ def main() -> int:
         kernels.append(dict(rec[name], launches=counts[name]))
     kernels.append(dict(paper_rec, launches=paper_launches))
     kernels.extend(config_recs)
+    kernels.extend(pool_recs)
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

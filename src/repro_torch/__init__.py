@@ -14,7 +14,16 @@ Entry points (``serve.ServeEngine``, ``models.model.init``,
 ``core.rcsl.make_shards``) run on the card unless the caller passes
 ``device="cpu"``; with no card and no device they raise. ``core.rcsl.rcsl``
 and ``infer.infer`` run where their tensors live.
-"""
-from .device import resolve_device
 
+Importing the package imports nothing: ``resolve_device`` loads on first
+access, so the stdlib-only half of ``obs`` imports where torch is absent.
+"""
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from .device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -72,7 +72,9 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, float]:
     already built). The compiler's report (registers, shared memory,
     spills from ``-Xptxas -v``) is kept beside each library as ``.log``.
     """
-    from time import perf_counter, sleep
+    from time import sleep
+
+    from ..obs.metrics import now
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -86,7 +88,7 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, float]:
                str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=log,
                                         stderr=subprocess.STDOUT),
-                       log, tmp, out, perf_counter())
+                       log, tmp, out, now())
     seconds = {name: 0.0 for name in names}
     failed = []
     pending = dict(procs)
@@ -96,7 +98,7 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, float]:
             if rc is None:
                 continue
             del pending[name]
-            seconds[name] = perf_counter() - t0
+            seconds[name] = now() - t0
             log.close()
             if rc != 0:
                 failed.append(f"{name}: nvcc exit {rc}\n"

@@ -1,15 +1,59 @@
-"""Per-slot cache positions (``repro.serve.cache``'s ``vectorize_pos``).
+"""Slot pool of continuous batching and per-slot cache positions
+(``repro.serve.cache``'s port).
 
-The slot pool of continuous batching (``SlotPool``, ``write_slot``,
-``evict_slot``, ``kv_bytes_per_slot``) is not ported yet (ROADMAP.md,
-queue A2); it decodes rows at different positions, which the per-row
-``KVCache.pos`` below already carries.
+The pool decouples cache capacity from the request batch: it holds
+``n_slots`` cache rows (one per concurrently decoding sequence), each
+with its own fill level. Requests are admitted into free slots mid-decode
+and retired slots are reused without touching the others.
+
+The port has one cache type, the stacked ``KVCache`` [L, rows, T, Hkv,
+dh] with a per-row ``pos`` [rows] int32 (``vectorize_pos``), so the slot
+dim is always dim 1 and ``repro``'s structural probe (``slot_dims``) has
+no counterpart. A pool whose replicas run replicated holds ``m *
+n_slots`` rows, replica-major as ``engine.DecodeBuffers`` lays them out
+(row ``r * n_slots + s`` is replica r of slot s): the decode step runs
+them as one batch, with no flatten per block. Every write is in place
+into the pool's own tensors, whose addresses a captured decode step
+keeps. (``repro``'s ``pool_specs`` shards a pool over a mesh: ROADMAP.md,
+queue A5.)
 """
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..models import transformer as T
 from ..models.attention import KVCache, row_pos
 
-__all__ = ["vectorize_pos"]
+__all__ = ["SlotPool", "vectorize_pos", "kv_bytes_per_slot", "pool_caches",
+           "init_pool", "write_slot", "evict_slot"]
+
+_CACHE_FIELDS = ("k", "v", "k_scale", "v_scale")
+
+
+class SlotPool(NamedTuple):
+    """Cache pool: model caches + per-slot bookkeeping, all on the device.
+
+    caches:  stacked caches [L, m * n_slots, T, ...] with ``pos``
+             [m * n_slots] (m = 1 unless the replicas run replicated).
+    lengths: [n_slots] int32 — tokens resident per slot (prompt +
+             generated).
+    active:  [n_slots] bool — slot owned by a live request.
+    """
+
+    caches: KVCache
+    lengths: torch.Tensor
+    active: torch.Tensor
+
+    @property
+    def n_slots(self) -> int:
+        return self.lengths.shape[0]
+
+    @property
+    def m(self) -> int:
+        """Replica rows a slot holds."""
+        return self.caches.pos.shape[0] // self.n_slots
 
 
 def vectorize_pos(caches: KVCache, n_slots: int) -> KVCache:
@@ -17,3 +61,65 @@ def vectorize_pos(caches: KVCache, n_slots: int) -> KVCache:
     device: a scalar broadcasts, a vector of n_slots stays as it is. Each
     row then advances on its own through ``decode_step``."""
     return caches._replace(pos=row_pos(caches.pos, n_slots, caches.k.device))
+
+
+def pool_caches(cfg, n_slots: int, max_len: int, window="cfg", m: int = 1,
+                device=None) -> KVCache:
+    """Zeroed caches of ``m * n_slots`` rows: a ring of the window's slots
+    (as the prefill makes them), else ``max_len``."""
+    window = cfg.sliding_window if window == "cfg" else window
+    return T.init_cache(cfg, m * n_slots, window or max_len, window=None,
+                        device=device)
+
+
+def kv_bytes_per_slot(make: Callable[[int], KVCache], n_slots: int) -> int:
+    """Device bytes one slot costs in the caches ``make(n_slots)`` builds:
+    the sum of every stored tensor's bytes (int8 scales and positions
+    included, so ``kv_dtype`` shrinking the cache shows here; a replicated
+    pool's m replica rows all count) over ``n_slots``. Give ``make`` a
+    ``device="meta"`` build and nothing is allocated."""
+    caches = make(n_slots)
+    total = sum(x.numel() * x.element_size() for x in caches
+                if x is not None)
+    return total // n_slots
+
+
+def init_pool(cfg, n_slots: int, max_len: int, window="cfg", m: int = 1,
+              device=None) -> SlotPool:
+    """Empty pool: zeroed caches, zero lengths, all slots free."""
+    caches = pool_caches(cfg, n_slots, max_len, window=window, m=m,
+                         device=device)
+    dev = caches.k.device
+    return SlotPool(caches=caches,
+                    lengths=torch.zeros((n_slots,), dtype=torch.int32,
+                                        device=dev),
+                    active=torch.zeros((n_slots,), dtype=torch.bool,
+                                       device=dev))
+
+
+def write_slot(pool: SlotPool, req_caches: KVCache, slot: int,
+               length: int) -> SlotPool:
+    """Admit one request: copy its batch-1 caches [L, 1, T, ...] into every
+    replica row of ``slot``, in place, and set the slot's position (every
+    replica row), length and liveness. Whatever the slot held before (a
+    retired request's rows, positions advanced while it sat free) is
+    overwritten. Returns ``pool`` (its tensors, written)."""
+    n, m = pool.n_slots, pool.m
+    for f in _CACHE_FIELDS:
+        dst, src = getattr(pool.caches, f), getattr(req_caches, f)
+        if dst is None:
+            continue
+        rows = dst.view((dst.shape[0], m, n) + dst.shape[2:])[:, :, slot]
+        rows.copy_(src[:, :1])  # [L, 1, ...] over the m replica rows
+    pool.caches.pos.view(m, n)[:, slot].fill_(int(length))
+    pool.lengths[slot] = int(length)
+    pool.active[slot] = True
+    return pool
+
+
+def evict_slot(pool: SlotPool, slot: int) -> SlotPool:
+    """Retire a slot. Cache contents stay (masked by the slot's length and
+    overwritten on the next admission); only the bookkeeping is cleared."""
+    pool.lengths[slot] = 0
+    pool.active[slot] = False
+    return pool

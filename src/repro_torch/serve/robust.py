@@ -142,40 +142,60 @@ def _attack(logits_r, rcfg: RobustDecodeConfig, generator):
 
 
 def robust_logits(logits_r, rcfg: RobustDecodeConfig,
-                  generator: Optional[torch.Generator] = None):
+                  generator: Optional[torch.Generator] = None, *,
+                  with_diag: bool = False):
     """Corrupt the attacked rows, then robustly aggregate.
-    logits_r: [m, B, V]. Returns [B, V] f32 aggregated logits."""
+    logits_r: [m, B, V]. Returns [B, V] f32 aggregated logits; with
+    ``with_diag`` also the per-token replica-disagreement rate [B] f32
+    (``obs.diag.replica_disagreement`` of the attacked stack): the
+    fraction of replicas whose argmax differs from the served token."""
     x = _attack(logits_r, rcfg, generator)
-    return rcfg.estimator.apply(x.float(), axis=0)
+    agg = rcfg.estimator.apply(x.float(), axis=0)
+    if with_diag:
+        from ..obs.diag import replica_disagreement
+
+        return agg, replica_disagreement(x, agg)
+    return agg
 
 
 def robust_sample(logits_r, rcfg: RobustDecodeConfig,
-                  generator: Optional[torch.Generator], sc):
+                  generator: Optional[torch.Generator], sc, *,
+                  with_diag: bool = False):
     """The whole robust-decode tail: attack, aggregate, sample -> tok [B]
-    int32. ``generator`` feeds the attack noise and the sampling draw.
+    int32 (and with ``with_diag`` the replica-disagreement rate [B] f32 of
+    the attacked stack). ``generator`` feeds the attack noise and the
+    sampling draw; the diagnostic draws nothing.
 
     With ``rcfg.fuse_tail`` and greedy / top-k sampling this is one fused
-    kernel (B4); greedy tokens are bit-identical to
-    ``sample_tokens(robust_logits(...))``, and top-k draws over B4's
-    [B, k] (value, index) lists, the masked-vocab distribution.
+    kernel (B4), which writes the [B, V] aggregate only when the
+    diagnostic reads it (``with_agg``); greedy tokens are bit-identical to
+    ``sample_tokens(robust_logits(...))`` either way, and top-k draws over
+    B4's [B, k] (value, index) lists, the masked-vocab distribution.
     Temperature-only sampling needs the whole [B, V] aggregate and takes
     the unfused tail.
     """
     from .engine import categorical, sample_tokens
 
     if not (rcfg.fuse_tail and sc.method in ("greedy", "top_k")):
-        return sample_tokens(robust_logits(logits_r, rcfg, generator),
-                             generator, sc)
+        out = robust_logits(logits_r, rcfg, generator, with_diag=with_diag)
+        agg, dis = out if with_diag else (out, None)
+        tok = sample_tokens(agg, generator, sc)
+        return (tok, dis) if with_diag else tok
     x = _attack(logits_r, rcfg, generator).float().contiguous()
     if sc.method == "greedy":
-        _, tok = rcfg.estimator.apply_sample(x, with_agg=False)
-        return tok
-    if sc.top_k <= 0:
-        raise ValueError("top_k sampling needs top_k > 0")
-    _, topv, topi = rcfg.estimator.apply_sample(x, top_k=sc.top_k,
-                                                with_agg=False)
-    idx = categorical(topv / max(sc.temperature, 1e-6), generator)
-    return torch.gather(topi, 1, idx[:, None].long())[:, 0]
+        agg, tok = rcfg.estimator.apply_sample(x, with_agg=with_diag)
+    else:
+        if sc.top_k <= 0:
+            raise ValueError("top_k sampling needs top_k > 0")
+        agg, topv, topi = rcfg.estimator.apply_sample(x, top_k=sc.top_k,
+                                                      with_agg=with_diag)
+        idx = categorical(topv / max(sc.temperature, 1e-6), generator)
+        tok = torch.gather(topi, 1, idx[:, None].long())[:, 0]
+    if with_diag:
+        from ..obs.diag import replica_disagreement
+
+        return tok, replica_disagreement(x, agg)
+    return tok
 
 
 def robust_decode_step(params, cfg, rep_caches, token,

@@ -898,3 +898,192 @@ def test_cuda_capture_of_a_host_read_raises(cuda, monkeypatch):
     torch.testing.assert_close(eng.generate(batch, 10),
                                eng.generate_python_loop(batch, 10), rtol=0,
                                atol=0)
+
+
+# -- the slot pool: its step captured and replayed (decode_pool) -------------
+
+def _pool_requests(cfg, n, seed):
+    rs = np.random.RandomState(seed)
+    return [(rs.randint(0, cfg.vocab, size=(int(rs.randint(4, 20)),)),
+             int(rs.randint(3, 12))) for _ in range(n)]
+
+
+def _eager_decode(eng):
+    """``eng``'s ``_decode`` run eagerly on the card, every step a launch of
+    each of its kernels: the baseline a replayed pool is held against."""
+    def run(buf, steps, generator, sc, graphs):
+        for _ in range(steps):
+            eng._step(buf, generator, sc)
+    return run
+
+
+def _pool_serve(cuda, cfg, params, reqs, mode, robust, sampling=None,
+                obs=None):
+    from repro_torch.serve import Request, Sampling, Scheduler
+
+    eng = ServeEngine(cfg, params, max_len=40, n_slots=3, robust=robust,
+                      obs=obs, device=cuda)
+    if mode == "eager":
+        eng._decode = _eager_decode(eng)
+    sched = Scheduler(eng, decode_block=3, seed=5,
+                      sampling=sampling or Sampling())
+    uids = [sched.submit(Request(tokens=p, max_new_tokens=n))
+            for p, n in reqs]
+    done = sched.run()
+    return [done[u].tokens for u in uids], eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [True, False], ids=["shared",
+                                                      "replicated"])
+@pytest.mark.parametrize("attack,method", [
+    ("none", "greedy"), ("signflip", "greedy"), ("gaussian", "greedy"),
+    ("gaussian", "top_k"), ("none", "temperature")])
+def test_cuda_pool_replay_equals_eager(cuda, attack, method, share):
+    """Seven requests through three slots (admissions between blocks,
+    evictions, slots reused): the scheduler over the replayed pool gives
+    the tokens of the same scheduler over an eagerly decoded pool, bitwise,
+    from one seed; the pool's step was captured once and replayed."""
+    from repro_torch.serve import Sampling
+
+    cfg, params, _ = _served(cuda)
+    reqs = _pool_requests(cfg, 7, 3)
+    sc = {"greedy": Sampling(), "top_k": Sampling("top_k", 1.3, top_k=5),
+          "temperature": Sampling("temperature", 1.5)}[method]
+    robust = RobustDecodeConfig(m=8, attack=attack,
+                                share_replica_compute=share)
+    got, eng = _pool_serve(cuda, cfg, params, reqs, "graph", robust, sc)
+    want, _ = _pool_serve(cuda, cfg, params, reqs, "eager", robust, sc)
+    assert got == want
+    assert all(len(t) == n for t, (_, n) in zip(got, reqs))
+    (st,) = eng.pool_graphs.values()
+    assert st.replays > 3 and not eng.graphs
+
+
+@pytest.mark.cuda
+def test_cuda_pool_admission_leaves_other_slots(cuda):
+    """An admission between two blocks, into the pool whose step was
+    captured in the first, leaves the other slots' tokens bitwise as they
+    are without it: admission writes into the tensors the graph reads."""
+    cfg, params, _ = _served(cuda)
+    eng = ServeEngine(cfg, params, max_len=48, n_slots=3, device=cuda,
+                      robust=RobustDecodeConfig(m=8, attack="signflip"))
+    a, b, c = (p for p, _ in _pool_requests(cfg, 3, 8))
+
+    def run(admit_late):
+        pool = eng.make_pool()
+        pool, fa = eng.admit(pool, 0, {"tokens": a[None]})
+        pool, fb = eng.admit(pool, 1, {"tokens": b[None]})
+        cur = torch.tensor([fa, fb, 0], dtype=torch.int32, device=cuda)
+        pool, t1 = eng.decode_pool(pool, cur, 4)
+        cur = t1[-1].clone()
+        if admit_late:
+            pool, fc = eng.admit(pool, 2, {"tokens": c[None]})
+            cur[2] = fc
+        pool, t2 = eng.decode_pool(pool, cur, 4)
+        assert eng.pool_graphs[next(iter(eng.pool_graphs))].replays == 7
+        return torch.cat([t1, t2]), pool
+
+    alone, _ = run(False)
+    beside, pool = run(True)
+    torch.testing.assert_close(alone[:, :2], beside[:, :2], rtol=0, atol=0)
+    assert pool.lengths.tolist() == [len(a) + 8, len(b) + 8, len(c) + 4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_cuda_b3_ragged_batch32_matches_plain(cuda, kv):
+    """B3 at the pool's shape: 32 rows, each with its own length (1, the
+    chunk edges, the whole cache), against the plain version, and each row
+    bitwise as at batch 1."""
+    g = torch.Generator(device=cuda).manual_seed(32)
+    T = 512
+    q = torch.randn((32, 1, 16, 128), generator=g, device=cuda).to(
+        torch.bfloat16)
+    k, v, ks, vs = _cache(g, 32, T, 8, 128, kv, cuda)
+    lens = torch.randint(1, T + 1, (32,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    lens[:6] = torch.tensor([1, 31, 32, 33, T - 1, T], dtype=torch.int32)
+    out = decode_attention(q, k, v, kv_len=lens, k_scale=ks, v_scale=vs)
+    torch.testing.assert_close(
+        out.float(), decode_attention_plain(q.float(), k, v, lens, ks, vs),
+        atol=1e-2, rtol=1e-2)
+    for i in range(32):
+        one = decode_attention(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], kv_len=lens[i:i + 1],
+            k_scale=None if ks is None else ks[i:i + 1],
+            v_scale=None if vs is None else vs[i:i + 1])
+        assert torch.equal(out[i:i + 1], one)
+
+
+@pytest.mark.cuda
+def test_cuda_pool_diag_counts_replay_equal_eager(cuda):
+    """The disagreement counts the replayed step adds on the device equal
+    the eager step's (the gaussian attack's rates vary token by token);
+    the count is the live slots' tokens."""
+    from repro_torch.obs import MetricsRegistry
+
+    cfg, params, _ = _served(cuda)
+    reqs = _pool_requests(cfg, 7, 4)
+    robust = RobustDecodeConfig(m=8, attack="gaussian", alpha=0.25)
+    regs = {}
+    for mode in ("graph", "eager"):
+        regs[mode] = MetricsRegistry()
+        _pool_serve(cuda, cfg, params, reqs, mode, robust, obs=regs[mode])
+    h = {m: r.histograms["serve.replica_disagreement"].snapshot()
+         for m, r in regs.items()}
+    assert h["graph"] == h["eager"]
+    live = 3 * sum(-(-(n - 1) // 3) for _, n in reqs)
+    assert h["graph"]["count"] == live and h["graph"]["sum"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 50])
+def test_cuda_b4_with_agg_tokens_in_a_graph(cuda, k):
+    """Inside one CUDA graph, B4 with ``with_agg=True`` (the obs path)
+    selects the tokens (or top-k lists) of ``with_agg=False`` bitwise, and
+    its aggregate equals B1's, replay after replay on new inputs."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = 4.0 * torch.randn((8, 32, 151936), generator=g, device=cuda)
+    s = torch.cuda.Stream(cuda)
+    s.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(s):  # the per-stream state, before the capture
+        aggregate_sample(x, "vrmom", K=8, top_k=k, with_agg=True)
+        aggregate_sample(x, "vrmom", K=8, top_k=k, with_agg=False)
+    torch.cuda.current_stream(cuda).wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        on = aggregate_sample(x, "vrmom", K=8, top_k=k, with_agg=True)
+        off = aggregate_sample(x, "vrmom", K=8, top_k=k, with_agg=False)
+    for seed in range(3):
+        x.copy_(4.0 * torch.randn(x.shape, generator=g, device=cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(on[1:], off[1:]):
+            assert torch.equal(a, b)
+        assert torch.equal(on[0], aggregate(x, "vrmom", K=8))
+
+
+@pytest.mark.cuda
+def test_cuda_pool_capture_of_a_host_read_raises(cuda, monkeypatch):
+    """A pool step that reads the host cannot be captured: ``decode_pool``
+    raises, and does not decode the pool eagerly."""
+    import repro_torch.serve.engine as E
+
+    real = E.sample_tokens
+
+    def reads_host(logits, generator, sc):
+        tok = real(logits, generator, sc)
+        int(tok[0])
+        return tok
+
+    cfg, params, batch = _served(cuda)
+    monkeypatch.setattr(E, "sample_tokens", reads_host)
+    eng = ServeEngine(cfg, params, max_len=40, n_slots=2, device=cuda)
+    pool = eng.make_pool()
+    pool, first = eng.admit(pool, 0, {"tokens": batch["tokens"][:1]})
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="capturing the decode step"):
+        eng.decode_pool(pool, [first, 0], 4)
+    assert launch_counts()["decode_attention"] == cfg.n_layers
+    assert not eng.pool_graphs
