@@ -82,6 +82,28 @@ profiled block, and the kv_bytes_per_slot gauge, and adds B3 at the
 pool's batch 32 with ragged lengths (beside SDPA with the same mask), B4
 with ``with_agg``, B1 at the pool's stack and B2 at batch 1 to the
 ``kernels`` line.
+Phase 7 trains qwen3-1.7b at full width (seeded weights, bf16, remat on)
+through ``make_train_step`` with W = 8 workers emulated on the card, one
+4096-token sequence each (``data.lm_batch``), VRMOM K 10, AdamW lr 1e-4:
+(a) a clean warm-up step, then 3 timed stacked-auto steps under signflip
+(int(0.25 * 7) = 1 row) as its main path, B1 once a leaf and B2 twice a
+layer and worker (the forward and its recompute) by the wrappers'
+counts and in a profiler trace of one more step; it prints step seconds,
+tokens/s, the share of the bf16 peak, the split of a step, the device
+time by kernel group, peak memory against the reckoning, and requires
+the loss finite and batch 0's loss to fall. (b) On one step's gradient,
+2 of 8 rows attacked (alpha 0.3) by signflip, omniscient and gaussian
+(``robust_shift``): VRMOM's aggregate must move less than the mean's,
+the mean must turn round under omniscient, and on the leaves whose clean
+rows share a direction VRMOM must stay closer to its clean aggregate
+than a zero aggregate is; ``with_diag`` must flag exactly the attacked
+rows. (c) 2 inloop steps at 8 x 1024 tokens, B1 on every product's dW.
+(d) B1 at the w_gate stack [8, 352321536] bf16 (sampled columns against
+the plain version, bitwise equal to f32 then cast) and at one inloop dW,
+B2's forward at q [1, 4096, 16, 128] and at the inloop q [8, 1024, 16,
+128] beside SDPA's, and B2 under autograd (its forward and the ``mha``
+recompute backward) beside SDPA's forward and backward join the
+``kernels`` line.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it lists every kernel with its launches, error and times. Any
@@ -139,6 +161,18 @@ POOL_PROMPT, POOL_NEW = (32, 320), (16, 64)
 # cuBLAS may round a batch-32 product unlike a batch-4 one, and bf16
 # rounds at other places through the depth (phase 3's prefill tolerance)
 LAYOUT_TOL = 5e-2
+
+# phase 7, training: qwen3-1.7b at full width, W workers emulated on the
+# card, one TRAIN_SEQ-token sequence each; AdamW at repro's defaults;
+# repro's rule int(alpha * (W - 1)) makes 1 of 8 rows Byzantine at 0.25,
+# and 2 at 0.3 (the robustness contract of part b)
+TRAIN_W, TRAIN_SEQ, TRAIN_K, TRAIN_LR = 8, 4096, 10, 1e-4
+TRAIN_ALPHA, TRAIN_ROBUST_ALPHA = 0.25, 0.3
+# part b: a leaf carries a direction the clean workers share when their
+# rows' mean cosine with the clean VRMOM aggregate reaches this (8 rows of
+# pure noise give ~0.35)
+SIGNAL_COS = 0.5
+INLOOP_SEQ = 1024
 
 
 class CheckFailed(Exception):
@@ -1760,6 +1794,496 @@ def phase_paper(torch, dev, card: str):
     return counts["aggregate"], rec
 
 
+def train_reckoning(cfg, n_params: int, seq: int) -> dict:
+    """GB a stacked AdamW step at full width should hold at its peak: bf16
+    params and autograd grads, the bf16 stack of W workers, f32 moments,
+    the remat boundaries of one sequence, one layer recomputed (``mha``
+    at chunk 1024 keeps f32 scores and probabilities of [H, 1024, seq]
+    a chunk) and one f32 loss chunk of logits."""
+    L, D, H, V = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.vocab
+    return {"params": 2 * n_params / 1e9, "grads": 2 * n_params / 1e9,
+            "stack": 2 * n_params * TRAIN_W / 1e9,
+            "adamw m, v": 8 * n_params / 1e9,
+            "remat boundaries": L * seq * D * 2 / 1e9,
+            "one layer's recompute": 4 * H * 1024 * seq * 4 * 2 / 1e9,
+            "loss chunk": cfg.loss_chunk * V * 4 / 1e9}
+
+
+def step_kernel_times(torch, fn):
+    """Run ``fn`` (one train step) under the profiler: (host wall s, device
+    busy s, {kernel name: (count, device s)}) from the raw device events
+    (no per-event parsing: a full-width step launches ~10^5 kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        n, s = by.get(ev.name(), (0, 0.0))
+        by[ev.name()] = (n + 1, s + ev.duration_ns() / 1e9)
+    return wall, sum(s for _, s in by.values()), by
+
+
+def kernel_group(name: str) -> str:
+    for key, group in (("agg_kernel", "B1"), ("flash_fwd", "B2"),
+                       ("gemm", "matmul"), ("nvjet", "matmul"),
+                       ("xmma", "matmul"), ("cutlass", "matmul"),
+                       ("softmax", "softmax"), ("reduce", "reduction"),
+                       ("elementwise", "elementwise"),
+                       ("copy", "copy/cast"), ("Copy", "copy/cast")):
+        if key in name:
+            return group
+    return "other"
+
+
+ROBUST_ATTACKS = ("signflip", "omniscient", "gaussian")
+
+
+def robust_shift(torch, stack, est, gen, mask) -> dict:
+    """How far each attack moves the aggregate of one step's gradient
+    stack (a dict of ``[W, ...]`` leaves), over 64M-column blocks. For
+    VRMOM and the mean, and each attack of ``ROBUST_ATTACKS`` on the rows
+    of ``mask``: ``cos`` of the attacked aggregate h with the clean one c,
+    and ``ratio`` = |h - c| over the rows' RMS distance from c. ``zero``
+    is |c| over that RMS distance, the ratio of an aggregator that
+    returns zeros; ``row_cos`` each clean row's cosine with VRMOM's c.
+    ``leaf`` holds the same for each leaf by its key path."""
+    from repro_torch.core import attacks as TA
+    from repro_torch.dist import robust_reduce as RR
+    from repro_torch.tree import paths
+
+    W = int(mask.numel())
+    # (path, est, attack) -> [c.h, |c|^2, |h|^2, |h - c|^2, spread^2]
+    acc = {}
+    rows = {}
+    for path, leaf in paths(stack):
+        path = ".".join(path)
+        flat = leaf.reshape(W, -1)
+        rows[path] = torch.zeros((3, W), dtype=torch.float32,
+                                 device=mask.device)
+        for c0 in range(0, flat.shape[1], 1 << 26):
+            x = flat[:, c0:c0 + (1 << 26)].contiguous()
+            for name in ("vrmom", "mean"):
+                def agg(t):
+                    if name == "mean":
+                        return RR.aggregate(t, mode="mean").float()
+                    return RR.aggregate(t, mode="stacked-auto",
+                                        est=est).float()
+                c = agg(x)
+                spread = torch.sum((x.float() - c[None]) ** 2)
+                if name == "vrmom":  # each clean row against VRMOM's
+                    rows[path] += torch.stack([
+                        x.float() @ c, (c * c).sum().expand(W),
+                        (x.float() ** 2).sum(dim=1)])
+                for attack in ROBUST_ATTACKS:
+                    h = agg(TA.get(attack)(gen, x, mask))
+                    a = acc.setdefault((path, name, attack), [0.0] * 5)
+                    for j, v in enumerate((torch.dot(c, h), torch.dot(c, c),
+                                           torch.dot(h, h),
+                                           torch.sum((h - c) ** 2),
+                                           spread / W)):
+                        a[j] = a[j] + v
+
+    def summary(sums, r):
+        out = {"cos": {}, "ratio": {}, "zero": {}}
+        for key, a in sums.items():
+            out["cos"][key] = a[0] / math.sqrt(a[1] * a[2]) \
+                if a[1] * a[2] > 0 else float("nan")
+            out["ratio"][key] = math.sqrt(a[3] / a[4]) if a[4] > 0 \
+                else float("nan")
+            out["zero"][key[0]] = math.sqrt(a[1] / a[4]) if a[4] > 0 \
+                else float("nan")
+        out["row_cos"] = (r[0] / torch.sqrt(r[1] * r[2])).tolist()
+        return out
+
+    acc = {k: [float(v) for v in a] for k, a in acc.items()}
+    total = {}
+    for (path, name, attack), a in acc.items():
+        total[(name, attack)] = [u + v for u, v in zip(
+            total.get((name, attack), [0.0] * 5), a)]
+    out = summary(total, sum(rows.values()))
+    out["leaf"] = {path: summary({k[1:]: a for k, a in acc.items()
+                                  if k[0] == path}, r)
+                   for path, r in rows.items()}
+    return out
+
+
+def phase_train(torch, dev, card: str):
+    """Phase 7: Byzantine-robust training of qwen3-1.7b at full width (28
+    layers, bf16, seeded weights; no cut), W = 8 workers emulated on the
+    card. Returns the ``kernels`` records of the phase with the launches
+    of its main path (the timed stacked steps and the inloop steps)."""
+    import torch.nn.functional as F
+
+    from repro_torch import kernels as K
+    from repro_torch import optim as O
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core import attacks as TA
+    from repro_torch.core.estimator import Estimator
+    from repro_torch.data import lm_batch
+    from repro_torch.dist import robust_reduce as RR
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.vrmom import aggregate, aggregate_plain
+    from repro_torch.models import model as M
+    from repro_torch.models.attn_backend import FlashAttentionFn
+    from repro_torch.train.step import make_train_step, stacked_grads
+    from repro_torch.tree import leaves
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = get_arch("qwen3-1.7b")
+    W, S, L = TRAIN_W, TRAIN_SEQ, cfg.n_layers
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(7),
+                    device=dev)
+    n_params = M.param_count(params)
+    n_leaves = len(list(leaves(params)))
+    est = Estimator("vrmom", K=TRAIN_K)
+    opt = O.get("adamw", lr=TRAIN_LR)
+    opt_state = opt.init(params)
+    n_byz = int(TRAIN_ALPHA * (W - 1))
+    setup = make_train_step(cfg, W, estimator=est, mode="stacked-auto",
+                            optimizer=opt, byzantine_frac=TRAIN_ALPHA,
+                            attack="signflip", device=dev)
+    clean = make_train_step(cfg, W, estimator=est, mode="stacked-auto",
+                            optimizer=opt, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = W * S
+    print(f"[train] {cfg.name} at full width ({L} layers, d {cfg.d_model}, "
+          f"{n_params / 1e9:.4f} B params, bf16), W = {W} workers of one "
+          f"{S}-token sequence each, VRMOM K {TRAIN_K}, AdamW lr "
+          f"{TRAIN_LR}, alpha {TRAIN_ALPHA} = int({TRAIN_ALPHA} * {W - 1}) "
+          f"= {n_byz} signflip row(s), remat {cfg.remat}")
+
+    def batch(i, seq=S):
+        return lm_batch(cfg, i, W, seq, device=dev)
+
+    # -- (a) stacked-auto ------------------------------------------------------
+    b0 = batch(0)
+    torch.cuda.reset_peak_memory_stats()
+    _, _, loss0 = clean.step_fn(params, opt_state, b0)  # warm-up, no attack
+    loss0 = float(loss0)
+    K.reset_launch_counts()   # ---- the main path: counts from 0
+    walls, losses = [], []
+    for i in range(1, 4):
+        b = batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, loss = setup.step_fn(params, opt_state, b, gen)
+        losses.append(float(loss))  # waits for the step
+        walls.append(time.perf_counter() - t0)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        loss0_after = float(M.loss(params, cfg, b0))
+    step_s = statistics.median(walls)
+    mfu = 6 * n_params * tokens / step_s / BF16_FLOP_PER_S
+    reck = train_reckoning(cfg, n_params, S)
+    n_fwd = 2 if cfg.remat else 1
+    require(all(math.isfinite(x) for x in [loss0, loss0_after] + losses),
+            f"non-finite training loss: {loss0}, {losses}, {loss0_after}")
+    require(loss0_after < loss0,
+            f"the loss of batch 0 did not fall: {loss0} before, "
+            f"{loss0_after} after 4 steps")
+    require(counts["aggregate"] == 3 * n_leaves
+            and counts["flash_attention"] == 3 * W * L * n_fwd,
+            f"stacked steps launched {counts}; expected B1 {3 * n_leaves}, "
+            f"B2 {3 * W * L * n_fwd}")
+    print(f"[train] (a) stacked-auto, signflip: step {step_s:.4f} s "
+          f"(median of {[round(w, 4) for w in walls]}), "
+          f"{tokens / step_s:.1f} tokens/s, 6*N*tokens at "
+          f"{100 * mfu:.2f} % of the H100 SXM dense bf16 peak "
+          f"({BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s) ({card})")
+    print(f"[train] (a) loss: warm-up step (no attack) {loss0:.5f}, steps "
+          f"1-3 {[round(x, 5) for x in losses]}; batch 0 after 4 steps "
+          f"{loss0_after:.5f} (falls); launches {json.dumps(counts)}")
+    print(f"[train] (a) peak memory {peak:.2f} GB against a reckoning of "
+          f"{sum(reck.values()):.2f} GB ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in reck.items()) + ")")
+
+    # one profiled step: the kernels it launched, the busy share
+    wall, busy, by = step_kernel_times(
+        torch, lambda: setup.step_fn(params, opt_state, batch(4), gen))
+    n_b1 = sum(n for k, (n, _) in by.items() if "agg_kernel" in k)
+    n_b2 = sum(n for k, (n, _) in by.items() if "flash_fwd" in k)
+    require(n_b1 == n_leaves and n_b2 == W * L * n_fwd,
+            f"the profiled stacked step ran B1 {n_b1} times and B2 {n_b2}; "
+            f"expected {n_leaves} and {W * L * n_fwd}")
+    groups = {}
+    for k, (n, s) in by.items():
+        gn, gs = groups.get(kernel_group(k), (0, 0.0))
+        groups[kernel_group(k)] = (gn + n, gs + s)
+    print(f"[train] (a) one profiled stacked step: {wall:.4f} s wall, device "
+          f"busy {busy:.4f} s ({100 * busy / wall:.1f} %), "
+          f"{sum(n for n, _ in by.values())} device kernels; B1 "
+          f"{n_b1} launches, B2 {n_b2} (two a layer and worker: the "
+          f"forward and its recompute) ({card})")
+    print("[train] (a) device time by group: " + ", ".join(
+        f"{g} {s:.4f} s ({n}x)" for g, (n, s) in sorted(
+            groups.items(), key=lambda kv: -kv[1][1])))
+    for k, (n, s) in sorted(by.items(), key=lambda kv: -kv[1][1])[:8]:
+        print(f"[train] {s * 1e3:10.3f} ms {n:7d}x  {k[:90]}")
+
+    # -- the split of a step, and (b) the robustness contract ------------------
+    bsplit = batch(5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, stack = stacked_grads(cfg, params, bsplit, W)
+    torch.cuda.synchronize()
+    t_grads = time.perf_counter() - t0
+
+    mask_b = torch.arange(W, device=dev) >= W - int(TRAIN_ROBUST_ALPHA
+                                                    * (W - 1))
+    rs = robust_shift(torch, stack, est, gen, mask_b)
+    cos, ratio = rs["cos"], rs["ratio"]
+    # the leaves where the clean workers share a direction (their rows'
+    # mean cosine with the clean VRMOM aggregate >= SIGNAL_COS), chosen
+    # from the clean stack alone
+    signal = {k: v for k, v in rs["leaf"].items()
+              if statistics.mean(v["row_cos"]) >= SIGNAL_COS}
+
+    def shifts(r):
+        return "; ".join(f"{n} {atk} {r['cos'][(n, atk)]:.4f} / "
+                         f"{r['ratio'][(n, atk)]:.4g}" for n in
+                         ("vrmom", "mean") for atk in ROBUST_ATTACKS) + (
+            f"; zeros {r['zero']['vrmom']:.4g}")
+
+    print(f"[train] (b) one step's gradient (params after (a), batch 5), "
+          f"{int(mask_b.sum())} of {W} rows attacked (alpha "
+          f"{TRAIN_ROBUST_ALPHA}): cosine with the clean aggregate / its "
+          f"shift over the rows' RMS distance from it, whole gradient: "
+          + shifts(rs))
+    print(f"[train] (b) each clean worker row's cosine with the clean VRMOM "
+          f"aggregate {[round(c, 4) for c in rs['row_cos']]}; leaves where "
+          f"the rows share a direction (mean row cosine >= {SIGNAL_COS}): "
+          f"{sorted(signal)} of {len(rs['leaf'])}")
+    for k, v in sorted(signal.items()):
+        print(f"[train] (b) {k}, row cosines "
+              f"{[round(c, 4) for c in v['row_cos']]}: " + shifts(v))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mask = torch.arange(W, device=dev) >= W - n_byz
+    for g in leaves(stack):
+        g.copy_(TA.get("signflip")(gen, g, mask))
+    agg_tree = RR.aggregate(stack, mode="stacked-auto", est=est)
+    torch.cuda.synchronize()
+    t_agg = time.perf_counter() - t0
+    opt.update(agg_tree, opt_state, params)
+    torch.cuda.synchronize()
+    t_opt = time.perf_counter() - t0 - t_agg
+    del agg_tree
+    print(f"[train] (a) the split of one step, synchronised: workers' "
+          f"forward + backward {t_grads:.4f} s, signflip + aggregation "
+          f"{t_agg:.4f} s, AdamW {t_opt:.4f} s ({card})")
+
+    for g in leaves(stack):
+        g.copy_(TA.get("omniscient")(gen, g, mask_b))
+    _, diag = RR.aggregate(stack, mode="stacked-auto", est=est,
+                           with_diag=True)
+    flagged = diag.suspected.tolist()
+    print(f"[train] (b) with_diag under omniscient: suspected {flagged}, "
+          f"alpha_hat {float(diag.alpha_hat):.4f}, scores "
+          f"{[float(f'{s:.4g}') for s in diag.scores.tolist()]}")
+    del stack, diag
+    require(flagged == mask_b.tolist(),
+            f"with_diag flagged {flagged}, attacked {mask_b.tolist()}")
+    # the contract. Over the whole gradient the clean rows are as good as
+    # orthogonal (cosine 0.27-0.31 with their aggregate at 1 to 8 sequences
+    # a worker, scripts/train_robustness.py), and every aggregate, zeros
+    # too, is about as far from the clean one: VRMOM must move less than
+    # the mean under every attack, and the mean turn round under
+    # omniscient. Where the rows share a direction VRMOM must also stay
+    # closer to its clean aggregate than zeros are (the zero aggregate's
+    # ratio), which zeros do not, nor the mean under omniscient
+    for atk in ROBUST_ATTACKS:
+        require(ratio[("vrmom", atk)] < ratio[("mean", atk)],
+                f"VRMOM's aggregate under {atk} moved "
+                f"{ratio[('vrmom', atk)]} of the rows' RMS distance, the "
+                f"mean's {ratio[('mean', atk)]}")
+    require(not cos[("mean", "omniscient")] > 0,
+            f"the mean under omniscient kept cosine "
+            f"{cos[('mean', 'omniscient')]}")
+    require(bool(signal), f"no leaf's clean rows share a direction (mean "
+            f"row cosine >= {SIGNAL_COS})")
+    for k, v in signal.items():
+        for atk in ROBUST_ATTACKS:
+            r = v["ratio"][("vrmom", atk)]
+            require(r < v["zero"]["vrmom"] and r < v["ratio"][("mean", atk)],
+                    f"{k}: VRMOM's aggregate under {atk} moved {r} of the "
+                    f"rows' RMS distance; zeros {v['zero']['vrmom']}, the "
+                    f"mean {v['ratio'][('mean', atk)]}")
+
+    # -- (c) inloop ------------------------------------------------------------
+    inloop = make_train_step(cfg, W, estimator=est, mode="inloop",
+                             optimizer=opt, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()   # ---- the main path: counts from 0
+    in_losses, in_walls = [], []
+    for i in range(2):
+        b = batch(10 + i, INLOOP_SEQ)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, loss = inloop.step_fn(params, opt_state, b)
+        in_losses.append(float(loss))
+        in_walls.append(time.perf_counter() - t0)
+    in_counts = K.launch_counts()
+    in_peak = torch.cuda.max_memory_allocated() / 1e9
+    # q, k, v, o, gate, up, down a layer; the unembedding once a loss chunk
+    n_dots = 7 * L + -(-INLOOP_SEQ // cfg.loss_chunk)
+    require(all(math.isfinite(x) for x in in_losses),
+            f"non-finite inloop loss {in_losses}")
+    require(in_counts["aggregate"] == 2 * n_dots
+            and in_counts["flash_attention"] == 2 * L * n_fwd,
+            f"inloop steps launched {in_counts}; expected B1 {2 * n_dots}, "
+            f"B2 {2 * L * n_fwd}")
+    print(f"[train] (c) inloop at {W} x {INLOOP_SEQ} tokens (at 4096 the "
+          f"tied unembedding's per-worker dW stacks and the global "
+          f"activations of one backward would not fit beside the rest): "
+          f"losses {[round(x, 5) for x in in_losses]}, steps "
+          f"{[round(w, 4) for w in in_walls]} s, peak memory "
+          f"{in_peak:.2f} GB; launches {json.dumps(in_counts)} ({card})")
+    del params, opt_state
+    torch.cuda.empty_cache()
+
+    # -- (d) the kernels at the training shapes --------------------------------
+    flush = make_flush(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(70)
+    C = L * cfg.d_model * cfg.d_ff   # layers.mlp.w_gate
+    x = torch.randn((W, C), generator=g, device=dev, dtype=torch.bfloat16)
+    out = aggregate(x, "vrmom", K=TRAIN_K)
+    cols = torch.randint(0, C, (1 << 20,), generator=g, device=dev)
+    want = aggregate_plain(x[:, cols], "vrmom", K=TRAIN_K)
+    err = max_err(out[cols], want)
+    require(torch.equal(out[cols], want),
+            f"B1 at [{W},{C}] bf16 differs from its plain version on "
+            f"sampled columns (max err {err})")
+    require(torch.equal(out, aggregate(x.float(), "vrmom", K=TRAIN_K).to(
+        torch.bfloat16)), f"B1 at [{W},{C}]: bf16 differs from f32 then cast")
+
+    def plain_blocks():
+        for c0 in range(0, C, 1 << 25):
+            aggregate_plain(x[:, c0:c0 + (1 << 25)], "vrmom", K=TRAIN_K)
+
+    b1b = bound(x.numel() * 2 + C * 2)
+    rec_b1 = dict(
+        name=f"B1 aggregate on the gradient stacks (vrmom K={TRAIN_K}, "
+             f"bf16; timed at layers.mlp.w_gate [{W},{C}])",
+        route="cuda", source="src/repro_torch/kernels/csrc/vrmom.cu",
+        replaces="src/repro/kernels/vrmom.py:142",
+        launches=counts["aggregate"], max_abs_err=err,
+        ms=timed_ms(lambda: aggregate(x, "vrmom", K=TRAIN_K), torch, flush),
+        plain_ms=timed_ms(plain_blocks, torch, flush, iters=3,
+                          spin=PLAIN_SPIN_CYCLES),
+        bound_ms=b1b[0], bound_by=b1b[1], library_ms=None)
+    del x, out
+    xi = torch.randn((W, cfg.d_model * cfg.d_ff), generator=g, device=dev)
+    b1i = bound(xi.numel() * 4 + xi.shape[1] * 4)
+    outi = aggregate(xi, "vrmom", K=TRAIN_K)
+    wanti = aggregate_plain(xi, "vrmom", K=TRAIN_K)
+    require(torch.equal(outi, wanti), "B1 at the inloop dW stack differs "
+            "from its plain version")
+    rec_b1i = dict(
+        name=f"B1 aggregate in the backward (inloop: one matmul's dW, "
+             f"vrmom K={TRAIN_K}, [{W},{cfg.d_model}*{cfg.d_ff}] f32)",
+        route="cuda", source="src/repro_torch/kernels/csrc/vrmom.cu",
+        replaces="src/repro/kernels/vrmom.py:142",
+        launches=in_counts["aggregate"], max_abs_err=max_err(outi, wanti),
+        ms=timed_ms(lambda: aggregate(xi, "vrmom", K=TRAIN_K), torch, flush),
+        plain_ms=timed_ms(lambda: aggregate_plain(xi, "vrmom", K=TRAIN_K),
+                          torch, flush, iters=5, spin=PLAIN_SPIN_CYCLES),
+        bound_ms=b1i[0], bound_by=b1i[1], library_ms=None)
+    del xi, outi, wanti
+
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((1, S, H, dh), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    k = torch.randn((1, S, Hkv, dh), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    v = torch.randn((1, S, Hkv, dh), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    rec_b2 = attn_record(
+        torch, flush, f"B2 flash_attention forward at the training shape "
+        f"(q [1,{S},{H},{dh}], k/v [1,{S},{Hkv},{dh}] bf16 causal)",
+        q, k, v, decode=False)
+    rec_b2["launches"] = counts["flash_attention"]
+    # B2 at the inloop steps' shape: the whole global batch in one forward
+    rec_b2i = attn_record(
+        torch, flush, f"B2 flash_attention forward at the inloop shape "
+        f"(q [{W},{INLOOP_SEQ},{H},{dh}], k/v [{W},{INLOOP_SEQ},{Hkv},{dh}] "
+        f"bf16 causal)", *(torch.randn(
+            (W, INLOOP_SEQ, h, dh), generator=g, device=dev,
+            dtype=torch.bfloat16) for h in (H, Hkv, Hkv)), decode=False)
+    rec_b2i["launches"] = in_counts["flash_attention"]
+    dout = torch.randn((1, S, H, dh), generator=g, device=dev,
+                       dtype=torch.bfloat16)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    dt = dout.transpose(1, 2).contiguous()
+
+    def pair():
+        o = FlashAttentionFn.apply(qg, kg, vg, True, cfg.attn_chunk)
+        return torch.autograd.grad(o, (qg, kg, vg), dout)
+
+    def pair_plain():
+        o = flash_attention_plain(qg, kg, vg, causal=True)
+        return torch.autograd.grad(o, (qg, kg, vg), dout)
+
+    def pair_sdpa():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, (qt, kt, vt), dt)
+
+    got, want2 = pair(), pair_plain()
+    scale = max(float(w.abs().max()) for w in want2)
+    err2 = max(max_err(a, b) for a, b in zip(got, want2))
+    # the gradients come from the mha recompute (B2's output is not read
+    # by the backward); B2's forward is held against its plain version in
+    # the records at both training shapes
+    require(err2 <= 2e-2 * scale,
+            f"FlashAttentionFn's mha recompute backward: grads differ from "
+            f"the plain path's by {err2} (largest {scale})")
+    pairs = S * (S + 1) // 2
+    # q, k, v and the output's gradient read, their three gradients written
+    b2p = bound(2 * 2 * (q.numel() + k.numel() + v.numel()),
+                12 * dh * H * pairs)
+    rec_pair = dict(
+        name=f"B2 under autograd (FlashAttentionFn: B2 forward + the mha "
+             f"recompute backward; max_abs_err is the recompute's gradient "
+             f"against the plain path's, launches are the stacked steps' "
+             f"B2 forwards as above), q [1,{S},{H},{dh}], k/v "
+             f"[1,{S},{Hkv},{dh}] bf16 causal; library: SDPA forward + "
+             f"backward",
+        route="cuda", source="src/repro_torch/kernels/csrc/"
+                             "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:76",
+        launches=counts["flash_attention"], max_abs_err=err2,
+        ms=timed_ms(pair, torch, flush, iters=5, spin=PLAIN_SPIN_CYCLES),
+        plain_ms=timed_ms(pair_plain, torch, flush, iters=5,
+                          spin=PLAIN_SPIN_CYCLES),
+        bound_ms=b2p[0], bound_by=b2p[1],
+        library_ms=timed_ms(pair_sdpa, torch, flush, iters=5,
+                            spin=PLAIN_SPIN_CYCLES))
+    recs = [rec_b1, rec_b1i, rec_b2, rec_b2i, rec_pair]
+    for r in recs:
+        print(f"[train] (d) {r['name']}: {r['ms'] * 1e3:.2f} us device, plain "
+              f"{r['plain_ms']:.3f} ms, {r['bound_by']} bound "
+              f"{r['bound_ms'] * 1e3:.2f} us, library "
+              + ("none" if r["library_ms"] is None
+                 else f"{r['library_ms'] * 1e3:.2f} us")
+              + f", {r['launches']} launches on the main path ({card})")
+    print(f"[train] phase 7 in {time.perf_counter() - t_phase:.1f} s")
+    return recs
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside the script; "
@@ -1800,6 +2324,8 @@ def main() -> int:
         lap("phase 5 (configs)")
         pool_recs = phase_pool(torch, dev, card)
         lap("phase 6 (continuous batching)")
+        train_recs = phase_train(torch, dev, card)
+        lap("phase 7 (training)")
         print(f"[time] all phases {time.perf_counter() - t_all:.1f} s")
     except (CheckFailed, AssertionError) as exc:
         print(f"chip_smoke.py: check failed: {exc}", file=sys.stderr)
@@ -1811,6 +2337,7 @@ def main() -> int:
     kernels.append(dict(paper_rec, launches=paper_launches))
     kernels.extend(config_recs)
     kernels.extend(pool_recs)
+    kernels.extend(train_recs)
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

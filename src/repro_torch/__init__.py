@@ -1,8 +1,9 @@
 """repro_torch — the PyTorch + CUDA port of ``repro``.
 
-The package mirrors ``repro``'s layout (``configs``, ``core``, ``data``,
-``dist``, ``infer``, ``kernels``, ``models``, ``serve``) so every module
-has a named counterpart. It imports ``torch``, numpy and scipy only — never JAX and
+The package mirrors ``repro``'s layout (``checkpoint``, ``configs``,
+``core``, ``data``, ``dist``, ``infer``, ``kernels``, ``launch``,
+``models``, ``obs``, ``optim``, ``serve``, ``train``) so every module has
+a named counterpart. It imports ``torch``, numpy and scipy only — never JAX and
 nothing of ``repro``. Every kernel that ``repro`` wrote in Pallas for the
 TPU is a CUDA C++ kernel here (``kernels/csrc``), built with ``nvcc`` for
 ``sm_90a`` at first use and bound through ``ctypes``; each sits beside a
@@ -11,8 +12,10 @@ a tensor on the CPU.
 
 Entry points (``serve.ServeEngine``, ``models.model.init``,
 ``convert.params_from_jax``, ``infer.coverage_run``,
-``core.rcsl.make_shards``) run on the card unless the caller passes
-``device="cpu"``; with no card and no device they raise. ``core.rcsl.rcsl``
+``core.rcsl.make_shards``, ``train.step.make_train_step``,
+``data.lm_batch``, ``python -m repro_torch.launch.train``) run on the
+card unless the caller passes ``device="cpu"``; with no card and no
+device they raise. ``core.rcsl.rcsl``
 and ``infer.infer`` run where their tensors live.
 
 Importing the package imports nothing: ``resolve_device`` loads on first

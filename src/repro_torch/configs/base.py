@@ -1,10 +1,9 @@
 """Architecture configuration (dense and vlm families).
 
 ``repro.configs.base`` imports JAX, so the port re-declares the fields of
-``ArchConfig`` that the decoder reads. Field names, defaults and
-``reduced()`` follow ``repro`` so a config means the same model on both
-sides. The training-only fields (``optimizer``, ``remat_block``, ...) come
-with training (ROADMAP.md, A4).
+``ArchConfig`` that the decoder and the train step read. Field names,
+defaults and ``reduced()`` follow ``repro`` so a config means the same
+model, and the same training set-up, on both sides.
 """
 from __future__ import annotations
 
@@ -49,6 +48,10 @@ class ArchConfig:
     # KV-cache storage dtype: None -> compute_dtype; "bfloat16" or "int8"
     # (int8 carries per-(row, position) f32 scales beside the cache)
     kv_dtype: Optional[str] = None
+    loss_chunk: int = 1024  # sequence-chunked cross-entropy
+    remat: bool = True  # recompute each layer in the backward
+    remat_block: int = 1  # >1: two-level remat, store every Nth boundary
+    optimizer: str = "adamw"  # llama3-405b overrides to adafactor
     source: str = ""  # citation
 
     def __post_init__(self):
@@ -63,7 +66,7 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: 2 layers, d_model 128, <= 4 heads, head dim
-        32, vocab 512, f32, 4 stub patches — the same cut ``repro``'s
+        32, vocab 512, f32, 4 stub patches, loss chunks of 32, no remat — the same cut ``repro``'s
         ``reduced()`` makes for the dense and vlm families."""
         n_heads = min(self.n_heads, 4)
         vision = None if self.vision is None else VisionStubConfig(
@@ -84,4 +87,6 @@ class ArchConfig:
             param_dtype="float32",
             compute_dtype="float32",
             attn_chunk=16,
+            loss_chunk=32,
+            remat=False,
         )

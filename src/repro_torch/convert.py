@@ -1,4 +1,5 @@
-"""Parameters of ``repro``'s model, as numpy arrays, into the port's.
+"""Parameters and optimizer state of ``repro``'s model, as numpy arrays,
+into the port's.
 
 ``repro`` keeps its parameters as a pytree of JAX arrays; the caller turns
 it into numpy (``jax.tree.map(np.asarray, params)``) so this module never
@@ -6,7 +7,9 @@ imports JAX. The port keeps ``repro``'s layout — ``embed`` [V, D] (tied),
 ``layers/*`` stacked [L, ...], ``wq``/``wk``/``wv`` [D, H, dh], ``wo``
 [H, dh, D], ``q_norm``/``k_norm`` [dh], ``mlp`` ``w_gate``/``w_up`` [D, F]
 and ``w_down`` [F, D], ``norm_f`` [D] — so conversion is a checked copy,
-and both sides compute the same function.
+and both sides compute the same function. Optimizer states are dicts in
+``repro``'s layout too (``optim``), so ``opt_state_from_jax`` lets a run
+continue from ``repro``'s state.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 
 from .device import resolve_device
 
-__all__ = ["params_from_jax", "expected_shapes"]
+__all__ = ["params_from_jax", "opt_state_from_jax", "expected_shapes"]
 
 
 def expected_shapes(cfg) -> dict:
@@ -45,11 +48,11 @@ def _leaf(a, want, name: str, device):
     if a.dtype.name == "bfloat16":  # ml_dtypes.bfloat16: reinterpret bits
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()
                              ).view(torch.bfloat16)
-    elif a.dtype == np.float32:
+    elif a.dtype in (np.float32, np.int32):
         t = torch.from_numpy(np.ascontiguousarray(a).copy())
     else:
         raise TypeError(f"param {name}: dtype {a.dtype} not supported "
-                        f"(float32, bfloat16)")
+                        f"(float32, bfloat16, int32)")
     return t.to(device)
 
 
@@ -74,3 +77,29 @@ def params_from_jax(np_tree, cfg, device=None):
     ``ml_dtypes.bfloat16``) -> the port's param dict on ``device`` (the card
     unless the caller names another)."""
     return _convert(np_tree, expected_shapes(cfg), "", resolve_device(device))
+
+
+def _any_tree(tree, name: str, device):
+    if isinstance(tree, dict):
+        return {k: _any_tree(v, f"{name}/{k}", device)
+                for k, v in tree.items()}
+    return _leaf(tree, np.shape(tree), name, device)
+
+
+def opt_state_from_jax(np_state, cfg, device=None):
+    """``repro``'s optimizer state (``repro.optim``; numpy leaves, f32,
+    bf16 or int32) -> the port's, on ``device`` (the card unless named).
+    Moments that mirror the params (``m``; adamw's ``v``) are checked
+    against the model's shapes; adafactor's factored ``v`` and the
+    ``step`` counter are copied as they are."""
+    device = resolve_device(device)
+    shapes = expected_shapes(cfg)
+    out = {}
+    for key, sub in np_state.items():
+        # adafactor's v holds a dict of vr/vc (or v) in each param's place
+        factored = key == "v" and isinstance(sub.get("embed"), dict)
+        if key in ("m", "v") and not factored:
+            out[key] = _convert(sub, shapes, key, device)
+        else:
+            out[key] = _any_tree(sub, key, device)
+    return out

@@ -23,7 +23,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .layers import apply_rope, dense_init, rmsnorm, rope_tables
+from .layers import _dot, apply_rope, dense_init, rmsnorm, rope_tables
 
 NEG_INF = -1e30
 
@@ -83,15 +83,17 @@ def attn_init(generator, cfg, device=None, n_layers: Optional[int] = None):
 
 
 def _proj(x, w3):
-    """[B,S,D] @ [D,H,dh] -> [B,S,H,dh]."""
+    """[B,S,D] @ [D,H,dh] -> [B,S,H,dh] (through the robust-backward-aware
+    ``_dot``)."""
     D, H, dh = w3.shape
-    return (x @ w3.reshape(D, H * dh)).reshape(x.shape[:-1] + (H, dh))
+    return _dot(x, w3.reshape(D, H * dh)).reshape(x.shape[:-1] + (H, dh))
 
 
 def _out_proj(out, wo):
-    """[B,S,H,dh] @ [H,dh,D] -> [B,S,D]."""
+    """[B,S,H,dh] @ [H,dh,D] -> [B,S,D] (through ``_dot``)."""
     H, dh, D = wo.shape
-    return out.reshape(out.shape[:2] + (H * dh,)) @ wo.reshape(H * dh, D)
+    return _dot(out.reshape(out.shape[:2] + (H * dh,)),
+                wo.reshape(H * dh, D))
 
 
 def rotary(cfg, positions):

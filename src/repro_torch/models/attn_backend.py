@@ -15,8 +15,11 @@ the model config (``ArchConfig.attn_backend``) decides what runs:
 
 Calls the kernels cannot express (a sliding window; a query offset or a
 valid-length mask on full attention) go to ``mha`` whatever the backend.
-The flash path is forward-only in this slice (serving); the training slice
-adds its recompute-through-``mha`` backward.
+
+The full-sequence flash path is differentiable: under autograd it runs
+:class:`FlashAttentionFn`, whose forward is B2 and whose backward is the
+VJP of the chunked ``mha``, recomputed from the saved q/k/v (``repro``'s
+``_flash_full``; neither package has a backward kernel).
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 BACKENDS = ("auto", "torch", "flash")
 
 __all__ = ["BACKENDS", "resolve_backend", "full_attention",
-           "decode_attention"]
+           "decode_attention", "FlashAttentionFn"]
 
 
 def resolve_backend(backend: str, *, decode: bool, window=None,
@@ -46,6 +49,34 @@ def resolve_backend(backend: str, *, decode: bool, window=None,
     return backend
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """Full-sequence attention whose forward is the flash kernel (B2; its
+    plain version for CPU tensors) and whose backward recomputes the
+    chunked ``mha`` from the saved q/k/v under autograd and returns its
+    VJP. Inside a recomputed (checkpointed) layer the forward runs, and
+    launches B2, twice."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, chunk: int):
+        from ..kernels.flash_attention import flash_attention
+
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.chunk = causal, chunk
+        return flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from . import attention as A
+
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_(True)
+                       for t in ctx.saved_tensors)
+            out = A.mha(q, k, v, causal=ctx.causal, window=None,
+                        chunk=ctx.chunk)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad)
+        return dq, dk, dv, None, None
+
+
 def full_attention(q, k, v, cfg, *, causal, window, q_offset=0, kv_len=None):
     """Full-sequence attention [B,S,H,dh] x [B,T,Hkv,dh] -> [B,S,H,dh]."""
     from . import attention as A
@@ -55,6 +86,13 @@ def full_attention(q, k, v, cfg, *, causal, window, q_offset=0, kv_len=None):
         backend = "torch"
     if resolve_backend(backend, decode=False, window=window,
                        device=q.device) == "flash":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            # the kernel takes contiguous tensors only: made so before the
+            # Function saves them for the backward
+            return FlashAttentionFn.apply(q.contiguous(), k.contiguous(),
+                                          v.contiguous(), bool(causal),
+                                          cfg.attn_chunk)
         from ..kernels.flash_attention import flash_attention
 
         return flash_attention(q, k, v, causal=bool(causal))

@@ -1,8 +1,11 @@
-"""Shared building blocks: norms, RoPE, SwiGLU and the seeded inits."""
+"""Shared building blocks: norms, RoPE, SwiGLU, the seeded inits and the
+robust-backward-aware product ``_dot``."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..dist import ctx as CTX
 
 
 def dense_init(generator, shape, dtype, fan_in=None, device=None):
@@ -56,6 +59,19 @@ def rope(x, positions, theta: float = 10000.0):
     return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
 
 
+def _dot(x, w):
+    """``x @ w``; while a robust-backward context is active
+    (``dist.robust_reduce.robust_backward``) a 3-D x 2-D product goes
+    through ``robust_dot``, whose weight gradient is aggregated over the
+    workers inside the backward (``repro``'s IB-RRS)."""
+    if CTX.robust_backward_state() is not None and x.ndim == 3 \
+            and w.ndim == 2:
+        from ..dist.robust_reduce import robust_dot
+
+        return robust_dot(x, w)
+    return x @ w
+
+
 def swiglu(x, w_gate, w_up, w_down):
     """SwiGLU MLP: (silu(x@wg) * (x@wu)) @ wd."""
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    return _dot(F.silu(_dot(x, w_gate)) * _dot(x, w_up), w_down)

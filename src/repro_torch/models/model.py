@@ -2,6 +2,7 @@
 counterpart).
 
     init(cfg, generator, device=None)               -> params
+    loss(params, cfg, batch)                        -> scalar LM loss
     prefill(params, cfg, batch, ...)                -> (logits, caches)
     init_cache(cfg, batch, max_len, device=None)    -> caches
     decode_step(params, cfg, caches, token)         -> (logits [B, V], caches)
@@ -22,6 +23,17 @@ from . import transformer
 
 def init(cfg, generator, device=None):
     return transformer.init(cfg, generator, device=resolve_device(device))
+
+
+def loss(params, cfg, batch, window="cfg"):
+    """Next-token LM loss (``transformer.lm_loss``), differentiable with
+    autograd. Only the dense and vlm families are ported; ``repro``'s
+    moe, ssm, hybrid and encdec losses wait on ROADMAP.md, A7."""
+    if cfg.family not in ("dense", "vlm"):
+        raise NotImplementedError(
+            f"loss for family {cfg.family!r} is not ported yet (see "
+            f"ROADMAP.md, A7)")
+    return transformer.lm_loss(params, cfg, batch, window=window)
 
 
 def prefill(params, cfg, batch, window="cfg", cache_len=None,

@@ -1,4 +1,4 @@
-"""Decoder-only stack, dense and vlm families.
+"""Decoder-only stack, dense and vlm families, and the LM loss.
 
 Parameters are a plain dict in ``repro``'s layout: ``embed`` [V, D]
 (tied unembedding, or ``lm_head`` [D, V]), ``layers`` with every leaf
@@ -7,19 +7,35 @@ layers with ``lax.scan``, the port loops over them in Python; caches stay
 stacked [L, B, T, Hkv, dh] as in ``repro``. A vlm is the dense stack with
 stub patch embeddings [B, n_patches, D] prepended to the token
 embeddings; positions and the cache run over the prefix.
+
+Under autograd, ``cfg.remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, non-reentrant), as ``repro`` wraps its scan
+body in ``jax.checkpoint``; ``cfg.remat_block`` > 1 adds ``repro``'s
+second level (only every block's boundary is kept). ``chunked_ce`` never
+builds [B, S, V] logits and recomputes each chunk's in the backward.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as A
-from .layers import dense_init, embed_init, rmsnorm, swiglu
+from .layers import _dot, dense_init, embed_init, rmsnorm, swiglu
 
 
-def layer_params(p, i: int):
-    """Layer ``i``'s parameter dict (views into the stacked leaves)."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
-            for k, v in p.items()}
+def unbind_layers(layers, n: int):
+    """The stacked layer dict as ``n`` per-layer dicts of views. One
+    ``unbind`` a leaf: under autograd its backward stacks the layers'
+    gradients once, where indexing layer by layer would add a zero-filled
+    [L, ...] tensor into the gradient for every layer."""
+    per = [dict() for _ in range(n)]
+    for k, v in layers.items():
+        parts = unbind_layers(v, n) if isinstance(v, dict) \
+            else torch.unbind(v, 0)
+        for i in range(n):
+            per[i][k] = parts[i]
+    return per
 
 
 def init(cfg, generator, device=None):
@@ -68,7 +84,11 @@ def embed_inputs(p, cfg, batch):
 
 
 def unembed(p, cfg, h):
+    """Logits of hidden ``h``; a 3-D ``h`` goes through ``_dot`` (robust
+    in the backward under ``robust_backward``), tied or not."""
     w = p["embed"].t() if cfg.tie_embeddings else p["lm_head"]
+    if h.ndim == 3:
+        return _dot(h, w)
     return h @ w
 
 
@@ -90,16 +110,37 @@ def forward(p, cfg, batch, *, window="cfg", make_cache=False,
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
     rot = A.rotary(cfg, positions)  # once for every layer
     caches = []
-    for i in range(cfg.n_layers):
-        lp = layer_params(p["layers"], i)
+
+    def layer(h, lp, i):
         attn_out, cache = A.attn_forward(
             lp["attn"], rmsnorm(h, lp["norm_attn"], cfg.norm_eps), cfg,
             positions=positions, window=window, make_cache=make_cache,
             cache_len=cache_len, rot=rot,
             out=None if out is None else _layer_cache(out, i))
-        h = _ffn(lp, h + attn_out, cfg)
-        if out is None:
+        if make_cache and out is None:
             caches.append(cache)
+        return _ffn(lp, h + attn_out, cfg)
+
+    # repro's remat under autograd: each layer recomputed in the backward,
+    # and with remat_block nb > 1 (dividing n_layers) only every nb-th
+    # boundary kept, a block recomputed, then each of its layers
+    remat = cfg.remat and not make_cache and torch.is_grad_enabled()
+
+    def run(h, i, *lps):
+        for j, lp in enumerate(lps, i):
+            h = checkpoint(layer, h, lp, j, use_reentrant=False,
+                           preserve_rng_state=False) if remat \
+                else layer(h, lp, j)
+        return h
+
+    lps = unbind_layers(p["layers"], cfg.n_layers)
+    nb = cfg.remat_block
+    if remat and nb > 1 and cfg.n_layers % nb == 0:
+        for i in range(0, cfg.n_layers, nb):
+            h = checkpoint(run, h, i, *lps[i:i + nb], use_reentrant=False,
+                           preserve_rng_state=False)
+    else:
+        h = run(h, 0, *lps)
     h = rmsnorm(h, p["norm_f"], cfg.norm_eps)
     if not make_cache:
         return h, None
@@ -149,8 +190,7 @@ def decode_step(p, cfg, caches, token, *, window="cfg"):
     pos = A.row_pos(caches.pos, token.shape[0], token.device)
     at = A.decode_at(cfg, pos, caches.k.shape[2], window)
     h = _embed_tokens(p, cfg, token[:, None])
-    for i in range(cfg.n_layers):
-        lp = layer_params(p["layers"], i)
+    for i, lp in enumerate(unbind_layers(p["layers"], cfg.n_layers)):
         attn_out = A.decode_layer(
             lp["attn"], rmsnorm(h, lp["norm_attn"], cfg.norm_eps), cfg,
             caches.k[i], caches.v[i],
@@ -159,3 +199,56 @@ def decode_step(p, cfg, caches, token, *, window="cfg"):
         h = _ffn(lp, h + attn_out, cfg)
     h = rmsnorm(h, p["norm_f"], cfg.norm_eps)
     return unembed(p, cfg, h)[:, 0], caches._replace(pos=pos + 1)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def chunked_ce(p, cfg, hidden, labels, mask=None):
+    """Sequence-chunked cross-entropy that never builds [B, S, V]: the
+    sequence is padded to a multiple of ``cfg.loss_chunk`` (padding
+    masked out) and each chunk's f32 logits are recomputed in the
+    backward instead of kept. hidden [B, S, D]; labels [B, S] int; mask
+    [B, S] f32 weights. Returns the weighted mean."""
+    B, S, D = hidden.shape
+    chunk = min(cfg.loss_chunk, S)
+    n = -(-S // chunk)
+    pad = n * chunk - S
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+
+    def body(h, lab, m):
+        logits = unembed(p, cfg, h).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab[..., None].long())[..., 0]
+        return torch.sum((lse - gold) * m)
+
+    remat = n > 1 and torch.is_grad_enabled()
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        args = (hidden[:, sl], labels[:, sl], mask[:, sl])
+        loss = checkpoint(body, *args, use_reentrant=False,
+                          preserve_rng_state=False) if remat else body(*args)
+        tot = tot + loss
+        cnt = cnt + torch.sum(args[2])
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def lm_loss(p, cfg, batch, *, window="cfg"):
+    """Next-token LM loss of one batch (a vlm's patch prefix carries no
+    label); the last position of each row is masked out."""
+    h, _ = forward(p, cfg, batch, window=window)
+    tokens = batch["tokens"]
+    n_prefix = h.shape[1] - tokens.shape[1]
+    h_txt = h[:, n_prefix:] if n_prefix else h
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = torch.ones(labels.shape, dtype=torch.float32,
+                      device=labels.device)
+    mask[:, -1] = 0.0
+    return chunked_ce(p, cfg, h_txt, labels, mask)

@@ -1,4 +1,5 @@
-"""``repro_torch.obs``: telemetry for the serving path (``repro.obs``'s port).
+"""``repro_torch.obs``: telemetry for serving and training (``repro.obs``'s
+port).
 
 * :mod:`~repro_torch.obs.catalog` — canonical metric names, kinds and
   bucket edges (stdlib-only).
@@ -7,17 +8,16 @@
   single wall-clock site.
 * :mod:`~repro_torch.obs.sinks`   — JSONL writer + Prometheus text
   exposition.
-* :mod:`~repro_torch.obs.diag`    — device-side diagnostics of the serve
-  path (replica disagreement, histogram counts) as fixed-shape tensors a
-  captured decode step can accumulate. Imports torch.
+* :mod:`~repro_torch.obs.diag`    — device-side diagnostics: the train
+  step's per-worker suspicion scores (``AggDiagnostics``) and the serve
+  path's replica disagreement and histogram counts, as fixed-shape
+  tensors a captured decode step can accumulate. Imports torch.
 * :mod:`~repro_torch.obs.trace`   — profiler spans
   (``torch.profiler.record_function``). Imports torch.
 
 The stdlib-only half (catalog, metrics, sinks) is imported eagerly, so
 ``repro_torch.obs`` works where torch is not installed; the torch half
-loads lazily on attribute access. The train-path diagnostics of
-``repro.obs.diag`` (``diagnose``, ``tree_diagnose``, ``AggDiagnostics``)
-come with the training slice (ROADMAP.md, queue A4).
+loads lazily on attribute access.
 """
 from __future__ import annotations
 

@@ -1,0 +1,221 @@
+"""The Byzantine-robust train step (``repro.train.step``'s port).
+
+``make_train_step`` wires the paper's technique into training on one
+card, with W workers emulated there: per-worker gradients, the simulated
+Byzantine corruption of the last rows, coordinate-wise robust
+aggregation (``dist.robust_reduce``), the optimizer update. The worker
+count takes the place of ``repro``'s mesh.
+
+* **Stacked modes** (``stacked-rrs``, ``stacked-auto``, ``mean``): the
+  global batch is split into W equal worker slices; each worker's
+  gradients come from autograd (with ``repro``'s microbatch accumulation
+  in f32, cast back) and are copied into a stack ``[W, ...]`` per leaf in
+  the param dtype, as ``repro``'s ``worker_grad`` returns them. The
+  ``n_byz = int(alpha * (W - 1))`` last rows are attacked in place, leaf
+  by leaf, and the stack is aggregated (B1 on the card, reading the bf16
+  stack itself). The workers run one after another: a ``vmap`` would have
+  to batch the kernels inside the attention's autograd Function.
+* **inloop**: one global backward under ``robust_backward``; every
+  3-D x 2-D product aggregates its weight gradient over the workers in
+  the backward (``repro``'s IB-RRS), with ``repro``'s strided micro-split
+  so each micro-step holds an equal block of every worker.
+
+The step is eager: it runs on the device of the params, the card unless
+the caller names another, and reads no device value on the host (the
+loss stays a 0-d tensor). Spans ``train.worker_grads``,
+``train.aggregate`` and ``train.optimizer`` name its parts in a
+profiler trace.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from .. import optim as O
+from ..core import attacks as atk
+from ..core.estimator import Estimator
+from ..device import resolve_device
+from ..dist import robust_reduce as RR
+from ..models import model as M
+from ..obs.trace import named_span
+from ..tree import leaves as _leaves, tree_map, unflatten as _unflatten
+
+__all__ = ["TrainSetup", "make_train_step", "stacked_grads", "loss_and_grads",
+           "MODES"]
+
+MODES = ("stacked-rrs", "stacked-auto", "mean", "inloop")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainSetup:
+    step_fn: Callable
+    n_workers: int
+    optimizer: O.Optimizer
+    device: torch.device
+
+
+def loss_and_grads(cfg, params, batch, micro: int = 1):
+    """(loss, grads) of ``model.loss`` at ``params`` on ``batch``: grads a
+    dict like params, in the param dtype. With ``micro`` > 1 the batch is
+    cut into ``micro`` consecutive slices whose gradients are summed in
+    f32 and averaged, then cast back (``repro``'s accumulation)."""
+    leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
+    p = _unflatten(params, leaves)
+
+    def one(b):
+        loss = M.loss(p, cfg, b)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    if micro <= 1:
+        loss, g = one(batch)
+        return loss, _unflatten(params, g)
+    n = batch["tokens"].shape[0]
+    if n % micro:
+        raise ValueError(f"microbatch={micro} must divide the batch {n}")
+    size = n // micro
+    tot = None
+    acc = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+           for t in leaves]
+    for i in range(micro):
+        loss, g = one({k: v[i * size:(i + 1) * size]
+                       for k, v in batch.items()})
+        tot = loss if tot is None else tot + loss
+        for a, gg in zip(acc, g):
+            a += gg.float()
+        del g
+    return tot / micro, _unflatten(params, [
+        (a / micro).to(t.dtype) for a, t in zip(acc, leaves)])
+
+
+def _micro_for(microbatch, per_worker: int, seq: int) -> int:
+    if microbatch is not None:
+        return microbatch
+    return per_worker if seq >= 2048 else 1
+
+
+def stacked_grads(cfg, params, batch, n_workers: int,
+                  microbatch: Optional[int] = None):
+    """(mean loss over the workers, stacked grads): the global batch is
+    split into ``n_workers`` equal slices, each worker's gradients are
+    computed in turn and copied into a preallocated ``[W, ...]`` stack per
+    leaf, in the param dtype."""
+    B, seq = batch["tokens"].shape[:2]
+    if B % n_workers:
+        raise ValueError(f"global batch {B} must be divisible by the "
+                         f"{n_workers} workers")
+    per = B // n_workers
+    micro = _micro_for(microbatch, per, seq)
+    stack = tree_map(lambda p: torch.empty(
+        (n_workers,) + tuple(p.shape), dtype=p.dtype, device=p.device),
+        params)
+    losses = []
+    for w in range(n_workers):
+        bw = {k: v[w * per:(w + 1) * per] for k, v in batch.items()}
+        loss, g = loss_and_grads(cfg, params, bw, micro)
+        for s, gg in zip(_leaves(stack), _leaves(g)):
+            s[w].copy_(gg)
+        del g
+        losses.append(loss)
+    return torch.mean(torch.stack(losses)), stack
+
+
+def _split_micro(x, n_workers: int, micro: int):
+    """``repro``'s strided split: micro-step i holds block i of every
+    worker, so each holds an equal worker-major block of each worker and
+    ``robust_dot``'s grouping inside the backward stays per worker."""
+    b = x.shape[0]
+    x = x.reshape((n_workers, micro, b // (n_workers * micro)) + x.shape[1:])
+    return x.transpose(0, 1).reshape((micro, b // micro) + x.shape[3:])
+
+
+def make_train_step(cfg, n_workers: int, *, estimator=Estimator(),
+                    mode: str = "stacked-rrs", optimizer=None,
+                    lr: float = 1e-3, byzantine_frac: float = 0.0,
+                    attack: str = "gaussian",
+                    microbatch: Optional[int] = None,
+                    with_diag: bool = False, reduce_backend: str = "rrs",
+                    device=None) -> TrainSetup:
+    """The step ``step_fn(params, opt_state, batch, generator=None) ->
+    (params, opt_state, loss[, diag])``, updating ``params`` and
+    ``opt_state`` in place and returning them. ``generator``: a
+    ``torch.Generator`` on the device, read by the random attacks
+    (``gaussian``), where ``repro`` takes a PRNG key.
+
+    ``estimator``: a ``core.estimator.Estimator`` or a method name.
+    ``microbatch``: gradient-accumulation steps per worker (None: one
+    sequence a micro-step when seq_len >= 2048, as in ``repro``).
+    ``with_diag``: the step also returns an ``obs.diag.AggDiagnostics``.
+    ``device``: where the step runs (the card unless named); its params
+    must live there. ``reduce_backend="consensus"`` and the adaptive
+    estimators are not ported (ROADMAP.md, A6)."""
+    device = resolve_device(device)
+    est = Estimator.coerce(estimator)
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; known: {MODES}")
+    if with_diag and mode == "inloop":
+        raise ValueError(
+            "with_diag is unavailable in inloop mode: IB-RRS aggregates "
+            "inside the backward pass and the per-worker gradient stack "
+            "never materializes to diagnose. Use mode='stacked-rrs'.")
+    if reduce_backend not in ("rrs", "consensus"):
+        raise ValueError(f"unknown reduce_backend {reduce_backend!r}; "
+                         "known: ('rrs', 'consensus')")
+    if reduce_backend == "consensus":
+        raise NotImplementedError(
+            "reduce_backend='consensus' is not ported yet (the consensus "
+            "backend: ROADMAP.md, A6)")
+    if est.adaptive:
+        raise NotImplementedError(
+            f"adaptive estimator {est.method!r} is not ported yet (the "
+            f"adaptive tier: ROADMAP.md, A6)")
+    if n_workers < 1:
+        raise ValueError(f"n_workers must be >= 1, got {n_workers}")
+    optimizer = optimizer or O.get(cfg.optimizer, lr=lr)
+    n_byz = int(byzantine_frac * (n_workers - 1))
+    mask = torch.arange(n_workers, device=device) >= (n_workers - n_byz)
+    attack_fn = atk.get(attack)
+
+    def inloop_grads(params, batch):
+        B, seq = batch["tokens"].shape[:2]
+        micro = microbatch if microbatch is not None else (
+            max(B // n_workers, 1) if seq >= 2048 else 1)
+        if B % n_workers:
+            raise ValueError(f"inloop global batch {B} must be divisible "
+                             f"by the {n_workers} workers")
+        per_worker = B // n_workers
+        if micro > 1 and per_worker % micro:
+            raise ValueError(f"inloop microbatch={micro} must divide the "
+                             f"per-worker batch {per_worker}")
+        if micro > 1:
+            batch = {k: _split_micro(v, n_workers, micro).reshape(
+                (-1,) + v.shape[1:]) for k, v in batch.items()}
+        with RR.robust_backward(n_workers, est):
+            return loss_and_grads(cfg, params, batch, micro)
+
+    def train_step(params, opt_state, batch, generator=None):
+        diag = None
+        if mode == "inloop":
+            with named_span("train.worker_grads"):
+                loss, agg = inloop_grads(params, batch)
+        else:
+            with named_span("train.worker_grads"):
+                loss, grads = stacked_grads(cfg, params, batch, n_workers,
+                                            microbatch)
+            with named_span("train.aggregate"):
+                if n_byz:
+                    for g in _leaves(grads):
+                        g.copy_(attack_fn(generator, g, mask))
+                agg = RR.aggregate(grads, mode=mode, est=est,
+                                   with_diag=with_diag)
+                del grads
+                if with_diag:
+                    agg, diag = agg
+        with named_span("train.optimizer"):
+            params, opt_state = optimizer.update(agg, opt_state, params)
+        out = (params, opt_state, loss)
+        return out + (diag,) if with_diag else out
+
+    return TrainSetup(step_fn=train_step, n_workers=n_workers,
+                      optimizer=optimizer, device=device)

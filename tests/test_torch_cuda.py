@@ -1087,3 +1087,160 @@ def test_cuda_pool_capture_of_a_host_read_raises(cuda, monkeypatch):
         eng.decode_pool(pool, [first, 0], 4)
     assert launch_counts()["decode_attention"] == cfg.n_layers
     assert not eng.pool_graphs
+
+
+# ---------------------------------------------------------------------------
+# training: B2 under autograd, B1 on the gradient stacks, the train step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_b2_at_the_training_length(cuda):
+    """B2 at qwen3-1.7b's training shape, S = T = 4096 (the prefills reach
+    448), against its plain version at the file's bf16 tolerance."""
+    g = torch.Generator(device=cuda).manual_seed(40)
+    q = torch.randn((1, 4096, 16, 128), generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    k = torch.randn((1, 4096, 8, 128), generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    v = torch.randn((1, 4096, 8, 128), generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    want = flash_attention_plain(q.float(), k.float(), v.float(), causal=True)
+    got = flash_attention(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_b2_autograd_grads_match_the_plain_path(cuda, dtype):
+    """FlashAttentionFn (B2 forward, the backward recomputed through
+    ``mha``) against ``mha`` under autograd: the output at the file's
+    attention tolerance, the gradients at the same (f32) or within 2e-2 of
+    the largest (bf16: B2 and ``mha`` round P to bf16 at other places)."""
+    from repro_torch.models.attention import mha
+    from repro_torch.models.attn_backend import FlashAttentionFn
+
+    g = torch.Generator(device=cuda).manual_seed(41)
+    shape_q, shape_kv = (2, 200, 8, 64), (2, 200, 4, 64)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in (shape_q, shape_kv, shape_kv))
+    dout = torch.randn(shape_q, generator=g, device=cuda).to(dtype)
+    reset_launch_counts()
+    qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = FlashAttentionFn.apply(qa, ka, va, True, 64)
+    got = torch.autograd.grad(out, (qa, ka, va), dout)
+    assert launch_counts()["flash_attention"] == 1
+    qb, kb, vb = (t.clone().requires_grad_(True) for t in (q, k, v))
+    ref = mha(qb, kb, vb, causal=True, window=None, chunk=64)
+    want = torch.autograd.grad(ref, (qb, kb, vb), dout)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    for a, b in zip(got, want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        else:
+            err = float((a.float() - b.float()).abs().max())
+            assert err <= 2e-2 * float(b.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1_000_003, 28 * 2048 * 6144],
+                         ids=["ragged", "w_gate"])
+def test_cuda_b1_bf16_equals_f32_then_cast(cuda, C):
+    """The stacked train step feeds B1 the bf16 gradient stack itself;
+    ``repro`` casts it to f32, aggregates and casts back. Bitwise equal,
+    at a ragged width and at qwen3-1.7b's widest leaf
+    (``layers.mlp.w_gate``, [8, 352,321,536])."""
+    g = torch.Generator(device=cuda).manual_seed(42)
+    x = torch.randn((8, C), generator=g, device=cuda, dtype=torch.bfloat16)
+    for method in ("vrmom", "median", "trimmed_mean", "mean"):
+        got = aggregate(x, method, K=10, beta=0.125)
+        want = aggregate(x.float(), method, K=10, beta=0.125).to(
+            torch.bfloat16)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, want), method
+
+
+@pytest.mark.cuda
+def test_cuda_b1_past_2_31_elements(cuda):
+    """[8, 300,000,000] bf16 (2.4e9 elements, past 2^31): the 64-bit
+    indexing of B1, against the plain version on sampled columns (the
+    last ones included)."""
+    C = 300_000_000
+    g = torch.Generator(device=cuda).manual_seed(43)
+    x = torch.randn((8, C), generator=g, device=cuda, dtype=torch.bfloat16)
+    out = aggregate(x, "vrmom", K=10)
+    cols = torch.cat([torch.randint(0, C, (1 << 20,), generator=g,
+                                    device=cuda),
+                      torch.arange(C - 4096, C, device=cuda)])
+    want = aggregate_plain(x[:, cols], "vrmom", K=10)
+    assert torch.equal(out[cols], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,attack", [("median", "signflip"),
+                                           ("trimmed_mean", "omniscient")])
+def test_cuda_stacked_steps_match_the_cpu(cuda, method, attack):
+    """Two stacked steps of the reduced model (f32) on the card against the
+    same steps on the CPU, at 1e-4 (the file's f32 attention tolerance;
+    the matmuls sum in other orders). On the card each step launches B1
+    once a leaf and B2 twice a layer and worker (remat on: the forward and
+    its recompute)."""
+    from repro_torch import optim as O
+    from repro_torch.data import lm_batch
+    from repro_torch.train.step import make_train_step
+
+    cfg = dataclasses.replace(get_arch("qwen3-1.7b").reduced(), remat=True)
+    out = {}
+    for dev in ("cpu", cuda):
+        params = _to(M.init(cfg, torch.Generator().manual_seed(0),
+                            device="cpu"), dev)
+        opt = O.get("sgd", lr=0.5, momentum=0.9)
+        setup = make_train_step(cfg, 4,
+                                estimator=Estimator(method, beta=0.25),
+                                optimizer=opt,
+                                byzantine_frac=0.4, attack=attack,
+                                device=dev)
+        st = opt.init(params)
+        reset_launch_counts()
+        for i in range(2):
+            params, st, loss = setup.step_fn(
+                params, st, lm_batch(cfg, i, 8, 40, device=dev))
+        out[str(dev)] = (params, float(loss), launch_counts())
+    (p_cpu, l_cpu, _), (p_gpu, l_gpu, counts) = out["cpu"], out[str(cuda)]
+    assert abs(l_cpu - l_gpu) <= 1e-4
+    from repro_torch.tree import leaves
+
+    for a, b in zip(leaves(p_cpu), leaves(p_gpu)):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
+    n_leaves = len(list(leaves(p_cpu)))
+    assert counts["aggregate"] == 2 * n_leaves
+    assert counts["flash_attention"] == 2 * 4 * cfg.n_layers * 2
+
+
+def _to(tree, dev):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda v: v.to(dev), tree)
+
+
+@pytest.mark.cuda
+def test_cuda_inloop_step_launches_b1_per_product(cuda):
+    """An inloop step of the reduced model on the card: B1 once for each
+    product's dW (7 a layer, and the unembedding once a loss chunk: 40
+    tokens in chunks of 32), B2 twice a layer."""
+    from repro_torch.data import lm_batch
+    from repro_torch.train.step import make_train_step
+
+    cfg = dataclasses.replace(get_arch("qwen3-1.7b").reduced(), remat=True)
+    params = M.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                    device=cuda)
+    setup = make_train_step(cfg, 4, estimator="vrmom", mode="inloop",
+                            device=cuda)
+    st = setup.optimizer.init(params)
+    reset_launch_counts()
+    _, _, loss = setup.step_fn(params, st, lm_batch(cfg, 0, 8, 40,
+                                                    device=cuda))
+    assert np.isfinite(float(loss))
+    counts = launch_counts()
+    assert counts["aggregate"] == 7 * cfg.n_layers + 2
+    assert counts["flash_attention"] == 2 * cfg.n_layers

@@ -158,7 +158,7 @@ def test_attn_decode_matches_repro(models, kind, kv_dtype, pos):
         jc = jc._replace(pos=jnp.asarray(starts[1], jnp.int32))
         tc = tc._replace(pos=starts[1])
     jlp = jax.tree.map(lambda x: x[0], models["jp"]["layers"]["attn"])
-    tlp = TT.layer_params(models["tp"]["layers"], 0)["attn"]
+    tlp = TT.unbind_layers(models["tp"]["layers"], tcfg.n_layers)[0]["attn"]
     x1 = np.random.RandomState(8).randn(steps, B, 1, tcfg.d_model
                                         ).astype(np.float32)
     dkw = dict(window=window) if window else {}

@@ -85,6 +85,29 @@ def test_entry_points_need_a_device_without_a_card(no_card):
     assert eng.device.type == "cpu"
 
 
+def test_training_entry_points_need_a_device_without_a_card(no_card):
+    """make_train_step, the launcher, lm_batch and opt_state_from_jax run
+    on the card unless given a device; with no card they raise."""
+    from repro_torch.data import lm_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_arch("qwen3-1.7b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(cfg, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--arch", "qwen3-1.7b", "--reduced",
+                           "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_batch(cfg, 0, 2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.opt_state_from_jax({}, cfg)
+    setup = make_train_step(cfg, 4, device="cpu")
+    assert setup.device.type == "cpu"
+    assert lm_batch(cfg, 0, 2, 8, device="cpu")["tokens"].device.type == \
+        "cpu"
+
+
 def test_paper_path_needs_a_device_without_a_card(no_card):
     """coverage_run, make_shards and paper_theta_star run on the card
     unless given a device; rcsl runs where its tensors live."""
