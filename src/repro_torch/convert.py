@@ -9,7 +9,8 @@ imports JAX. The port keeps ``repro``'s layout — ``embed`` [V, D] (tied),
 and ``w_down`` [F, D], ``norm_f`` [D] — so conversion is a checked copy,
 and both sides compute the same function. Optimizer states are dicts in
 ``repro``'s layout too (``optim``), so ``opt_state_from_jax`` lets a run
-continue from ``repro``'s state.
+continue from ``repro``'s state, and ``adaptive_state_from_jax`` does the
+same for the adaptive tier's ``AdaptiveState`` carry.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import torch
 
 from .device import resolve_device
 
-__all__ = ["params_from_jax", "opt_state_from_jax", "expected_shapes"]
+__all__ = ["params_from_jax", "opt_state_from_jax",
+           "adaptive_state_from_jax", "expected_shapes"]
 
 
 def expected_shapes(cfg) -> dict:
@@ -103,3 +105,25 @@ def opt_state_from_jax(np_state, cfg, device=None):
         else:
             out[key] = _any_tree(sub, key, device)
     return out
+
+
+def adaptive_state_from_jax(np_state, device=None):
+    """``repro``'s ``core.adaptive.AdaptiveState`` (its fields as numpy:
+    ``weights`` [W] f32, ``momentum`` [C] f32 in ``repro``'s ravel order,
+    ``step`` int32, ``alpha_hat`` f32) -> the port's, on ``device`` (the
+    card unless named)."""
+    from .core.adaptive import AdaptiveState
+
+    device = resolve_device(device)
+    want = {"weights": np.float32, "momentum": np.float32, "step": np.int32,
+            "alpha_hat": np.float32}
+    out = {}
+    for name, dtype in want.items():
+        a = np.asarray(getattr(np_state, name))
+        if a.dtype != dtype:
+            raise TypeError(f"adaptive state {name}: dtype {a.dtype}, "
+                            f"expected {np.dtype(dtype).name}")
+        if a.ndim != (1 if name in ("weights", "momentum") else 0):
+            raise ValueError(f"adaptive state {name}: shape {a.shape}")
+        out[name] = _leaf(a, a.shape, name, device)
+    return AdaptiveState(**out)

@@ -49,14 +49,33 @@ def omniscient(generator, v, mask, scale: float = 1e10):
     return _apply(mask, v, (-scale * honest_mean).expand_as(v))
 
 
-def _honest_moments(v, mask):
-    """Per-coordinate f32 mean/std over the unmasked rows, keepdim."""
-    f32 = v.float()
-    keep = (~mask).to(v.device).reshape((-1,) + (1,) * (v.ndim - 1)).float()
+# coordinates of a stack made f32 at a time by the honest moments: a
+# full-width gradient leaf (qwen3-1.7b's embedding, [8, 311M] bf16) would
+# otherwise take several f32 copies of itself
+_MOMENT_BLOCK = 1 << 24
+
+
+def _honest_moments(v, mask, with_std: bool = True):
+    """Per-coordinate f32 mean/std over the unmasked rows, keepdim (std
+    None without ``with_std``), in blocks of ``_MOMENT_BLOCK`` coordinates
+    (each coordinate's arithmetic is the same in any block)."""
+    n = v.shape[0]
+    flat = v.reshape(n, -1)
+    keep = (~mask).to(v.device).reshape(n, 1).float()
     n_h = torch.clamp_min(torch.sum(keep, dim=0), 1.0)
-    mean = torch.sum(f32 * keep, dim=0, keepdim=True) / n_h
-    var = torch.sum((f32 - mean) ** 2 * keep, dim=0, keepdim=True) / n_h
-    return mean, torch.sqrt(torch.clamp_min(var, 0.0))
+    C = flat.shape[1]
+    mean = torch.empty((1, C), dtype=torch.float32, device=v.device)
+    std = torch.empty_like(mean) if with_std else None
+    for a in range(0, C, _MOMENT_BLOCK):
+        f32 = flat[:, a:a + _MOMENT_BLOCK].float()
+        m = torch.sum(f32 * keep, dim=0, keepdim=True) / n_h
+        mean[:, a:a + _MOMENT_BLOCK] = m
+        if with_std:
+            var = torch.sum((f32 - m) ** 2 * keep, dim=0, keepdim=True) / n_h
+            std[:, a:a + _MOMENT_BLOCK] = torch.sqrt(torch.clamp_min(var,
+                                                                     0.0))
+    shape = (1,) + v.shape[1:]
+    return mean.reshape(shape), None if std is None else std.reshape(shape)
 
 
 @functools.lru_cache(maxsize=32)
@@ -91,14 +110,14 @@ def alie(generator, v, mask, z=None):
 
 def ipm(generator, v, mask, eps: float = 0.5):
     """Inner-product manipulation (Xie et al. 2020): -eps * honest mean."""
-    mean, _ = _honest_moments(v, mask)
+    mean, _ = _honest_moments(v, mask, with_std=False)
     return _apply(mask, v, (-eps * mean).to(v.dtype).expand_as(v))
 
 
 def mimic(generator, v, mask):
     """Mimic (Karimireddy et al. 2022): every Byzantine row replays the
     honest row farthest from the honest mean."""
-    mean, _ = _honest_moments(v, mask)
+    mean, _ = _honest_moments(v, mask, with_std=False)
     dev = torch.sum((v.float() - mean) ** 2, dim=tuple(range(1, v.ndim)))
     dev = torch.where(mask.to(v.device), torch.full_like(dev, -float("inf")),
                       dev)

@@ -2,24 +2,31 @@
 
 The port's counterpart of ``repro.core.estimator``: a hashable spec
 
-    Estimator(method, K=10, beta=0.1, backend="auto")
+    Estimator(method, K=10, beta=0.1, backend="auto", n_byzantine=0)
 
 with ``apply(x, axis=0)`` mapping ``[m, ...] -> [...]`` and
 ``apply_sample`` for the serving tail. Backends:
 
-* ``"torch"`` — the plain :mod:`core.aggregators` functions (``repro``'s
-  ``"jnp"``), the reference semantics.
-* ``"ref"``   — the fused single-reshape oracles in :mod:`kernels.ref`.
+* ``"torch"`` — the plain :mod:`core.aggregators` and
+  :mod:`core.adaptive` functions (``repro``'s ``"jnp"``), the reference
+  semantics; the only backend of the whole-vector methods
+  (geometric_median, krum).
+* ``"ref"``   — the fused single-reshape oracles in :mod:`kernels.ref`
+  (coordinate-wise methods only).
 * ``"cuda"``  — the CUDA kernels in :mod:`kernels.vrmom` (``repro``'s
   ``"pallas"``): B1 for ``apply``, B4 for ``apply_sample``. For a tensor
   on the CPU the kernel wrapper runs its plain version.
 * ``"auto"``  — ``"cuda"`` for the methods with a fused kernel (median,
-  mom, trimmed_mean, vrmom), ``"ref"`` for the mean.
+  mom, trimmed_mean, vrmom), ``"ref"`` for the mean, ``"torch"`` for the
+  whole-vector and adaptive methods.
 
-Only the coordinate-wise methods are ported; the whole-vector
-(geometric_median, krum) and adaptive (auto_gm, vrmom_adaptive) methods
-raise ``NotImplementedError`` until their slice lands (ROADMAP.md,
-queue A).
+The adaptive methods (auto_gm, vrmom_adaptive; :mod:`core.adaptive`) run
+their plain code on every backend but take B1 for the census centre and
+the VRMOM rungs on ``"auto"`` and ``"cuda"``. For them and the
+whole-vector methods, ``apply(x, axis)`` treats the dims before ``axis``
+as independent batches (one census, one Weiszfeld or Krum each) and the
+dims after it as a row's coordinates: ``repro`` maps them over its
+replications.
 """
 from __future__ import annotations
 
@@ -47,15 +54,18 @@ class Estimator(NamedTuple):
     """Robust-aggregation spec: method + knobs + execution backend.
 
     method:      one of ``METHODS`` ("mom" is an alias of "median").
-    K:           VRMOM quantile levels (ignored by other methods).
+    K:           VRMOM quantile levels (vrmom, and vrmom_adaptive's
+                 honest rung; ignored by other methods).
     beta:        trimmed-mean trim fraction per end (ignored otherwise).
     backend:     one of ``BACKENDS``; see the module docstring.
+    n_byzantine: Krum's assumed corrupted-row count (ignored otherwise).
     """
 
     method: str = "vrmom"
     K: int = 10
     beta: float = 0.1
     backend: str = "auto"
+    n_byzantine: int = 0
 
     @classmethod
     def coerce(cls, spec, **defaults) -> "Estimator":
@@ -112,10 +122,9 @@ class Estimator(NamedTuple):
         if self.backend not in BACKENDS:
             raise ValueError(
                 f"unknown backend {self.backend!r}; known: {BACKENDS}")
-        if not self.coordinatewise:
-            raise NotImplementedError(
-                f"estimator {self.method!r} is not ported to repro_torch yet "
-                f"(whole-vector and adaptive methods: ROADMAP.md, queue A)")
+        if self.backend == "ref" or (self.backend == "cuda"
+                                     and not self.adaptive):
+            self.require_coordinatewise(f"backend={self.backend!r}")
         if m < 1:
             raise ValueError(f"worker axis must be non-empty, got m={m}")
         if self.method == "trimmed_mean":
@@ -130,12 +139,16 @@ class Estimator(NamedTuple):
                 raise ValueError(
                     f"trimmed_mean with beta={self.beta} trims "
                     f"2*{k} >= m={m} rows: nothing left to average")
-        if self.method == "vrmom" and self.K < 1:
-            raise ValueError(f"vrmom needs K >= 1, got K={self.K}")
+        if self.method in ("vrmom", "vrmom_adaptive") and self.K < 1:
+            raise ValueError(f"{self.method} needs K >= 1, got K={self.K}")
         return self
 
     def resolve_backend(self) -> str:
-        """The concrete backend ``apply`` will run ("auto" resolved)."""
+        """The concrete backend ``apply`` will run ("auto" resolved): the
+        whole-vector and adaptive methods run the plain functions, which
+        take B1 inside on ``"auto"``/``"cuda"``."""
+        if not self.coordinatewise:
+            return "torch"
         if self.backend != "auto":
             return self.backend
         return "cuda" if self.method in _FUSED_METHODS else "ref"
@@ -164,9 +177,10 @@ class Estimator(NamedTuple):
         """Aggregation + sampling tail over an ``[m, B, V]`` stack.
 
         On the ``"cuda"`` backend this is ONE fused kernel (B4); every
-        other backend computes the aggregate with ``apply`` and runs the
-        same selection in PyTorch, so tokens agree across backends
-        (bit-identical for greedy). Returns ``(agg, tok [B] int32)`` for
+        other backend, and every adaptive method, computes the aggregate
+        with ``apply`` (an adaptive method: one census over the
+        ``[m, B·V]`` rows) and runs the same selection in PyTorch, so
+        tokens agree across backends (bit-identical for greedy). Returns ``(agg, tok [B] int32)`` for
         greedy or ``(agg, topv [B, k], topi [B, k])`` for top-k, in
         (value descending, index ascending) order; ``agg`` is None when
         ``with_agg=False`` on the fused path.
@@ -188,6 +202,36 @@ class Estimator(NamedTuple):
         vals, idx = torch.sort(agg, dim=-1, descending=True, stable=True)
         return agg, vals[:, :top_k], idx[:, :top_k].to(torch.int32)
 
+    def init_adaptive_state(self, n_workers: int, dim: int, device=None):
+        """A fresh honest-prior :class:`core.adaptive.AdaptiveState` for
+        ``apply_adaptive`` (adaptive methods only), on ``device`` (the card
+        unless named)."""
+        from . import adaptive as _AD
+
+        self._require_adaptive()
+        return _AD.init_state(n_workers, dim, device=device)
+
+    def apply_adaptive(self, x, state, axis: int = 0, *,
+                       weights_beta: float = 0.5, momentum: float = 0.0):
+        """Stateful adaptive aggregate: ``(aggregate, new_state)``; thread
+        the returned state into the next call. On an honest stack the
+        stateless ``apply`` and ``apply_adaptive`` from a fresh state agree
+        bit for bit (unit weights are an EMA fixed point and
+        ``momentum=0.0`` is exact)."""
+        from . import adaptive as _AD
+
+        self._require_adaptive()
+        self.validate(x.shape[axis])
+        return _AD.apply_adaptive(self.method, x, state, axis=axis, K=self.K,
+                                  weights_beta=weights_beta,
+                                  momentum=momentum, backend=self.backend)
+
+    def _require_adaptive(self):
+        if not self.adaptive:
+            raise ValueError(
+                f"estimator {self.method!r} carries no adaptive state; "
+                f"adaptive methods: {ADAPTIVE_METHODS}")
+
     def _apply_torch(self, x, axis: int):
         if self.method == "mean":
             return _A.mean(x, axis=axis)
@@ -195,7 +239,18 @@ class Estimator(NamedTuple):
             return _A.median(x, axis=axis)
         if self.method == "trimmed_mean":
             return _A.trimmed_mean(x, beta=self.beta, axis=axis)
-        return _A.vrmom(x, K=self.K, axis=axis)
+        if self.method == "vrmom":
+            return _A.vrmom(x, K=self.K, axis=axis)
+        if self.method == "geometric_median":
+            return _A.geometric_median(x, axis=axis)
+        if self.method == "krum":
+            return _A.krum(x, n_byzantine=self.n_byzantine, axis=axis)
+        from . import adaptive as _AD
+
+        if self.method == "auto_gm":
+            return _AD.auto_gm(x, axis=axis, backend=self.backend)
+        return _AD.vrmom_adaptive(x, K=self.K, axis=axis,
+                                  backend=self.backend)
 
     def _apply_ref(self, flat):
         from ..kernels import ref as _R

@@ -235,7 +235,9 @@ def aggregate_gradients(grads, aggregator="vrmom", K: int = 10,
     :func:`core.vrmom.vrmom`, as in ``repro``. Everything else goes
     through the ``Estimator`` (backend ``"auto"`` unless an Estimator is
     given): the worker axis first, the replications and coordinates one
-    ``[m+1, R·p]`` stack, which on the card is one launch of B1.
+    ``[m+1, R·p]`` stack, which on the card is one launch of B1 (an
+    adaptive estimator: a census per replication, then B1 over the
+    stack).
     """
     est = Estimator.coerce(aggregator, **agg_kwargs)
     if isinstance(aggregator, str) and est.method == "vrmom":

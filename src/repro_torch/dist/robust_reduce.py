@@ -21,11 +21,23 @@ emulated, so there is no wire:
   (``repro``'s IB-RRS): a matmul whose weight gradient is the robust
   aggregate of the per-worker partial ``dW``, computed inside the
   backward, so no stacked gradient of the whole model exists.
+* ``aggregate_stacked_adaptive`` — the adaptive tier (``core.adaptive``)
+  on the whole stacked tree with an explicit ``AdaptiveState`` carry;
+  ``aggregate_stacked_auto`` sends a stateless adaptive estimator down the
+  same wire. The census needs complete worker rows, so ``repro`` ravels
+  every leaf onto one f32 ``[W, C]`` wire; at full width that wire (55 GB
+  for qwen3-1.7b at W = 8) would not fit beside the bf16 stack. This wire
+  computes the same function in column blocks of the leaves' own stacks:
+  a census pass accumulates each row's squared deviation from the
+  coordinatewise median and the rows' squared distances in f32, then a
+  pass runs the rungs (``vrmom_adaptive``) or the Weiszfeld iterations
+  (``auto_gm``; one ``[C]`` f32 iterate, each pass the distances from it
+  and the next iterate) block by block. Only the f32 summation order
+  differs from ``repro``.
 * ``aggregate_symmetric_stacked`` — the inference layer's stacks of
   symmetric matrices.
 
-Adaptive estimators and the consensus backend raise, naming ROADMAP.md's
-A6.
+The consensus backend raises, naming ROADMAP.md's A6 (A6b).
 """
 from __future__ import annotations
 
@@ -34,27 +46,27 @@ from typing import Union
 
 import torch
 
+from ..core import adaptive as AD
+from ..core import aggregators as AG
 from ..core.estimator import Estimator
-from ..tree import tree_map
+from ..tree import leaves as _leaves, tree_map, unflatten as _unflatten
 from . import ctx as CTX
 
-__all__ = ["aggregate", "aggregate_stacked_auto", "aggregate_symmetric_stacked",
-           "robust_backward", "robust_dot", "robust_dot_enabled"]
+__all__ = ["aggregate", "aggregate_stacked_auto", "aggregate_stacked_adaptive",
+           "aggregate_symmetric_stacked", "robust_backward", "robust_dot",
+           "robust_dot_enabled", "weiszfeld_stacked", "WIRE_CHUNK"]
 
 EstimatorLike = Union[str, Estimator]
 
+# columns of a leaf's stack made f32 at a time on the adaptive wire
+WIRE_CHUNK = 1 << 22
+
 
 def _wire_estimator(est: EstimatorLike) -> Estimator:
-    """Coerce, and refuse what one-card aggregation cannot run: adaptive
-    estimators (their census needs the full wire, A6) and whole-vector
-    ones (coordinate-wise aggregation only)."""
-    est = Estimator.coerce(est)
-    if est.adaptive:
-        raise NotImplementedError(
-            f"adaptive estimator {est.method!r} is not ported yet (the "
-            f"adaptive tier: ROADMAP.md, A6)")
-    return est.require_coordinatewise(
-        "stacked aggregation (dist.robust_reduce)")
+    """Coerce, and refuse whole-vector estimators: coordinate-wise
+    aggregation only (the adaptive tier takes its own wire)."""
+    return Estimator.coerce(est).require_coordinatewise(
+        "chunked/RRS aggregation (dist.robust_reduce)")
 
 
 def _with_tree_diag(grads, out):
@@ -86,8 +98,10 @@ def aggregate_stacked_auto(grads, est: EstimatorLike = "vrmom", *,
     """The estimator on every leaf of a stacked tree (leaves ``[W, ...]``,
     or one such tensor); returns the aggregate without the worker dim,
     and with ``with_diag`` the pair ``(aggregate,
-    obs.diag.AggDiagnostics)``. ``reduce_backend="consensus"`` (peer-to-
-    peer approximate consensus) is not ported (A6)."""
+    obs.diag.AggDiagnostics)``. An adaptive estimator takes the full-row
+    adaptive wire (its census needs complete worker rows: a census per
+    leaf would fragment the signal). ``reduce_backend="consensus"``
+    (peer-to-peer approximate consensus) is not ported (A6b)."""
     if reduce_backend == "consensus":
         raise NotImplementedError(
             "reduce_backend='consensus' is not ported yet (the consensus "
@@ -95,11 +109,149 @@ def aggregate_stacked_auto(grads, est: EstimatorLike = "vrmom", *,
     if reduce_backend != "direct":
         raise ValueError(f"unknown reduce_backend {reduce_backend!r}; "
                          "known: ('direct', 'consensus')")
-    est = _wire_estimator(est)
-    out = tree_map(lambda g: _aggregate_leaf(est, g), grads)
+    est = Estimator.coerce(est)
+    if est.adaptive:
+        est.require_stackable("full-stack aggregation (dist.robust_reduce)")
+        out = _adaptive_wire(grads, est)[0]
+    else:
+        est = _wire_estimator(est)
+        out = tree_map(lambda g: _aggregate_leaf(est, g), grads)
     if with_diag:
         return _with_tree_diag(grads, out)
     return out
+
+
+def aggregate_stacked_adaptive(grads, state, est: EstimatorLike, *,
+                               with_diag: bool = False,
+                               weights_beta: float = 0.5,
+                               momentum: float = 0.0):
+    """Stateful adaptive aggregate of a stacked tree (leaves ``[W, ...]``):
+    ``(tree, new_state)``, with ``with_diag`` ``(tree, new_state,
+    AggDiagnostics)``. The census, the EMA of the trust weights and
+    ``alpha_hat``, the aggregate and its momentum are ``repro``'s
+    ``apply_adaptive`` on the raveled ``[W, C]`` wire; ``state.momentum``
+    is ``[C]`` f32 in ``repro``'s leaf order (``tree.paths``), so a
+    ``repro`` state carries across. Each step writes a new ``[C]``
+    momentum beside the state's."""
+    est = Estimator.coerce(est).require_stackable(
+        "full-stack adaptive aggregation (dist.robust_reduce)")
+    if not est.adaptive:
+        raise ValueError(
+            f"aggregate_stacked_adaptive needs an adaptive estimator, "
+            f"got {est.method!r}")
+    out, new_state = _adaptive_wire(grads, est, state,
+                                    weights_beta=weights_beta,
+                                    momentum=momentum)
+    if with_diag:
+        return out, new_state, _with_tree_diag(grads, out)[1]
+    return out, new_state
+
+
+def _blocks(leaves):
+    """(wire offset, leaf index, leaf column slice, [W, c] block of the
+    leaf's stack in its own dtype) over every leaf, ``WIRE_CHUNK`` columns
+    at a time, in ``repro``'s ravel order."""
+    chunk = WIRE_CHUNK
+    off = 0
+    for i, g in enumerate(leaves):
+        flat = g.reshape(g.shape[0], -1)
+        n = flat.shape[1]
+        for a in range(0, n, chunk):
+            b = min(a + chunk, n)
+            yield off + a, i, slice(a, b), flat[:, a:b]
+        off += n
+
+
+def _wire_census(leaves, kernel: bool) -> AD.StackCensus:
+    """The census of the raveled stack, accumulated block by block: each
+    row's squared deviation from the block's coordinatewise median and the
+    rows' squared distances (direct differences) in f32. No centre is
+    kept (``center=None``)."""
+    W, dev = leaves[0].shape[0], leaves[0].device
+    dev2 = torch.zeros((1, W), dtype=torch.float32, device=dev)
+    d2 = torch.zeros((1, W, W), dtype=torch.float32, device=dev)
+    for _, _, _, block in _blocks(leaves):
+        f = block.float().contiguous()[None]
+        center = AD._coordinatewise(f, "median", 0, kernel)
+        dev2 += torch.sum(torch.square(f - center[:, None]), dim=-1)
+        d2 += AG.pairwise_sq(f)
+    return AD._squeeze(AD.census_from_distances(torch.sqrt(dev2), d2))
+
+
+def weiszfeld_stacked(grads, pi, iters: int = 8, eps: float = 1e-8):
+    """``core.aggregators.weiszfeld`` of the raveled ``[W, C]`` stack of a
+    tree under row weights ``pi`` [W] -> the ``[C]`` f32 iterate, in
+    column blocks: the first pass makes the weighted mean and the rows'
+    distances from it, each later pass the next iterate from the previous
+    distances and the distances from it (the last pass skips them).
+    ``pi`` all ones is the geometric median of the stack."""
+    return _weiszfeld_blocks(list(_leaves(grads)), pi, iters, eps)
+
+
+def _weiszfeld_blocks(leaves, pi, iters: int, eps: float):
+    W, dev = leaves[0].shape[0], leaves[0].device
+    C = sum(g[0].numel() for g in leaves)
+    pi = pi.float()
+    y = torch.empty(C, dtype=torch.float32, device=dev)
+    w, norm = pi, torch.sum(pi)
+    for it in range(iters + 1):
+        dist2 = torch.zeros(W, dtype=torch.float32, device=dev)
+        for o, _, _, block in _blocks(leaves):
+            yc = y[o:o + block.shape[1]]
+            yc.copy_(torch.sum(block * w[:, None], dim=0) / norm)
+            if it < iters:
+                dist2 += torch.sum((block - yc) ** 2, dim=-1)
+        if it < iters:
+            w = pi / torch.sqrt(dist2 + eps)
+            norm = torch.sum(w)
+    return y
+
+
+def _adaptive_wire(grads, est: Estimator, state=None, *,
+                   weights_beta: float = 0.5, momentum: float = 0.0):
+    """(tree, new_state or None): ``est``'s adaptive aggregate of a stacked
+    tree, stateless (``state=None``: the census weights and ``alpha_hat``,
+    ``core.adaptive``'s ``auto_gm``/``vrmom_adaptive``) or stateful
+    (``apply_adaptive``), on the block-by-block wire of the module
+    docstring. Every leaf comes back in its dtype."""
+    leaves = list(_leaves(grads))
+    kernel = AD._kernel(est.backend)
+    cen = _wire_census(leaves, kernel)
+    if state is None:
+        w, alpha, sus = cen.weights, cen.alpha_hat, cen.suspected
+    else:
+        w, alpha = AD.ema(state, cen, weights_beta)
+        sus = w < 0.5
+        step = state.step + 1
+    outs = [torch.empty(g.shape[1:], dtype=g.dtype, device=g.device)
+            for g in leaves]
+    y = (_weiszfeld_blocks(leaves, w, 8, 1e-8)
+         if est.method == "auto_gm" else None)
+    if state is not None:
+        # auto_gm's iterate becomes the new momentum block by block, so
+        # the step holds two [C] f32 vectors, not three
+        new_m = y if y is not None else torch.empty_like(state.momentum)
+    for o, i, cols, block in _blocks(leaves):
+        c = block.shape[1]
+        if y is not None:
+            agg = y[o:o + c]
+        else:
+            f = block.float().contiguous()[None]
+            center = AD._coordinatewise(f, "median", 0, kernel)
+            agg = AD._impute_and_climb(f, sus[None], center, alpha, est.K,
+                                       kernel)[0]
+        m = None
+        if state is not None:
+            agg, m = AD.momentum_update(state.momentum[o:o + c], agg,
+                                        momentum, step)
+        outs[i].view(-1)[cols] = agg
+        if m is not None:
+            new_m[o:o + c] = m
+    tree = _unflatten(grads, outs)
+    if state is None:
+        return tree, None
+    return tree, AD.AdaptiveState(weights=w, momentum=new_m, step=step,
+                                  alpha_hat=alpha)
 
 
 def aggregate(grads, *, mode: str = "stacked-rrs",
@@ -107,14 +259,17 @@ def aggregate(grads, *, mode: str = "stacked-rrs",
     """Mode dispatcher of ``train/step.py``: ``stacked-rrs`` and
     ``stacked-auto`` (``auto``) run ``aggregate_stacked_auto`` (one card
     is one worker rank of ``repro``'s RRS wire, where ``repro`` itself
-    takes the same path); ``mean`` is the plain mean over the workers, the
-    non-robust baseline, accumulated in f32 without an f32 copy of the
-    stack. ``with_diag`` returns ``(aggregate, AggDiagnostics)`` for every
-    mode."""
+    takes the same path; ``stacked-rrs`` refuses what is not
+    coordinate-wise, as that wire does); ``mean`` is the plain mean over
+    the workers, the non-robust baseline, accumulated in f32 without an
+    f32 copy of the stack. ``with_diag`` returns ``(aggregate,
+    AggDiagnostics)`` for every mode."""
     if mode == "stacked-consensus":
         raise NotImplementedError(
             "mode 'stacked-consensus' is not ported yet (the consensus "
             "backend: ROADMAP.md, A6)")
+    if mode == "stacked-rrs":
+        est = _wire_estimator(est)
     if mode in ("stacked-rrs", "stacked-auto", "auto"):
         return aggregate_stacked_auto(grads, est, with_diag=with_diag)
     if mode == "mean":

@@ -12,7 +12,10 @@ RMSE.
 The replications run ``batch_size`` at a time as tensors with a leading
 replication axis: one chunk's data is ``[batch_size, m+1, n, p]``, and
 each coordinate-wise aggregation of the chunk is one ``[m+1,
-batch_size·d]`` stack (B1 on the card). One ``torch.Generator``, seeded
+batch_size·d]`` stack (B1 on the card). An adaptive estimator
+(``vrmom_adaptive``, ``auto_gm``) censuses each replication's rows on its
+own, as ``repro``'s map over replications does, and runs its B1 launches
+over the whole chunk. One ``torch.Generator``, seeded
 with ``seed``, draws the chunks' data and attacks in order, so two cells
 with the same seed and shapes see the same shards and attack draws.
 """

@@ -1,14 +1,18 @@
 """Byzantine-robust replicated decoding (``repro.serve.robust``'s port).
 
 The decode forward runs on ``m`` replicas; each emits logits for the same
-positions, and the served logits are the coordinate-wise robust aggregate
-(an ``core.estimator.Estimator``: VRMOM / median / trimmed mean) over the
-replica axis. While fewer than half the replicas are corrupted, the
+positions, and the served logits are the robust aggregate (an
+``core.estimator.Estimator``: VRMOM / median / trimmed mean, or the
+adaptive ``vrmom_adaptive`` / ``auto_gm``, whose census treats the
+``[m, B, V]`` stack as m rows of B·V coordinates) over the replica axis. While fewer than half the replicas are corrupted, the
 aggregate — and every greedy token — is unchanged: honest replicas are
 deterministic, so their rows are identical, the median of the stack is the
 honest value, and VRMOM's degenerate-scale guard returns exactly that
 median. The ``[m, B, V]`` stack goes through the fused CUDA tail (B4) or
-the aggregation kernel (B1) once per token.
+the aggregation kernel (B1) once per token; an adaptive estimator takes
+the unfused tail (one B1 launch for the census centre and one for each
+VRMOM rung, or Weiszfeld's iterations), with nothing read on the host, so
+the engine's captured decode step replays it.
 
 ``core/attacks`` fault injection corrupts the rows ``replica_mask``
 selects before aggregation, modelling faulty workers on the wire.
@@ -36,10 +40,12 @@ class RobustDecodeConfig:
     """Config for replicated robust decode.
 
     m:          number of decode replicas (worker-axis size).
-    estimator:  a coordinate-wise ``Estimator`` or a method name (coerced:
-                ``K`` binds to VRMOM, and trimmed_mean's beta binds to
-                ``alpha`` — the default 0.1 would trim int(0.1*m) = 0 rows
-                at m = 8 and silently serve the mean).
+    estimator:  a coordinate-wise or adaptive ``Estimator`` or a method
+                name (coerced: ``K`` binds to VRMOM, and trimmed_mean's
+                beta binds to ``alpha`` — the default 0.1 would trim
+                int(0.1*m) = 0 rows at m = 8 and silently serve the mean).
+                Whole-vector selectors (geometric_median, krum) are
+                refused.
     K:          VRMOM quantile levels (used when coercing a name).
     attack:     ``core/attacks`` name injected on the corrupted rows
                 ("none" in production).
@@ -51,9 +57,10 @@ class RobustDecodeConfig:
                 function of the same state. ``False`` runs all m replica
                 forwards as one decode step at batch m * B (replica-major
                 rows), the emulation the equivalence is tested against.
-    fuse_tail:  aggregate and sample in ONE kernel (B4) for greedy / top-k;
-                ``False`` aggregates with B1, then selects in PyTorch.
-                Greedy tokens are bit-identical either way.
+    fuse_tail:  aggregate and sample in ONE kernel (B4) for greedy / top-k
+                (coordinate-wise methods); ``False`` aggregates with B1,
+                then selects in PyTorch. Greedy tokens are bit-identical
+                either way.
 
     The spec is validated against ``m`` at construction.
     """

@@ -6,7 +6,8 @@ Byzantine corruption of the last rows, coordinate-wise robust
 aggregation (``dist.robust_reduce``), the optimizer update. The worker
 count takes the place of ``repro``'s mesh.
 
-* **Stacked modes** (``stacked-rrs``, ``stacked-auto``, ``mean``): the
+* **Stacked modes** (``stacked-rrs``, ``stacked-auto``, ``mean``, and
+  ``stacked-adaptive``, which an adaptive estimator selects): the
   global batch is split into W equal worker slices; each worker's
   gradients come from autograd (with ``repro``'s microbatch accumulation
   in f32, cast back) and are copied into a stack ``[W, ...]`` per leaf in
@@ -14,7 +15,10 @@ count takes the place of ``repro``'s mesh.
   ``n_byz = int(alpha * (W - 1))`` last rows are attacked in place, leaf
   by leaf, and the stack is aggregated (B1 on the card, reading the bf16
   stack itself). The workers run one after another: a ``vmap`` would have
-  to batch the kernels inside the attention's autograd Function.
+  to batch the kernels inside the attention's autograd Function. An
+  adaptive estimator (``auto_gm``, ``vrmom_adaptive``) aggregates the whole
+  stack with ``dist.robust_reduce.aggregate_stacked_adaptive`` and an
+  explicit ``AdaptiveState`` carry (``TrainSetup.init_state``).
 * **inloop**: one global backward under ``robust_backward``; every
   3-D x 2-D product aggregates its weight gradient over the workers in
   the backward (``repro``'s IB-RRS), with ``repro``'s strided micro-split
@@ -29,18 +33,21 @@ profiler trace.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import torch
 
 from .. import optim as O
 from ..core import attacks as atk
+from ..convert import expected_shapes
 from ..core.estimator import Estimator
 from ..device import resolve_device
 from ..dist import robust_reduce as RR
 from ..models import model as M
 from ..obs.trace import named_span
-from ..tree import leaves as _leaves, tree_map, unflatten as _unflatten
+from ..tree import (leaves as _leaves, paths as tree_paths, tree_map,
+                    unflatten as _unflatten)
 
 __all__ = ["TrainSetup", "make_train_step", "stacked_grads", "loss_and_grads",
            "MODES"]
@@ -54,6 +61,10 @@ class TrainSetup:
     n_workers: int
     optimizer: O.Optimizer
     device: torch.device
+    # adaptive estimators only: a zero-arg callable making the initial
+    # core.adaptive.AdaptiveState on the step's device; the step takes it
+    # as ``agg_state`` and returns the new state after the loss
+    init_state: Optional[Callable] = None
 
 
 def loss_and_grads(cfg, params, batch, micro: int = 1):
@@ -136,20 +147,25 @@ def make_train_step(cfg, n_workers: int, *, estimator=Estimator(),
                     attack: str = "gaussian",
                     microbatch: Optional[int] = None,
                     with_diag: bool = False, reduce_backend: str = "rrs",
+                    weights_beta: float = 0.5, momentum: float = 0.0,
                     device=None) -> TrainSetup:
-    """The step ``step_fn(params, opt_state, batch, generator=None) ->
-    (params, opt_state, loss[, diag])``, updating ``params`` and
-    ``opt_state`` in place and returning them. ``generator``: a
-    ``torch.Generator`` on the device, read by the random attacks
-    (``gaussian``), where ``repro`` takes a PRNG key.
+    """The step ``step_fn(params, opt_state, batch, generator=None,
+    agg_state=None) -> (params, opt_state, loss[, agg_state][, diag])``,
+    updating ``params`` and ``opt_state`` in place and returning them.
+    ``generator``: a ``torch.Generator`` on the device, read by the random
+    attacks (``gaussian``), where ``repro`` takes a PRNG key.
 
     ``estimator``: a ``core.estimator.Estimator`` or a method name.
     ``microbatch``: gradient-accumulation steps per worker (None: one
     sequence a micro-step when seq_len >= 2048, as in ``repro``).
     ``with_diag``: the step also returns an ``obs.diag.AggDiagnostics``.
     ``device``: where the step runs (the card unless named); its params
-    must live there. ``reduce_backend="consensus"`` and the adaptive
-    estimators are not ported (ROADMAP.md, A6)."""
+    must live there. An adaptive estimator switches a stacked mode to
+    ``stacked-adaptive``: the step then takes an ``AdaptiveState`` as
+    ``agg_state`` (``TrainSetup.init_state()`` makes the first) and returns
+    the new one after the loss; ``weights_beta`` and ``momentum`` are its
+    EMA knobs. ``reduce_backend="consensus"`` is not ported (ROADMAP.md,
+    A6b)."""
     device = resolve_device(device)
     est = Estimator.coerce(estimator)
     if mode not in MODES:
@@ -162,17 +178,33 @@ def make_train_step(cfg, n_workers: int, *, estimator=Estimator(),
     if reduce_backend not in ("rrs", "consensus"):
         raise ValueError(f"unknown reduce_backend {reduce_backend!r}; "
                          "known: ('rrs', 'consensus')")
+    if est.adaptive:
+        if mode == "inloop":
+            raise ValueError(
+                "adaptive estimators need the materialized stacked wire; "
+                "inloop (IB-RRS) aggregates inside the backward pass. "
+                "Use a stacked mode.")
+        if reduce_backend == "consensus":
+            raise ValueError(
+                "adaptive estimators are unavailable on the consensus "
+                "backend: peer rounds exchange coordinate slices, never "
+                "complete worker rows (DESIGN.md §13). Use "
+                "reduce_backend='rrs'.")
+        mode = "stacked-adaptive"
     if reduce_backend == "consensus":
         raise NotImplementedError(
             "reduce_backend='consensus' is not ported yet (the consensus "
             "backend: ROADMAP.md, A6)")
-    if est.adaptive:
-        raise NotImplementedError(
-            f"adaptive estimator {est.method!r} is not ported yet (the "
-            f"adaptive tier: ROADMAP.md, A6)")
     if n_workers < 1:
         raise ValueError(f"n_workers must be >= 1, got {n_workers}")
     optimizer = optimizer or O.get(cfg.optimizer, lr=lr)
+    init_state = None
+    if est.adaptive:
+        # the adaptive wire ravels every leaf: the state's momentum holds
+        # one f32 per parameter
+        dim = sum(math.prod(s) for _, s in tree_paths(expected_shapes(cfg)))
+        init_state = lambda: est.init_adaptive_state(n_workers, dim,
+                                                     device=device)
     n_byz = int(byzantine_frac * (n_workers - 1))
     mask = torch.arange(n_workers, device=device) >= (n_workers - n_byz)
     attack_fn = atk.get(attack)
@@ -194,8 +226,12 @@ def make_train_step(cfg, n_workers: int, *, estimator=Estimator(),
         with RR.robust_backward(n_workers, est):
             return loss_and_grads(cfg, params, batch, micro)
 
-    def train_step(params, opt_state, batch, generator=None):
-        diag = None
+    def train_step(params, opt_state, batch, generator=None,
+                   agg_state=None):
+        diag = new_state = None
+        if mode == "stacked-adaptive" and agg_state is None:
+            raise ValueError("an adaptive estimator's step needs agg_state "
+                             "(TrainSetup.init_state())")
         if mode == "inloop":
             with named_span("train.worker_grads"):
                 loss, agg = inloop_grads(params, batch)
@@ -207,15 +243,25 @@ def make_train_step(cfg, n_workers: int, *, estimator=Estimator(),
                 if n_byz:
                     for g in _leaves(grads):
                         g.copy_(attack_fn(generator, g, mask))
-                agg = RR.aggregate(grads, mode=mode, est=est,
-                                   with_diag=with_diag)
+                if mode == "stacked-adaptive":
+                    res = RR.aggregate_stacked_adaptive(
+                        grads, agg_state, est, with_diag=with_diag,
+                        weights_beta=weights_beta, momentum=momentum)
+                    agg, new_state = res[:2]
+                    diag = res[2] if with_diag else None
+                else:
+                    agg = RR.aggregate(grads, mode=mode, est=est,
+                                       with_diag=with_diag)
+                    if with_diag:
+                        agg, diag = agg
                 del grads
-                if with_diag:
-                    agg, diag = agg
         with named_span("train.optimizer"):
             params, opt_state = optimizer.update(agg, opt_state, params)
         out = (params, opt_state, loss)
+        if new_state is not None:
+            out = out + (new_state,)
         return out + (diag,) if with_diag else out
 
     return TrainSetup(step_fn=train_step, n_workers=n_workers,
-                      optimizer=optimizer, device=device)
+                      optimizer=optimizer, device=device,
+                      init_state=init_state)

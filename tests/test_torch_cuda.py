@@ -1244,3 +1244,113 @@ def test_cuda_inloop_step_launches_b1_per_product(cuda):
     counts = launch_counts()
     assert counts["aggregate"] == 7 * cfg.n_layers + 2
     assert counts["flash_attention"] == 2 * cfg.n_layers
+
+
+# -- the adaptive tier (core.adaptive): B1 for the centre and the rungs ------
+
+def _adaptive_stack(cuda, seed, shape, dup_rows=0):
+    x = torch.from_numpy(np.random.RandomState(seed).randn(*shape)
+                         .astype(np.float32) + 2.0)
+    if dup_rows:
+        x[-dup_rows:] = -0.05 * x[:-dup_rows].mean(0)
+    return x.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,axis", [((8, 4096), 0), ((3, 101, 5), 1),
+                                        ((8, 4, 151936), 0)])
+def test_cuda_adaptive_honest_bit_identical(cuda, shape, axis):
+    """Honest stacks on the card: vrmom_adaptive is B1's vrmom bit for bit
+    (one B1 launch for the census centre and one a rung: K 10, 5, 1),
+    auto_gm is the geometric median bit for bit, alpha_hat is 0."""
+    from repro_torch.core import adaptive as AD
+
+    x = _adaptive_stack(cuda, 0, shape)
+    reset_launch_counts()
+    got = Estimator("vrmom_adaptive", K=10).apply(x, axis=axis)
+    assert launch_counts()["aggregate"] == 4
+    want = Estimator("vrmom", K=10).apply(x, axis=0) if axis == 0 else \
+        torch.stack([Estimator("vrmom", K=10).apply(x[r])
+                     for r in range(x.shape[0])])
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(
+        Estimator("auto_gm").apply(x, axis=axis),
+        Estimator("geometric_median").apply(x, axis=axis), rtol=0, atol=0)
+    assert not bool(AD.estimate_alpha(x, axis=axis, backend="auto").any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["vrmom_adaptive", "auto_gm"])
+def test_cuda_adaptive_matches_the_cpu(cuda, method):
+    """An attacked stack (2 of 8 rows one payload) on the card against the
+    same stack on the CPU: the census exactly, the aggregate at 1e-5."""
+    from repro_torch.core import adaptive as AD
+
+    x = _adaptive_stack(cuda, 1, (8, 3000), dup_rows=2)
+    a = AD.census(x, backend="auto")
+    b = AD.census(x.cpu(), backend="auto")
+    for f in ("cluster_size", "suspected", "alpha_hat", "weights", "center"):
+        torch.testing.assert_close(getattr(a, f).cpu(), getattr(b, f),
+                                   rtol=0, atol=0)
+    assert a.suspected.tolist() == [False] * 6 + [True] * 2
+    torch.testing.assert_close(Estimator(method, K=8).apply(x).cpu(),
+                               Estimator(method, K=8).apply(x.cpu()),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["vrmom_adaptive", "auto_gm"])
+@pytest.mark.parametrize("attack", ["none", "signflip", "gaussian"])
+def test_cuda_adaptive_tail_replay_equals_eager(cuda, attack, method):
+    """The adaptive serving tail inside the captured decode step (no host
+    read in the census): ``generate``'s replays give the eager loop's
+    tokens, which are the plain engine's under every attack."""
+    _replay_equals_eager(cuda, RobustDecodeConfig(
+        m=8, estimator=Estimator(method, K=8), attack=attack))
+    cfg, params, batch = _served(cuda)
+    plain = ServeEngine(cfg, params, max_len=40, device=cuda).generate(
+        batch, 10)
+    eng = ServeEngine(cfg, params, max_len=40, device=cuda,
+                      robust=RobustDecodeConfig(
+                          m=8, estimator=Estimator(method, K=8),
+                          attack=attack))
+    got = eng.generate(batch, 10,
+                       generator=torch.Generator(device=cuda).manual_seed(5))
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_chunked_census_equals_unchunked(cuda, monkeypatch):
+    """The training wire's block-by-block census of a bf16 tree equals the
+    census of its raveled f32 wire (masks, counts, weights, alpha_hat
+    exactly; z at 1e-5), and its aggregates at any block size agree
+    (vrmom_adaptive bitwise: columns are independent)."""
+    from repro_torch.core import adaptive as AD
+    from repro_torch.dist import robust_reduce as RR
+    from repro_torch.tree import leaves
+
+    g = {"a": _adaptive_stack(cuda, 2, (8, 300, 70), 2),
+         "b": _adaptive_stack(cuda, 3, (8, 5000), 2)}
+    g = {k: v.to(torch.bfloat16) for k, v in g.items()}
+    wire = torch.cat([v.reshape(8, -1).float() for v in leaves(g)], dim=1)
+    want = AD.census(wire, backend="auto")
+    for chunk in (999, 1 << 22):
+        monkeypatch.setattr(RR, "WIRE_CHUNK", chunk)
+        got = RR._wire_census(list(leaves(g)), True)
+        torch.testing.assert_close(got.z, want.z, rtol=1e-5, atol=1e-5)
+        for f in ("cluster_size", "suspected", "alpha_hat", "weights"):
+            torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                       rtol=0, atol=0)
+    assert want.suspected.tolist() == [False] * 6 + [True] * 2
+    outs = {}
+    for chunk in (999, 1 << 22):
+        monkeypatch.setattr(RR, "WIRE_CHUNK", chunk)
+        outs[chunk] = {m: RR.aggregate_stacked_auto(g, m)
+                       for m in ("vrmom_adaptive", "auto_gm")}
+    for a, b in zip(leaves(outs[999]["vrmom_adaptive"]),
+                    leaves(outs[1 << 22]["vrmom_adaptive"])):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(leaves(outs[999]["auto_gm"]),
+                    leaves(outs[1 << 22]["auto_gm"])):
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-2,
+                                   atol=1e-2)

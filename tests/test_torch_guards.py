@@ -129,6 +129,36 @@ def test_paper_path_needs_a_device_without_a_card(no_card):
     assert cell.covered.device.type == "cpu"
 
 
+def test_adaptive_state_needs_a_device_without_a_card(no_card):
+    """init_adaptive_state / init_state, the train step's init_state and
+    adaptive_state_from_jax make the carry on the card unless given a
+    device; with no card they raise."""
+    import numpy as np
+
+    from repro_torch.core import adaptive as AD
+    from repro_torch.core.estimator import Estimator
+    from repro_torch.train.step import make_train_step
+
+    est = Estimator("vrmom_adaptive")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        est.init_adaptive_state(4, 6)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AD.init_state(4, 6)
+    st = AD.init_state(4, 6, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.adaptive_state_from_jax(
+            st._replace(**{f: np.asarray(getattr(st, f))
+                           for f in st._fields}))
+    assert est.init_adaptive_state(4, 6, device="cpu").momentum.device.type \
+        == "cpu"
+    cfg = get_arch("qwen3-1.7b").reduced()
+    setup = make_train_step(cfg, 4, estimator="auto_gm", device="cpu")
+    state = setup.init_state()
+    assert state.weights.shape == (4,) and state.momentum.device.type == "cpu"
+    assert state.momentum.numel() == M.param_count(
+        M.init(cfg, torch.Generator().manual_seed(0), device="cpu"))
+
+
 def test_c_entry_points_exist_in_sources():
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").is_file(), name

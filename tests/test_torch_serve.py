@@ -186,8 +186,14 @@ def test_robust_config_coercion_and_refusals():
     assert RobustDecodeConfig(m=8, K=6).estimator.K == 6
     with pytest.raises(ValueError, match="whole-vector"):
         RobustDecodeConfig(m=8, estimator="krum")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RobustDecodeConfig(m=8, estimator="auto_gm")
+    # the adaptive tier aggregates a full replica stack: accepted, with
+    # repro's coercion (K binds to vrmom only)
+    assert RobustDecodeConfig(m=8, estimator="auto_gm").estimator.method \
+        == "auto_gm"
+    assert RobustDecodeConfig(m=8, K=6, estimator="vrmom_adaptive"
+                              ).estimator.K == 10
+    with pytest.raises(ValueError, match="whole-vector"):
+        RobustDecodeConfig(m=8, estimator="geometric_median")
     with pytest.raises(ValueError, match="0 rows"):
         RobustDecodeConfig(m=8, estimator=Estimator("trimmed_mean", beta=0.1))
     with pytest.raises(ValueError, match="honest"):

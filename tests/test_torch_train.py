@@ -445,8 +445,13 @@ def test_inloop_step_and_its_refusals():
         setup.step_fn(tp, to, _tbatch(tcfg, 0, 6))
     with pytest.raises(NotImplementedError, match="A6"):
         make_train_step(tcfg, W, reduce_backend="consensus", device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        make_train_step(tcfg, W, estimator="vrmom_adaptive", device="cpu")
+    # the adaptive tier needs the stacked wire, as in repro
+    with pytest.raises(ValueError, match="materialized stacked wire"):
+        make_train_step(tcfg, W, estimator="vrmom_adaptive", mode="inloop",
+                        device="cpu")
+    with pytest.raises(ValueError, match="consensus backend"):
+        make_train_step(tcfg, W, estimator="auto_gm",
+                        reduce_backend="consensus", device="cpu")
     with pytest.raises(NotImplementedError, match="A6"):
         RR.aggregate({"a": torch.zeros(4, 3)}, mode="stacked-consensus")
 
