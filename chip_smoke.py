@@ -123,6 +123,29 @@ gaussian: graph tokens equal eager and phase 3's clean tokens, traced B1
 launches a token as the ladder implies, the mean control corrupted, and
 decode ms/token. B1 at the phase's three stacks joins the ``kernels``
 line.
+Phase 9 drives the consensus backend (``dist.consensus``, ``FaultPlan``):
+(a) BENCH_dist.json's emulated degradation grid (n 8, f 1, midpoint trim,
+vrmom, alie and omniscient on one pinned row, C 512) under dropout 0 to
+0.5 at 64 seeds in one batched call a cell, the port's own draws: quorum,
+messages_dropped and quorum_lost must lie within 4 standard errors of
+their closed forms (P(Bin(7, 1 - d) >= 6), 40 * 56 * d, (1 - q)^8), the
+decision at dropout 0 must equal the fault-free run's, and the unpinned
+fault-free mean-trim decision B1's direct aggregate, bit for bit;
+err_vs_honest_mean and rounds_to_eps print beside the record's. (b) One
+round at the train wire's [8, 2^22] f32 block, device time: B1 on
+identical rows (the degenerate-scale branch of every fault-free round
+after the first; bitwise its plain version, and a ``kernels`` record), a
+whole fault-free round, a fault-path round (the masked trim of 8
+receivers, and the same views through torch.sort beside it) and the
+spread. (c) tests/test_consensus.py's coverage cell (linear, alie alpha
+0.1, vrmom K 5, m 20, n 100, p 3, 4 rounds, f 2, 10% dropout) at 480
+replications: coverage >= 0.6 and a finite RMSE. (d) Phase 7's training
+with ``reduce_backend="consensus"`` (f 1): on one honest stack the
+consensus aggregate equals the stacked-auto aggregate bit for bit; 3
+steps under alie on 1 pinned row (its main path, B1 once a block and
+round), the loss finite and quorum kept, the split of a step printed;
+then one step under repro's plan (dropout 0.1, a crash at round 2) at the
+depth its reckoned time allows, printed with the cut; peak memory.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it lists every kernel with its launches, error and times. Any
@@ -205,6 +228,17 @@ ADAPT_REPS, ADAPT_BATCH, ADAPT_ALPHA, ADAPT_GATE = 480, 240, 0.2, 0.90
 ADAPT_ATTACKS = ("alie", "ipm")
 ADAPT_ARMS = ("vrmom", "median", "vrmom_adaptive", "auto_gm")
 ADAPT_TRAIN_ALPHA, ADAPT_STEPS = 0.4, 3
+
+# phase 9, consensus: BENCH_dist.json's degradation grid (benchmarks/
+# dist.py: n 8, f 1, one pinned row, C 512) at 8x its 8 seeds;
+# tests/test_consensus.py's coverage cell at 480 replications; phase 7's
+# training on the consensus wire, the faulted step cut in depth to what
+# CONS_FAULT_BUDGET_S seconds of reckoned fault-path rounds allow
+CONS_N, CONS_C, CONS_SEEDS = 8, 512, 64
+CONS_DROPOUTS = (0.0, 0.05, 0.1, 0.2, 0.3, 0.5)
+CONS_ATTACKS = ("alie", "omniscient")
+CONS_REPS, CONS_BATCH = 480, 240
+CONS_STEPS, CONS_FAULT_BUDGET_S = 3, 30.0
 
 
 class CheckFailed(Exception):
@@ -2698,6 +2732,373 @@ def phase_adaptive(torch, dev, card: str):
     return recs
 
 
+def consensus_grid(torch, dev, card):
+    """Phase 9 (a): BENCH_dist.json's degradation grid, gated against the
+    closed forms of the fault statistics."""
+    from repro_torch.core import attacks as TA
+    from repro_torch.core.estimator import Estimator
+    from repro_torch.dist.consensus import (ConsensusConfig,
+                                            consensus_aggregate)
+    from repro_torch.dist.faults import FaultPlan
+
+    record = {(r["attack"], r["dropout"]): r for r in json.loads(
+        (ROOT / "BENCH_dist.json").read_text())["degradation"]}
+    n, S = CONS_N, CONS_SEEDS
+    cfg = ConsensusConfig(f=1, trim="midpoint").validate(n)
+    mask = torch.arange(n, device=dev) >= n - 1
+    g = torch.Generator(device=dev).manual_seed(90)
+    v = torch.randn((S, n, CONS_C), generator=g, device=dev)
+    honest = v[:, :n - 1].mean(dim=1)
+    # fault-free, mean trim, no pin: the decision is B1's direct aggregate
+    est = Estimator("vrmom", K=10)
+    got, _ = consensus_aggregate(v, est, config=ConsensusConfig(f=1))
+    require(torch.equal(got, est.apply(v, axis=1)),
+            "(a) the fault-free consensus decision differs from the direct "
+            "aggregate")
+    print(f"[cons] (a) fault-free (mean trim, no pin) decision of {S} "
+          f"[{n}, {CONS_C}] stacks == B1's direct aggregate: True")
+    for attack in CONS_ATTACKS:
+        x = TA.attack_stack(attack, None, v, mask, axis=1)
+        ref, _ = consensus_aggregate(x, "vrmom", config=cfg, pin_mask=mask)
+        for d in CONS_DROPOUTS:
+            plan = FaultPlan(dropout=d)
+            P = cfg.phases(plan)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, aux = consensus_aggregate(x, "vrmom", config=cfg, plan=plan,
+                                           generator=g, pin_mask=mask)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            q = (1 - d) ** 7 + 7 * d * (1 - d) ** 6   # P(Bin(7, 1-d) >= 6)
+            lost_p = (1 - q) ** n
+            edges = P * n * (n - 1)
+            stats = {
+                "quorum": (float(aux.quorum.mean()), q,
+                           math.sqrt(q * (1 - q) / (n * P * S))),
+                "messages_dropped": (
+                    float(aux.messages_dropped.double().mean()), edges * d,
+                    math.sqrt(edges * d * (1 - d) / S)),
+                "quorum_lost": (float(aux.quorum_lost.double().mean()),
+                                lost_p, math.sqrt(lost_p * (1 - lost_p) / S))}
+            err = float((out - ref).abs().amax(-1).mean())
+            err_h = float((out - honest).abs().amax(-1).mean())
+            r2e = float(aux.rounds_to_eps.double().mean())
+            jr = record[(attack, d)]
+            print(f"[cons] (a) {attack:10s} dropout {d:.2f}: "
+                  + ", ".join(f"{k} {o:.6g} (closed form {w:.6g} ± "
+                              f"{se:.3g})" for k, (o, w, se) in stats.items())
+                  + f"; err_vs_no_dropout {err:.6g}, err_vs_honest_mean "
+                  f"{err_h:.6g}, rounds_to_eps {r2e:.4g} (the JAX record, 8 "
+                  f"seeds: quorum {jr['quorum_mean']:.4g}, dropped "
+                  f"{jr['messages_dropped_mean']:.6g}, lost "
+                  f"{jr['quorum_lost_frac']:.4g}, err_vs_honest_mean "
+                  f"{jr['err_vs_honest_mean']:.4g}, rounds_to_eps "
+                  f"{jr['rounds_to_eps_mean']:.4g}); {S} seeds x {P} rounds "
+                  f"in {wall:.3f} s ({card})")
+            require(bool(torch.isfinite(out).all()),
+                    f"(a) {attack} dropout {d}: non-finite decision")
+            for k, (o, w, se) in stats.items():
+                require(abs(o - w) <= 4 * se + 1e-9,
+                        f"(a) {attack} dropout {d}: {k} {o}, closed form "
+                        f"{w} ± {se}")
+            if d == 0.0:
+                require(torch.equal(out, ref), f"(a) {attack}: the decision "
+                        f"at dropout 0 differs from the fault-free run's")
+
+
+def consensus_round_cost(torch, dev, card):
+    """Phase 9 (b): one consensus round at the train wire's block. Returns
+    (the B1 record on identical rows without launches, the fault-path
+    round's ms)."""
+    from repro_torch.core.estimator import Estimator
+    from repro_torch.dist import consensus as CS
+    from repro_torch.dist import robust_reduce as RR
+    from repro_torch.dist.faults import FaultPlan
+    from repro_torch.kernels.vrmom import aggregate, aggregate_plain
+
+    flush = make_flush(torch, dev)
+    W, C = TRAIN_W, RR.WIRE_CHUNK
+    g = torch.Generator(device=dev).manual_seed(91)
+    row = torch.randn((1, C), generator=g, device=dev)
+    same = row.expand(W, C).contiguous()
+    got = aggregate(same, "vrmom", K=TRAIN_K)
+    want = aggregate_plain(same, "vrmom", K=TRAIN_K)
+    require(torch.equal(got, want) and torch.equal(got, row[0]),
+            f"(b) B1 on identical rows: plain version equal "
+            f"{torch.equal(got, want)}, the row itself "
+            f"{torch.equal(got, row[0])}")
+    bb = bound(same.numel() * 4 + C * 4)
+    rec = dict(
+        name=f"B1 aggregate in a fault-free consensus round on identical "
+             f"rows (the MAD is 0: the degenerate-scale branch), vrmom "
+             f"K={TRAIN_K}, [{W}, {C}] f32 (the train wire's block)",
+        route="cuda", source="src/repro_torch/kernels/csrc/vrmom.cu",
+        replaces="src/repro/kernels/vrmom.py:142", max_abs_err=max_err(
+            got, want),
+        ms=timed_ms(lambda: aggregate(same, "vrmom", K=TRAIN_K), torch,
+                    flush),
+        plain_ms=timed_ms(lambda: aggregate_plain(same, "vrmom", K=TRAIN_K),
+                          torch, flush, iters=5, spin=PLAIN_SPIN_CYCLES),
+        bound_ms=bb[0], bound_by=bb[1], library_ms=None)
+    est = Estimator("vrmom", K=TRAIN_K)
+    x = torch.randn((W, C), generator=g, device=dev)
+    pin = torch.arange(W, device=dev) >= W - 1
+    cfg1 = CS.ConsensusConfig(f=1, max_rounds=1)
+    free, faulty = FaultPlan(), FaultPlan(dropout=0.1)
+    v_free = CS._round_views(free, W, 1, W - 1, device=dev)
+    v_fault = CS._round_views(faulty, W, 1, W - 1, generator=g, device=dev)
+    recv = v_fault.recv[0]
+    times = {
+        "B1 on distinct rows": timed_ms(lambda: est.apply(x, axis=0), torch,
+                                        flush),
+        "a fault-free round, one pinned row (B1, the sent rows, the "
+        "spread, the update)": timed_ms(
+            lambda: CS._iterate(x, est, cfg1, free, v_free, pin), torch,
+            flush, iters=5, spin=PLAIN_SPIN_CYCLES),
+        "a fault-path round (8 receivers' masked trim by the network, the "
+        "spread, the update)": timed_ms(
+            lambda: CS._iterate(x, est, cfg1, faulty, v_fault, pin), torch,
+            flush, iters=5, spin=PLAIN_SPIN_CYCLES),
+        "the masked trim of 8 receivers alone": timed_ms(
+            lambda: CS._masked_trim(x.unsqueeze(-3), recv, 1, "mean"), torch,
+            flush, iters=5, spin=PLAIN_SPIN_CYCLES),
+        "the same views through torch.sort (not used)": timed_ms(
+            lambda: torch.sort(torch.where(recv[..., None], x, CS._MISSING),
+                               dim=-2), torch, flush, iters=5,
+            spin=PLAIN_SPIN_CYCLES),
+        "the spread": timed_ms(lambda: CS._spread(x, ~pin), torch, flush)}
+    for what, ms in times.items():
+        print(f"[cons] (b) [{W}, {C}] f32: {what}: {ms:.4f} ms device "
+              f"({card})")
+    print(f"[cons] (b) B1 on identical rows {rec['ms'] * 1e3:.2f} us (plain "
+          f"{rec['plain_ms']:.3f} ms, bytes bound {rec['bound_ms'] * 1e3:.2f}"
+          f" us), bitwise its plain version and the row ({card})")
+    fault_ms = times["a fault-path round (8 receivers' masked trim by the "
+                     "network, the spread, the update)"]
+    del same, x
+    torch.cuda.empty_cache()
+    return rec, fault_ms
+
+
+def consensus_coverage(torch, dev, card):
+    """Phase 9 (c): tests/test_consensus.py's coverage cell under the
+    consensus wire with message loss."""
+    from repro_torch.dist.consensus import ConsensusConfig
+    from repro_torch.dist.faults import FaultPlan
+    from repro_torch.infer import coverage_run
+
+    walls, s = [], None
+    for _ in range(2):   # the first call warms the path up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cell = coverage_run(model="linear", attack="alie", alpha=0.1,
+                            estimator="vrmom", K=5, reps=CONS_REPS,
+                            N_per_machine=100, m_workers=20, p=3, rounds=4,
+                            batch_size=CONS_BATCH, seed=0,
+                            reduce_backend="consensus",
+                            consensus=ConsensusConfig(f=2),
+                            fault_plan=FaultPlan(dropout=0.1), device=dev)
+        s = cell.summary()
+        walls.append(time.perf_counter() - t0)
+    print(f"[cons] (c) coverage cell (linear, alie alpha 0.1, vrmom K 5, m "
+          f"20, n 100, p 3, 4 rounds, f 2, dropout 0.1), {CONS_REPS} "
+          f"replications in chunks of {CONS_BATCH}: coverage "
+          f"{s['coverage']:.4f}, width {s['mean_width']:.6f}, RMSE "
+          f"{s['rmse']:.6f}; {walls[1]:.3f} s a cell (first call "
+          f"{walls[0]:.3f} s) ({card})")
+    require(s["coverage"] >= 0.6 and math.isfinite(s["rmse"]),
+            f"(c) coverage {s['coverage']}, RMSE {s['rmse']}")
+
+
+def consensus_train(torch, dev, card, fault_ms):
+    """Phase 9 (d): phase 7's training on the consensus wire. Returns the
+    B1 launches of its main path (the alie steps)."""
+    import dataclasses
+
+    from repro_torch import kernels as K
+    from repro_torch import optim as O
+    from repro_torch.configs import get as get_arch
+    from repro_torch.convert import expected_shapes
+    from repro_torch.core import attacks as TA
+    from repro_torch.core.estimator import Estimator
+    from repro_torch.data import lm_batch
+    from repro_torch.dist import robust_reduce as RR
+    from repro_torch.dist.consensus import ConsensusConfig
+    from repro_torch.dist.faults import FaultPlan
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_train_step, stacked_grads
+    from repro_torch.tree import leaves, paths
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch("qwen3-1.7b")
+    W, S = TRAIN_W, TRAIN_SEQ
+    est = Estimator("vrmom", K=TRAIN_K)
+    cons = ConsensusConfig(f=1)
+    P = cons.phases()
+
+    def wire_blocks(c):
+        return sum(-(-math.prod(shape) // RR.WIRE_CHUNK)
+                   for _, shape in paths(expected_shapes(c)))
+
+    def init(c):
+        return M.init(c, torch.Generator(device=dev).manual_seed(7),
+                      device=dev)
+
+    params, blocks = init(cfg), wire_blocks(cfg)
+    opt = O.get("adamw", lr=TRAIN_LR)
+    opt_state = opt.init(params)
+    n_byz = int(TRAIN_ALPHA * (W - 1))
+    mask = torch.arange(W, device=dev) >= W - n_byz
+    print(f"[cons] (d) {cfg.name} at full width, W = {W} x {S} tokens, "
+          f"VRMOM K {TRAIN_K}, AdamW lr {TRAIN_LR}, reduce_backend="
+          f"consensus f {cons.f} ({P} rounds fault-free); the wire walks "
+          f"{blocks} column blocks of {RR.WIRE_CHUNK}")
+
+    def batch(i):
+        return lm_batch(cfg, i, W, S, device=dev)
+
+    # (i) honest, trivial plan, on one stack: bitwise phase 7's aggregate;
+    # then the same stack under alie is the split of a step, synchronised
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, stack = stacked_grads(cfg, params, batch(40), W)
+    torch.cuda.synchronize()
+    t_grads = time.perf_counter() - t0
+    direct = RR.aggregate(stack, mode="stacked-auto", est=est)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agg, caux = RR.aggregate(stack, mode="stacked-consensus", est=est,
+                             consensus=cons)
+    torch.cuda.synchronize()
+    t_honest = time.perf_counter() - t0
+    same = stacked_equal(torch, agg, direct)
+    print(f"[cons] (d) (i) honest stack, trivial plan: consensus aggregate "
+          f"bitwise the stacked-auto aggregate {same}; {t_honest:.4f} s, "
+          f"rounds_run {int(caux.rounds_run)}, rounds_to_eps "
+          f"{int(caux.rounds_to_eps)}, spread {float(caux.spread):.3g} "
+          f"({card})")
+    require(same and not bool(caux.quorum_lost),
+            f"(d) honest consensus aggregate equal {same}")
+    del direct, agg
+    t0 = time.perf_counter()
+    for gl in leaves(stack):
+        gl.copy_(TA.get("alie")(None, gl, mask))
+    torch.cuda.synchronize()
+    t_att = time.perf_counter() - t0
+    agg, caux = RR.aggregate(stack, mode="stacked-consensus", est=est,
+                             consensus=cons, pin_mask=mask)
+    torch.cuda.synchronize()
+    t_agg = time.perf_counter() - t0 - t_att
+    opt.update(agg, opt_state, params)
+    torch.cuda.synchronize()
+    t_opt = time.perf_counter() - t0 - t_att - t_agg
+    del stack, agg
+    print(f"[cons] (d) the split of an alie step, synchronised: workers' "
+          f"forward + backward {t_grads:.4f} s, alie {t_att:.4f} s, "
+          f"consensus aggregation {t_agg:.4f} s ({int(caux.rounds_run)} "
+          f"rounds over {blocks} blocks: {t_agg / blocks / P * 1e3:.4f} ms a "
+          f"block and round), AdamW {t_opt:.4f} s ({card})")
+
+    # (ii) alie on the pinned last row, trivial plan, the step's own path
+    setup = make_train_step(cfg, W, estimator=est, optimizer=opt,
+                            byzantine_frac=TRAIN_ALPHA, attack="alie",
+                            reduce_backend="consensus", device=dev)
+    walls, losses = [], []
+    K.reset_launch_counts()   # ---- the main path: counts from 0
+    for i in range(1, CONS_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, loss, caux = setup.step_fn(params, opt_state, batch(40 + i))
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+        require(math.isfinite(losses[-1]) and not bool(caux.quorum_lost),
+                f"(d) alie step {i}: loss {losses[-1]}, quorum lost "
+                f"{bool(caux.quorum_lost)}")
+    counts = K.launch_counts()
+    want_b1 = CONS_STEPS * blocks * P
+    require(counts["aggregate"] == want_b1,
+            f"(d) the alie steps launched B1 {counts['aggregate']} times; "
+            f"expected {want_b1} (a block and round: the pinned row keeps "
+            f"the rows apart)")
+    step_s = statistics.median(walls)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[cons] (d) (ii) alie on {n_byz} pinned row, trivial plan: "
+          f"losses {[round(x, 5) for x in losses]}, step {step_s:.4f} s "
+          f"(median of {[round(w, 4) for w in walls]}), "
+          f"{W * S / step_s:.1f} tokens/s; rounds_run "
+          f"{int(caux.rounds_run)}, rounds_to_eps {int(caux.rounds_to_eps)},"
+          f" quorum {float(caux.quorum):.4f}; launches {json.dumps(counts)};"
+          f" peak memory {peak:.2f} GB (phase 7's: 60.7 GB) ({card})")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (iii) repro's plan (tests/test_consensus.py:262) under alie, one step
+    plan = FaultPlan(dropout=0.1, n_crashed=1, crash_round=2)
+    Pf = cons.phases(plan)
+    reckon = blocks * Pf * fault_ms / 1e3
+    depth = cfg.n_layers  # the deepest cut whose rounds fit the budget
+    while depth > 1 and wire_blocks(dataclasses.replace(
+            cfg, n_layers=depth)) * Pf * fault_ms / 1e3 > CONS_FAULT_BUDGET_S:
+        depth -= 1
+    del params, opt_state
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, n_layers=depth)
+    params, blocks_cut = init(cut), wire_blocks(cut)
+    opt_state = opt.init(params)
+    print(f"[cons] (d) (iii) plan {tuple(plan)}: reckoned at full depth "
+          f"{blocks} blocks x {Pf} rounds x {fault_ms:.3f} ms = {reckon:.1f}"
+          f" s of fault-path rounds; run at {depth} of {cfg.n_layers} "
+          f"layers ({blocks_cut} blocks; every width as published), "
+          f"reckoned {blocks_cut * Pf * fault_ms / 1e3:.1f} s")
+    faulted = make_train_step(cut, W, estimator=est, optimizer=opt,
+                              byzantine_frac=TRAIN_ALPHA, attack="alie",
+                              reduce_backend="consensus", fault_plan=plan,
+                              device=dev)
+    gen = torch.Generator(device=dev).manual_seed(92)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, loss, caux = faulted.step_fn(
+        params, opt_state, lm_batch(cut, 50, W, S, device=dev), gen)
+    loss = float(loss)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[cons] (d) (iii) one faulted step at {depth} layers: loss "
+          f"{loss:.5f}, {wall:.3f} s, rounds_run {int(caux.rounds_run)}, "
+          f"quorum {float(caux.quorum):.4f}, quorum_lost "
+          f"{bool(caux.quorum_lost)}, messages_dropped "
+          f"{int(caux.messages_dropped)} (40 * 56 * 0.1 less the crashed "
+          f"peer's: reckoned {sum(0.1 * (56 if p < 2 else 42) for p in range(Pf)):.0f}),"
+          f" rounds_to_eps {int(caux.rounds_to_eps)}; peak memory "
+          f"{peak:.2f} GB ({card})")
+    require(math.isfinite(loss) and not bool(caux.quorum_lost),
+            f"(d) faulted step: loss {loss}, quorum lost "
+            f"{bool(caux.quorum_lost)}")
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return counts["aggregate"]
+
+
+def phase_consensus(torch, dev, card):
+    """Phase 9: the consensus backend and fault injection. Returns the
+    ``kernels`` record of B1 on a fault-free round's identical rows, with
+    the B1 launches of the phase's main path (the training of (d))."""
+    t_phase = time.perf_counter()
+    consensus_grid(torch, dev, card)
+    print(f"[time] phase 9 (a) {time.perf_counter() - t_phase:.1f} s")
+    t = time.perf_counter()
+    rec, fault_ms = consensus_round_cost(torch, dev, card)
+    print(f"[time] phase 9 (b) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    consensus_coverage(torch, dev, card)
+    print(f"[time] phase 9 (c) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    rec["launches"] = consensus_train(torch, dev, card, fault_ms)
+    print(f"[time] phase 9 (d) {time.perf_counter() - t:.1f} s")
+    print(f"[cons] phase 9 in {time.perf_counter() - t_phase:.1f} s")
+    return [rec]
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside the script; "
@@ -2742,6 +3143,8 @@ def main() -> int:
         lap("phase 7 (training)")
         adaptive_recs = phase_adaptive(torch, dev, card)
         lap("phase 8 (the adaptive tier)")
+        consensus_recs = phase_consensus(torch, dev, card)
+        lap("phase 9 (consensus)")
         print(f"[time] all phases {time.perf_counter() - t_all:.1f} s")
     except (CheckFailed, AssertionError) as exc:
         print(f"chip_smoke.py: check failed: {exc}", file=sys.stderr)
@@ -2755,6 +3158,7 @@ def main() -> int:
     kernels.extend(pool_recs)
     kernels.extend(train_recs)
     kernels.extend(adaptive_recs)
+    kernels.extend(consensus_recs)
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,13 @@
         --arm vrmom --seeds 0 1 2 3 [--reps 480]
     python3 scripts/coverage_spread.py --package repro_torch --attack ipm \
         --arm vrmom --seeds 0 1 2 3 [--device cpu]
+    python3 scripts/coverage_spread.py --package repro --cell consensus \
+        --seeds 0
+
+``--cell consensus`` runs ``tests/test_consensus.py``'s consensus cell
+instead (linear, alie at alpha 0.1, vrmom K 5, m 20, n 100, p 3, 4
+rounds, ``reduce_backend="consensus"`` with f 2 under 10% message
+dropout), the cell ``chip_smoke.py`` phase 9 (c) runs on the card.
 
 Runs ``coverage_run`` at ``BENCH_regimes.json``'s coverage cell (linear,
 alpha 0.2, m 100, n 100, p 5, 4 rounds, level 0.95, K 10; the fixed arms
@@ -69,6 +76,34 @@ def cell_port(attack, arm, reps, seed, batch, device):
         seed=seed, device=device, assumed_alpha=assumed).summary()
 
 
+# tests/test_consensus.py's consensus cell (chip_smoke.py phase 9 c)
+CONSENSUS_CELL = dict(model="linear", attack="alie", alpha=0.1, K=5,
+                      N_per_machine=100, m_workers=20, p=3, rounds=4,
+                      reduce_backend="consensus")
+
+
+def consensus_repro(reps, seed, batch):
+    from repro.dist.consensus import ConsensusConfig
+    from repro.dist.faults import FaultPlan
+    from repro.infer.coverage import coverage_run
+
+    return coverage_run(estimator="vrmom", reps=reps, batch_size=batch,
+                        seed=seed, consensus=ConsensusConfig(f=2),
+                        fault_plan=FaultPlan(dropout=0.1),
+                        **CONSENSUS_CELL).summary()
+
+
+def consensus_port(reps, seed, batch, device):
+    from repro_torch.dist.consensus import ConsensusConfig
+    from repro_torch.dist.faults import FaultPlan
+    from repro_torch.infer import coverage_run
+
+    return coverage_run(estimator="vrmom", reps=reps, batch_size=batch,
+                        seed=seed, consensus=ConsensusConfig(f=2),
+                        fault_plan=FaultPlan(dropout=0.1), device=device,
+                        **CONSENSUS_CELL).summary()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--package", choices=("repro", "repro_torch"),
@@ -81,22 +116,32 @@ def main(argv=None) -> int:
                     help="replications a chunk (repro: 12, as the record; "
                          "the port: 240)")
     ap.add_argument("--device", default=None)
+    ap.add_argument("--cell", choices=("regimes", "consensus"),
+                    default="regimes")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT / "src"))
+    if args.cell == "consensus":
+        args.attack, args.arm = "alie", "vrmom"
     covs = []
     for seed in args.seeds:
         t0 = time.perf_counter()
-        if args.package == "repro":
+        if args.cell == "consensus" and args.package == "repro":
+            s = consensus_repro(args.reps, seed, args.batch or 12)
+        elif args.cell == "consensus":
+            s = consensus_port(args.reps, seed, args.batch or 240,
+                               args.device)
+        elif args.package == "repro":
             s = cell_repro(args.attack, args.arm, args.reps, seed,
                            args.batch or 12)
         else:
             s = cell_port(args.attack, args.arm, args.reps, seed,
                           args.batch or 240, args.device)
         covs.append(s["coverage"])
-        print(json.dumps({"package": args.package, "attack": args.attack,
-                          "arm": args.arm, "seed": seed, "reps": args.reps,
+        print(json.dumps({"package": args.package, "cell": args.cell,
+                          "attack": args.attack, "arm": args.arm,
+                          "seed": seed, "reps": args.reps,
                           "coverage": s["coverage"],
-                          "mean_width": s["mean_width"],
+                          "mean_width": s["mean_width"], "rmse": s["rmse"],
                           "seconds": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"package": args.package, "attack": args.attack,
                       "arm": args.arm, "seeds": args.seeds,

@@ -256,7 +256,8 @@ def rcsl(problem, shards: Shards, generator: Optional[torch.Generator] = None,
          alpha: float = 0.0, attack: str = "none", aggregator="vrmom",
          K: int = 10, scale="master", rounds: int = 10,
          tol: Optional[float] = 1e-4, theta0=None, labelflip: bool = False,
-         reduce_backend: str = "direct", **agg_kwargs
+         reduce_backend: str = "direct", consensus=None, fault_plan=None,
+         fault_generator: Optional[torch.Generator] = None, **agg_kwargs
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run Algorithm 1 on the shards' device. Returns (theta_T [.., p],
     theta trajectory [.., rounds+1, p]).
@@ -270,20 +271,37 @@ def rcsl(problem, shards: Shards, generator: Optional[torch.Generator] = None,
     triggers, the trajectory repeats the converged iterate and the round
     count stays fixed, as in ``repro``'s scan.
 
-    ``reduce_backend="consensus"`` (the peer-to-peer consensus wire) is not
-    ported yet (ROADMAP.md, queue A6).
+    ``reduce_backend="consensus"`` replaces the master's one-shot
+    aggregation (step 3) with the peer-to-peer consensus iteration
+    (``dist.consensus``): every machine f-trims and averages what it hears
+    until eps-agreement, under an optional ``dist.faults.FaultPlan``, and
+    the Byzantine rows re-broadcast their corrupted payload every round.
+    The master-scale VRMOM special case does not apply there (the rounds
+    run the Estimator, backend ``"torch"``, with its own MAD scale);
+    ``consensus`` is a ``dist.consensus.ConsensusConfig`` (by default ``f``
+    follows ``alpha``). The rounds' dropout comes from ``fault_generator``
+    (one seeded 0 when None), apart from ``generator``, so the attack
+    draws are the direct backend's; each replication draws its own.
     """
-    if reduce_backend == "consensus":
-        raise NotImplementedError(
-            "rcsl: reduce_backend='consensus' is not ported to repro_torch "
-            "yet (the consensus backend: ROADMAP.md, queue A6)")
-    if reduce_backend != "direct":
+    if reduce_backend not in ("direct", "consensus"):
         raise ValueError(f"unknown reduce_backend {reduce_backend!r}; "
                          "known: ('direct', 'consensus')")
     X, Y = shards.X, shards.Y
     m1 = X.shape[-3]
     mask = attacks.byzantine_mask(m1, alpha, device=X.device)
     attacks.get(attack)  # an unknown name raises before any compute
+    if reduce_backend == "consensus":
+        from ..dist.consensus import ConsensusConfig, consensus_aggregate
+
+        est_c = Estimator.coerce(aggregator, backend="torch", **agg_kwargs)
+        if isinstance(aggregator, str) and est_c.method == "vrmom":
+            est_c = est_c._replace(K=K)
+        if consensus is None:
+            n_byz = int(alpha * (m1 - 1))
+            consensus = ConsensusConfig(f=max(n_byz, 1) if m1 > 5 else 0)
+        consensus.validate(m1)
+        if fault_generator is None:
+            fault_generator = torch.Generator(device=X.device).manual_seed(0)
     X0, Y0 = X[..., 0, :, :], Y[..., 0, :]
     if theta0 is None:
         theta0 = problem.init_theta(X0, Y0)
@@ -303,10 +321,17 @@ def rcsl(problem, shards: Shards, generator: Optional[torch.Generator] = None,
         if not labelflip:
             grads = attacks.attack_stack(attack, generator, grads, mask,
                                          axis=grads.ndim - 2)
-        psg = problem.per_sample_grads(theta, X0, Y0) if master else None
-        gbar = aggregate_gradients(grads, aggregator=aggregator, K=K,
-                                   scale=scale, per_sample_grads_master=psg,
-                                   **agg_kwargs)
+        if reduce_backend == "consensus":
+            gbar, _ = consensus_aggregate(
+                grads.float(), est_c, config=consensus, plan=fault_plan,
+                generator=fault_generator, pin_mask=mask)
+            gbar = gbar.to(grads.dtype)
+        else:
+            psg = problem.per_sample_grads(theta, X0, Y0) if master else None
+            gbar = aggregate_gradients(grads, aggregator=aggregator, K=K,
+                                       scale=scale,
+                                       per_sample_grads_master=psg,
+                                       **agg_kwargs)
         g0 = grads[..., 0, :]
         theta_new = problem.master_solve(theta, X0, Y0, g0 - gbar)
         if tol is not None:

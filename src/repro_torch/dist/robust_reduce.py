@@ -34,10 +34,18 @@ emulated, so there is no wire:
   (``auto_gm``; one ``[C]`` f32 iterate, each pass the distances from it
   and the next iterate) block by block. Only the f32 summation order
   differs from ``repro``.
+* ``aggregate_stacked_auto(reduce_backend="consensus")`` and
+  ``aggregate(mode="stacked-consensus")`` — the peer-to-peer consensus
+  emulation (``dist.consensus``) on the stacked tree. ``repro`` ravels it
+  onto the same f32 ``[W, C]`` wire; this one runs every round on a column
+  block before the next block (the rounds are coordinate-wise, so that is
+  exact): one set of reception matrices serves every block, the spreads
+  are maxima over blocks, and the stragglers' history and the pinned
+  rows' ``v0`` are kept per block. One card is one worker rank of
+  ``repro``'s ``shard_map`` wire, which ``repro`` proves equal to the
+  emulation.
 * ``aggregate_symmetric_stacked`` — the inference layer's stacks of
   symmetric matrices.
-
-The consensus backend raises, naming ROADMAP.md's A6 (A6b).
 """
 from __future__ import annotations
 
@@ -49,6 +57,7 @@ import torch
 from ..core import adaptive as AD
 from ..core import aggregators as AG
 from ..core.estimator import Estimator
+from ..obs.trace import named_span
 from ..tree import leaves as _leaves, tree_map, unflatten as _unflatten
 from . import ctx as CTX
 
@@ -94,31 +103,76 @@ def _aggregate_leaf(est: Estimator, g):
 
 def aggregate_stacked_auto(grads, est: EstimatorLike = "vrmom", *,
                            with_diag: bool = False,
-                           reduce_backend: str = "direct"):
+                           reduce_backend: str = "direct", consensus=None,
+                           plan=None, generator=None, draws=None,
+                           pin_mask=None):
     """The estimator on every leaf of a stacked tree (leaves ``[W, ...]``,
     or one such tensor); returns the aggregate without the worker dim,
     and with ``with_diag`` the pair ``(aggregate,
     obs.diag.AggDiagnostics)``. An adaptive estimator takes the full-row
     adaptive wire (its census needs complete worker rows: a census per
-    leaf would fragment the signal). ``reduce_backend="consensus"``
-    (peer-to-peer approximate consensus) is not ported (A6b)."""
-    if reduce_backend == "consensus":
-        raise NotImplementedError(
-            "reduce_backend='consensus' is not ported yet (the consensus "
-            "backend: ROADMAP.md, A6)")
-    if reduce_backend != "direct":
+    leaf would fragment the signal).
+
+    ``reduce_backend="consensus"`` swaps the one-shot estimator for the
+    peer-to-peer consensus emulation on the block-by-block wire of the
+    module docstring, under ``consensus`` (a ``ConsensusConfig``) and the
+    optional ``plan`` (a ``FaultPlan``), its dropout drawn from
+    ``generator`` or handed in as ``draws`` ``[p_end, W, W]``; ``pin_mask``
+    [W] marks persistent Byzantine senders. It returns ``(tree,
+    ConsensusAux)``, with ``with_diag`` the diagnostics last; each leaf
+    comes back in its dtype."""
+    if reduce_backend not in ("direct", "consensus"):
         raise ValueError(f"unknown reduce_backend {reduce_backend!r}; "
                          "known: ('direct', 'consensus')")
     est = Estimator.coerce(est)
     if est.adaptive:
         est.require_stackable("full-stack aggregation (dist.robust_reduce)")
-        out = _adaptive_wire(grads, est)[0]
     else:
         est = _wire_estimator(est)
+    if reduce_backend == "consensus":
+        out, aux = _consensus_wire(grads, est, consensus, plan, generator,
+                                   draws, pin_mask)
+        if with_diag:
+            return out, aux, _with_tree_diag(grads, out)[1]
+        return out, aux
+    if est.adaptive:
+        out = _adaptive_wire(grads, est)[0]
+    else:
         out = tree_map(lambda g: _aggregate_leaf(est, g), grads)
     if with_diag:
         return _with_tree_diag(grads, out)
     return out
+
+
+def _consensus_wire(grads, est: Estimator, config, plan, generator, draws,
+                    pin_mask):
+    """(tree, ConsensusAux): ``dist.consensus``' run and decision on the
+    raveled ``[W, C]`` stack of a tree, one ``WIRE_CHUNK`` column block at
+    a time (module docstring)."""
+    from . import consensus as CS
+
+    leaves = list(_leaves(grads))
+    W, dev = leaves[0].shape[0], leaves[0].device
+    est, config, plan = CS._prep(W, est, config, plan)
+    p_end = config.phases(plan)
+    views = CS._round_views(plan, W, p_end, W - config.f, draws=draws,
+                            generator=generator, device=dev)
+    pin = CS._pin(pin_mask, W, dev)
+    honest_end = CS._honest_end(plan, W, p_end, pin, dev)
+    outs = [torch.empty(g.shape[1:], dtype=g.dtype, device=g.device)
+            for g in leaves]
+    spreads = final = None
+    with named_span("consensus.round_loop"):
+        for _, i, cols, block in _blocks(leaves):
+            finals, sp = CS._iterate(block.float(), est, config, plan, views,
+                                     pin)
+            fs = CS._spread(finals, honest_end)
+            spreads = sp if spreads is None else torch.maximum(spreads, sp)
+            final = fs if final is None else torch.maximum(final, fs)
+            outs[i].view(-1)[cols] = CS._decide(finals, config, plan,
+                                                pin is not None)
+    return (_unflatten(grads, outs),
+            CS._aux(views, spreads, final, config.eps, ()))
 
 
 def aggregate_stacked_adaptive(grads, state, est: EstimatorLike, *,
@@ -255,7 +309,9 @@ def _adaptive_wire(grads, est: Estimator, state=None, *,
 
 
 def aggregate(grads, *, mode: str = "stacked-rrs",
-              est: EstimatorLike = "vrmom", with_diag: bool = False):
+              est: EstimatorLike = "vrmom", with_diag: bool = False,
+              consensus=None, plan=None, generator=None, draws=None,
+              pin_mask=None):
     """Mode dispatcher of ``train/step.py``: ``stacked-rrs`` and
     ``stacked-auto`` (``auto``) run ``aggregate_stacked_auto`` (one card
     is one worker rank of ``repro``'s RRS wire, where ``repro`` itself
@@ -263,11 +319,22 @@ def aggregate(grads, *, mode: str = "stacked-rrs",
     coordinate-wise, as that wire does); ``mean`` is the plain mean over
     the workers, the non-robust baseline, accumulated in f32 without an
     f32 copy of the stack. ``with_diag`` returns ``(aggregate,
-    AggDiagnostics)`` for every mode."""
+    AggDiagnostics)`` for every mode. ``stacked-consensus`` runs the
+    consensus backend (``aggregate_stacked_auto``'s consensus arguments;
+    ``(aggregate, ConsensusAux[, diag])``); a single worker has nothing to
+    disagree about and runs it with f = 0, as ``repro``'s wire does."""
     if mode == "stacked-consensus":
-        raise NotImplementedError(
-            "mode 'stacked-consensus' is not ported yet (the consensus "
-            "backend: ROADMAP.md, A6)")
+        W = next(iter(_leaves(grads))).shape[0]
+        cfg = consensus
+        if W <= 1:
+            from .consensus import ConsensusConfig
+
+            cfg = (cfg if cfg is not None else ConsensusConfig())._replace(
+                f=0)
+        return aggregate_stacked_auto(
+            grads, est, with_diag=with_diag, reduce_backend="consensus",
+            consensus=cfg, plan=plan, generator=generator, draws=draws,
+            pin_mask=pin_mask)
     if mode == "stacked-rrs":
         est = _wire_estimator(est)
     if mode in ("stacked-rrs", "stacked-auto", "auto"):

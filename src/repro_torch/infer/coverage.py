@@ -75,6 +75,9 @@ def coverage_run(
     seed: int = 0,
     batch_size: int = 16,
     device=None,
+    reduce_backend: str = "direct",
+    consensus=None,
+    fault_plan=None,
     assumed_alpha: Optional[float] = None,
 ) -> CoverageCell:
     """Run one coverage cell; see the module docstring.
@@ -83,11 +86,18 @@ def coverage_run(
     ``device="cpu"`` runs the plain path on the host. ``assumed_alpha``:
     the contamination the analyst plugs into the CI inflation, apart from
     the true ``alpha`` (``infer``'s knob; ``None`` assumes the truth).
+    ``reduce_backend="consensus"`` runs every RCSL round's aggregation
+    through the peer-to-peer consensus emulation (``dist.consensus``)
+    under ``consensus`` (a ``ConsensusConfig``) and ``fault_plan`` (a
+    ``FaultPlan``), a chunk's replications in one call, each with its own
+    dropout, drawn from a generator of their own seeded from ``seed``.
     Replicating over several devices (``repro``'s ``mesh``) is not ported
     (ROADMAP.md, queue A5).
     """
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    # the consensus rounds' draws: a stream apart from the data and attacks
+    fault_gen = torch.Generator(device=dev).manual_seed(seed + (1 << 32))
     theta_star = R.paper_theta_star(p, device=dev)
     problem = (R.LinearRegressionProblem() if model == "linear"
                else R.LogisticRegressionProblem())
@@ -100,7 +110,10 @@ def coverage_run(
                                mu_x=mu_x, reps=b, device=dev)
         theta_hat, _ = R.rcsl(problem, shards, gen, alpha=alpha,
                               attack=attack, aggregator=estimator, K=K,
-                              rounds=rounds, labelflip=labelflip)
+                              rounds=rounds, labelflip=labelflip,
+                              reduce_backend=reduce_backend,
+                              consensus=consensus, fault_plan=fault_plan,
+                              fault_generator=fault_gen)
         shards_rep, stat_attack = shards, attack
         if labelflip:
             # Label-flip Byzantine machines report *honest* statistics

@@ -19,6 +19,12 @@ count takes the place of ``repro``'s mesh.
   adaptive estimator (``auto_gm``, ``vrmom_adaptive``) aggregates the whole
   stack with ``dist.robust_reduce.aggregate_stacked_adaptive`` and an
   explicit ``AdaptiveState`` carry (``TrainSetup.init_state``).
+* **stacked-consensus** (``reduce_backend="consensus"``): the stacked
+  wire through the peer-to-peer consensus emulation
+  (``dist.consensus``), under a ``ConsensusConfig`` and an optional
+  ``FaultPlan``; the attacked rows are pinned (they re-send their payload
+  every round) and the dropout is drawn from the step's generator after
+  the attack's. The step returns a ``ConsensusAux`` after the loss.
 * **inloop**: one global backward under ``robust_backward``; every
   3-D x 2-D product aggregates its weight gradient over the workers in
   the backward (``repro``'s IB-RRS), with ``repro``'s strided micro-split
@@ -147,13 +153,16 @@ def make_train_step(cfg, n_workers: int, *, estimator=Estimator(),
                     attack: str = "gaussian",
                     microbatch: Optional[int] = None,
                     with_diag: bool = False, reduce_backend: str = "rrs",
+                    consensus=None, fault_plan=None,
                     weights_beta: float = 0.5, momentum: float = 0.0,
                     device=None) -> TrainSetup:
     """The step ``step_fn(params, opt_state, batch, generator=None,
-    agg_state=None) -> (params, opt_state, loss[, agg_state][, diag])``,
+    agg_state=None) -> (params, opt_state, loss[, agg_state][, caux][,
+    diag])``,
     updating ``params`` and ``opt_state`` in place and returning them.
     ``generator``: a ``torch.Generator`` on the device, read by the random
-    attacks (``gaussian``), where ``repro`` takes a PRNG key.
+    attacks (``gaussian``) and then by the consensus backend's dropout,
+    where ``repro`` takes a PRNG key.
 
     ``estimator``: a ``core.estimator.Estimator`` or a method name.
     ``microbatch``: gradient-accumulation steps per worker (None: one
@@ -164,8 +173,12 @@ def make_train_step(cfg, n_workers: int, *, estimator=Estimator(),
     ``stacked-adaptive``: the step then takes an ``AdaptiveState`` as
     ``agg_state`` (``TrainSetup.init_state()`` makes the first) and returns
     the new one after the loss; ``weights_beta`` and ``momentum`` are its
-    EMA knobs. ``reduce_backend="consensus"`` is not ported (ROADMAP.md,
-    A6b)."""
+    EMA knobs. ``reduce_backend="consensus"`` reroutes a stacked mode
+    through the consensus backend (``stacked-consensus``) with
+    ``consensus`` (a ``ConsensusConfig``; by default f =
+    ``max(int(byzantine_frac * (W - 1)), 1)``, validated here when W > 1)
+    and ``fault_plan`` (a ``FaultPlan``); the step then returns the
+    ``ConsensusAux`` after the loss."""
     device = resolve_device(device)
     est = Estimator.coerce(estimator)
     if mode not in MODES:
@@ -178,25 +191,35 @@ def make_train_step(cfg, n_workers: int, *, estimator=Estimator(),
     if reduce_backend not in ("rrs", "consensus"):
         raise ValueError(f"unknown reduce_backend {reduce_backend!r}; "
                          "known: ('rrs', 'consensus')")
+    if n_workers < 1:
+        raise ValueError(f"n_workers must be >= 1, got {n_workers}")
+    if reduce_backend == "consensus":
+        from ..dist.consensus import ConsensusConfig
+
+        if mode == "inloop":
+            raise ValueError(
+                "reduce_backend='consensus' needs the materialized "
+                "stacked wire; inloop (IB-RRS) aggregates inside the "
+                "backward pass. Use a stacked mode.")
+        mode = "stacked-consensus"
+        if consensus is None:
+            consensus = ConsensusConfig(
+                f=max(int(byzantine_frac * (n_workers - 1)), 1))
+        if n_workers > 1:
+            consensus.validate(n_workers)  # fail at build, not in a step
     if est.adaptive:
         if mode == "inloop":
             raise ValueError(
                 "adaptive estimators need the materialized stacked wire; "
                 "inloop (IB-RRS) aggregates inside the backward pass. "
                 "Use a stacked mode.")
-        if reduce_backend == "consensus":
+        if mode == "stacked-consensus":
             raise ValueError(
                 "adaptive estimators are unavailable on the consensus "
                 "backend: peer rounds exchange coordinate slices, never "
                 "complete worker rows (DESIGN.md §13). Use "
                 "reduce_backend='rrs'.")
         mode = "stacked-adaptive"
-    if reduce_backend == "consensus":
-        raise NotImplementedError(
-            "reduce_backend='consensus' is not ported yet (the consensus "
-            "backend: ROADMAP.md, A6)")
-    if n_workers < 1:
-        raise ValueError(f"n_workers must be >= 1, got {n_workers}")
     optimizer = optimizer or O.get(cfg.optimizer, lr=lr)
     init_state = None
     if est.adaptive:
@@ -228,7 +251,7 @@ def make_train_step(cfg, n_workers: int, *, estimator=Estimator(),
 
     def train_step(params, opt_state, batch, generator=None,
                    agg_state=None):
-        diag = new_state = None
+        diag = new_state = caux = None
         if mode == "stacked-adaptive" and agg_state is None:
             raise ValueError("an adaptive estimator's step needs agg_state "
                              "(TrainSetup.init_state())")
@@ -249,6 +272,14 @@ def make_train_step(cfg, n_workers: int, *, estimator=Estimator(),
                         weights_beta=weights_beta, momentum=momentum)
                     agg, new_state = res[:2]
                     diag = res[2] if with_diag else None
+                elif mode == "stacked-consensus":
+                    res = RR.aggregate(
+                        grads, mode=mode, est=est, with_diag=with_diag,
+                        consensus=consensus, plan=fault_plan,
+                        generator=generator,
+                        pin_mask=mask if n_byz else None)
+                    agg, caux = res[:2]
+                    diag = res[2] if with_diag else None
                 else:
                     agg = RR.aggregate(grads, mode=mode, est=est,
                                        with_diag=with_diag)
@@ -260,6 +291,8 @@ def make_train_step(cfg, n_workers: int, *, estimator=Estimator(),
         out = (params, opt_state, loss)
         if new_state is not None:
             out = out + (new_state,)
+        if caux is not None:
+            out = out + (caux,)
         return out + (diag,) if with_diag else out
 
     return TrainSetup(step_fn=train_step, n_workers=n_workers,

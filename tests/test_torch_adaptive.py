@@ -574,7 +574,7 @@ def test_wire_refusals():
         RR.aggregate_stacked_auto(g, "krum")
     with pytest.raises(ValueError, match="whole-vector"):
         RR.aggregate(g, mode="stacked-rrs", est="auto_gm")
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="whole-vector"):
         RR.aggregate_stacked_auto(g, "auto_gm", reduce_backend="consensus")
     with pytest.raises(ValueError, match="whole-vector"):
         with RR.robust_backward(4, "vrmom_adaptive"):

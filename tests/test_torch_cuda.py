@@ -1354,3 +1354,118 @@ def test_cuda_chunked_census_equals_unchunked(cuda, monkeypatch):
                     leaves(outs[1 << 22]["auto_gm"])):
         torch.testing.assert_close(a.float(), b.float(), rtol=1e-2,
                                    atol=1e-2)
+
+
+# -- the consensus backend (dist.consensus): B1 a fault-free round ------------
+
+def _consensus_same(a, b):
+    """Consensus outputs and aux bitwise (aux fields moved to the CPU)."""
+    from repro_torch.tree import leaves
+
+    out_a, aux_a = a
+    out_b, aux_b = b
+    for x, y in zip(leaves(out_a), leaves(out_b)):
+        torch.testing.assert_close(x.cpu(), y.cpu(), rtol=0, atol=0,
+                                   equal_nan=True)
+    for name in aux_a._fields:
+        torch.testing.assert_close(getattr(aux_a, name).cpu(),
+                                   getattr(aux_b, name).cpu(), rtol=0,
+                                   atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_consensus_fault_free_is_the_direct_aggregate(cuda, method,
+                                                           dtype):
+    """Fault-free consensus on the card (trim mean, no pin) is the port's
+    direct aggregate bit for bit, leaf by leaf in its dtype, and launches
+    B1 once a column block (rows equal after round 1 are not aggregated
+    again); with a pinned row every round runs B1 on each block."""
+    from repro_torch.dist import robust_reduce as RR
+    from repro_torch.dist.consensus import ConsensusConfig
+    from repro_torch.tree import leaves
+
+    est = Estimator(method, beta=0.25)
+    g = {"a": _stack(70, (8, 30, 70), cuda).to(dtype),
+         "b": _stack(71, (8, 5001), cuda).to(dtype)}
+    cfg = ConsensusConfig(f=1)
+    reset_launch_counts()
+    got = RR.aggregate_stacked_auto(g, est, reduce_backend="consensus",
+                                    consensus=cfg)
+    n_b1 = launch_counts()["aggregate"]
+    direct = RR.aggregate_stacked_auto(g, est)
+    for x, y in zip(leaves(got[0]), leaves(direct)):
+        assert x.dtype == dtype
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    assert int(got[1].rounds_to_eps) <= 1
+    if method != "mean":  # "auto" runs the mean on the ref backend
+        assert n_b1 == 2
+        reset_launch_counts()
+        RR.aggregate_stacked_auto(g, est, reduce_backend="consensus",
+                                  consensus=cfg,
+                                  pin_mask=torch.arange(8) >= 7)
+        assert launch_counts()["aggregate"] == 2 * cfg.phases()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trim", ["mean", "midpoint"])
+@pytest.mark.parametrize("pinned", [False, True])
+def test_cuda_consensus_fault_path_matches_the_cpu(cuda, trim, pinned):
+    """The fault path on the card (dropout, a crash and stragglers; the
+    per-receiver masked trim by the compare-exchange network) equals the
+    CPU plain path on the same draws bit for bit, batched over three
+    replications, finals, decision and aux."""
+    from repro_torch.core import attacks as TA
+    from repro_torch.dist.consensus import (ConsensusConfig,
+                                            consensus_aggregate,
+                                            consensus_iterate)
+    from repro_torch.dist.faults import FaultPlan
+
+    plan = FaultPlan(dropout=0.2, n_crashed=1, crash_round=3,
+                     n_stragglers=1, stale_rounds=2)
+    cfg = ConsensusConfig(f=1, trim=trim)
+    x = _stack(72, (3, 8, 4099), "cpu")
+    pin = torch.arange(8) >= 7 if pinned else None
+    if pinned:
+        x = TA.attack_stack("alie", None, x, pin, axis=1)
+    draws = torch.rand((3, cfg.phases(plan), 8, 8),
+                       generator=torch.Generator().manual_seed(5))
+    out = {}
+    for dev in ("cpu", cuda):
+        kw = dict(config=cfg, plan=plan, draws=draws.to(dev),
+                  pin_mask=None if pin is None else pin.to(dev))
+        out[str(dev)] = (consensus_iterate(x.to(dev), "vrmom", **kw),
+                         consensus_aggregate(x.to(dev), "vrmom", **kw))
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        _consensus_same(({"v": a[0]}, a[1]), ({"v": b[0]}, b[1]))
+
+
+@pytest.mark.cuda
+def test_cuda_consensus_blocked_wire_matches_the_cpu(cuda, monkeypatch):
+    """The blocked consensus wire on the card (a bf16 and an f32 leaf,
+    blocks of 1000 columns, dropout, stragglers, a pinned row; the draws
+    from a generator on the card handed to the CPU run) equals the CPU
+    wire bit for bit; at any block size the card's wire gives the same
+    bits."""
+    from repro_torch.dist import robust_reduce as RR
+    from repro_torch.dist.consensus import ConsensusConfig
+    from repro_torch.dist.faults import FaultPlan
+
+    plan = FaultPlan(dropout=0.1, n_stragglers=2, stale_rounds=2)
+    cfg = ConsensusConfig(f=1)
+    g = {"a": _stack(73, (8, 40, 70), "cpu").to(torch.bfloat16),
+         "b": _stack(74, (8, 2500), "cpu")}
+    pin = torch.arange(8) >= 7
+    draws = plan.uniforms(8, cfg.phases(plan), generator=torch.Generator(
+        device=cuda).manual_seed(6), device=cuda)
+    res = {}
+    for chunk in (1000, 1 << 22):
+        monkeypatch.setattr(RR, "WIRE_CHUNK", chunk)
+        for dev in ("cpu", cuda):
+            res[(chunk, str(dev))] = RR.aggregate_stacked_auto(
+                _to(g, dev), "vrmom", reduce_backend="consensus",
+                consensus=cfg, plan=plan, draws=draws.to(dev),
+                pin_mask=pin.to(dev))
+    _consensus_same(res[(1000, "cpu")], res[(1000, str(cuda))])
+    _consensus_same(res[(1000, str(cuda))], res[(1 << 22, str(cuda))])

@@ -96,6 +96,8 @@ def test_training_entry_points_need_a_device_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_train_step(cfg, 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(cfg, 8, reduce_backend="consensus")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_train.main(["--arch", "qwen3-1.7b", "--reduced",
                            "--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -104,6 +106,8 @@ def test_training_entry_points_need_a_device_without_a_card(no_card):
         convert.opt_state_from_jax({}, cfg)
     setup = make_train_step(cfg, 4, device="cpu")
     assert setup.device.type == "cpu"
+    assert make_train_step(cfg, 8, reduce_backend="consensus",
+                           device="cpu").device.type == "cpu"
     assert lm_batch(cfg, 0, 2, 8, device="cpu")["tokens"].device.type == \
         "cpu"
 
@@ -113,6 +117,8 @@ def test_paper_path_needs_a_device_without_a_card(no_card):
     unless given a device; rcsl runs where its tensors live."""
     with pytest.raises(RuntimeError, match="no CUDA device"):
         coverage_run(reps=2, batch_size=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        coverage_run(reps=2, batch_size=2, reduce_backend="consensus")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_shards(0, N_per_machine=10, m_workers=3, p=2,
                     theta_star=torch.ones(2))
@@ -126,6 +132,10 @@ def test_paper_path_needs_a_device_without_a_card(no_card):
     cell = coverage_run(reps=2, N_per_machine=20, m_workers=4, p=2,
                         rounds=1, batch_size=2, attack="none", alpha=0.0,
                         device="cpu")
+    assert cell.covered.device.type == "cpu"
+    cell = coverage_run(reps=2, N_per_machine=20, m_workers=6, p=2,
+                        rounds=1, batch_size=2, attack="none", alpha=0.0,
+                        reduce_backend="consensus", device="cpu")
     assert cell.covered.device.type == "cpu"
 
 

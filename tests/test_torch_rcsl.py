@@ -300,10 +300,19 @@ def test_rcsl_batched_equals_separate_runs(attack, agg, scale):
 
 
 def test_rcsl_rejects_consensus_and_unknown_backends():
+    """The consensus backend runs (tests/test_torch_consensus.py holds it
+    against repro) and refuses a config the peers cannot tolerate before
+    any compute; an unknown backend raises."""
+    from repro_torch.dist.consensus import ConsensusConfig
+
     X, Y, _ = _lin_data(16)
     sh = TR.Shards(_t(X), _t(Y))
-    with pytest.raises(NotImplementedError, match="A6"):
-        TR.rcsl(TR.LinearRegressionProblem(), sh, reduce_backend="consensus")
+    theta, traj = TR.rcsl(TR.LinearRegressionProblem(), sh, rounds=2,
+                          reduce_backend="consensus")
+    assert traj.shape == (3, 4) and torch.isfinite(traj).all()
+    with pytest.raises(ValueError, match="n > 5f"):
+        TR.rcsl(TR.LinearRegressionProblem(), sh, reduce_backend="consensus",
+                consensus=ConsensusConfig(f=3))
     with pytest.raises(ValueError, match="reduce_backend"):
         TR.rcsl(TR.LinearRegressionProblem(), sh, reduce_backend="gossip")
 

@@ -443,17 +443,31 @@ def test_inloop_step_and_its_refusals():
         make_train_step(tcfg, W, mode="inloop", with_diag=True, device="cpu")
     with pytest.raises(ValueError, match="divisible"):
         setup.step_fn(tp, to, _tbatch(tcfg, 0, 6))
-    with pytest.raises(NotImplementedError, match="A6"):
+    # the consensus backend runs (tests/test_torch_consensus.py); at W = 4
+    # the default f = 1 is refused at build (n > 5f), f = 0 steps
+    from repro_torch.dist.consensus import ConsensusConfig
+
+    with pytest.raises(ValueError, match="n > 5f"):
         make_train_step(tcfg, W, reduce_backend="consensus", device="cpu")
+    cons = make_train_step(tcfg, W, reduce_backend="consensus",
+                           consensus=ConsensusConfig(f=0), device="cpu")
+    p3 = _tparams(jp, tcfg)
+    _, _, loss, caux = cons.step_fn(p3, cons.optimizer.init(p3),
+                                    _tbatch(tcfg, 0))
+    assert np.isfinite(float(loss)) and not bool(caux.quorum_lost)
     # the adaptive tier needs the stacked wire, as in repro
     with pytest.raises(ValueError, match="materialized stacked wire"):
         make_train_step(tcfg, W, estimator="vrmom_adaptive", mode="inloop",
                         device="cpu")
+    # at 8 workers (at W = 4 the n > 5f refusal comes first, as in repro)
     with pytest.raises(ValueError, match="consensus backend"):
-        make_train_step(tcfg, W, estimator="auto_gm",
+        make_train_step(tcfg, 8, estimator="auto_gm",
                         reduce_backend="consensus", device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="n > 5f"):
         RR.aggregate({"a": torch.zeros(4, 3)}, mode="stacked-consensus")
+    out, _ = RR.aggregate({"a": torch.ones(4, 3)}, mode="stacked-consensus",
+                          consensus=ConsensusConfig(f=0))
+    assert torch.equal(out["a"], torch.ones(3))
 
 
 # ---------------------------------------------------------------------------
