@@ -146,6 +146,28 @@ steps under alie on 1 pinned row (its main path, B1 once a block and
 round), the loss finite and quorum kept, the split of a step printed;
 then one step under repro's plan (dropout 0.1, a crash at round 2) at the
 depth its reckoned time allows, printed with the cut; peak memory.
+Phase 10 serves the moe family (``models/moe.py``): (a) granite-moe-3b-
+a800m at full width and depth (32 layers, 40 experts top-8, dh 64, G 3,
+V 49155; seeded bf16 weights) with phase 3's workload: greedy tokens
+identical across none/signflip/gaussian x fused/unfused in each layout;
+for three of those runs (signflip; fused and unfused shared, fused
+replicated) graph = eager, the eager loop's launches (the wrappers'
+counts) and each traced generate's what the step implies kernel by
+kernel (``graph_traced``), shared vs replicated held by
+``layout_check`` (past LAYOUT_TOL only after a router near-tie), the
+B2 <64> and B3 <64, 8> instances read from a trace, the (token, slot)
+pairs capacity dropped in the prefill counted, decode ms/token, capture,
+launches and busy share beside the weight bound; (b) the same model
+behind ``Scheduler`` over 8 slots of 512 (16 numpy-seeded requests):
+tokens identical under none/signflip/gaussian, 4 requests against a solo
+generate, drain tok/s and decode-step percentiles; (c) mixtral-8x7b at 4
+of 32 layers, every width as published: graph = eager under none and
+signflip, no B2 launch (its window of 4096 sends the prefill to the plain
+``mha``) and B3 once a layer a step over the 4096-slot ring, and one
+prompt of 4090 tokens whose 24 new ones run the ring past its end, graph
+= eager. B2/B3 at granite's shapes, B3 over mixtral's ring, and B4 (and
+B1) at V 49155 (odd: B4's scalar loads) and 32000 join the ``kernels``
+line.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it lists every kernel with its launches, error and times. Any
@@ -206,6 +228,10 @@ POOL_PROMPT, POOL_NEW = (32, 320), (16, 64)
 # cuBLAS may round a batch-32 product unlike a batch-4 one, and bf16
 # rounds at other places through the depth (phase 3's prefill tolerance)
 LAYOUT_TOL = 5e-2
+# a moe config's two runs may part past LAYOUT_TOL only after a router
+# near-tie flips an expert, where their router probabilities differ by at
+# most this much (rounding; a wrong kernel moves them by ~1/E)
+FLIP_PROB_TOL = 1e-2
 
 # phase 7, training: qwen3-1.7b at full width, W workers emulated on the
 # card, one TRAIN_SEQ-token sequence each; AdamW at repro's defaults;
@@ -239,6 +265,19 @@ CONS_DROPOUTS = (0.0, 0.05, 0.1, 0.2, 0.3, 0.5)
 CONS_ATTACKS = ("alie", "omniscient")
 CONS_REPS, CONS_BATCH = 480, 240
 CONS_STEPS, CONS_FAULT_BUDGET_S = 3, 30.0
+
+# phase 10, the moe family: granite-moe-3b-a800m at full width and depth
+# with phase 3's workload, the (layout, attack, fused) runs of MOE_TRACED
+# held against their eager loops, their generates traced (the rest of the
+# matrix runs its graph generate alone, untraced, to hold the smoke's
+# time), and behind the
+# scheduler (16 requests of phase 6's ranges over 8 slots of 512);
+# mixtral-8x7b at MOE_MIXTRAL_LAYERS of 32 layers, and one prompt whose
+# last tokens run the 4096-slot ring past its end
+MOE_TRACED = (("shared", "signflip", True), ("shared", "signflip", False),
+              ("replicated", "signflip", True))
+MOE_POOL_SLOTS, MOE_POOL_REQUESTS, MOE_POOL_SOLO = 8, 16, 4
+MOE_MIXTRAL_LAYERS, MOE_RING_PROMPT = 4, 4090
 
 
 class CheckFailed(Exception):
@@ -1047,20 +1086,35 @@ def layout_check(torch, cfg, params, batch, max_len, shared, replicated,
     require(t >= 1, "the layouts part at token 0, which both sample off the "
                     "same prefill logits")
     B = shared.shape[0]
+    moe = getattr(cfg, "moe", None) is not None
+    part = None
     with torch.inference_mode():
         _, cs = M.prefill(params, cfg, batch, cache_len=max_len,
                           last_only=True)
         cr = R.flatten_replicas(R.stack_replicas(cs, m), m)
         for i in range(t):
             tok = shared[:, i]
-            ls, cs = M.decode_step(params, cfg, cs, tok)
-            lr, cr = M.decode_step(params, cfg, cr, tok.repeat(m))
+            (ls, cs), ra = routed(lambda: M.decode_step(params, cfg, cs, tok))
+            (lr, cr), rb = routed(lambda: M.decode_step(params, cfg, cr,
+                                                        tok.repeat(m)))
+            if moe and part is None:
+                part = routing_parts(torch, ra, rb, rows=B)
+                part = part and (i,) + part
     ls, lr = ls.float(), lr[:B].float()
     rel = max_err(ls, lr) / float(ls.abs().max())
-    require(rel <= LAYOUT_TOL and bool(torch.isfinite(lr).all()),
-            f"{what} logits at step {t}: max err / max |logit| = {rel}")
+    flip = (part is not None and part[3] and part[5] <= FLIP_PROB_TOL)
+    require((rel <= LAYOUT_TOL or flip) and bool(torch.isfinite(lr).all()),
+            f"{what} logits at step {t}: max err / max |logit| = {rel}; "
+            f"routing parts {part}")
     note = (f"logits at step {t}, teacher-forced: max err / max |logit| = "
             f"{rel:.3g} (tolerance {LAYOUT_TOL})")
+    if part is not None:
+        note += (f"; the routing first parts at step {part[0]}, layer "
+                 f"{part[1]}, {part[2]} rows, near-ties {part[3]} (largest "
+                 f"gap {part[4]:.3g}, largest probability difference "
+                 f"{part[5]:.3g})")
+    if rel > LAYOUT_TOL:
+        return "tokens part after a router near-tie; " + note
     if not len(apart):
         return "tokens identical; " + note
     rows = (shared[:, t] != replicated[:, t]).nonzero()[:, 0].tolist()
@@ -1085,10 +1139,6 @@ def phase_configs(torch, dev, card: str):
     from repro_torch import kernels as K
     from repro_torch.configs import get as get_arch
     from repro_torch.core.estimator import Estimator
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.device import kernel_instance
     from repro_torch.models import model as M
     from repro_torch.serve import RobustDecodeConfig, ServeEngine
 
@@ -1198,22 +1248,9 @@ def phase_configs(torch, dev, card: str):
             torch, cfg, params, batch, max_len, ref,
             res["replicated", "signflip"]["toks"]))
 
-        # ---- the instances that ran, by the device kernels' names: one
-        # trace of a prefill and a decode step (thousands of kernels; the
-        # tracer may drop a trace's first events, so the names are read as
-        # a set, not split per call as kernels_in_calls does)
+        # ---- the instances that ran, by the device kernels' names
         eng = runs["shared"][0][1]
-        _, caches = eng.prefill(batch)
-        with torch.inference_mode(), profile(
-                activities=[ProfilerActivity.CUDA]) as prof:
-            eng.prefill(batch)
-            M.decode_step(params, cfg, caches, ref[:, 0])
-            torch.cuda.synchronize()
-        ran = {ev.name for ev in prof.events()
-               if ev.device_type == DeviceType.CUDA}
-        flash = {kernel_instance(n, "flash_fwd_wgmma") for n in ran} - {None}
-        dec = {kernel_instance(n, "decode_split_kernel")
-               for n in ran} - {None}
+        flash, dec = instances_ran(torch, eng, params, cfg, batch, ref[:, 0])
         want_dec = (dh, 8 if G <= 8 else 16)
         require(flash == {(dh,)} and dec == {want_dec},
                 f"{name}: instances {flash} (B2) and {dec} (B3), expected "
@@ -1272,7 +1309,7 @@ def phase_configs(torch, dev, card: str):
                   f"{rec['plain_ms']:.3f} ms, max err {rec['max_abs_err']:.3g}"
                   f" ({card})")
             records.append(rec)
-        del runs, eng, eng_p, params, caches, lk, lp
+        del runs, eng, eng_p, params, lk, lp
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         print(f"[time] phase 5 {name}: {time.perf_counter() - t_cfg:.1f} s")
@@ -1313,11 +1350,12 @@ def drain(torch, sched, reqs, oversized=None):
             wall)
 
 
-def pool_b3_record(torch, flush, lens, H, Hkv, dh, T, g, dev):
+def pool_b3_record(torch, flush, lens, H, Hkv, dh, T, g, dev, where="pool"):
     """B3 at the pool's shape: q [32, 1, H, dh] over a [32, T, Hkv, dh] bf16
-    cache with the pool's ragged per-row lengths, against its plain
-    version, timed beside SDPA with the same per-row mask. The bound counts
-    the cache rows the lengths reach."""
+    cache with the pool's ragged per-row lengths (or another batch and its
+    lengths, named by ``where``), against its plain version, each row
+    bitwise as at batch 1, timed beside SDPA with the same per-row mask.
+    The bound counts the cache rows the lengths reach."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import (decode_attention,
@@ -1333,17 +1371,19 @@ def pool_b3_record(torch, flush, lens, H, Hkv, dh, T, g, dev):
     rows = [decode_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
                              kv_len=lens[i:i + 1]) for i in range(B)]
     require(torch.equal(out, torch.cat(rows)),
-            "B3 at batch 32 with ragged lengths differs bitwise from the "
-            "same rows at batch 1")
+            f"B3 at batch {B} ({where}) differs bitwise from the same rows "
+            f"at batch 1")
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
     mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[
         :, None, None, :]
     keys = int(lens.sum())
     b = bound(2 * (2 * keys * Hkv * dh + 2 * q.numel()), 4 * dh * H * keys)
     return dict(
-        name=f"B3 decode_attention (pool: q [{B},1,{H},{dh}], cache "
-             f"[{B},{T},{Hkv},{dh}] bf16, ragged lengths {int(lens.min())}.."
-             f"{int(lens.max())})", route="cuda",
+        name=f"B3 decode_attention ({where}: q [{B},1,{H},{dh}], cache "
+             f"[{B},{T},{Hkv},{dh}] bf16, " + (
+                 f"lengths {int(lens.min())}" if bool((lens == lens[0]).all())
+                 else f"ragged lengths {int(lens.min())}..{int(lens.max())}")
+             + ")", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:158",
         max_abs_err=max_err(out, ref),
@@ -1356,10 +1396,13 @@ def pool_b3_record(torch, flush, lens, H, Hkv, dh, T, g, dev):
             qt, kt, vt, attn_mask=mask, enable_gqa=True), torch, flush))
 
 
-def pool_tail_records(torch, flush, B, V, g, dev):
+def pool_tail_records(torch, flush, B, V, g, dev, where=None,
+                      b1_what="pool's temperature tail"):
     """B4 greedy with ``with_agg`` (the obs path) and B1 (the temperature
     tail) on the pool's [8, B, V] f32 stack, each against its plain
-    version, bitwise."""
+    version, bitwise. With ``where`` (another path's name) the B4 record
+    times B4 greedy without the aggregate, as that path runs it, and
+    ``b1_what`` names B1's use there."""
     from repro_torch.kernels.vrmom import (aggregate, aggregate_plain,
                                            aggregate_sample,
                                            aggregate_sample_plain)
@@ -1376,24 +1419,29 @@ def pool_tail_records(torch, flush, B, V, g, dev):
             and torch.equal(b1, b1_p),
             f"B4 with_agg / B1 at [8,{B},{V}] differ from their plain "
             f"versions, from each other, or with_agg changed the tokens")
-    b4 = bound(x.numel() * 4 + B * V * 4 + B * 4)
+    with_agg = where is None
+    b4 = bound(x.numel() * 4 + B * 4 + (B * V * 4 if with_agg else 0))
     b1b = bound(x.numel() * 4 + B * V * 4)
     src = dict(route="cuda", source="src/repro_torch/kernels/csrc/vrmom.cu",
                library_ms=None)
     return {
         "aggregate_sample": dict(
-            src, name=f"B4 aggregate_sample (vrmom greedy with_agg, pool: "
-                      f"m=8, [8,{B},{V}] f32)",
+            src, name=(f"B4 aggregate_sample (vrmom greedy with_agg, pool: "
+                       f"m=8, [8,{B},{V}] f32)" if with_agg else
+                       f"B4 aggregate_sample (vrmom greedy, {where}: m=8, "
+                       f"[8,{B},{V}] f32)"),
             replaces="src/repro/kernels/vrmom.py:242",
             max_abs_err=max_err(agg, agg_p),
             ms=timed_ms(lambda: aggregate_sample(x, "vrmom", K=8,
-                                                 with_agg=True), torch, flush),
-            plain_ms=timed_ms(lambda: aggregate_sample_plain(x, "vrmom", K=8),
-                              torch, flush, iters=5, spin=PLAIN_SPIN_CYCLES),
+                                                 with_agg=with_agg), torch,
+                        flush),
+            plain_ms=timed_ms(lambda: aggregate_sample_plain(
+                x, "vrmom", K=8, with_agg=with_agg), torch, flush, iters=5,
+                spin=PLAIN_SPIN_CYCLES),
             bound_ms=b4[0], bound_by=b4[1]),
         "aggregate": dict(
-            src, name=f"B1 aggregate (vrmom K=8, pool's temperature tail: "
-                      f"[8,{B},{V}] f32)",
+            src, name=f"B1 aggregate (vrmom K=8, {b1_what}: [8,{B},{V}] "
+                      f"f32)",
             replaces="src/repro/kernels/vrmom.py:142",
             max_abs_err=max_err(b1, b1_p),
             ms=timed_ms(lambda: aggregate(x, "vrmom", K=8), torch, flush),
@@ -3099,6 +3147,535 @@ def phase_consensus(torch, dev, card):
     return [rec]
 
 
+def routed(fn):
+    """``fn()`` with ``models.moe.route`` wrapped to keep every routing it
+    makes, in call order (a layer a call) -> (fn's result, [Routing])."""
+    from repro_torch.models import moe as X
+
+    real, calls = X.route, []
+
+    def keep(x, router, cfg):
+        r = real(x, router, cfg)
+        calls.append(r)
+        return r
+
+    X.route = keep
+    try:
+        out = fn()
+    finally:
+        X.route = real
+    return out, calls
+
+
+def routing_parts(torch, ra, rb, rows=None):
+    """The first call at which two runs' routings differ (the experts in
+    slot order, over the first ``rows`` groups of each, else all): None,
+    or (call, tokens that differ, whether every one is a near-tie, the
+    largest such gap, the largest difference). A near-tie: the least gap
+    between adjacent probabilities of run a's top k + 1 is within twice
+    the largest difference of the two runs' router probabilities at that
+    token."""
+    for i, (a, b) in enumerate(zip(ra, rb)):
+        ea, eb, pa, pb = a.expert, b.expert, a.probs, b.probs
+        if rows is not None:
+            ea, eb, pa, pb = ea[:rows], eb[:rows], pa[:rows], pb[:rows]
+        diff = (ea != eb).any(-1)
+        if not bool(diff.any()):
+            continue
+        k = min(ea.shape[-1] + 1, pa.shape[-1])
+        top = torch.topk(pa, k, dim=-1).values
+        gap = (top[..., :-1] - top[..., 1:]).amin(-1)[diff]
+        d = (pa - pb).abs().amax(-1)[diff]
+        return (i, int(diff.sum()), bool((gap <= 2 * d).all()),
+                float(gap.max()), float(d.max()))
+    return None
+
+
+def instances_ran(torch, eng, params, cfg, batch, tok):
+    """The B2 and B3 instances one prefill and one decode step of ``eng``
+    launch, read from the device kernels' names in one profiler trace
+    (thousands of kernels; the tracer may drop a trace's first events, so
+    the names are read as a set, not split per call as kernels_in_calls
+    does)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.device import kernel_instance
+    from repro_torch.models import model as M
+
+    _, caches = eng.prefill(batch)
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        eng.prefill(batch)
+        M.decode_step(params, cfg, caches, tok)
+        torch.cuda.synchronize()
+    ran = {ev.name for ev in prof.events()
+           if ev.device_type == DeviceType.CUDA}
+    return ({kernel_instance(n, "flash_fwd_wgmma") for n in ran} - {None},
+            {kernel_instance(n, "decode_split_kernel") for n in ran} - {None})
+
+
+def graph_traced(torch, K, eng, batch, what: str, want: dict):
+    """``graph_and_eager`` with the eager loop untraced: its launches are
+    the wrappers' counts (every eager launch counts), which must be
+    ``want``, as must each of the two traced generates' (the first runs a
+    step eagerly, captures it and replays; the second only replays, its
+    wrappers counting no decode kernel). The eager loop's trace of tens of
+    thousands of small kernels is the one the tracer most often loses
+    events from, and phase 10 (a) has no time to take it again."""
+    from repro_torch.serve.engine import GREEDY
+
+    before = K.launch_counts()
+    t0 = time.perf_counter()
+    eager = eng.generate_python_loop(batch, NEW_TOKENS)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    after = K.launch_counts()
+    eager_c = {k: after[k] - before[k] for k in after}
+    require(eager_c == want, f"'{what}': the eager loop launched {eager_c}, "
+                             f"expected {want}")
+    calls, retraced = [], 0
+    for _ in range(2):
+        for _ in range(TRACE_TRIES):
+            call = traced_call(torch, K, lambda: eng.generate(batch,
+                                                              NEW_TOKENS))
+            if call[3] == want:
+                break
+            retraced += 1
+            print(f"[trace] '{what}' generate: the trace holds {call[3]}, "
+                  f"expected {want}; traced again")
+        else:
+            raise CheckFailed(f"'{what}': {TRACE_TRIES} traces differ from "
+                              f"the launches expected")
+        calls.append(call)
+    (first, first_ms, _, first_t), (graph, graph_ms, graph_c, graph_t) = calls
+    require(graph_c["decode_attention"] == 0,
+            f"'{what}': a replayed generate's wrappers counted {graph_c}")
+    launches = dict(eager_c)
+    add_counts(launches, first_t)
+    add_counts(launches, graph_t)
+    return dict(toks=graph, first_ms=first_ms, graph_ms=graph_ms,
+                eager_ms=eager_ms, graph_n=graph_t, graph_counted=graph_c,
+                launches=launches, capture_s=eng.graphs[GREEDY].capture_s,
+                retraced=retraced,
+                same=torch.equal(first, graph) and torch.equal(graph, eager))
+
+
+def moe_records(recs, card):
+    """Each (``kernels`` record, its main path's launches) printed, the
+    launches written in -> the records."""
+    for rec, launches in recs:
+        rec["launches"] = launches
+        print(f"[moe] {rec['name']}: {rec['ms'] * 1e3:.2f} us device cold, "
+              f"bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}), "
+              f"library " + ("none" if rec["library_ms"] is None else
+                             f"{rec['library_ms'] * 1e3:.2f} us") +
+              f", plain {rec['plain_ms']:.3f} ms, max err "
+              f"{rec['max_abs_err']:.3g}, launches {launches} ({card})")
+    return [rec for rec, _ in recs]
+
+
+def moe_granite(torch, dev, card, flush):
+    """Phase 10 (a): granite-moe-3b-a800m at full width and depth, phase 3's
+    workload. Returns (cfg, params, the ``kernels`` records)."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core.estimator import Estimator
+    from repro_torch.models import model as M
+    from repro_torch.serve import RobustDecodeConfig, ServeEngine
+
+    cfg = get_arch("granite-moe-3b-a800m")
+    t0 = time.perf_counter()
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    torch.cuda.synchronize()
+    n_params = M.param_count(params)
+    n_active = M.active_param_count(params, cfg)
+    L, H, Hkv, dh = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // Hkv
+    w_ms = 2 * n_params / HBM_BYTES_PER_S * 1e3
+    print(f"[moe] {cfg.name} at full width and depth: {L} layers, d "
+          f"{cfg.d_model}, heads {H}/{Hkv} (G {G}), dh {dh}, "
+          f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, d_ff "
+          f"{cfg.d_ff} an expert, vocab {cfg.vocab}, {n_params / 1e9:.3f} B "
+          f"params ({n_active / 1e9:.3f} B active) bf16 "
+          f"({2 * n_params / 1e9:.2f} GB), seeded init "
+          f"{time.perf_counter() - t0:.1f} s; {N_PROMPTS} x {PROMPT_LEN} "
+          f"tokens, {NEW_TOKENS} new")
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (N_PROMPTS, PROMPT_LEN),
+                                     generator=g, device=dev)}
+
+    def rcfg(**kw):
+        return RobustDecodeConfig(**{**dict(m=8, estimator="vrmom", K=8,
+                                            alpha=0.25), **kw})
+
+    def engine(robust, **kw):
+        return ServeEngine(cfg, params, max_len=MAX_LEN, robust=robust,
+                           device=dev, **kw)
+
+    runs = {(layout, attack, fuse): engine(rcfg(
+        attack=attack, fuse_tail=fuse,
+        share_replica_compute=layout == "shared"))
+        for layout in ("shared", "replicated")
+        for attack in ("none", "signflip", "gaussian")
+        for fuse in (True, False)}
+    warm = runs["shared", "none", True]
+    warm.generate_python_loop(batch, 2)  # warm-up
+    warm.generate(batch, 2)
+    torch.cuda.synchronize()
+
+    # ---- the main path: counts from 0; launches from its traces ---------
+    K.reset_launch_counts()
+    res = {}
+    for key in MOE_TRACED:
+        tail = NEW_TOKENS if key[2] else 0
+        res[key] = graph_traced(
+            torch, K, runs[key], batch,
+            f"{cfg.name} {' '.join(map(str, key))}",
+            dict(aggregate=NEW_TOKENS - tail, aggregate_sample=tail,
+                 flash_attention=L, decode_attention=L * (NEW_TOKENS - 1)))
+    walls = {}
+    for key, eng in runs.items():
+        if key in res:
+            continue
+        t = time.perf_counter()
+        res[key] = dict(toks=eng.generate(batch, NEW_TOKENS))
+        torch.cuda.synchronize()
+        walls[key] = time.perf_counter() - t
+    counted = K.launch_counts()
+    # ---------------------------------------------------------------------
+    counts, by_layout = {}, {"shared": {}, "replicated": {}}
+    for key in MOE_TRACED:
+        add_counts(counts, res[key]["launches"])
+        add_counts(by_layout[key[0]], res[key]["launches"])
+    ref = res["shared", "none", True]["toks"]
+    require(ref.shape == (N_PROMPTS, NEW_TOKENS)
+            and bool(((ref >= 0) & (ref < cfg.vocab)).all()),
+            f"{cfg.name}: tokens of shape {tuple(ref.shape)} or outside the "
+            f"vocabulary")
+    for key, r in res.items():
+        base = res[key[0], "none", True]["toks"]
+        same = torch.equal(r["toks"], base)
+        what = f"{key[0]} {key[1]} {'fused' if key[2] else 'unfused'}"
+        extra = (f"traced walls: graph {r['first_ms']:7.1f} ms (capture "
+                 f"{r['capture_s'] * 1e3:6.1f} ms), replayed "
+                 f"{r['graph_ms']:6.1f} ms, eager {r['eager_ms']:7.1f} ms; "
+                 f"traced launches a generate {json.dumps(r['graph_n'])}; "
+                 f"calls traced again {r['retraced']}" if "graph_n" in r
+                 else f"untraced graph generate {walls[key]:.2f} s")
+        print(f"[moe] {cfg.name} {what:27s} graph == eager "
+              f"{r.get('same', 'not run')}, identical in layout {same}; "
+              f"{extra}")
+        require(r.get("same", True), f"{cfg.name} {what}: generate (graph) "
+                                     f"and generate_python_loop (eager) "
+                                     f"differ")
+        require(same, f"{cfg.name}: greedy tokens of {what} differ from "
+                      f"{key[0]} none fused")
+    fused = res["shared", "signflip", True]["graph_n"]
+    require(fused["flash_attention"] == L
+            and fused["decode_attention"] == L * (NEW_TOKENS - 1)
+            and fused["aggregate_sample"] == NEW_TOKENS
+            and fused["aggregate"] == 0,
+            f"{cfg.name}: fused greedy launches {fused}")
+    for name in ("aggregate", "aggregate_sample", "flash_attention",
+                 "decode_attention"):
+        require(counts[name] > 0 and counted[name] > 0,
+                f"{cfg.name}: kernel {name} never launched on the main path")
+    print(f"[moe] {cfg.name} main-path launches {json.dumps(counts)} "
+          f"(traced; the wrappers counted {json.dumps(counted)}, eager "
+          f"launches only) ({card})")
+    print(f"[moe] {cfg.name} shared vs replicated: " + layout_check(
+        torch, cfg, params, batch, MAX_LEN, ref,
+        res["replicated", "signflip", True]["toks"]))
+    flash, dec = instances_ran(torch, warm, params, cfg, batch, ref[:, 0])
+    want_dec = (dh, 8 if G <= 8 else 16)
+    require(flash == {(dh,)} and dec == {want_dec},
+            f"{cfg.name}: instances {flash} (B2) and {dec} (B3), expected "
+            f"{(dh,)} and {want_dec}")
+    print(f"[moe] {cfg.name} instances: B2 flash_fwd_wgmma<{dh}> (prefill),"
+          f" B3 decode_split_kernel<{want_dec[0]}, {want_dec[1]}> (decode "
+          f"step)")
+    # ---- prefill on the kernel path against the plain path, and what
+    # capacity dropped ----------------------------------------------------
+    eng_p = engine(rcfg(estimator=Estimator(method="vrmom", K=8,
+                                            backend="torch")),
+                   attn_backend="torch")
+    (lk, _), rk = routed(lambda: warm.prefill(batch))
+    (lp, _), rp = routed(lambda: eng_p.prefill(batch))
+    drops = [int(torch.sum(~r.keep)) for r in rk]
+    pairs = rk[0].keep.numel()
+    print(f"[moe] {cfg.name} prefill routing: {sum(drops)} of {pairs * L} "
+          f"(token, slot) pairs dropped by capacity "
+          f"({100 * sum(drops) / (pairs * L):.2f} %; C = {rk[0].capacity} "
+          f"rows an expert at T = {PROMPT_LEN}); by layer " + ", ".join(
+              f"{100 * n / pairs:.1f}" for n in drops) + " %")
+    rel = max_err(lk, lp) / float(lp.float().abs().max())
+    part = routing_parts(torch, rk, rp)
+    note = ("the two paths route alike in every layer" if part is None else
+            f"the routing first parts at layer {part[0]}, {part[1]} tokens, "
+            f"near-ties {part[2]} (largest top-{cfg.moe.top_k + 1} gap "
+            f"{part[3]:.3g}, largest probability difference {part[4]:.3g})")
+    # bf16 rounds at other places on the two paths; past a flipped expert
+    # (a near-tie of the router) capacity moves the later tokens' rows too
+    require(bool(torch.isfinite(lk.float()).all())
+            and (rel <= 5e-2 or (part is not None and part[2]
+                                 and part[4] <= FLIP_PROB_TOL)),
+            f"{cfg.name}: prefill logits kernel vs plain: {rel}; {note}")
+    print(f"[moe] {cfg.name}: prefill logits kernel vs plain path max err / "
+          f"max|logit| = {rel:.3g} (tolerance 5e-2 unless a near-tie flips "
+          f"an expert); {note}")
+    report_decode(torch, f"[moe] {cfg.name} robust m=8 vrmom greedy (shared "
+                  f"none)", warm, batch, prefill_median(torch, warm, batch),
+                  card)
+    print(f"[moe] {cfg.name} weight bound: every expert read each step, "
+          f"{2 * n_params / 1e9:.2f} GB / {HBM_BYTES_PER_S / 1e12:.2f} TB/s "
+          f"= {w_ms:.2f} ms a step ({card})")
+
+    # ---- the kernels at this config's shapes ----------------------------
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    recs = [(attn_record(
+        torch, flush, f"B2 flash_attention (causal, {cfg.name}: q "
+        f"[{N_PROMPTS},{PROMPT_LEN},{H},{dh}], k/v [{N_PROMPTS},{PROMPT_LEN},"
+        f"{Hkv},{dh}] bf16)", rand(N_PROMPTS, PROMPT_LEN, H, dh),
+        rand(N_PROMPTS, PROMPT_LEN, Hkv, dh),
+        rand(N_PROMPTS, PROMPT_LEN, Hkv, dh), decode=False),
+        counts["flash_attention"]),
+        (attn_record(
+            torch, flush, f"B3 decode_attention ({cfg.name}: dh {dh}, G {G},"
+            f" q [{N_PROMPTS},1,{H},{dh}], cache [{N_PROMPTS},{MAX_LEN},{Hkv},"
+            f"{dh}] bf16)", rand(N_PROMPTS, 1, H, dh),
+            rand(N_PROMPTS, MAX_LEN, Hkv, dh),
+            rand(N_PROMPTS, MAX_LEN, Hkv, dh), decode=True),
+         by_layout["shared"]["decode_attention"]),
+        (pool_b3_record(
+            torch, flush, torch.full((8 * N_PROMPTS,), MAX_LEN,
+                                     dtype=torch.int32, device=dev),
+            H, Hkv, dh, MAX_LEN, g, dev,
+            where=f"{cfg.name} replicated, the last step"),
+         by_layout["replicated"]["decode_attention"])]
+    tail = pool_tail_records(torch, flush, N_PROMPTS, cfg.vocab, g, dev,
+                             where=f"{cfg.name} generate",
+                             b1_what=f"{cfg.name} unfused tail")
+    recs += [(tail["aggregate_sample"], counts["aggregate_sample"]),
+             (tail["aggregate"], counts["aggregate"])]
+    out = moe_records(recs, card)
+    del runs, warm, eng_p, lk, lp
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return cfg, params, out
+
+
+def moe_pool(torch, dev, card, cfg, params):
+    """Phase 10 (b): granite-moe-3b-a800m behind ``Scheduler`` over 8 slots
+    of 512 (robust m = 8, the pool's step replayed)."""
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve import RobustDecodeConfig, Scheduler, ServeEngine
+
+    rs = np.random.RandomState(10)
+    reqs = []
+    for _ in range(MOE_POOL_REQUESTS):
+        S = int(rs.randint(POOL_PROMPT[0], POOL_PROMPT[1] + 1))
+        n = int(rs.randint(POOL_NEW[0], POOL_NEW[1] + 1))
+        reqs.append((rs.randint(0, cfg.vocab, size=(S,)).astype(np.int32), n))
+    budget = sum(n for _, n in reqs)
+    print(f"[moe] {cfg.name} ServeEngine(max_len={POOL_MAX_LEN}, n_slots="
+          f"{MOE_POOL_SLOTS}, robust m=8 vrmom K=8 shared fused, obs), "
+          f"Scheduler(decode_block={POOL_BLOCK}), greedy; "
+          f"{MOE_POOL_REQUESTS} requests, prompts {POOL_PROMPT[0]}.."
+          f"{POOL_PROMPT[1]}, budgets {POOL_NEW[0]}..{POOL_NEW[1]} ({budget}"
+          f" tokens)")
+    scheds = {}
+    for attack in ("none", "signflip", "gaussian"):
+        eng = ServeEngine(cfg, params, max_len=POOL_MAX_LEN,
+                          n_slots=MOE_POOL_SLOTS, obs=MetricsRegistry(),
+                          robust=RobustDecodeConfig(m=8, estimator="vrmom",
+                                                    K=8, alpha=0.25,
+                                                    attack=attack),
+                          device=dev)
+        scheds[attack] = Scheduler(eng, decode_block=POOL_BLOCK)
+    K.reset_launch_counts()
+    comp1, _, wall1 = drain(torch, scheds["none"], reqs)
+    comp2, _, wall2 = drain(torch, scheds["none"], reqs)
+    toks = [c.tokens for c in comp2]
+    require(toks == [c.tokens for c in comp1]
+            and all(c.finished_by == "length" and len(c.tokens) == n
+                    and all(0 <= t < cfg.vocab for t in c.tokens)
+                    for c, (_, n) in zip(comp2, reqs)),
+            f"{cfg.name} pool: two drains differ, or a completion lacks its "
+            f"budget or leaves the vocabulary")
+    for attack in ("signflip", "gaussian"):
+        got, _, wall = drain(torch, scheds[attack], reqs)
+        require([c.tokens for c in got] == toks,
+                f"{cfg.name} pool tokens under {attack} differ from 'none'")
+        print(f"[moe] {cfg.name} pool {attack} a=0.25: tokens identical to "
+              f"none (drain with set-up {wall:.3f} s)")
+    counted = K.launch_counts()
+    for name in ("aggregate_sample", "flash_attention", "decode_attention"):
+        require(counted[name] > 0, f"{cfg.name} pool: kernel {name} never "
+                                   f"launched")
+    eng = scheds["none"].engine
+    step = eng.obs.histograms["serve.decode_step_s"]
+    print(f"[moe] {cfg.name} pool drain {budget} tokens in {wall2:.3f} s = "
+          f"{budget / wall2:.1f} tok/s (round 2; round 1 with set-up "
+          f"{wall1:.3f} s); decode step p50 {step.percentile(50) * 1e3:.2f} "
+          f"ms p95 {step.percentile(95) * 1e3:.2f} ms ({step.count} blocks);"
+          f" the wrappers counted {json.dumps(counted)} (eager launches) "
+          f"({card})")
+    for i, (p, n) in enumerate(reqs[:MOE_POOL_SOLO]):
+        batch = {"tokens": torch.from_numpy(p)[None].to(dev)}
+        solo = eng.generate(batch, n)
+        pooled = torch.tensor([toks[i]], dtype=solo.dtype, device=dev)
+        print(f"[moe] {cfg.name} request {i} (prompt {len(p)}): solo vs pool "
+              + ("tokens identical" if torch.equal(solo, pooled) else
+                 layout_check(torch, cfg, params, batch, POOL_MAX_LEN, solo,
+                              pooled, m=MOE_POOL_SLOTS, what="solo vs pool")))
+    del scheds, eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def moe_mixtral(torch, dev, card, flush):
+    """Phase 10 (c): mixtral-8x7b at MOE_MIXTRAL_LAYERS of its 32 layers,
+    every width as published: phase 3's workload (no B2: its window routes
+    the prefill to the plain ``mha``), and a prompt that runs the 4096-slot
+    ring past its end. Returns the ``kernels`` records."""
+    import dataclasses
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get as get_arch
+    from repro_torch.models import model as M
+    from repro_torch.serve import RobustDecodeConfig, ServeEngine
+
+    full = get_arch("mixtral-8x7b")
+    cfg = dataclasses.replace(full, n_layers=MOE_MIXTRAL_LAYERS)
+    t0 = time.perf_counter()
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    torch.cuda.synchronize()
+    n_params = M.param_count(params)
+    L, H, Hkv, dh = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    W = cfg.sliding_window
+    print(f"[moe] {cfg.name}: depth cut to {L} of {full.n_layers} layers "
+          f"(the whole model's bf16 weights do not fit 80 GB); d "
+          f"{cfg.d_model}, heads {H}/{Hkv}, dh {dh}, {cfg.moe.n_experts} "
+          f"experts top-{cfg.moe.top_k}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"window {W}; {n_params / 1e9:.3f} B params "
+          f"({M.active_param_count(params, cfg) / 1e9:.3f} B active) bf16 "
+          f"({2 * n_params / 1e9:.2f} GB), seeded init "
+          f"{time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (N_PROMPTS, PROMPT_LEN),
+                                     generator=g, device=dev)}
+
+    def engine(attack, max_len=MAX_LEN):
+        return ServeEngine(cfg, params, max_len=max_len, device=dev,
+                           robust=RobustDecodeConfig(
+                               m=8, estimator="vrmom", K=8, alpha=0.25,
+                               attack=attack))
+
+    runs = {a: engine(a) for a in ("none", "signflip")}
+    runs["none"].generate_python_loop(batch, 2)  # warm-up
+    runs["none"].generate(batch, 2)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    res = {a: graph_and_eager(torch, K, eng, batch, f"{cfg.name} {a}")
+           for a, eng in runs.items()}
+    counted = K.launch_counts()
+    counts = {}
+    for r in res.values():
+        add_counts(counts, r["launches"])
+    for a, r in res.items():
+        print(f"[moe] {cfg.name} {a:9s} traced walls: graph "
+              f"{r['first_ms']:7.1f} ms (capture {r['capture_s'] * 1e3:6.1f} "
+              f"ms), replayed {r['graph_ms']:6.1f} ms, eager "
+              f"{r['eager_ms']:7.1f} ms; graph == eager {r['same']}; traced "
+              f"launches a generate {json.dumps(r['graph_n'])}")
+        require(r["same"], f"{cfg.name} {a}: graph and eager tokens differ")
+        require(r["graph_n"]["flash_attention"] == 0
+                and r["graph_n"]["decode_attention"] == L * (NEW_TOKENS - 1),
+                f"{cfg.name} {a}: launches {r['graph_n']}, expected no B2 "
+                f"(the window routes the prefill to mha) and B3 once a layer "
+                f"a step")
+    require(torch.equal(res["none"]["toks"], res["signflip"]["toks"]),
+            f"{cfg.name}: signflip tokens differ from none")
+    require(counts["decode_attention"] > 0 and counts["aggregate_sample"] > 0
+            and counts["flash_attention"] == 0
+            and counted["flash_attention"] == 0,
+            f"{cfg.name}: main-path launches {counts}")
+    flash, dec = instances_ran(torch, runs["none"], params, cfg, batch,
+                               res["none"]["toks"][:, 0])
+    require(not flash and dec == {(dh, 8)},
+            f"{cfg.name}: instances {flash} (B2) and {dec} (B3)")
+    print(f"[moe] {cfg.name} main-path launches {json.dumps(counts)} "
+          f"(traced; the wrappers counted {json.dumps(counted)}); no B2 "
+          f"instance ran, B3 decode_split_kernel<{dh}, 8> over the ring of "
+          f"{W} slots ({card})")
+    report_decode(torch, f"[moe] {cfg.name} ({L} layers) robust m=8 vrmom "
+                  f"greedy (shared none)", runs["none"], batch,
+                  prefill_median(torch, runs["none"], batch), card)
+    # ---- the ring past its end: one prompt of MOE_RING_PROMPT tokens ----
+    ring = engine("none", max_len=MOE_RING_PROMPT + NEW_TOKENS)
+    one = {"tokens": torch.randint(0, cfg.vocab, (1, MOE_RING_PROMPT),
+                                   generator=g, device=dev)}
+    K.reset_launch_counts()
+    t = time.perf_counter()
+    got = ring.generate(one, NEW_TOKENS)
+    want = ring.generate_python_loop(one, NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    wrapped = K.launch_counts()
+    require(torch.equal(got, want) and bool(((got >= 0)
+                                             & (got < cfg.vocab)).all()),
+            f"{cfg.name}: over the ring's end, graph and eager tokens differ")
+    require(wrapped["flash_attention"] == 0
+            and wrapped["decode_attention"] > 0,
+            f"{cfg.name} ring: the wrappers counted {wrapped}")
+    last = MOE_RING_PROMPT + NEW_TOKENS - 1
+    print(f"[moe] {cfg.name} ring: prompt {MOE_RING_PROMPT} + {NEW_TOKENS} "
+          f"new, positions {MOE_RING_PROMPT}..{last} over {W} slots (wraps "
+          f"at {W}): graph == eager tokens; graph + eager generates "
+          f"{wall:.2f} s ({card})")
+
+    recs = [(pool_b3_record(
+        torch, flush, torch.full((N_PROMPTS,), MAX_LEN, dtype=torch.int32,
+                                 device=dev), H, Hkv, dh, W, g, dev,
+        where=f"{cfg.name}: G {H // Hkv} over the ring, the last step"),
+        counts["decode_attention"]),
+        (pool_tail_records(torch, flush, N_PROMPTS, cfg.vocab, g, dev,
+                           where=f"{cfg.name} generate")["aggregate_sample"],
+         counts["aggregate_sample"])]
+    out = moe_records(recs, card)
+    del runs, ring, params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe(torch, dev, card):
+    """Phase 10: the moe family. Returns the ``kernels`` records with the
+    launches of their paths."""
+    t_phase = time.perf_counter()
+    flush = make_flush(torch, dev)
+    cfg, params, recs = moe_granite(torch, dev, card, flush)
+    print(f"[time] phase 10 (a) {time.perf_counter() - t_phase:.1f} s")
+    t = time.perf_counter()
+    moe_pool(torch, dev, card, cfg, params)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"[time] phase 10 (b) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    recs += moe_mixtral(torch, dev, card, flush)
+    print(f"[time] phase 10 (c) {time.perf_counter() - t:.1f} s")
+    return recs
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside the script; "
@@ -3145,6 +3722,8 @@ def main() -> int:
         lap("phase 8 (the adaptive tier)")
         consensus_recs = phase_consensus(torch, dev, card)
         lap("phase 9 (consensus)")
+        moe_recs = phase_moe(torch, dev, card)
+        lap("phase 10 (moe)")
         print(f"[time] all phases {time.perf_counter() - t_all:.1f} s")
     except (CheckFailed, AssertionError) as exc:
         print(f"chip_smoke.py: check failed: {exc}", file=sys.stderr)
@@ -3159,6 +3738,7 @@ def main() -> int:
     kernels.extend(train_recs)
     kernels.extend(adaptive_recs)
     kernels.extend(consensus_recs)
+    kernels.extend(moe_recs)
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Architecture configuration (dense and vlm families).
+"""Architecture configuration (dense, vlm and moe families).
 
 ``repro.configs.base`` imports JAX, so the port re-declares the fields of
 ``ArchConfig`` that the decoder and the train step read. Field names,
@@ -10,7 +10,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-FAMILIES = ("dense", "vlm")
+FAMILIES = ("dense", "vlm", "moe")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Top-k capacity-routed mixture of experts (``models/moe.py``)."""
+
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,7 +32,8 @@ class VisionStubConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # "dense" | "vlm" (a dense LM behind stub patch embeddings)
+    family: str  # "dense" | "vlm" (a dense LM behind stub patch
+    # embeddings) | "moe" (the dense stack with expert FFNs)
     n_layers: int
     d_model: int
     n_heads: int
@@ -36,6 +46,7 @@ class ArchConfig:
     qk_norm: bool = False
     sliding_window: Optional[int] = None
     tie_embeddings: bool = True
+    moe: Optional[MoEConfig] = None
     vision: Optional[VisionStubConfig] = None
     norm_eps: float = 1e-5
     param_dtype: str = "bfloat16"
@@ -66,11 +77,17 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: 2 layers, d_model 128, <= 4 heads, head dim
-        32, vocab 512, f32, 4 stub patches, loss chunks of 32, no remat — the same cut ``repro``'s
-        ``reduced()`` makes for the dense and vlm families."""
+        32, vocab 512, f32, 4 stub patches, <= 4 experts of top_k <= 2 at
+        the same capacity factor, loss chunks of 32, no remat — the same
+        cut ``repro``'s ``reduced()`` makes for the dense, vlm and moe
+        families."""
         n_heads = min(self.n_heads, 4)
         vision = None if self.vision is None else VisionStubConfig(
             n_patches=4)
+        moe = None if self.moe is None else MoEConfig(
+            n_experts=min(self.moe.n_experts, 4),
+            top_k=min(self.moe.top_k, 2),
+            capacity_factor=self.moe.capacity_factor)
         return dataclasses.replace(
             self,
             name=self.name + "-smoke",
@@ -84,6 +101,7 @@ class ArchConfig:
             sliding_window=(min(self.sliding_window, 16)
                             if self.sliding_window else None),
             vision=vision,
+            moe=moe,
             param_dtype="float32",
             compute_dtype="float32",
             attn_chunk=16,

@@ -1,24 +1,22 @@
 """Registry of the ported architectures (``repro.configs.registry``'s
 counterpart): ``ARCHS``, ``get(name)``, ``list_archs()``.
 
-``repro`` registers ten architectures; the port holds the dense and vlm
-ones. The others need model families that are not ported yet, and asking
+``repro`` registers ten architectures; the port holds the dense, vlm and
+moe ones. The others need model families that are not ported yet, and asking
 for one raises, naming the family and ROADMAP.md's item for it."""
-from . import (llama3_405b, minitron_4b, phi_3_vision_4_2b, qwen3_1_7b,
-               starcoder2_7b)
+from . import (granite_moe_3b_a800m, llama3_405b, minitron_4b, mixtral_8x7b,
+               phi_3_vision_4_2b, qwen3_1_7b, starcoder2_7b)
 
 ARCHS = {
     m.CONFIG.name: m.CONFIG
-    for m in (qwen3_1_7b, starcoder2_7b, phi_3_vision_4_2b, minitron_4b,
-              llama3_405b)
+    for m in (qwen3_1_7b, starcoder2_7b, phi_3_vision_4_2b,
+              granite_moe_3b_a800m, minitron_4b, mixtral_8x7b, llama3_405b)
 }
 
 # repro's other architectures, by the family each one waits on
 NOT_PORTED = {
     "whisper-medium": "encdec",
     "zamba2-7b": "hybrid",
-    "granite-moe-3b-a800m": "moe",
-    "mixtral-8x7b": "moe",
     "mamba2-2.7b": "ssm",
 }
 

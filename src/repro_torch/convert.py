@@ -6,8 +6,9 @@ it into numpy (``jax.tree.map(np.asarray, params)``) so this module never
 imports JAX. The port keeps ``repro``'s layout — ``embed`` [V, D] (tied),
 ``layers/*`` stacked [L, ...], ``wq``/``wk``/``wv`` [D, H, dh], ``wo``
 [H, dh, D], ``q_norm``/``k_norm`` [dh], ``mlp`` ``w_gate``/``w_up`` [D, F]
-and ``w_down`` [F, D], ``norm_f`` [D] — so conversion is a checked copy,
-and both sides compute the same function. Optimizer states are dicts in
+and ``w_down`` [F, D] (a moe layer: ``moe`` ``router`` [D, E],
+``w_gate``/``w_up`` [E, D, F], ``w_down`` [E, F, D]), ``norm_f`` [D] — so
+conversion is a checked copy, and both sides compute the same function. Optimizer states are dicts in
 ``repro``'s layout too (``optim``), so ``opt_state_from_jax`` lets a run
 continue from ``repro``'s state, and ``adaptive_state_from_jax`` does the
 same for the adaptive tier's ``AdaptiveState`` carry.
@@ -24,20 +25,22 @@ __all__ = ["params_from_jax", "opt_state_from_jax",
 
 
 def expected_shapes(cfg) -> dict:
-    """The dense model's parameter shapes, keyed like the param dict."""
+    """The model's parameter shapes, keyed like the param dict."""
     L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     attn = {"wq": (L, D, H, dh), "wk": (L, D, Hkv, dh), "wv": (L, D, Hkv, dh),
             "wo": (L, H, dh, D)}
     if cfg.qk_norm:
         attn.update(q_norm=(L, dh), k_norm=(L, dh))
-    shapes = {
-        "embed": (cfg.vocab, D),
-        "layers": {"norm_attn": (L, D), "attn": attn, "norm_ffn": (L, D),
-                   "mlp": {"w_gate": (L, D, F), "w_up": (L, D, F),
-                           "w_down": (L, F, D)}},
-        "norm_f": (D,),
-    }
+    layers = {"norm_attn": (L, D), "attn": attn, "norm_ffn": (L, D)}
+    if cfg.family == "moe":
+        E = cfg.moe.n_experts
+        layers["moe"] = {"router": (L, D, E), "w_gate": (L, E, D, F),
+                         "w_up": (L, E, D, F), "w_down": (L, E, F, D)}
+    else:
+        layers["mlp"] = {"w_gate": (L, D, F), "w_up": (L, D, F),
+                         "w_down": (L, F, D)}
+    shapes = {"embed": (cfg.vocab, D), "layers": layers, "norm_f": (D,)}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (D, cfg.vocab)
     return shapes
@@ -75,7 +78,7 @@ def _convert(tree, shapes, prefix, device):
 
 
 def params_from_jax(np_tree, cfg, device=None):
-    """``repro``'s dense param pytree (numpy leaves, f32 or
+    """``repro``'s param pytree (numpy leaves, f32 or
     ``ml_dtypes.bfloat16``) -> the port's param dict on ``device`` (the card
     unless the caller names another)."""
     return _convert(np_tree, expected_shapes(cfg), "", resolve_device(device))

@@ -1,7 +1,8 @@
-"""Model zoo, dense family: layers, attention, backend policy, the decoder
-stack and the model API."""
-from . import attention, attn_backend, layers, model, transformer
+"""Model zoo, dense, vlm and moe families: layers, attention, backend
+policy, the mixture of experts, the decoder stack and the model API."""
+from . import attention, attn_backend, layers, model, moe, transformer
 from .model import decode_step, init, init_cache, prefill
 
-__all__ = ["attention", "attn_backend", "layers", "model", "transformer",
+__all__ = ["attention", "attn_backend", "layers", "model", "moe",
+           "transformer",
            "decode_step", "init", "init_cache", "prefill"]

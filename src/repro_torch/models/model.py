@@ -1,4 +1,4 @@
-"""Model API, dense and vlm families (``repro.models.model``'s
+"""Model API, dense, vlm and moe families (``repro.models.model``'s
 counterpart).
 
     init(cfg, generator, device=None)               -> params
@@ -12,8 +12,8 @@ broadcasts); ``decode_step`` writes K/V in place and returns ``pos + 1``
 as a new tensor. ``batch`` is ``{"tokens": [B, S] int tensor}``, with
 ``"patches"`` [B, n_patches, D] for a vlm (prepended; the logits and the
 cache cover the prefix). ``init`` runs on the card unless ``device``
-names another one (with no card it raises). The dense and vlm families
-share the decoder stack; ``ArchConfig`` refuses the others.
+names another one (with no card it raises). The dense, vlm and moe
+families share the decoder stack; ``ArchConfig`` refuses the others.
 """
 from __future__ import annotations
 
@@ -26,13 +26,8 @@ def init(cfg, generator, device=None):
 
 
 def loss(params, cfg, batch, window="cfg"):
-    """Next-token LM loss (``transformer.lm_loss``), differentiable with
-    autograd. Only the dense and vlm families are ported; ``repro``'s
-    moe, ssm, hybrid and encdec losses wait on ROADMAP.md, A7."""
-    if cfg.family not in ("dense", "vlm"):
-        raise NotImplementedError(
-            f"loss for family {cfg.family!r} is not ported yet (see "
-            f"ROADMAP.md, A7)")
+    """Next-token LM loss (``transformer.lm_loss``; a moe model's includes
+    0.01 times its load-balance loss), differentiable with autograd."""
     return transformer.lm_loss(params, cfg, batch, window=window)
 
 
@@ -42,9 +37,9 @@ def prefill(params, cfg, batch, window="cfg", cache_len=None,
     serving path never builds [B, S, V]). ``out``: stacked caches [L, B,
     ...] of the shape the prefill makes, to write the caches into (and
     return) instead of allocating them."""
-    h, caches = transformer.forward(params, cfg, batch, window=window,
-                                    make_cache=True, cache_len=cache_len,
-                                    out=out)
+    h, caches, _ = transformer.forward(params, cfg, batch, window=window,
+                                       make_cache=True, cache_len=cache_len,
+                                       out=out)
     if last_only:
         h = h[:, -1:]
     return transformer.unembed(params, cfg, h), caches
@@ -63,3 +58,15 @@ def decode_step(params, cfg, caches, token, window="cfg"):
 def param_count(params) -> int:
     return sum(v.numel() if not isinstance(v, dict) else param_count(v)
                for v in params.values())
+
+
+def active_param_count(params, cfg) -> int:
+    """Parameters a token uses (for a FLOP count of 6 * N_active *
+    tokens): all of them, less the share (1 - top_k / n_experts) of a moe
+    model's expert weights, as ``repro`` counts them."""
+    total = param_count(params)
+    if cfg.moe is None:
+        return total
+    experts = params["layers"]["moe"]
+    n = sum(experts[k].numel() for k in ("w_gate", "w_up", "w_down"))
+    return int(total - n * (1 - cfg.moe.top_k / cfg.moe.n_experts))

@@ -1,4 +1,4 @@
-"""Decoder-only stack, dense and vlm families, and the LM loss.
+"""Decoder-only stack, dense, vlm and moe families, and the LM loss.
 
 Parameters are a plain dict in ``repro``'s layout: ``embed`` [V, D]
 (tied unembedding, or ``lm_head`` [D, V]), ``layers`` with every leaf
@@ -6,7 +6,10 @@ stacked [L, ...], and ``norm_f``. Where ``repro`` scans the stacked
 layers with ``lax.scan``, the port loops over them in Python; caches stay
 stacked [L, B, T, Hkv, dh] as in ``repro``. A vlm is the dense stack with
 stub patch embeddings [B, n_patches, D] prepended to the token
-embeddings; positions and the cache run over the prefix.
+embeddings; positions and the cache run over the prefix. A moe layer
+has ``moe`` (``models/moe.py``) in place of ``mlp``; its load-balance
+loss, summed over the layers, comes out of ``forward`` and joins the LM
+loss at ``repro``'s weight of 0.01 (a decode step drops it).
 
 Under autograd, ``cfg.remat`` recomputes each layer in the backward
 (``torch.utils.checkpoint``, non-reentrant), as ``repro`` wraps its scan
@@ -21,6 +24,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as A
+from . import moe as X
 from .layers import _dot, dense_init, embed_init, rmsnorm, swiglu
 
 
@@ -40,22 +44,26 @@ def unbind_layers(layers, n: int):
 
 def init(cfg, generator, device=None):
     """Seeded init with ``repro``'s distributions: N(0, 1/fan_in) dense
-    weights, N(0, 0.02^2) embeddings, unit norm scales."""
+    weights, N(0, 0.02^2) embeddings, unit norm scales; a moe layer's
+    router and experts (``moe.moe_init``) in place of its ``mlp``."""
     dt = getattr(torch, cfg.param_dtype)
     L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
     layers = {
         "norm_attn": torch.ones((L, D), dtype=dt, device=device),
         "attn": A.attn_init(generator, cfg, device=device, n_layers=L),
         "norm_ffn": torch.ones((L, D), dtype=dt, device=device),
-        "mlp": {
+    }
+    if cfg.family == "moe":
+        layers["moe"] = X.moe_init(generator, cfg, device=device, n_layers=L)
+    else:
+        layers["mlp"] = {
             "w_gate": dense_init(generator, (L, D, F), dt, fan_in=D,
                                  device=device),
             "w_up": dense_init(generator, (L, D, F), dt, fan_in=D,
                                device=device),
             "w_down": dense_init(generator, (L, F, D), dt, fan_in=F,
                                  device=device),
-        },
-    }
+        }
     p = {
         "embed": embed_init(generator, (cfg.vocab, D), dt, device=device),
         "layers": layers,
@@ -93,15 +101,22 @@ def unembed(p, cfg, h):
 
 
 def _ffn(lp, h, cfg):
+    """The residual FFN block -> (h, aux): the moe layer's load-balance
+    loss, or None for a dense layer."""
     hn = rmsnorm(h, lp["norm_ffn"], cfg.norm_eps)
-    return h + swiglu(hn, **lp["mlp"])
+    if cfg.family == "moe":
+        out, aux = X.moe_ffn(lp["moe"], hn, cfg)
+        return h + out, aux
+    return h + swiglu(hn, **lp["mlp"]), None
 
 
 def forward(p, cfg, batch, *, window="cfg", make_cache=False,
             cache_len=None, out=None):
     """Forward over ``batch`` (``tokens`` [B, S], and ``patches`` for a
     vlm). Returns (final normed hidden [B, n_prefix + S, D], stacked caches
-    or None); ``unembed`` turns hidden into logits. With ``make_cache``,
+    or None, the moe load-balance loss summed over the layers: a 0-d f32
+    tensor, 0 for the other families); ``unembed`` turns hidden into
+    logits. With ``make_cache``,
     ``out`` (stacked caches [L, B, ...]) takes each layer's cache as it is
     made and is returned, where otherwise the layers' caches are stacked
     into new tensors."""
@@ -119,32 +134,37 @@ def forward(p, cfg, batch, *, window="cfg", make_cache=False,
             out=None if out is None else _layer_cache(out, i))
         if make_cache and out is None:
             caches.append(cache)
-        return _ffn(lp, h + attn_out, cfg)
+        h, aux = _ffn(lp, h + attn_out, cfg)
+        return h if aux is None else (h, aux)
 
     # repro's remat under autograd: each layer recomputed in the backward,
     # and with remat_block nb > 1 (dividing n_layers) only every nb-th
     # boundary kept, a block recomputed, then each of its layers
     remat = cfg.remat and not make_cache and torch.is_grad_enabled()
 
-    def run(h, i, *lps):
+    moe = cfg.family == "moe"
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def run(h, aux, i, *lps):
         for j, lp in enumerate(lps, i):
-            h = checkpoint(layer, h, lp, j, use_reentrant=False,
+            r = checkpoint(layer, h, lp, j, use_reentrant=False,
                            preserve_rng_state=False) if remat \
                 else layer(h, lp, j)
-        return h
+            h, aux = (r[0], aux + r[1]) if moe else (r, aux)
+        return h, aux
 
     lps = unbind_layers(p["layers"], cfg.n_layers)
     nb = cfg.remat_block
     if remat and nb > 1 and cfg.n_layers % nb == 0:
         for i in range(0, cfg.n_layers, nb):
-            h = checkpoint(run, h, i, *lps[i:i + nb], use_reentrant=False,
-                           preserve_rng_state=False)
+            h, aux = checkpoint(run, h, aux, i, *lps[i:i + nb],
+                                use_reentrant=False, preserve_rng_state=False)
     else:
-        h = run(h, 0, *lps)
+        h, aux = run(h, aux, 0, *lps)
     h = rmsnorm(h, p["norm_f"], cfg.norm_eps)
     if not make_cache:
-        return h, None
-    return h, out if out is not None else _stack(caches)
+        return h, None, aux
+    return h, out if out is not None else _stack(caches), aux
 
 
 def _layer_cache(caches, i: int):
@@ -185,7 +205,9 @@ def decode_step(p, cfg, caches, token, *, window="cfg"):
     lengths and rotary tables are made once (``attention.decode_at``) and
     read by every layer; each layer's new K/V row is written into the
     stacked ``caches`` in place. Returns (logits [B, V], caches with
-    ``pos + 1``, a new tensor: the caller's ``pos`` is left as it was)."""
+    ``pos + 1``, a new tensor: the caller's ``pos`` is left as it was). A
+    moe layer routes each row as a group of one token; its load-balance
+    loss is dropped, as ``repro`` drops it."""
     window = cfg.sliding_window if window == "cfg" else window
     pos = A.row_pos(caches.pos, token.shape[0], token.device)
     at = A.decode_at(cfg, pos, caches.k.shape[2], window)
@@ -196,7 +218,7 @@ def decode_step(p, cfg, caches, token, *, window="cfg"):
             caches.k[i], caches.v[i],
             None if caches.k_scale is None else caches.k_scale[i],
             None if caches.v_scale is None else caches.v_scale[i], at)
-        h = _ffn(lp, h + attn_out, cfg)
+        h, _ = _ffn(lp, h + attn_out, cfg)
     h = rmsnorm(h, p["norm_f"], cfg.norm_eps)
     return unembed(p, cfg, h)[:, 0], caches._replace(pos=pos + 1)
 
@@ -242,8 +264,9 @@ def chunked_ce(p, cfg, hidden, labels, mask=None):
 
 def lm_loss(p, cfg, batch, *, window="cfg"):
     """Next-token LM loss of one batch (a vlm's patch prefix carries no
-    label); the last position of each row is masked out."""
-    h, _ = forward(p, cfg, batch, window=window)
+    label); the last position of each row is masked out. A moe model adds
+    0.01 times its load-balance loss, as ``repro`` does."""
+    h, _, aux = forward(p, cfg, batch, window=window)
     tokens = batch["tokens"]
     n_prefix = h.shape[1] - tokens.shape[1]
     h_txt = h[:, n_prefix:] if n_prefix else h
@@ -251,4 +274,5 @@ def lm_loss(p, cfg, batch, *, window="cfg"):
     mask = torch.ones(labels.shape, dtype=torch.float32,
                       device=labels.device)
     mask[:, -1] = 0.0
-    return chunked_ce(p, cfg, h_txt, labels, mask)
+    loss = chunked_ce(p, cfg, h_txt, labels, mask)
+    return loss + 0.01 * aux if cfg.family == "moe" else loss

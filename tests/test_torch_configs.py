@@ -32,6 +32,8 @@ from repro_torch.serve import RobustDecodeConfig, ServeEngine
 torch.set_num_threads(1)
 
 NEW = ["minitron-4b", "starcoder2-7b", "llama3-405b", "phi-3-vision-4.2b"]
+# the moe family (tests/test_torch_moe.py holds it against repro)
+MOE = ["granite-moe-3b-a800m", "mixtral-8x7b"]
 # (config, (d_head, n_heads, n_kv_heads) replaced into reduced(), or None)
 CASES = [(name, None) for name in NEW] + [
     ("phi-3-vision-4.2b", (96, 4, 4)),   # phi-3-vision's dh 96, G 1
@@ -94,22 +96,22 @@ def test_registry_mirrors_repro():
     """The port's names are repro's; every name of repro that the port
     lacks raises, naming its family and ROADMAP's item."""
     ported = t_list_archs()
-    assert ported == sorted(["qwen3-1.7b"] + NEW)
+    assert ported == sorted(["qwen3-1.7b"] + NEW + MOE)
     assert set(ported) <= set(j_list_archs())
     for name in sorted(set(j_list_archs()) - set(ported)):
         family = j_get_arch(name).family
-        assert family in ("moe", "ssm", "hybrid", "encdec"), name
+        assert family in ("ssm", "hybrid", "encdec"), name
         with pytest.raises(NotImplementedError, match=f"{family}.*A7"):
             t_get_arch(name)
     with pytest.raises(KeyError, match="unknown"):
         t_get_arch("no-such-model")
 
 
-@pytest.mark.parametrize("name", NEW + ["qwen3-1.7b"])
+@pytest.mark.parametrize("name", NEW + ["qwen3-1.7b"] + MOE)
 def test_expected_shapes_match_repro_at_full_width(name):
     """``convert`` takes every ported config: its shapes at full width are
     those of repro's init (traced, nothing allocated), the untied
-    ``lm_head`` included."""
+    ``lm_head`` and a moe layer's router and stacked experts included."""
     jc, tc = j_get_arch(name), t_get_arch(name)
     shapes = jax.eval_shape(lambda k: JM.init(k, jc), jax.random.PRNGKey(0))
 

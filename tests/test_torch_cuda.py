@@ -1469,3 +1469,119 @@ def test_cuda_consensus_blocked_wire_matches_the_cpu(cuda, monkeypatch):
                 pin_mask=pin.to(dev))
     _consensus_same(res[(1000, "cpu")], res[(1000, str(cuda))])
     _consensus_same(res[(1000, str(cuda))], res[(1 << 22, str(cuda))])
+
+
+# -- the moe family: routing inside the captured steps -----------------------
+
+def _moe_served(cuda, name="granite-moe-3b-a800m", **kw):
+    cfg = dataclasses.replace(get_arch(name).reduced(), **kw)
+    params = M.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                    device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 12), generator=g,
+                                     device=cuda)}
+    return cfg, params, batch
+
+
+def _moe_case(cuda, case):
+    from repro_torch.configs import MoEConfig
+
+    return {"granite": lambda: _moe_served(cuda),
+            "mixtral-ring": lambda: _moe_served(cuda, "mixtral-8x7b"),
+            "granite-E40-bf16": lambda: _moe_served(
+                cuda, moe=MoEConfig(40, 8), param_dtype="bfloat16",
+                compute_dtype="bfloat16")}[case]()
+
+
+MOE_CASES = ["granite", "mixtral-ring", "granite-E40-bf16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [True, False], ids=["shared",
+                                                      "replicated"])
+@pytest.mark.parametrize("case", MOE_CASES)
+def test_cuda_moe_replay_equals_eager(cuda, case, share):
+    """A moe decode step (the router, the top-k with its tie order, the
+    capacity positions, the gathered dispatch and combine) captured once
+    and replayed gives the eager loop's greedy tokens bitwise, under
+    signflip and with no robust tail; mixtral's prompt of 12 and 10 new
+    tokens run its reduced ring of 16 past its end inside the graph; the
+    bf16 case routes over 40 experts, top-8."""
+    cfg, params, batch = _moe_case(cuda, case)
+    for robust in (RobustDecodeConfig(m=8, attack="signflip",
+                                      share_replica_compute=share), None):
+        eng = ServeEngine(cfg, params, max_len=40, robust=robust,
+                          device=cuda)
+        got = eng.generate(batch, 10)
+        torch.testing.assert_close(got, eng.generate_python_loop(batch, 10),
+                                   rtol=0, atol=0)
+        (st,) = eng.graphs.values()
+        assert st.graph is not None and st.replays == 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MOE_CASES)
+def test_cuda_moe_pool_replay_equals_eager(cuda, case):
+    """Seven requests through three slots of a moe model: the scheduler
+    over the replayed pool gives the eagerly decoded pool's tokens."""
+    cfg, params, _ = _moe_case(cuda, case)
+    reqs = _pool_requests(cfg, 7, 3)
+    robust = RobustDecodeConfig(m=8, attack="signflip")
+    got, eng = _pool_serve(cuda, cfg, params, reqs, "graph", robust)
+    want, _ = _pool_serve(cuda, cfg, params, reqs, "eager", robust)
+    assert got == want
+    (st,) = eng.pool_graphs.values()
+    assert st.replays > 3
+
+
+@pytest.mark.cuda
+def test_cuda_moe_capture_of_a_host_read_raises(cuda, monkeypatch):
+    """A routing that reads a device value on the host cannot be captured:
+    ``generate`` raises, with no fallback, and serves once it is gone."""
+    import repro_torch.models.moe as X
+
+    real = X.route
+
+    def reads_host(x, router, cfg):
+        r = real(x, router, cfg)
+        int(r.expert[0, 0, 0])  # a device value read on the host
+        return r
+
+    cfg, params, batch = _moe_served(cuda)
+    monkeypatch.setattr(X, "route", reads_host)
+    eng = ServeEngine(cfg, params, max_len=40, device=cuda)
+    with pytest.raises(RuntimeError, match="capturing the decode step"):
+        eng.generate(batch, 10)
+    assert not eng.graphs
+    monkeypatch.setattr(X, "route", real)
+    torch.testing.assert_close(eng.generate(batch, 10),
+                               eng.generate_python_loop(batch, 10), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_top_k_ties_match_the_cpu(cuda):
+    """Router probabilities in runs of exact ties around the top-k boundary
+    (40 experts, top-8): the card picks the CPU's experts, the lower index
+    first on a tie."""
+    from repro_torch.models.moe import _top_k
+
+    rs = np.random.RandomState(0)
+    base = rs.rand(64, 14).astype(np.float32)
+    probs = torch.from_numpy(np.repeat(base, 3, axis=1)[:, :40].copy())
+    want = _top_k(probs, 8)
+    got = _top_k(probs.to(cuda), 8)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_b4_b1_at_granite_vocab(cuda):
+    """granite-moe-3b-a800m's serving stack [8, 4, 49155]: V is odd, so B4
+    takes its scalar loads; greedy and top-50, with and without the
+    aggregate, and B1, bitwise their plain versions."""
+    x = _stack(49155, (8, 4, 49155), cuda)
+    for k in (0, 50):
+        for with_agg in (True, False):
+            _b4_check(x, top_k=k, with_agg=with_agg)
+    _b1_same(x.reshape(8, -1), "vrmom", K=8)

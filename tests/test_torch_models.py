@@ -74,7 +74,8 @@ def _field(cfg, name):
 
 @pytest.mark.parametrize("name", ["qwen3-1.7b", "minitron-4b",
                                   "starcoder2-7b", "llama3-405b",
-                                  "phi-3-vision-4.2b"])
+                                  "phi-3-vision-4.2b", "granite-moe-3b-a800m",
+                                  "mixtral-8x7b"])
 def test_config_mirrors_repro(name):
     jc, tc = j_get_arch(name), t_get_arch(name)
     for f in dataclasses.fields(tc):
@@ -82,7 +83,7 @@ def test_config_mirrors_repro(name):
     jr, tr = jc.reduced(), tc.reduced()
     for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
               "d_ff", "vocab", "param_dtype", "compute_dtype", "attn_chunk",
-              "vision"):
+              "vision", "moe", "sliding_window"):
         assert _field(tr, f) == _field(jr, f), f
 
 
@@ -243,4 +244,4 @@ def test_params_from_jax_rejects_mismatch(models):
 
 def test_unported_family_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dataclasses.replace(t_get_arch("qwen3-1.7b"), family="moe")
+        dataclasses.replace(t_get_arch("qwen3-1.7b"), family="ssm")
