@@ -50,7 +50,7 @@ that reach B2's and B3's wider instances, at full width through
 ``ServeEngine.generate`` with seeded random weights and the workload of
 phase 3, each cut in depth only: starcoder2-7b (B3 at query group 9),
 minitron-4b (B4 over a 256000 vocabulary) and phi-3-vision-4.2b with 256
-stub patches before the prompt (B2 and B3 at head dim 96), each at 8 of
+stub patches before the prompt (B2 and B3 at head dim 96), each at 4 of
 its 32 layers, and llama3-405b at 2 of its 126 layers (B3 at group 16). Greedy tokens must be equal between
 ``generate`` (graph) and ``generate_python_loop`` (eager) and across
 none, signflip and gaussian and fused and unfused within each layout
@@ -147,7 +147,7 @@ round), the loss finite and quorum kept, the split of a step printed;
 then one step under repro's plan (dropout 0.1, a crash at round 2) at the
 depth its reckoned time allows, printed with the cut; peak memory.
 Phase 10 serves the moe family (``models/moe.py``): (a) granite-moe-3b-
-a800m at full width and depth (32 layers, 40 experts top-8, dh 64, G 3,
+a800m at full width and 8 of its 32 layers (40 experts top-8, dh 64, G 3,
 V 49155; seeded bf16 weights) with phase 3's workload: greedy tokens
 identical across none/signflip/gaussian x fused/unfused in each layout;
 for three of those runs (signflip; fused and unfused shared, fused
@@ -168,6 +168,32 @@ prompt of 4090 tokens whose 24 new ones run the ring past its end, graph
 = eager. B2/B3 at granite's shapes, B3 over mixtral's ring, and B4 (and
 B1) at V 49155 (odd: B4's scalar loads) and 32000 join the ``kernels``
 line.
+Phase 11 serves the ssm and hybrid families (``models/mamba2.py``,
+``models/hybrid.py``): (a) mamba2-2.7b (64 mamba2 layers, no attention, V
+50280) and zamba2-7b (81 mamba2 layers and a shared attention block after
+every 6: 13 applications at dh 112, G 1; V 32000) at full width and
+depth, seeded bf16 weights, phase 3's workload, one engine for each of
+seven (layout, attack, tail) runs covering none/signflip/gaussian and
+fused/unfused in each layout: greedy tokens identical within each layout;
+two signflip runs (mamba2: fused and unfused shared; zamba2: fused shared
+and replicated) graph = eager, the eager loop's launches (the wrappers'
+counts) and each traced generate's what the step implies kernel by
+kernel (zamba2: B2 once an application, B3 once an application a step;
+mamba2: neither); shared vs replicated held by ``layout_check``; the
+instances that ran (zamba2: B2 <112>, B3 <112, 8>); the prefill on the
+kernel path against the plain path (mamba2: the same bits; zamba2:
+within LAYOUT_TOL); decode ms/token, capture, launches and busy share (of
+the graph), the replicated layout's decode ms/token, each layout's decode
+bound from the bytes a step moves (the weights, the f32 state read and
+written, the K/V), and peak memory;
+(b) zamba2-7b behind ``Scheduler`` over 8 slots of 512 (16 numpy-seeded
+requests): tokens identical under none/signflip/gaussian, a second drain
+(every admission into a slot whose state moved while it sat free)
+identical to the first, the first request admitted after an eviction
+equal to its run alone in a new pool, 5 requests against a solo generate;
+(c) B2 and B3 at zamba2's dh 112, G 1 (and B3 at its 32 replicated rows),
+and B4 and B1 at mamba2's V 50280 join the ``kernels`` line with the
+launches of (a)'s traces.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it lists every kernel with its launches, error and times. Any
@@ -212,10 +238,10 @@ TRACE_TRIES = 8
 
 # phase 5: (config, layers kept or None for all of them), every width as
 # published. llama3-405b: the whole model does not fit one card; the
-# others keep 8 of their 32 layers so that the smoke, grown by phase 8,
-# keeps its time (their eager steps, traced, set phase 5's time)
-WIDE_CONFIGS = (("starcoder2-7b", 8), ("minitron-4b", 8),
-                ("phi-3-vision-4.2b", 8), ("llama3-405b", 2))
+# others keep 4 of their 32 layers so that the smoke, grown by phases 8 and
+# 11, keeps its time (their eager steps, traced, set phase 5's time)
+WIDE_CONFIGS = (("starcoder2-7b", 4), ("minitron-4b", 4),
+                ("phi-3-vision-4.2b", 4), ("llama3-405b", 2))
 # phase 6, continuous batching: qwen3-1.7b at full width through the
 # scheduler; 64 requests of prompt 32..320 and budget 16..64 tokens (numpy
 # seed 6) and one that cannot fit a slot; pool tokens held against a solo
@@ -266,18 +292,37 @@ CONS_ATTACKS = ("alie", "omniscient")
 CONS_REPS, CONS_BATCH = 480, 240
 CONS_STEPS, CONS_FAULT_BUDGET_S = 3, 30.0
 
-# phase 10, the moe family: granite-moe-3b-a800m at full width and depth
-# with phase 3's workload, the (layout, attack, fused) runs of MOE_TRACED
-# held against their eager loops, their generates traced (the rest of the
-# matrix runs its graph generate alone, untraced, to hold the smoke's
-# time), and behind the
-# scheduler (16 requests of phase 6's ranges over 8 slots of 512);
+# phase 10, the moe family: granite-moe-3b-a800m at full width and
+# MOE_GRANITE_LAYERS of 32 layers with phase 3's workload, the (layout,
+# attack, fused) runs of MOE_TRACED held against their eager loops, their
+# generates traced (the rest of the matrix runs its graph generate alone,
+# untraced, to hold the smoke's time), and behind the scheduler (16
+# requests of phase 6's ranges over 8 slots of 512);
 # mixtral-8x7b at MOE_MIXTRAL_LAYERS of 32 layers, and one prompt whose
 # last tokens run the 4096-slot ring past its end
 MOE_TRACED = (("shared", "signflip", True), ("shared", "signflip", False),
               ("replicated", "signflip", True))
 MOE_POOL_SLOTS, MOE_POOL_REQUESTS, MOE_POOL_SOLO = 8, 16, 4
 MOE_MIXTRAL_LAYERS, MOE_RING_PROMPT = 4, 4090
+# granite's depth in phase 10: 8 of its 32 layers since phase 11 came in,
+# to hold the smoke's time (its traced steps set phase 10's time)
+MOE_GRANITE_LAYERS = 8
+
+# phase 11, the ssm and hybrid families: mamba2-2.7b and zamba2-7b at full
+# width and depth with phase 3's workload, one engine a (layout, attack,
+# fused) run of SSM_RUNS, each serving a graph generate; the two runs of
+# SSM_TRACED also serve the eager loop, their generates traced (mamba2:
+# both tails, whose kernels it times; zamba2: both layouts, whose B3 shapes
+# it times); zamba2 behind the scheduler as phase 10 (b)
+SSM_RUNS = (("shared", "none", True), ("shared", "signflip", True),
+            ("shared", "signflip", False), ("shared", "gaussian", True),
+            ("replicated", "none", True), ("replicated", "signflip", True),
+            ("replicated", "gaussian", False))
+SSM_TRACED = {"mamba2-2.7b": (("shared", "signflip", True),
+                              ("shared", "signflip", False)),
+              "zamba2-7b": (("shared", "signflip", True),
+                            ("replicated", "signflip", True))}
+SSM_CONFIGS = tuple(SSM_TRACED)
 
 
 class CheckFailed(Exception):
@@ -911,12 +956,13 @@ def prefill_median(torch, eng, batch) -> float:
 
 
 def report_decode(torch, what, eng, batch, prefill_ms, card,
-                  profiled: bool = True) -> None:
+                  profiled=True) -> None:
     """Decode ms/token, capture time, launches a token and the device-busy
     share, for the graph (a generate of replays only) and the eager loop,
     untraced: the capture of a generate after the engine's graphs are
     dropped, the median of three walls of each (a shared host's spread),
-    and, with ``profiled``, one profiled call of each."""
+    and, with ``profiled``, one profiled call of each (``"graph"``: of the
+    graph generate only)."""
     eng.graphs.clear()
     eng.generate(batch, NEW_TOKENS)  # one eager step, the capture, replays
     capture_ms = next(iter(eng.graphs.values())).capture_s * 1e3
@@ -934,7 +980,7 @@ def report_decode(torch, what, eng, batch, prefill_ms, card,
         print(f"{what}, {mode} generate walls {walls[0]:.1f}, "
               f"{walls[1]:.1f}, {walls[2]:.1f} ms: median {ms:.1f}")
         p = (profile_generate(torch, fn, f"{mode} generate", ms)
-             if profiled else None)
+             if profiled in (True, mode) else None)
         per[mode] = (ms, p)
     for mode, (ms, p) in per.items():
         decode = (ms - prefill_ms) / (NEW_TOKENS - 1)
@@ -969,23 +1015,26 @@ def profile_generate(torch, fn, label: str, gen_ms: float,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+    # the raw events, summed by name as key_averages() would: building the
+    # profiler's per-event objects for a trace of ~10^5 kernels and as many
+    # host ops takes tens of seconds
+    by_name, launches, graphs = {}, 0, 0
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if name in ("cudaLaunchKernel", "cuLaunchKernel",
+                    "cudaLaunchKernelExC", "cudaGraphLaunch"):
+            launches += 1
+            graphs += name == "cudaGraphLaunch"
+        if ev.device_type() != DeviceType.CUDA:
             continue  # host-side ops; their kernels are listed on their own
-        if getattr(ev, "is_user_annotation", False) or \
-                ev.key.startswith("serve."):
+        if getattr(ev, "is_user_annotation", lambda: False)() or \
+                name.startswith("serve."):
             continue  # a span's range (obs.trace), not device work
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        dev_us = ev.duration_ns() / 1e3
         if dev_us > 0:
-            rows.append((dev_us, ev.count, ev.key))
-    launches = sum(ev.count for ev in prof.key_averages()
-                   if ev.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                 "cudaLaunchKernelExC", "cudaGraphLaunch"))
-    graphs = sum(ev.count for ev in prof.key_averages()
-                 if ev.key == "cudaGraphLaunch")
+            us, n = by_name.get(name, (0.0, 0))
+            by_name[name] = (us + dev_us, n + 1)
+    rows = [(us, n, name) for name, (us, n) in by_name.items()]
     if not rows:
         print(f"[profile] {label}: device time not measured (the profiler "
               f"recorded no device activity)")
@@ -3209,8 +3258,8 @@ def instances_ran(torch, eng, params, cfg, batch, tok):
         eng.prefill(batch)
         M.decode_step(params, cfg, caches, tok)
         torch.cuda.synchronize()
-    ran = {ev.name for ev in prof.events()
-           if ev.device_type == DeviceType.CUDA}
+    ran = {ev.name() for ev in prof.profiler.kineto_results.events()
+           if ev.device_type() == DeviceType.CUDA}
     return ({kernel_instance(n, "flash_fwd_wgmma") for n in ran} - {None},
             {kernel_instance(n, "decode_split_kernel") for n in ran} - {None})
 
@@ -3261,12 +3310,70 @@ def graph_traced(torch, K, eng, batch, what: str, want: dict):
                 same=torch.equal(first, graph) and torch.equal(graph, eager))
 
 
-def moe_records(recs, card):
+def run_matrix(torch, K, cfg, runs, batch, traced, n_attn, tag):
+    """The main path of phases 10 (a) and 11 (a). With the wrappers'
+    counts from 0, the runs of ``traced`` (keys (layout, attack, fused) of
+    ``runs``, its engines) are held against their eager loops with their
+    generates traced (``graph_traced``: ``n_attn`` B2 launches a generate,
+    as many B3 a decode step), and every other run serves one untraced
+    graph generate; the greedy tokens must be identical within each layout
+    and graph = eager. Returns (the results by key, the traced launches in
+    all and by layout, the wrappers' counts)."""
+    K.reset_launch_counts()
+    res = {}
+    for key in traced:
+        tail = NEW_TOKENS if key[2] else 0
+        res[key] = graph_traced(
+            torch, K, runs[key], batch,
+            f"{cfg.name} {' '.join(map(str, key))}",
+            dict(aggregate=NEW_TOKENS - tail, aggregate_sample=tail,
+                 flash_attention=n_attn,
+                 decode_attention=n_attn * (NEW_TOKENS - 1)))
+    walls = {}
+    for key, eng in runs.items():
+        if key in res:
+            continue
+        t = time.perf_counter()
+        res[key] = dict(toks=eng.generate(batch, NEW_TOKENS))
+        torch.cuda.synchronize()
+        walls[key] = time.perf_counter() - t
+    counted = K.launch_counts()
+    counts, by_layout = {}, {"shared": {}, "replicated": {}}
+    for key in traced:
+        add_counts(counts, res[key]["launches"])
+        add_counts(by_layout[key[0]], res[key]["launches"])
+    ref = res["shared", "none", True]["toks"]
+    require(ref.shape == (N_PROMPTS, NEW_TOKENS)
+            and bool(((ref >= 0) & (ref < cfg.vocab)).all()),
+            f"{cfg.name}: tokens of shape {tuple(ref.shape)} or outside the "
+            f"vocabulary")
+    for key, r in res.items():
+        base = res[key[0], "none", True]["toks"]
+        same = torch.equal(r["toks"], base)
+        what = f"{key[0]} {key[1]} {'fused' if key[2] else 'unfused'}"
+        extra = (f"traced walls: graph {r['first_ms']:7.1f} ms (capture "
+                 f"{r['capture_s'] * 1e3:6.1f} ms), replayed "
+                 f"{r['graph_ms']:6.1f} ms, eager {r['eager_ms']:7.1f} ms; "
+                 f"traced launches a generate {json.dumps(r['graph_n'])}; "
+                 f"calls traced again {r['retraced']}" if "graph_n" in r
+                 else f"untraced graph generate {walls[key]:.2f} s")
+        print(f"[{tag}] {cfg.name} {what:27s} graph == eager "
+              f"{r.get('same', 'not run')}, identical in layout {same}; "
+              f"{extra}")
+        require(r.get("same", True), f"{cfg.name} {what}: generate (graph) "
+                                     f"and generate_python_loop (eager) "
+                                     f"differ")
+        require(same, f"{cfg.name}: greedy tokens of {what} differ from "
+                      f"{key[0]} none fused")
+    return res, counts, by_layout, counted
+
+
+def moe_records(recs, card, tag="moe"):
     """Each (``kernels`` record, its main path's launches) printed, the
     launches written in -> the records."""
     for rec, launches in recs:
         rec["launches"] = launches
-        print(f"[moe] {rec['name']}: {rec['ms'] * 1e3:.2f} us device cold, "
+        print(f"[{tag}] {rec['name']}: {rec['ms'] * 1e3:.2f} us device cold, "
               f"bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}), "
               f"library " + ("none" if rec["library_ms"] is None else
                              f"{rec['library_ms'] * 1e3:.2f} us") +
@@ -3276,15 +3383,19 @@ def moe_records(recs, card):
 
 
 def moe_granite(torch, dev, card, flush):
-    """Phase 10 (a): granite-moe-3b-a800m at full width and depth, phase 3's
-    workload. Returns (cfg, params, the ``kernels`` records)."""
+    """Phase 10 (a): granite-moe-3b-a800m at full width and
+    MOE_GRANITE_LAYERS of its 32 layers, phase 3's workload. Returns (cfg,
+    params, the ``kernels`` records)."""
+    import dataclasses
+
     from repro_torch import kernels as K
     from repro_torch.configs import get as get_arch
     from repro_torch.core.estimator import Estimator
     from repro_torch.models import model as M
     from repro_torch.serve import RobustDecodeConfig, ServeEngine
 
-    cfg = get_arch("granite-moe-3b-a800m")
+    full = get_arch("granite-moe-3b-a800m")
+    cfg = dataclasses.replace(full, n_layers=MOE_GRANITE_LAYERS)
     t0 = time.perf_counter()
     params = M.init(cfg, torch.Generator(device=dev).manual_seed(0),
                     device=dev)
@@ -3294,7 +3405,8 @@ def moe_granite(torch, dev, card, flush):
     L, H, Hkv, dh = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // Hkv
     w_ms = 2 * n_params / HBM_BYTES_PER_S * 1e3
-    print(f"[moe] {cfg.name} at full width and depth: {L} layers, d "
+    print(f"[moe] {cfg.name} at full width, depth cut to {L} of "
+          f"{full.n_layers} layers (MOE_GRANITE_LAYERS): d "
           f"{cfg.d_model}, heads {H}/{Hkv} (G {G}), dh {dh}, "
           f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, d_ff "
           f"{cfg.d_ff} an expert, vocab {cfg.vocab}, {n_params / 1e9:.3f} B "
@@ -3326,52 +3438,9 @@ def moe_granite(torch, dev, card, flush):
     torch.cuda.synchronize()
 
     # ---- the main path: counts from 0; launches from its traces ---------
-    K.reset_launch_counts()
-    res = {}
-    for key in MOE_TRACED:
-        tail = NEW_TOKENS if key[2] else 0
-        res[key] = graph_traced(
-            torch, K, runs[key], batch,
-            f"{cfg.name} {' '.join(map(str, key))}",
-            dict(aggregate=NEW_TOKENS - tail, aggregate_sample=tail,
-                 flash_attention=L, decode_attention=L * (NEW_TOKENS - 1)))
-    walls = {}
-    for key, eng in runs.items():
-        if key in res:
-            continue
-        t = time.perf_counter()
-        res[key] = dict(toks=eng.generate(batch, NEW_TOKENS))
-        torch.cuda.synchronize()
-        walls[key] = time.perf_counter() - t
-    counted = K.launch_counts()
-    # ---------------------------------------------------------------------
-    counts, by_layout = {}, {"shared": {}, "replicated": {}}
-    for key in MOE_TRACED:
-        add_counts(counts, res[key]["launches"])
-        add_counts(by_layout[key[0]], res[key]["launches"])
+    res, counts, by_layout, counted = run_matrix(
+        torch, K, cfg, runs, batch, MOE_TRACED, L, "moe")
     ref = res["shared", "none", True]["toks"]
-    require(ref.shape == (N_PROMPTS, NEW_TOKENS)
-            and bool(((ref >= 0) & (ref < cfg.vocab)).all()),
-            f"{cfg.name}: tokens of shape {tuple(ref.shape)} or outside the "
-            f"vocabulary")
-    for key, r in res.items():
-        base = res[key[0], "none", True]["toks"]
-        same = torch.equal(r["toks"], base)
-        what = f"{key[0]} {key[1]} {'fused' if key[2] else 'unfused'}"
-        extra = (f"traced walls: graph {r['first_ms']:7.1f} ms (capture "
-                 f"{r['capture_s'] * 1e3:6.1f} ms), replayed "
-                 f"{r['graph_ms']:6.1f} ms, eager {r['eager_ms']:7.1f} ms; "
-                 f"traced launches a generate {json.dumps(r['graph_n'])}; "
-                 f"calls traced again {r['retraced']}" if "graph_n" in r
-                 else f"untraced graph generate {walls[key]:.2f} s")
-        print(f"[moe] {cfg.name} {what:27s} graph == eager "
-              f"{r.get('same', 'not run')}, identical in layout {same}; "
-              f"{extra}")
-        require(r.get("same", True), f"{cfg.name} {what}: generate (graph) "
-                                     f"and generate_python_loop (eager) "
-                                     f"differ")
-        require(same, f"{cfg.name}: greedy tokens of {what} differ from "
-                      f"{key[0]} none fused")
     fused = res["shared", "signflip", True]["graph_n"]
     require(fused["flash_attention"] == L
             and fused["decode_attention"] == L * (NEW_TOKENS - 1)
@@ -3676,6 +3745,351 @@ def phase_moe(torch, dev, card):
     return recs
 
 
+def ssm_reckoning(cfg, n_params: int, rows: int) -> dict:
+    """The bytes one decode step must move at ``rows`` cache rows, read
+    once and written once: every bf16 weight (the embedding as the
+    unembedding; a hybrid's shared block once for each application), each
+    row's f32 SSM state and conv tails read and written, and a hybrid's
+    K/V read at the decode's mean length -> dict of GB and the bound ms."""
+    s = cfg.ssm
+    E = s.expand * cfg.d_model
+    H, GN = E // s.head_dim, 2 * s.n_groups * s.d_state
+    state = cfg.n_layers * (H * s.head_dim * s.d_state * 4
+                            + (s.d_conv - 1) * (E + GN) * 2)
+    weights, kv = 2 * n_params, 0
+    if cfg.family == "hybrid":
+        D, F = cfg.d_model, cfg.d_ff
+        shared = 2 * (2 * D * D + 2 * D * cfg.n_heads * cfg.head_dim
+                      + 2 * D * cfg.n_kv_heads * cfg.head_dim + 3 * D * F)
+        n_attn = cfg.n_layers // cfg.hybrid_attn_every
+        weights += shared * (n_attn - 1)
+        mean_len = PROMPT_LEN + NEW_TOKENS / 2
+        kv = n_attn * 2 * mean_len * cfg.n_kv_heads * cfg.head_dim * 2
+    total = weights + rows * (2 * state + kv)
+    return dict(weights_gb=weights / 1e9, state_mb=state / 1e6,
+                kv_mb=kv / 1e6, total_gb=total / 1e9,
+                ms=total / HBM_BYTES_PER_S * 1e3)
+
+
+def ssm_serve(torch, dev, card, flush, name):
+    """Phase 11 (a): ``name`` (mamba2-2.7b or zamba2-7b) at full width and
+    depth, phase 3's workload. Returns (cfg, params, [(``kernels`` record,
+    its main path's launches)])."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core.estimator import Estimator
+    from repro_torch.models import model as M
+    from repro_torch.serve import RobustDecodeConfig, ServeEngine
+
+    cfg = get_arch(name)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    torch.cuda.synchronize()
+    n_params = M.param_count(params)
+    s = cfg.ssm
+    E = s.expand * cfg.d_model
+    hybrid = cfg.family == "hybrid"
+    n_attn = cfg.n_layers // cfg.hybrid_attn_every if hybrid else 0
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // Hkv
+    attn = (f"the shared attention block after every "
+            f"{cfg.hybrid_attn_every} ({n_attn} applications; heads "
+            f"{H}/{Hkv}, dh {dh}, d_ff {cfg.d_ff})" if hybrid
+            else "no attention")
+    print(f"[ssm] {cfg.name} at full width and depth: {cfg.n_layers} mamba2 "
+          f"layers (d {cfg.d_model}, d_inner {E}, {E // s.head_dim} heads of "
+          f"{s.head_dim}, d_state {s.d_state}, chunk {s.chunk}), {attn}, "
+          f"vocab {cfg.vocab}; {n_params / 1e9:.3f} B params bf16 "
+          f"({2 * n_params / 1e9:.2f} GB), seeded init "
+          f"{time.perf_counter() - t0:.1f} s; {N_PROMPTS} x {PROMPT_LEN} "
+          f"tokens, {NEW_TOKENS} new")
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (N_PROMPTS, PROMPT_LEN),
+                                     generator=g, device=dev)}
+
+    def rcfg(**kw):
+        return RobustDecodeConfig(**{**dict(m=8, estimator="vrmom", K=8,
+                                            alpha=0.25), **kw})
+
+    def engine(robust, **kw):
+        return ServeEngine(cfg, params, max_len=MAX_LEN, robust=robust,
+                           device=dev, **kw)
+
+    runs = {key: engine(rcfg(attack=key[1], fuse_tail=key[2],
+                             share_replica_compute=key[0] == "shared"))
+            for key in SSM_RUNS}
+    warm = runs["shared", "none", True]
+    warm.generate_python_loop(batch, 2)  # warm-up
+    warm.generate(batch, 2)
+    torch.cuda.synchronize()
+
+    # ---- the main path: counts from 0; launches from its traces ---------
+    lap = time.perf_counter()
+    res, counts, by_layout, counted = run_matrix(
+        torch, K, cfg, runs, batch, SSM_TRACED[name], n_attn, "ssm")
+    t_runs = time.perf_counter() - lap
+    lap = time.perf_counter()
+    ref = res["shared", "none", True]["toks"]
+    fused = res["shared", "signflip", True]["graph_n"]
+    require(fused == dict(aggregate=0, aggregate_sample=NEW_TOKENS,
+                          flash_attention=n_attn,
+                          decode_attention=n_attn * (NEW_TOKENS - 1)),
+            f"{cfg.name}: fused greedy launches {fused}")
+    # every kernel of the path launched (the wrappers count the eager
+    # launches of every run); the traces hold those the records time
+    path = (("aggregate", "aggregate_sample", "flash_attention",
+             "decode_attention") if hybrid
+            else ("aggregate", "aggregate_sample"))
+    for k in path:
+        require(counted[k] > 0, f"{cfg.name}: kernel {k} never launched on "
+                                f"the main path")
+    for k in (("flash_attention", "decode_attention") if hybrid else
+              ("aggregate", "aggregate_sample")):
+        require(counts[k] > 0, f"{cfg.name}: no traced launch of {k}")
+    print(f"[ssm] {cfg.name} main-path launches {json.dumps(counts)} "
+          f"(traced; the wrappers counted {json.dumps(counted)}, eager "
+          f"launches only) ({card})")
+    print(f"[ssm] {cfg.name} shared vs replicated: " + layout_check(
+        torch, cfg, params, batch, MAX_LEN, ref,
+        res["replicated", "signflip", True]["toks"]))
+    t_layout = time.perf_counter() - lap
+    lap = time.perf_counter()
+    flash, dec = instances_ran(torch, warm, params, cfg, batch, ref[:, 0])
+    want = ({(dh,)}, {(dh, 8 if G <= 8 else 16)}) if hybrid else (set(),
+                                                                  set())
+    require((flash, dec) == want, f"{cfg.name}: instances {flash} (B2) and "
+                                  f"{dec} (B3), expected {want}")
+    print(f"[ssm] {cfg.name} instances: " + (
+        f"B2 flash_fwd_wgmma<{dh}> (the shared block's prefill), B3 "
+        f"decode_split_kernel<{dh}, 8> (its decode, G {G})" if hybrid
+        else "no B2 or B3 instance ran (no attention)"))
+    # ---- prefill on the kernel path against the plain path --------------
+    eng_p = engine(rcfg(estimator=Estimator(method="vrmom", K=8,
+                                            backend="torch")),
+                   attn_backend="torch")
+    lk, _ = warm.prefill(batch)
+    lp, _ = eng_p.prefill(batch)
+    rel = max_err(lk, lp) / float(lp.float().abs().max())
+    if hybrid:
+        require(bool(torch.isfinite(lk.float()).all()) and rel <= LAYOUT_TOL,
+                f"{cfg.name}: prefill logits kernel vs plain: {rel}")
+    else:
+        require(torch.equal(lk, lp), f"{cfg.name}: with no attention the "
+                                     f"kernel and plain prefills differ: "
+                                     f"{rel}")
+    print(f"[ssm] {cfg.name}: prefill logits kernel vs plain path max err / "
+          f"max|logit| = {rel:.3g} " + (
+              f"(tolerance {LAYOUT_TOL}: B2 at dh {dh} against the plain "
+              f"mha)" if hybrid else "(required 0: no attention, the same "
+                                     "bits)"))
+    del eng_p, lk, lp
+    t_checks = time.perf_counter() - lap
+    lap = time.perf_counter()
+    # ---- times and bounds -----------------------------------------------
+    pre_ms = prefill_median(torch, warm, batch)
+    report_decode(torch, f"[ssm] {cfg.name} robust m=8 vrmom greedy (shared "
+                  f"none)", warm, batch, pre_ms, card, profiled="graph")
+    rep_eng = runs["replicated", "none", True]
+    rep_walls = []
+    for _ in range(3):
+        t = time.perf_counter()
+        rep_eng.generate(batch, NEW_TOKENS)
+        torch.cuda.synchronize()
+        rep_walls.append((time.perf_counter() - t) * 1e3)
+    rep_ms = statistics.median(rep_walls)
+    print(f"[ssm] {cfg.name} replicated (32 rows) none fused, graph: "
+          f"generate walls " + ", ".join(f"{w:.1f}" for w in rep_walls) +
+          f" ms: median {rep_ms:.1f}, decode "
+          f"{(rep_ms - pre_ms) / (NEW_TOKENS - 1):.2f} ms/token ({card})")
+    for rows, layout in ((N_PROMPTS, "shared"), (8 * N_PROMPTS,
+                                                  "replicated")):
+        b = ssm_reckoning(cfg, n_params, rows)
+        print(f"[ssm] {cfg.name} decode bound, {layout} ({rows} rows): "
+              f"weights {b['weights_gb']:.2f} GB" + (
+                  f" (the shared block once an application)" if hybrid
+                  else "") + f" + {rows} x (2 x {b['state_mb']:.1f} MB "
+              f"state read and written" + (
+                  f" + {b['kv_mb']:.1f} MB K/V read" if hybrid else "") +
+              f") = {b['total_gb']:.2f} GB / {HBM_BYTES_PER_S / 1e12:.2f} "
+              f"TB/s = {b['ms']:.2f} ms a step ({card})")
+    print(f"[ssm] {cfg.name} peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} "
+          f"({card})")
+
+    t_report = time.perf_counter() - lap
+    lap = time.perf_counter()
+
+    # ---- the kernels at this config's shapes ----------------------------
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    if hybrid:
+        recs = [(attn_record(
+            torch, flush, f"B2 flash_attention (causal, {cfg.name}'s shared "
+            f"block: q/k/v [{N_PROMPTS},{PROMPT_LEN},{H},{dh}] bf16, G {G})",
+            rand(N_PROMPTS, PROMPT_LEN, H, dh),
+            rand(N_PROMPTS, PROMPT_LEN, Hkv, dh),
+            rand(N_PROMPTS, PROMPT_LEN, Hkv, dh), decode=False),
+            counts["flash_attention"]),
+            (attn_record(
+                torch, flush, f"B3 decode_attention ({cfg.name}'s shared "
+                f"block: dh {dh}, G {G}, q [{N_PROMPTS},1,{H},{dh}], cache "
+                f"[{N_PROMPTS},{MAX_LEN},{Hkv},{dh}] bf16)",
+                rand(N_PROMPTS, 1, H, dh), rand(N_PROMPTS, MAX_LEN, Hkv, dh),
+                rand(N_PROMPTS, MAX_LEN, Hkv, dh), decode=True),
+             by_layout["shared"]["decode_attention"]),
+            (pool_b3_record(
+                torch, flush, torch.full((8 * N_PROMPTS,), MAX_LEN,
+                                         dtype=torch.int32, device=dev),
+                H, Hkv, dh, MAX_LEN, g, dev,
+                where=f"{cfg.name} replicated, the last step"),
+             by_layout["replicated"]["decode_attention"])]
+    else:
+        tail = pool_tail_records(torch, flush, N_PROMPTS, cfg.vocab, g, dev,
+                                 where=f"{cfg.name} generate",
+                                 b1_what=f"{cfg.name} unfused tail")
+        recs = [(tail["aggregate_sample"], counts["aggregate_sample"]),
+                (tail["aggregate"], counts["aggregate"])]
+    print(f"[time] phase 11 (a) {cfg.name}: runs {t_runs:.1f} s, layouts "
+          f"{t_layout:.1f}, instances and prefill {t_checks:.1f}, times "
+          f"{t_report:.1f}, kernels {time.perf_counter() - lap:.1f}")
+    del runs, warm, rep_eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return cfg, params, recs
+
+
+def ssm_pool(torch, dev, card, cfg, params):
+    """Phase 11 (b): zamba2-7b behind ``Scheduler`` over 8 slots of 512
+    (robust m = 8, the pool's step replayed): the pool holds both kinds of
+    cache, K/V masked by length and SSM states that every admission must
+    overwrite."""
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve import RobustDecodeConfig, Scheduler, ServeEngine
+
+    rs = np.random.RandomState(10)
+    reqs = []
+    for _ in range(MOE_POOL_REQUESTS):
+        S = int(rs.randint(POOL_PROMPT[0], POOL_PROMPT[1] + 1))
+        n = int(rs.randint(POOL_NEW[0], POOL_NEW[1] + 1))
+        reqs.append((rs.randint(0, cfg.vocab, size=(S,)).astype(np.int32), n))
+    budget = sum(n for _, n in reqs)
+    print(f"[ssm] {cfg.name} ServeEngine(max_len={POOL_MAX_LEN}, n_slots="
+          f"{MOE_POOL_SLOTS}, robust m=8 vrmom K=8 shared fused, obs), "
+          f"Scheduler(decode_block={POOL_BLOCK}), greedy; "
+          f"{MOE_POOL_REQUESTS} requests, prompts {POOL_PROMPT[0]}.."
+          f"{POOL_PROMPT[1]}, budgets {POOL_NEW[0]}..{POOL_NEW[1]} ({budget}"
+          f" tokens)")
+    scheds = {}
+    for attack in ("none", "signflip", "gaussian"):
+        eng = ServeEngine(cfg, params, max_len=POOL_MAX_LEN,
+                          n_slots=MOE_POOL_SLOTS, obs=MetricsRegistry(),
+                          robust=RobustDecodeConfig(m=8, estimator="vrmom",
+                                                    K=8, alpha=0.25,
+                                                    attack=attack),
+                          device=dev)
+        scheds[attack] = Scheduler(eng, decode_block=POOL_BLOCK)
+    eng = scheds["none"].engine
+    slots, admit = [], eng.admit
+
+    def admit_noted(pool, slot, batch, **kw):
+        slots.append(slot)
+        return admit(pool, slot, batch, **kw)
+
+    eng.admit = admit_noted
+    K.reset_launch_counts()
+    comp1, _, wall1 = drain(torch, scheds["none"], reqs)
+    comp2, _, wall2 = drain(torch, scheds["none"], reqs)
+    del eng.admit
+    toks = [c.tokens for c in comp2]
+    require(all(c.finished_by == "length" and len(c.tokens) == n
+                and all(0 <= t < cfg.vocab for t in c.tokens)
+                for c, (_, n) in zip(comp2, reqs)),
+            f"{cfg.name} pool: a completion lacks its budget or leaves the "
+            f"vocabulary")
+    # the second drain admits every request into a slot an earlier request
+    # held (whose state kept moving while the slot sat free): each must
+    # give its tokens of the first drain
+    require(toks == [c.tokens for c in comp1],
+            f"{cfg.name} pool: a request admitted into an evicted slot "
+            f"differs from its run in the first drain")
+    for attack in ("signflip", "gaussian"):
+        got, _, wall = drain(torch, scheds[attack], reqs)
+        require([c.tokens for c in got] == toks,
+                f"{cfg.name} pool tokens under {attack} differ from 'none'")
+        print(f"[ssm] {cfg.name} pool {attack} a=0.25: tokens identical to "
+              f"none (drain with set-up {wall:.3f} s)")
+    counted = K.launch_counts()
+    for name in ("aggregate_sample", "flash_attention", "decode_attention"):
+        require(counted[name] > 0, f"{cfg.name} pool: kernel {name} never "
+                                   f"launched")
+    step = eng.obs.histograms["serve.decode_step_s"]
+    print(f"[ssm] {cfg.name} pool drain {budget} tokens in {wall2:.3f} s = "
+          f"{budget / wall2:.1f} tok/s (round 2; round 1 with set-up "
+          f"{wall1:.3f} s); decode step p50 {step.percentile(50) * 1e3:.2f} "
+          f"ms p95 {step.percentile(95) * 1e3:.2f} ms ({step.count} blocks);"
+          f" the wrappers counted {json.dumps(counted)} (eager launches) "
+          f"({card})")
+    # the first request of the first drain admitted into a freed slot,
+    # against the same request alone in a new pool at that slot (the same
+    # batch of rows: the same bits)
+    first = slots[:MOE_POOL_REQUESTS]
+    i = next(j for j in range(len(first)) if first[j] in first[:j])
+    p, n = reqs[i]
+    pool = eng.make_pool()
+    pool, tok0 = eng.admit(pool, first[i], {"tokens": torch.from_numpy(
+        p)[None].to(dev)})
+    cur = torch.zeros((MOE_POOL_SLOTS,), dtype=torch.int32)
+    cur[first[i]] = tok0
+    pool, more = eng.decode_pool(pool, cur, n - 1)
+    alone = [tok0] + more[:, first[i]].tolist()
+    require(alone == toks[i], f"{cfg.name} pool: request {i}, admitted into "
+                              f"slot {first[i]} after an eviction, differs "
+                              f"from its run alone in a new pool")
+    print(f"[ssm] {cfg.name} request {i} (prompt {len(p)}), admitted into "
+          f"slot {first[i]} after an eviction: tokens identical to its run "
+          f"alone in a new pool; drain 2 (every admission into a freed "
+          f"slot) identical to drain 1")
+    for j in list(range(MOE_POOL_SOLO)) + [i]:
+        p, n = reqs[j]
+        batch = {"tokens": torch.from_numpy(p)[None].to(dev)}
+        solo = eng.generate(batch, n)
+        pooled = torch.tensor([toks[j]], dtype=solo.dtype, device=dev)
+        print(f"[ssm] {cfg.name} request {j} (prompt {len(p)}): solo vs pool "
+              + ("tokens identical" if torch.equal(solo, pooled) else
+                 layout_check(torch, cfg, params, batch, POOL_MAX_LEN, solo,
+                              pooled, m=MOE_POOL_SLOTS, what="solo vs pool")))
+    del scheds, eng, pool
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_ssm(torch, dev, card):
+    """Phase 11: the ssm and hybrid families. Returns the ``kernels``
+    records with the launches of their paths."""
+    flush = make_flush(torch, dev)
+    recs = []
+    for name in SSM_CONFIGS:
+        t = time.perf_counter()
+        cfg, params, more = ssm_serve(torch, dev, card, flush, name)
+        recs += more
+        print(f"[time] phase 11 (a) {name} {time.perf_counter() - t:.1f} s")
+        if cfg.family == "hybrid":
+            t = time.perf_counter()
+            ssm_pool(torch, dev, card, cfg, params)
+            print(f"[time] phase 11 (b) {time.perf_counter() - t:.1f} s")
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return moe_records(recs, card, tag="ssm")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside the script; "
@@ -3724,6 +4138,8 @@ def main() -> int:
         lap("phase 9 (consensus)")
         moe_recs = phase_moe(torch, dev, card)
         lap("phase 10 (moe)")
+        ssm_recs = phase_ssm(torch, dev, card)
+        lap("phase 11 (ssm and hybrid)")
         print(f"[time] all phases {time.perf_counter() - t_all:.1f} s")
     except (CheckFailed, AssertionError) as exc:
         print(f"chip_smoke.py: check failed: {exc}", file=sys.stderr)
@@ -3739,6 +4155,7 @@ def main() -> int:
     kernels.extend(adaptive_recs)
     kernels.extend(consensus_recs)
     kernels.extend(moe_recs)
+    kernels.extend(ssm_recs)
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Architecture configuration (dense, vlm and moe families).
+"""Architecture configuration (dense, vlm, moe, ssm and hybrid families).
 
 ``repro.configs.base`` imports JAX, so the port re-declares the fields of
 ``ArchConfig`` that the decoder and the train step read. Field names,
@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-FAMILIES = ("dense", "vlm", "moe")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,6 +20,19 @@ class MoEConfig:
     n_experts: int
     top_k: int
     capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) block (``models/mamba2.py``): d_state N, expansion of
+    d_model into d_inner, head dim P, B/C groups, conv width, scan chunk."""
+
+    d_state: int = 128
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    d_conv: int = 4
+    chunk: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,7 +46,9 @@ class VisionStubConfig:
 class ArchConfig:
     name: str
     family: str  # "dense" | "vlm" (a dense LM behind stub patch
-    # embeddings) | "moe" (the dense stack with expert FFNs)
+    # embeddings) | "moe" (the dense stack with expert FFNs) | "ssm" (a
+    # stack of mamba2 blocks) | "hybrid" (mamba2 blocks and one shared
+    # attention block applied every ``hybrid_attn_every`` layers)
     n_layers: int
     d_model: int
     n_heads: int
@@ -47,6 +62,8 @@ class ArchConfig:
     sliding_window: Optional[int] = None
     tie_embeddings: bool = True
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    hybrid_attn_every: int = 0  # zamba2: the shared block every k layers
     vision: Optional[VisionStubConfig] = None
     norm_eps: float = 1e-5
     param_dtype: str = "bfloat16"
@@ -75,12 +92,23 @@ class ArchConfig:
     def head_dim(self) -> int:
         return self.d_head or self.d_model // self.n_heads
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can run long_500k natively (without the SWA variant)."""
+        return (self.family in ("ssm", "hybrid")
+                or self.sliding_window is not None)
+
     def reduced(self) -> "ArchConfig":
-        """Smoke-test variant: 2 layers, d_model 128, <= 4 heads, head dim
-        32, vocab 512, f32, 4 stub patches, <= 4 experts of top_k <= 2 at
-        the same capacity factor, loss chunks of 32, no remat — the same
-        cut ``repro``'s ``reduced()`` makes for the dense, vlm and moe
-        families."""
+        """Smoke-test variant: 2 layers (a hybrid 4, the shared block every
+        2), d_model 128 (the ssm family 64), <= 4 heads, head dim 32, vocab
+        512, f32, 4 stub patches, <= 4 experts of top_k <= 2 at the same
+        capacity factor, an SSM block of d_state 16, head dim 32 and chunk
+        16, loss chunks of 32, no remat — the cut ``repro``'s
+        ``reduced()`` makes."""
         n_heads = min(self.n_heads, 4)
         vision = None if self.vision is None else VisionStubConfig(
             n_patches=4)
@@ -88,11 +116,14 @@ class ArchConfig:
             n_experts=min(self.moe.n_experts, 4),
             top_k=min(self.moe.top_k, 2),
             capacity_factor=self.moe.capacity_factor)
+        ssm = None if self.ssm is None else dataclasses.replace(
+            self.ssm, d_state=16, head_dim=32, chunk=16)
         return dataclasses.replace(
             self,
             name=self.name + "-smoke",
-            n_layers=min(self.n_layers, 2),
-            d_model=128,
+            n_layers=min(self.n_layers, 4 if self.hybrid_attn_every else 2),
+            hybrid_attn_every=2 if self.hybrid_attn_every else 0,
+            d_model=128 if self.family != "ssm" else 64,
             n_heads=n_heads,
             n_kv_heads=min(self.n_kv_heads, max(1, n_heads // 2)),
             d_head=32,
@@ -102,6 +133,7 @@ class ArchConfig:
                             if self.sliding_window else None),
             vision=vision,
             moe=moe,
+            ssm=ssm,
             param_dtype="float32",
             compute_dtype="float32",
             attn_chunk=16,

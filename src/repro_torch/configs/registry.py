@@ -1,23 +1,24 @@
 """Registry of the ported architectures (``repro.configs.registry``'s
 counterpart): ``ARCHS``, ``get(name)``, ``list_archs()``.
 
-``repro`` registers ten architectures; the port holds the dense, vlm and
-moe ones. The others need model families that are not ported yet, and asking
-for one raises, naming the family and ROADMAP.md's item for it."""
-from . import (granite_moe_3b_a800m, llama3_405b, minitron_4b, mixtral_8x7b,
-               phi_3_vision_4_2b, qwen3_1_7b, starcoder2_7b)
+``repro`` registers ten architectures; the port holds the dense, vlm,
+moe, ssm and hybrid ones. whisper-medium needs the encdec family, which
+is not ported yet, and asking for it raises, naming the family and
+ROADMAP.md's item for it."""
+from . import (granite_moe_3b_a800m, llama3_405b, mamba2_2_7b, minitron_4b,
+               mixtral_8x7b, phi_3_vision_4_2b, qwen3_1_7b, starcoder2_7b,
+               zamba2_7b)
 
 ARCHS = {
     m.CONFIG.name: m.CONFIG
     for m in (qwen3_1_7b, starcoder2_7b, phi_3_vision_4_2b,
-              granite_moe_3b_a800m, minitron_4b, mixtral_8x7b, llama3_405b)
+              granite_moe_3b_a800m, minitron_4b, mixtral_8x7b, llama3_405b,
+              mamba2_2_7b, zamba2_7b)
 }
 
 # repro's other architectures, by the family each one waits on
 NOT_PORTED = {
     "whisper-medium": "encdec",
-    "zamba2-7b": "hybrid",
-    "mamba2-2.7b": "ssm",
 }
 
 

@@ -7,11 +7,14 @@ imports JAX. The port keeps ``repro``'s layout — ``embed`` [V, D] (tied),
 ``layers/*`` stacked [L, ...], ``wq``/``wk``/``wv`` [D, H, dh], ``wo``
 [H, dh, D], ``q_norm``/``k_norm`` [dh], ``mlp`` ``w_gate``/``w_up`` [D, F]
 and ``w_down`` [F, D] (a moe layer: ``moe`` ``router`` [D, E],
-``w_gate``/``w_up`` [E, D, F], ``w_down`` [E, F, D]), ``norm_f`` [D] — so
-conversion is a checked copy, and both sides compute the same function. Optimizer states are dicts in
-``repro``'s layout too (``optim``), so ``opt_state_from_jax`` lets a run
-continue from ``repro``'s state, and ``adaptive_state_from_jax`` does the
-same for the adaptive tier's ``AdaptiveState`` carry.
+``w_gate``/``w_up`` [E, D, F], ``w_down`` [E, F, D]; an ssm layer:
+``norm_ssm`` and the mamba2 block ``ssm``, whose ``A_log``, ``D`` and
+``dt_bias`` are f32 in every dtype), ``norm_f`` [D], and a hybrid's
+``mamba_g`` / ``mamba_t`` / ``shared`` tree — so conversion is a checked
+copy, and both sides compute the same function. Optimizer states are
+dicts in ``repro``'s layout too (``optim``), so ``opt_state_from_jax``
+lets a run continue from ``repro``'s state, and ``adaptive_state_from_jax``
+does the same for the adaptive tier's ``AdaptiveState`` carry.
 """
 from __future__ import annotations
 
@@ -24,20 +27,60 @@ __all__ = ["params_from_jax", "opt_state_from_jax",
            "adaptive_state_from_jax", "expected_shapes"]
 
 
+def _ssm_shapes(cfg, lead: tuple) -> dict:
+    """A mamba2 block's leaves with the leading stack dims ``lead``."""
+    s, D = cfg.ssm, cfg.d_model
+    E = s.expand * D
+    H, GN = E // s.head_dim, 2 * s.n_groups * s.d_state
+    return {"in_proj_z": lead + (D, E), "in_proj_x": lead + (D, E),
+            "in_proj_bc": lead + (D, GN), "in_proj_dt": lead + (D, H),
+            "conv_x": lead + (s.d_conv, E), "conv_bc": lead + (s.d_conv, GN),
+            "A_log": lead + (H,), "D": lead + (H,), "dt_bias": lead + (H,),
+            "norm": lead + (E,), "out_proj": lead + (E, D)}
+
+
+def _attn_shapes(cfg, lead: tuple) -> dict:
+    D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = {"wq": lead + (D, H, dh), "wk": lead + (D, Hkv, dh),
+            "wv": lead + (D, Hkv, dh), "wo": lead + (H, dh, D)}
+    if cfg.qk_norm:
+        attn.update(q_norm=lead + (dh,), k_norm=lead + (dh,))
+    return attn
+
+
+def _hybrid_shapes(cfg) -> dict:
+    D, F = cfg.d_model, cfg.d_ff
+    every = cfg.hybrid_attn_every
+    G = cfg.n_layers // every
+    tail = max(cfg.n_layers - G * every, 1)  # repro keeps one at tail 0
+    return {
+        "embed": (cfg.vocab, D),
+        "mamba_g": {"norm": (G, every, D),
+                    "ssm": _ssm_shapes(cfg, (G, every))},
+        "mamba_t": {"norm": (tail, D), "ssm": _ssm_shapes(cfg, (tail,))},
+        "shared": {"in_proj": (2 * D, D), "norm_attn": (D,),
+                   "attn": _attn_shapes(cfg, ()), "norm_ffn": (D,),
+                   "mlp": {"w_gate": (D, F), "w_up": (D, F),
+                           "w_down": (F, D)}},
+        "norm_f": (D,),
+    }
+
+
 def expected_shapes(cfg) -> dict:
     """The model's parameter shapes, keyed like the param dict."""
+    if cfg.family == "hybrid":
+        return _hybrid_shapes(cfg)
     L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
-    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    attn = {"wq": (L, D, H, dh), "wk": (L, D, Hkv, dh), "wv": (L, D, Hkv, dh),
-            "wo": (L, H, dh, D)}
-    if cfg.qk_norm:
-        attn.update(q_norm=(L, dh), k_norm=(L, dh))
-    layers = {"norm_attn": (L, D), "attn": attn, "norm_ffn": (L, D)}
+    if cfg.family == "ssm":
+        layers = {"norm_ssm": (L, D), "ssm": _ssm_shapes(cfg, (L,))}
+    else:
+        layers = {"norm_attn": (L, D), "attn": _attn_shapes(cfg, (L,)),
+                  "norm_ffn": (L, D)}
     if cfg.family == "moe":
         E = cfg.moe.n_experts
         layers["moe"] = {"router": (L, D, E), "w_gate": (L, E, D, F),
                          "w_up": (L, E, D, F), "w_down": (L, E, F, D)}
-    else:
+    elif cfg.family != "ssm":
         layers["mlp"] = {"w_gate": (L, D, F), "w_up": (L, D, F),
                          "w_down": (L, F, D)}
     shapes = {"embed": (cfg.vocab, D), "layers": layers, "norm_f": (D,)}

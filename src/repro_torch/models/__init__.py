@@ -1,8 +1,10 @@
-"""Model zoo, dense, vlm and moe families: layers, attention, backend
-policy, the mixture of experts, the decoder stack and the model API."""
-from . import attention, attn_backend, layers, model, moe, transformer
+"""Model zoo, dense, vlm, moe, ssm and hybrid families: layers, attention,
+backend policy, the mixture of experts, the mamba2 block, the decoder
+stack, the hybrid stack and the model API."""
+from . import (attention, attn_backend, caches, hybrid, layers, mamba2,
+               model, moe, transformer)
 from .model import decode_step, init, init_cache, prefill
 
-__all__ = ["attention", "attn_backend", "layers", "model", "moe",
-           "transformer",
+__all__ = ["attention", "attn_backend", "caches", "hybrid", "layers",
+           "mamba2", "model", "moe", "transformer",
            "decode_step", "init", "init_cache", "prefill"]

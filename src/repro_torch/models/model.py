@@ -1,5 +1,5 @@
-"""Model API, dense, vlm and moe families (``repro.models.model``'s
-counterpart).
+"""Model API, dense, vlm, moe, ssm and hybrid families
+(``repro.models.model``'s counterpart).
 
     init(cfg, generator, device=None)               -> params
     loss(params, cfg, batch)                        -> scalar LM loss
@@ -8,26 +8,40 @@ counterpart).
     decode_step(params, cfg, caches, token)         -> (logits [B, V], caches)
 
 Caches carry ``pos`` as a per-row [B] int32 device tensor (a scalar
-broadcasts); ``decode_step`` writes K/V in place and returns ``pos + 1``
-as a new tensor. ``batch`` is ``{"tokens": [B, S] int tensor}``, with
-``"patches"`` [B, n_patches, D] for a vlm (prepended; the logits and the
-cache cover the prefix). ``init`` runs on the card unless ``device``
-names another one (with no card it raises). The dense, vlm and moe
-families share the decoder stack; ``ArchConfig`` refuses the others.
+broadcasts); ``decode_step`` writes K/V (and an SSM's states) in place
+and returns ``pos + 1`` as a new tensor. ``batch`` is ``{"tokens": [B,
+S] int tensor}``, with ``"patches"`` [B, n_patches, D] for a vlm
+(prepended; the logits and the cache cover the prefix). ``init`` runs
+on the card unless ``device`` names another one (with no card it
+raises). The dense, vlm, moe and ssm families share the decoder stack
+(``transformer``); the hybrid has its own (``hybrid``); ``ArchConfig``
+refuses encdec.
 """
 from __future__ import annotations
 
 from ..device import resolve_device
-from . import transformer
+from . import hybrid, transformer
+
+
+def stack_module(cfg):
+    """The module of ``cfg``'s stack: ``hybrid`` or ``transformer``."""
+    return hybrid if cfg.family == "hybrid" else transformer
 
 
 def init(cfg, generator, device=None):
-    return transformer.init(cfg, generator, device=resolve_device(device))
+    return stack_module(cfg).init(cfg, generator,
+                                  device=resolve_device(device))
 
 
 def loss(params, cfg, batch, window="cfg"):
     """Next-token LM loss (``transformer.lm_loss``; a moe model's includes
-    0.01 times its load-balance loss), differentiable with autograd."""
+    0.01 times its load-balance loss), differentiable with autograd. A
+    hybrid's is ``chunked_ce`` of its hidden on the tied embedding, the
+    last position masked, with no auxiliary term (``repro``'s aux is 0)."""
+    if cfg.family == "hybrid":
+        h, _, _ = hybrid.forward(params, cfg, batch, window=window)
+        return transformer.next_token_ce({"embed": params["embed"]}, cfg, h,
+                                         batch["tokens"])
     return transformer.lm_loss(params, cfg, batch, window=window)
 
 
@@ -37,22 +51,26 @@ def prefill(params, cfg, batch, window="cfg", cache_len=None,
     serving path never builds [B, S, V]). ``out``: stacked caches [L, B,
     ...] of the shape the prefill makes, to write the caches into (and
     return) instead of allocating them."""
-    h, caches, _ = transformer.forward(params, cfg, batch, window=window,
-                                       make_cache=True, cache_len=cache_len,
-                                       out=out)
+    h, caches, _ = stack_module(cfg).forward(
+        params, cfg, batch, window=window, make_cache=True,
+        cache_len=cache_len, out=out)
     if last_only:
         h = h[:, -1:]
+    if cfg.family == "hybrid":
+        return hybrid.unembed(params, h), caches
     return transformer.unembed(params, cfg, h), caches
 
 
 def init_cache(cfg, batch_size: int, max_len: int, window="cfg",
                device=None):
-    return transformer.init_cache(cfg, batch_size, max_len, window=window,
-                                  device=resolve_device(device))
+    return stack_module(cfg).init_cache(cfg, batch_size, max_len,
+                                        window=window,
+                                        device=resolve_device(device))
 
 
 def decode_step(params, cfg, caches, token, window="cfg"):
-    return transformer.decode_step(params, cfg, caches, token, window=window)
+    return stack_module(cfg).decode_step(params, cfg, caches, token,
+                                         window=window)
 
 
 def param_count(params) -> int:
@@ -62,8 +80,9 @@ def param_count(params) -> int:
 
 def active_param_count(params, cfg) -> int:
     """Parameters a token uses (for a FLOP count of 6 * N_active *
-    tokens): all of them, less the share (1 - top_k / n_experts) of a moe
-    model's expert weights, as ``repro`` counts them."""
+    tokens): all of them (an ssm or hybrid model's too), less the share
+    (1 - top_k / n_experts) of a moe model's expert weights, as ``repro``
+    counts them."""
     total = param_count(params)
     if cfg.moe is None:
         return total

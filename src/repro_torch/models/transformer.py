@@ -1,4 +1,4 @@
-"""Decoder-only stack, dense, vlm and moe families, and the LM loss.
+"""Decoder-only stack, dense, vlm, moe and ssm families, and the LM loss.
 
 Parameters are a plain dict in ``repro``'s layout: ``embed`` [V, D]
 (tied unembedding, or ``lm_head`` [D, V]), ``layers`` with every leaf
@@ -9,7 +9,9 @@ stub patch embeddings [B, n_patches, D] prepended to the token
 embeddings; positions and the cache run over the prefix. A moe layer
 has ``moe`` (``models/moe.py``) in place of ``mlp``; its load-balance
 loss, summed over the layers, comes out of ``forward`` and joins the LM
-loss at ``repro``'s weight of 0.01 (a decode step drops it).
+loss at ``repro``'s weight of 0.01 (a decode step drops it). An ssm
+layer is ``norm_ssm`` and a mamba2 block ``ssm`` (``models/mamba2.py``),
+with no attention and no FFN; its caches are a stacked ``SSMCache``.
 
 Under autograd, ``cfg.remat`` recomputes each layer in the backward
 (``torch.utils.checkpoint``, non-reentrant), as ``repro`` wraps its scan
@@ -24,7 +26,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as A
+from . import mamba2 as M2
 from . import moe as X
+from .caches import map_rows, row_fields
 from .layers import _dot, dense_init, embed_init, rmsnorm, swiglu
 
 
@@ -45,7 +49,29 @@ def unbind_layers(layers, n: int):
 def init(cfg, generator, device=None):
     """Seeded init with ``repro``'s distributions: N(0, 1/fan_in) dense
     weights, N(0, 0.02^2) embeddings, unit norm scales; a moe layer's
-    router and experts (``moe.moe_init``) in place of its ``mlp``."""
+    router and experts (``moe.moe_init``) in place of its ``mlp``; an ssm
+    layer's mamba2 block (``mamba2.mamba2_init``) in place of both."""
+    dt = getattr(torch, cfg.param_dtype)
+    L, D = cfg.n_layers, cfg.d_model
+    if cfg.family == "ssm":
+        layers = {"norm_ssm": torch.ones((L, D), dtype=dt, device=device),
+                  "ssm": M2.mamba2_init(generator, cfg, device=device,
+                                        lead=(L,))}
+    else:
+        layers = _attn_layers(generator, cfg, device)
+    p = {
+        "embed": embed_init(generator, (cfg.vocab, D), dt, device=device),
+        "layers": layers,
+        "norm_f": torch.ones((D,), dtype=dt, device=device),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = embed_init(generator, (D, cfg.vocab), dt,
+                                  device=device)
+    return p
+
+
+def _attn_layers(generator, cfg, device):
+    """The stacked attention layers of the dense, vlm and moe families."""
     dt = getattr(torch, cfg.param_dtype)
     L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
     layers = {
@@ -64,15 +90,7 @@ def init(cfg, generator, device=None):
             "w_down": dense_init(generator, (L, F, D), dt, fan_in=F,
                                  device=device),
         }
-    p = {
-        "embed": embed_init(generator, (cfg.vocab, D), dt, device=device),
-        "layers": layers,
-        "norm_f": torch.ones((D,), dtype=dt, device=device),
-    }
-    if not cfg.tie_embeddings:
-        p["lm_head"] = embed_init(generator, (D, cfg.vocab), dt,
-                                  device=device)
-    return p
+    return layers
 
 
 def _embed_tokens(p, cfg, tokens):
@@ -116,7 +134,7 @@ def forward(p, cfg, batch, *, window="cfg", make_cache=False,
     vlm). Returns (final normed hidden [B, n_prefix + S, D], stacked caches
     or None, the moe load-balance loss summed over the layers: a 0-d f32
     tensor, 0 for the other families); ``unembed`` turns hidden into
-    logits. With ``make_cache``,
+    logits. An ssm stack's caches are an ``SSMCache``. With ``make_cache``,
     ``out`` (stacked caches [L, B, ...]) takes each layer's cache as it is
     made and is returned, where otherwise the layers' caches are stacked
     into new tensors."""
@@ -127,6 +145,14 @@ def forward(p, cfg, batch, *, window="cfg", make_cache=False,
     caches = []
 
     def layer(h, lp, i):
+        if cfg.family == "ssm":
+            o, cache = M2.mamba2_forward(
+                lp["ssm"], rmsnorm(h, lp["norm_ssm"], cfg.norm_eps), cfg,
+                make_cache=make_cache,
+                out=None if out is None else _layer_cache(out, i))
+            if make_cache and out is None:
+                caches.append(cache)
+            return h + o
         attn_out, cache = A.attn_forward(
             lp["attn"], rmsnorm(h, lp["norm_attn"], cfg.norm_eps), cfg,
             positions=positions, window=window, make_cache=make_cache,
@@ -169,25 +195,22 @@ def forward(p, cfg, batch, *, window="cfg", make_cache=False,
 
 def _layer_cache(caches, i: int):
     """Layer ``i``'s view of stacked caches (``pos`` is shared)."""
-    return caches._replace(**{f: None if getattr(caches, f) is None
-                              else getattr(caches, f)[i]
-                              for f in ("k", "v", "k_scale", "v_scale")})
+    return map_rows(caches, lambda x: x[i])
 
 
 def _stack(caches):
+    """Per-layer caches -> one stacked cache of the same type."""
     first = caches[0]
-
-    def st(field):
-        if getattr(first, field) is None:
-            return None
-        return torch.stack([getattr(c, field) for c in caches])
-
-    return A.KVCache(k=st("k"), v=st("v"), pos=first.pos,
-                     k_scale=st("k_scale"), v_scale=st("v_scale"))
+    return first._replace(**{f: torch.stack([getattr(c, f) for c in caches])
+                             for f in row_fields(first)})
 
 
 def init_cache(cfg, batch_size: int, max_len: int, window="cfg",
                device=None):
+    """Zeroed stacked caches: an ``SSMCache`` for the ssm family, else a
+    ``KVCache`` [L, B, T, Hkv, dh] (a ring of the window's slots)."""
+    if cfg.family == "ssm":
+        return M2.init_cache(cfg, batch_size, cfg.n_layers, device=device)
     window = cfg.sliding_window if window == "cfg" else window
     one = A.init_cache(cfg, batch_size, max_len, window=window, device=device)
 
@@ -207,12 +230,21 @@ def decode_step(p, cfg, caches, token, *, window="cfg"):
     stacked ``caches`` in place. Returns (logits [B, V], caches with
     ``pos + 1``, a new tensor: the caller's ``pos`` is left as it was). A
     moe layer routes each row as a group of one token; its load-balance
-    loss is dropped, as ``repro`` drops it."""
+    loss is dropped, as ``repro`` drops it. An ssm layer writes its state
+    and conv tails into the stacked ``SSMCache`` in place."""
     window = cfg.sliding_window if window == "cfg" else window
     pos = A.row_pos(caches.pos, token.shape[0], token.device)
-    at = A.decode_at(cfg, pos, caches.k.shape[2], window)
     h = _embed_tokens(p, cfg, token[:, None])
-    for i, lp in enumerate(unbind_layers(p["layers"], cfg.n_layers)):
+    lps = unbind_layers(p["layers"], cfg.n_layers)
+    if cfg.family == "ssm":
+        for i, lp in enumerate(lps):
+            h = h + M2.decode_layer(
+                lp["ssm"], rmsnorm(h, lp["norm_ssm"], cfg.norm_eps), cfg,
+                caches.h[i], caches.conv[i], caches.conv_bc[i])
+        h = rmsnorm(h, p["norm_f"], cfg.norm_eps)
+        return unembed(p, cfg, h)[:, 0], caches._replace(pos=pos + 1)
+    at = A.decode_at(cfg, pos, caches.k.shape[2], window)
+    for i, lp in enumerate(lps):
         attn_out = A.decode_layer(
             lp["attn"], rmsnorm(h, lp["norm_attn"], cfg.norm_eps), cfg,
             caches.k[i], caches.v[i],
@@ -262,6 +294,16 @@ def chunked_ce(p, cfg, hidden, labels, mask=None):
     return tot / torch.clamp_min(cnt, 1.0)
 
 
+def next_token_ce(p, cfg, h, tokens):
+    """``chunked_ce`` of hidden ``h`` [B, S, D] against ``tokens`` [B, S]
+    shifted by one, the last position of each row masked out."""
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = torch.ones(labels.shape, dtype=torch.float32,
+                      device=labels.device)
+    mask[:, -1] = 0.0
+    return chunked_ce(p, cfg, h, labels, mask)
+
+
 def lm_loss(p, cfg, batch, *, window="cfg"):
     """Next-token LM loss of one batch (a vlm's patch prefix carries no
     label); the last position of each row is masked out. A moe model adds
@@ -269,10 +311,5 @@ def lm_loss(p, cfg, batch, *, window="cfg"):
     h, _, aux = forward(p, cfg, batch, window=window)
     tokens = batch["tokens"]
     n_prefix = h.shape[1] - tokens.shape[1]
-    h_txt = h[:, n_prefix:] if n_prefix else h
-    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
-    mask = torch.ones(labels.shape, dtype=torch.float32,
-                      device=labels.device)
-    mask[:, -1] = 0.0
-    loss = chunked_ce(p, cfg, h_txt, labels, mask)
+    loss = next_token_ce(p, cfg, h[:, n_prefix:] if n_prefix else h, tokens)
     return loss + 0.01 * aux if cfg.family == "moe" else loss

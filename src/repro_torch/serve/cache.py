@@ -6,43 +6,47 @@ The pool decouples cache capacity from the request batch: it holds
 with its own fill level. Requests are admitted into free slots mid-decode
 and retired slots are reused without touching the others.
 
-The port has one cache type, the stacked ``KVCache`` [L, rows, T, Hkv,
-dh] with a per-row ``pos`` [rows] int32 (``vectorize_pos``), so the slot
-dim is always dim 1 and ``repro``'s structural probe (``slot_dims``) has
-no counterpart. A pool whose replicas run replicated holds ``m *
-n_slots`` rows, replica-major as ``engine.DecodeBuffers`` lays them out
-(row ``r * n_slots + s`` is replica r of slot s): the decode step runs
-them as one batch, with no flatten per block. Every write is in place
-into the pool's own tensors, whose addresses a captured decode step
-keeps. (``repro``'s ``pool_specs`` shards a pool over a mesh: ROADMAP.md,
-queue A5.)
+The port's caches (``KVCache`` [L, rows, T, Hkv, dh], ``SSMCache``'s
+states and conv tails [L, rows, ...], a ``HybridCache`` holding both)
+all keep the row on dim 1 and a per-row ``pos`` [rows] int32
+(``vectorize_pos``), so ``repro``'s structural probe (``slot_dims``) has
+no counterpart: the pool walks a cache's row tensors
+(``models.caches.row_fields``). An SSM state is not masked by a length:
+a free slot's state keeps moving as the pool decodes, and an admission
+overwrites every row tensor of its slot. A pool whose replicas run
+replicated holds ``m * n_slots`` rows, replica-major as
+``engine.DecodeBuffers`` lays them out (row ``r * n_slots + s`` is
+replica r of slot s): the decode step runs them as one batch, with no
+flatten per block. Every write is in place into the pool's own tensors,
+whose addresses a captured decode step keeps. (``repro``'s
+``pool_specs`` shards a pool over a mesh: ROADMAP.md, queue A5.)
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
-from ..models import transformer as T
-from ..models.attention import KVCache, row_pos
+from ..models import model as M
+from ..models.attention import row_pos
+from ..models.caches import row_fields
 
 __all__ = ["SlotPool", "vectorize_pos", "kv_bytes_per_slot", "pool_caches",
            "init_pool", "write_slot", "evict_slot"]
-
-_CACHE_FIELDS = ("k", "v", "k_scale", "v_scale")
 
 
 class SlotPool(NamedTuple):
     """Cache pool: model caches + per-slot bookkeeping, all on the device.
 
-    caches:  stacked caches [L, m * n_slots, T, ...] with ``pos``
-             [m * n_slots] (m = 1 unless the replicas run replicated).
+    caches:  stacked caches [L, m * n_slots, ...] (a ``KVCache``,
+             ``SSMCache`` or ``HybridCache``) with ``pos`` [m * n_slots]
+             (m = 1 unless the replicas run replicated).
     lengths: [n_slots] int32 — tokens resident per slot (prompt +
              generated).
     active:  [n_slots] bool — slot owned by a live request.
     """
 
-    caches: KVCache
+    caches: Any
     lengths: torch.Tensor
     active: torch.Tensor
 
@@ -56,27 +60,30 @@ class SlotPool(NamedTuple):
         return self.caches.pos.shape[0] // self.n_slots
 
 
-def vectorize_pos(caches: KVCache, n_slots: int) -> KVCache:
+def vectorize_pos(caches, n_slots: int):
     """``caches.pos`` as a per-slot [n_slots] int32 vector on the caches'
     device: a scalar broadcasts, a vector of n_slots stays as it is. Each
     row then advances on its own through ``decode_step``."""
-    return caches._replace(pos=row_pos(caches.pos, n_slots, caches.k.device))
+    dev = getattr(caches, row_fields(caches)[0]).device
+    return caches._replace(pos=row_pos(caches.pos, n_slots, dev))
 
 
 def pool_caches(cfg, n_slots: int, max_len: int, window="cfg", m: int = 1,
-                device=None) -> KVCache:
-    """Zeroed caches of ``m * n_slots`` rows: a ring of the window's slots
-    (as the prefill makes them), else ``max_len``."""
+                device=None):
+    """Zeroed caches of ``m * n_slots`` rows: K/V in a ring of the
+    window's slots (as the prefill makes them), else ``max_len``."""
     window = cfg.sliding_window if window == "cfg" else window
-    return T.init_cache(cfg, m * n_slots, window or max_len, window=None,
-                        device=device)
+    return M.stack_module(cfg).init_cache(cfg, m * n_slots,
+                                          window or max_len, window=None,
+                                          device=device)
 
 
-def kv_bytes_per_slot(make: Callable[[int], KVCache], n_slots: int) -> int:
+def kv_bytes_per_slot(make: Callable[[int], Any], n_slots: int) -> int:
     """Device bytes one slot costs in the caches ``make(n_slots)`` builds:
-    the sum of every stored tensor's bytes (int8 scales and positions
-    included, so ``kv_dtype`` shrinking the cache shows here; a replicated
-    pool's m replica rows all count) over ``n_slots``. Give ``make`` a
+    the sum of every stored tensor's bytes (int8 scales, an SSM's f32
+    states and conv tails, and positions included, so ``kv_dtype``
+    shrinking the cache shows here; a replicated pool's m replica rows all
+    count) over ``n_slots``. Give ``make`` a
     ``device="meta"`` build and nothing is allocated."""
     caches = make(n_slots)
     total = sum(x.numel() * x.element_size() for x in caches
@@ -89,7 +96,7 @@ def init_pool(cfg, n_slots: int, max_len: int, window="cfg", m: int = 1,
     """Empty pool: zeroed caches, zero lengths, all slots free."""
     caches = pool_caches(cfg, n_slots, max_len, window=window, m=m,
                          device=device)
-    dev = caches.k.device
+    dev = caches.pos.device
     return SlotPool(caches=caches,
                     lengths=torch.zeros((n_slots,), dtype=torch.int32,
                                         device=dev),
@@ -97,18 +104,17 @@ def init_pool(cfg, n_slots: int, max_len: int, window="cfg", m: int = 1,
                                        device=dev))
 
 
-def write_slot(pool: SlotPool, req_caches: KVCache, slot: int,
+def write_slot(pool: SlotPool, req_caches, slot: int,
                length: int) -> SlotPool:
-    """Admit one request: copy its batch-1 caches [L, 1, T, ...] into every
-    replica row of ``slot``, in place, and set the slot's position (every
-    replica row), length and liveness. Whatever the slot held before (a
-    retired request's rows, positions advanced while it sat free) is
-    overwritten. Returns ``pool`` (its tensors, written)."""
+    """Admit one request: copy its batch-1 caches [L, 1, ...] into every
+    replica row of ``slot``, in place, every row tensor of the cache, and
+    set the slot's position (every replica row), length and liveness.
+    Whatever the slot held before (a retired request's rows, an SSM state
+    and positions advanced while it sat free) is overwritten. Returns
+    ``pool`` (its tensors, written)."""
     n, m = pool.n_slots, pool.m
-    for f in _CACHE_FIELDS:
+    for f in row_fields(pool.caches):
         dst, src = getattr(pool.caches, f), getattr(req_caches, f)
-        if dst is None:
-            continue
         rows = dst.view((dst.shape[0], m, n) + dst.shape[2:])[:, :, slot]
         rows.copy_(src[:, :1])  # [L, 1, ...] over the m replica rows
     pool.caches.pos.view(m, n)[:, slot].fill_(int(length))

@@ -45,7 +45,7 @@ import torch
 
 from ..device import resolve_device
 from ..models import model as M
-from ..models.attention import KVCache
+from ..models.caches import row_fields
 from ..obs.catalog import FRACTION_EDGES
 from ..obs.metrics import now
 from . import cache as C
@@ -94,8 +94,6 @@ def _to_device(tree, device):
             for k, v in tree.items()}
 
 
-_CACHE_FIELDS = ("k", "v", "k_scale", "v_scale")
-
 # captured steps an engine keeps, one per sampling config (the least
 # recently used goes first), for generate and for the pool each; they
 # share one memory pool
@@ -105,9 +103,10 @@ MAX_GRAPHS = 4
 class DecodeBuffers:
     """The static buffers a decode step reads and writes, for B rows.
 
-    ``caches``: stacked caches [L, m * B, ...] (m = 1 unless the replicas
-    run replicated, replica-major as ``robust.flatten_replicas`` lays them
-    out) with ``pos`` [m * B]: new ones, or a slot pool's (``caches=``).
+    ``caches``: stacked caches [L, m * B, ...] of the model's type (m = 1
+    unless the replicas run replicated, replica-major as
+    ``robust.flatten_replicas`` lays them out) with ``pos`` [m * B]: new
+    ones, or a slot pool's (``caches=``).
     For ``generate`` the prefill writes replica 0's rows and
     :meth:`replicate` copies them to the others. ``tok`` [B]: the token
     the next step reads; ``out`` [max_len, B] int32: the step's tokens by
@@ -119,7 +118,7 @@ class DecodeBuffers:
     """
 
     def __init__(self, cfg, batch: int, m: int, max_len: int, window,
-                 device, caches: Optional[KVCache] = None,
+                 device, caches=None,
                  diag: bool = False):
         # the slots the prefill makes: a ring of `window`, else max_len
         self.caches = caches if caches is not None else C.pool_caches(
@@ -137,23 +136,22 @@ class DecodeBuffers:
             self.diag = torch.zeros((len(FRACTION_EDGES) + 2,),
                                     dtype=torch.float64, device=device)
 
-    def rows(self) -> KVCache:
+    def rows(self):
         """Replica 0's caches [L, B, ...]: views the prefill writes."""
         B = self.batch
         return self.caches._replace(
             pos=self.caches.pos[:B],
-            **{f: getattr(self.caches, f)[:, :B] for f in _CACHE_FIELDS
-               if getattr(self.caches, f) is not None})
+            **{f: getattr(self.caches, f)[:, :B]
+               for f in row_fields(self.caches)})
 
     def replicate(self) -> None:
-        """Copy replica 0's caches into the other m - 1."""
+        """Copy replica 0's caches (every row tensor) into the other m - 1."""
         if self.m == 1:
             return
-        for f in _CACHE_FIELDS:
+        for f in row_fields(self.caches):
             x = getattr(self.caches, f)
-            if x is not None:
-                r = x.view((x.shape[0], self.m, -1) + x.shape[2:])
-                r[:, 1:].copy_(r[:, :1])
+            r = x.view((x.shape[0], self.m, -1) + x.shape[2:])
+            r[:, 1:].copy_(r[:, :1])
         r = self.caches.pos.view(self.m, -1)
         r[1:].copy_(r[:1])
 
@@ -549,7 +547,7 @@ class ServeEngine:
         """The step buffers over ``pool``'s caches; another pool replaces
         them and drops the steps captured over them."""
         buf = self.pool_buffers
-        if buf is None or buf.caches.k is not pool.caches.k:
+        if buf is None or buf.caches.pos is not pool.caches.pos:
             self.pool_graphs.clear()
             self.pool_buffers = None
             buf = DecodeBuffers(self.cfg, pool.n_slots, pool.m, self.max_len,

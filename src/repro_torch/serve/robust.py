@@ -28,7 +28,8 @@ import torch
 from ..core import attacks as ATK
 from ..core.estimator import Estimator
 from ..models import model as M
-from ..models.attention import KVCache, row_pos
+from ..models.attention import row_pos
+from ..models.caches import map_rows, row_fields
 
 __all__ = ["RobustDecodeConfig", "replica_mask", "stack_replicas",
            "flatten_replicas", "unflatten_replicas", "robust_logits",
@@ -103,22 +104,17 @@ def replica_mask(m: int, alpha: float, device=None) -> torch.Tensor:
     return torch.arange(m, device=device) >= m - n_byz
 
 
-def _map(caches: KVCache, fn) -> KVCache:
-    return caches._replace(**{f: None if getattr(caches, f) is None
-                              else fn(getattr(caches, f))
-                              for f in ("k", "v", "k_scale", "v_scale")})
+def stack_replicas(caches, m: int):
+    """Stacked caches [L, B, ...] (any cache type) -> a leading replica dim
+    [m, L, B, ...] (broadcast views); ``pos`` [B] becomes [m, B] (a scalar
+    broadcasts to every row first)."""
+    first = getattr(caches, row_fields(caches)[0])
+    pos = row_pos(caches.pos, first.shape[1], first.device)
+    return map_rows(caches, lambda x: x[None].expand((m,) + x.shape)
+                    )._replace(pos=pos[None].expand(m, pos.shape[0]))
 
 
-def stack_replicas(caches: KVCache, m: int) -> KVCache:
-    """Stacked caches [L, B, ...] -> a leading replica dim [m, L, B, ...]
-    (broadcast views); ``pos`` [B] becomes [m, B] (a scalar broadcasts to
-    every row first)."""
-    pos = row_pos(caches.pos, caches.k.shape[1], caches.k.device)
-    return _map(caches, lambda x: x[None].expand((m,) + x.shape))._replace(
-        pos=pos[None].expand(m, pos.shape[0]))
-
-
-def flatten_replicas(rep: KVCache, m: int) -> KVCache:
+def flatten_replicas(rep, m: int):
     """[m, L, B, ...] -> [L, m * B, ...], replica-major: row r * B + b is
     replica r of sequence b. Every cache leaf has its batch dim at 1;
     ``pos`` [m, B] becomes [m * B], so each flat row keeps its length.
@@ -129,16 +125,16 @@ def flatten_replicas(rep: KVCache, m: int) -> KVCache:
         return x.reshape((x.shape[0], m * x.shape[2]) + x.shape[3:]
                          ).contiguous()
 
-    return _map(rep, one)._replace(pos=rep.pos.reshape(-1).contiguous())
+    return map_rows(rep, one)._replace(pos=rep.pos.reshape(-1).contiguous())
 
 
-def unflatten_replicas(flat: KVCache, m: int) -> KVCache:
+def unflatten_replicas(flat, m: int):
     """Inverse of :func:`flatten_replicas` (``pos`` [m * B] -> [m, B])."""
     def one(x):
         x = x.reshape((x.shape[0], m, x.shape[1] // m) + x.shape[2:])
         return x.movedim(1, 0)
 
-    return _map(flat, one)._replace(pos=flat.pos.reshape(m, -1))
+    return map_rows(flat, one)._replace(pos=flat.pos.reshape(m, -1))
 
 
 def _attack(logits_r, rcfg: RobustDecodeConfig, generator):

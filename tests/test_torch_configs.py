@@ -34,6 +34,8 @@ torch.set_num_threads(1)
 NEW = ["minitron-4b", "starcoder2-7b", "llama3-405b", "phi-3-vision-4.2b"]
 # the moe family (tests/test_torch_moe.py holds it against repro)
 MOE = ["granite-moe-3b-a800m", "mixtral-8x7b"]
+# the ssm and hybrid families (tests/test_torch_ssm.py, test_torch_hybrid.py)
+SSM = ["mamba2-2.7b", "zamba2-7b"]
 # (config, (d_head, n_heads, n_kv_heads) replaced into reduced(), or None)
 CASES = [(name, None) for name in NEW] + [
     ("phi-3-vision-4.2b", (96, 4, 4)),   # phi-3-vision's dh 96, G 1
@@ -96,22 +98,24 @@ def test_registry_mirrors_repro():
     """The port's names are repro's; every name of repro that the port
     lacks raises, naming its family and ROADMAP's item."""
     ported = t_list_archs()
-    assert ported == sorted(["qwen3-1.7b"] + NEW + MOE)
+    assert ported == sorted(["qwen3-1.7b"] + NEW + MOE + SSM)
     assert set(ported) <= set(j_list_archs())
     for name in sorted(set(j_list_archs()) - set(ported)):
         family = j_get_arch(name).family
-        assert family in ("ssm", "hybrid", "encdec"), name
+        assert family == "encdec", name
         with pytest.raises(NotImplementedError, match=f"{family}.*A7"):
             t_get_arch(name)
     with pytest.raises(KeyError, match="unknown"):
         t_get_arch("no-such-model")
 
 
-@pytest.mark.parametrize("name", NEW + ["qwen3-1.7b"] + MOE)
+@pytest.mark.parametrize("name", NEW + ["qwen3-1.7b"] + MOE + SSM)
 def test_expected_shapes_match_repro_at_full_width(name):
     """``convert`` takes every ported config: its shapes at full width are
     those of repro's init (traced, nothing allocated), the untied
-    ``lm_head`` and a moe layer's router and stacked experts included."""
+    ``lm_head``, a moe layer's router and stacked experts, an ssm layer's
+    mamba2 block and the hybrid's grouped, tail and shared trees
+    included."""
     jc, tc = j_get_arch(name), t_get_arch(name)
     shapes = jax.eval_shape(lambda k: JM.init(k, jc), jax.random.PRNGKey(0))
 

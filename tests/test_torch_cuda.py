@@ -1585,3 +1585,104 @@ def test_cuda_b4_b1_at_granite_vocab(cuda):
         for with_agg in (True, False):
             _b4_check(x, top_k=k, with_agg=with_agg)
     _b1_same(x.reshape(8, -1), "vrmom", K=8)
+
+
+# -- the ssm and hybrid families: the state written inside the graphs --------
+
+SSM_CASES = ["mamba2-2.7b", "zamba2-7b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [True, False], ids=["shared",
+                                                      "replicated"])
+@pytest.mark.parametrize("case", SSM_CASES)
+def test_cuda_ssm_replay_equals_eager(cuda, case, share):
+    """A reduced mamba2 (or zamba2) decode step, its SSM states and conv
+    tails written in place (and zamba2's shared block through B3), captured
+    once and replayed gives the eager loop's greedy tokens bitwise, under
+    signflip and with no robust tail; the prompt of 12 pads one chunk of
+    16."""
+    cfg, params, batch = _moe_served(cuda, case)
+    for robust in (RobustDecodeConfig(m=8, attack="signflip",
+                                      share_replica_compute=share), None):
+        eng = ServeEngine(cfg, params, max_len=40, robust=robust,
+                          device=cuda)
+        got = eng.generate(batch, 10)
+        torch.testing.assert_close(got, eng.generate_python_loop(batch, 10),
+                                   rtol=0, atol=0)
+        (st,) = eng.graphs.values()
+        assert st.graph is not None and st.replays == 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSM_CASES)
+def test_cuda_ssm_pool_replay_equals_eager(cuda, case):
+    """Seven requests through three slots: slots freed and admitted again
+    while the others decode; the replayed pool gives the eagerly decoded
+    pool's tokens (every admission overwrote its slot's state)."""
+    cfg, params, _ = _moe_served(cuda, case)
+    reqs = _pool_requests(cfg, 7, 3)
+    robust = RobustDecodeConfig(m=8, attack="signflip")
+    got, eng = _pool_serve(cuda, cfg, params, reqs, "graph", robust)
+    want, _ = _pool_serve(cuda, cfg, params, reqs, "eager", robust)
+    assert got == want
+    (st,) = eng.pool_graphs.values()
+    assert st.replays > 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSM_CASES)
+def test_cuda_ssm_kernels_match_plain_path(cuda, case):
+    """The reduced models on the kernel path and on the plain path (torch
+    attention and estimator) give the same greedy tokens; a generate runs
+    B2 once and B3 once a step for each application of zamba2's shared
+    block, and no attention kernel for mamba2, and B4 every token."""
+    cfg, params, batch = _moe_served(cuda, case)
+    plain = ServeEngine(cfg, params, max_len=40, attn_backend="torch",
+                        robust=RobustDecodeConfig(m=8, estimator=Estimator(
+                            "vrmom", K=8, backend="torch")), device=cuda)
+    fused = ServeEngine(cfg, params, max_len=40,
+                        robust=RobustDecodeConfig(m=8, attack="signflip"),
+                        device=cuda)
+    fused.generate(batch, 10)  # capture
+    toks, ran = device_kernel_counts(lambda: fused.generate(batch, 10),
+                                     DEVICE_KERNELS)
+    n_attn = 0 if cfg.family == "ssm" \
+        else cfg.n_layers // cfg.hybrid_attn_every
+    assert ran == {"flash_fwd": n_attn, "decode_split_kernel": n_attn * 9,
+                   "tail_kernel": 10, "agg_kernel": 0}
+    torch.testing.assert_close(toks, plain.generate(batch, 10), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_b2_b3_at_zamba2_shapes(cuda):
+    """zamba2-7b's shared block: B2 at q/k/v [4, 192, 32, 112] bf16 causal
+    (the prefill) and B3 at q [4, 1, 32, 112] over a [4, 216, 32, 112] bf16
+    cache (G 1) at lengths 193..216 (the decode), against the f32 plain
+    versions of the same bf16 inputs at 1e-2 + 1e-2 * |ref|; each launches
+    its dh-112 instance."""
+    g = torch.Generator(device=cuda).manual_seed(112)
+    q, k, v = (torch.randn(4, 192, 32, 112, device=cuda, generator=g
+                           ).to(torch.bfloat16) for _ in range(3))
+    torch.testing.assert_close(
+        flash_attention(q, k, v, causal=True).float(),
+        flash_attention_plain(q.float(), k.float(), v.float(), causal=True),
+        rtol=1e-2, atol=1e-2)
+    qd = q[:, :1].contiguous()
+    kc, vc = (torch.randn(4, 216, 32, 112, device=cuda, generator=g
+                          ).to(torch.bfloat16) for _ in range(2))
+    lens = torch.tensor([193, 200, 215, 216], dtype=torch.int32,
+                        device=cuda)
+    torch.testing.assert_close(
+        decode_attention(qd, kc, vc, kv_len=lens).float(),
+        decode_attention_plain(qd.float(), kc.float(), vc.float(), lens,
+                               None, None),
+        rtol=1e-2, atol=1e-2)
+    names = kernels_in_calls([
+        lambda: flash_attention(q, k, v, causal=True),
+        lambda: decode_attention(qd, kc, vc, kv_len=lens)])
+    assert [kernel_instance(n, "flash_fwd_wgmma") for n in names[0]] \
+        == [(112,)]
+    assert [kernel_instance(n, "decode_split_kernel")
+            for n in names[1]] == [(112, 8)]

@@ -244,4 +244,4 @@ def test_params_from_jax_rejects_mismatch(models):
 
 def test_unported_family_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dataclasses.replace(t_get_arch("qwen3-1.7b"), family="ssm")
+        dataclasses.replace(t_get_arch("qwen3-1.7b"), family="encdec")

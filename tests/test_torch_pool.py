@@ -14,8 +14,9 @@ distributions: JAX and torch random streams never match. With 240 draws
 a package, a frequency's standard error is at most 0.032, so the total
 variation distance of the first token's distribution from the exact
 top-3 softmax is held within 0.12 and the two packages' empirical
-distributions of each token within 0.15 of each other. The other
-families' pool cases (mamba2, zamba2, whisper) come with ROADMAP.md A7.
+distributions of each token within 0.15 of each other. The ssm and hybrid
+families' pool cases (mamba2, zamba2) are ``test_torch_hybrid.py``'s;
+whisper's comes with ROADMAP.md A7.
 """
 import dataclasses
 
