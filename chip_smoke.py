@@ -194,6 +194,34 @@ equal to its run alone in a new pool, 5 requests against a solo generate;
 (c) B2 and B3 at zamba2's dh 112, G 1 (and B3 at its 32 replicated rows),
 and B4 and B1 at mamba2's V 50280 join the ``kernels`` line with the
 launches of (a)'s traces.
+Phase 12 serves the encdec family (``models/whisper.py``): (a)
+whisper-medium at full width and depth (24 encoder and 24 decoder layers,
+dh 64, G 1, V 51865 tied; seeded bf16 weights) with phase 3's workload
+and numpy-seeded stub frames [4, 1500, 1024] bf16, one engine for each of
+phase 11's seven (layout, attack, tail) runs: greedy tokens identical
+within each layout; the signflip runs (shared fused and unfused,
+replicated fused) graph = eager, every call of theirs traced: the eager
+loop's and each generate's launches what the step implies kernel by
+kernel (B2 once an encoder layer and twice a decoder layer a prefill, the
+encoder's and the cross attention's non-causal; B3 twice a decoder layer
+a step, the cross one over the whole 1500-frame cache with no length
+mask); shared vs replicated held by ``layout_check``; the instances that
+ran (B2 <64>, B3 <64, 8>); the kernel prefill within LAYOUT_TOL of the
+plain one; decode ms/token (graph, eager, replicated), capture, launches
+and busy share, prefill ms, each layout's decode bound from the bytes a
+step moves (the decoder's weights and the embedding, each row's cross
+K/V and self K/V), peak memory; (b) the same model behind ``Scheduler``
+over 8 slots of 512 (16 requests, each with its own numpy-seeded
+frames): the cross K/V counted in ``serve.kv_bytes_per_slot``, tokens
+identical under none/signflip/gaussian and in a second drain, 4 requests
+against a solo generate (or a near-tie); (c) B2 non-causal at the
+encoder's [4, 1500, 16, 64] and the cross attention's q [4, 192, 16, 64]
+over 1500 keys, B2 causal at the decoder's [4, 192, 16, 64], B3 over the
+whole encoder cache at 4 and 32 rows, B3 at the self cache [4, 216, 16,
+64], and B4 and B1 at V 51865 join the ``kernels`` line, each B2 and B3
+row with its launches and median device time (``in_path_ms``) in (a)'s
+traces, split by role from their launch order (the encoder's, then a
+self and a cross launch a decoder layer).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it lists every kernel with its launches, error and times. Any
@@ -323,6 +351,18 @@ SSM_TRACED = {"mamba2-2.7b": (("shared", "signflip", True),
               "zamba2-7b": (("shared", "signflip", True),
                             ("replicated", "signflip", True))}
 SSM_CONFIGS = tuple(SSM_TRACED)
+
+# phase 12, the encdec family: whisper-medium at full width and depth (24
+# encoder and 24 decoder layers) with phase 3's workload and ENCDEC_FRAMES
+# numpy-seeded stub frames a prompt, one engine a run of SSM_RUNS (phase
+# 11's matrix), the runs of ENCDEC_TRACED held against their eager loops,
+# every call of theirs traced (both tails, whose kernels it times, and
+# both layouts, whose B3 shapes it times); behind the scheduler as phase
+# 10 (b), each request with its own frames
+ENCDEC_TRACED = (("shared", "signflip", True),
+                 ("shared", "signflip", False),
+                 ("replicated", "signflip", True))
+ENCDEC_SEED = 12
 
 
 class CheckFailed(Exception):
@@ -739,16 +779,19 @@ def traced_call(torch, K, fn):
     """(result, host ms to a synchronised end under the tracer, the
     launches the wrappers counted, the launches in the call's
     torch.profiler trace: each wrapper's device kernels, eager or
-    replayed)."""
-    from repro_torch.device import device_kernel_counts
+    replayed, and those kernels in launch order as (name, device µs))."""
+    from repro_torch.device import device_kernel_events
 
     before = K.launch_counts()
     t0 = time.perf_counter()
-    out, ran = device_kernel_counts(fn, PORT_KERNELS)
+    out, evs = device_kernel_events(fn)
     ms = (time.perf_counter() - t0) * 1e3
     after = K.launch_counts()
-    traced = {w: sum(ran[k] for k in ks) for w, ks in WRAPPER_KERNELS.items()}
-    return out, ms, {k: after[k] - before[k] for k in after}, traced
+    ran = [(name, us) for name, us in evs
+           if any(k in name for k in PORT_KERNELS)]
+    traced = {w: sum(any(k in name for k in ks) for name, _ in ran)
+              for w, ks in WRAPPER_KERNELS.items()}
+    return out, ms, {k: after[k] - before[k] for k in after}, traced, ran
 
 
 def add_counts(total: dict, more: dict) -> None:
@@ -781,8 +824,8 @@ def graph_and_eager(torch, K, eng, batch, what: str, sampling=None,
         for _ in range(TRACE_TRIES):
             kw = {} if seed is None else dict(generator=torch.Generator(
                 device=eng.device).manual_seed(seed))
-            out, ms, counted, ran = traced_call(torch, K,
-                                                lambda: fn(*args, **kw))
+            out, ms, counted, ran, _ = traced_call(
+                torch, K, lambda: fn(*args, **kw))
             if ran == (counted if want is None else want):
                 return out, ms, counted, ran
             retraced += 1
@@ -1060,11 +1103,12 @@ def profile_generate(torch, fn, label: str, gen_ms: float,
                 device_ops=device_ops, kernel_us=kernel_us)
 
 
-def attn_record(torch, flush, name, q, k, v, *, decode: bool):
-    """B2 (``decode=False``, causal) or B3 (a python-int length, the whole
-    cache) at one shape: held against its plain version, timed beside the
-    plain version and SDPA. Returns the record of the ``kernels`` line,
-    without launches."""
+def attn_record(torch, flush, name, q, k, v, *, decode: bool,
+                causal: bool = True):
+    """B2 (``decode=False``; causal, or not with ``causal=False``) or B3 (a
+    python-int length, the whole cache) at one shape: held against its
+    plain version, timed beside the plain version and SDPA. Returns the
+    record of the ``kernels`` line, without launches."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import (decode_attention,
@@ -1087,13 +1131,14 @@ def attn_record(torch, flush, name, q, k, v, *, decode: bool):
         flops = 4 * dh * H * B * T
     else:
         def run():
-            return flash_attention(q, k, v, causal=True)
+            return flash_attention(q, k, v, causal=causal)
 
         def plain():
-            return flash_attention_plain(q, k, v, causal=True)
+            return flash_attention_plain(q, k, v, causal=causal)
         ref = flash_attention_plain(q.float(), k.float(), v.float(),
-                                    causal=True)
-        flops = 4 * dh * B * H * sum(min(i + 1, T) for i in range(S))
+                                    causal=causal)
+        flops = 4 * dh * B * H * (sum(min(i + 1, T) for i in range(S))
+                                  if causal else S * T)
     out = run()
     err = max_err(out, ref)
     # bf16 output against the f32 plain version of the same bf16 inputs,
@@ -1114,8 +1159,8 @@ def attn_record(torch, flush, name, q, k, v, *, decode: bool):
                           spin=PLAIN_SPIN_CYCLES),
         bound_ms=b[0], bound_by=b[1],
         library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=not decode, enable_gqa=True), torch,
-            flush))
+            qt, kt, vt, is_causal=causal and not decode, enable_gqa=True),
+            torch, flush))
 
 
 def layout_check(torch, cfg, params, batch, max_len, shared, replicated,
@@ -1382,13 +1427,15 @@ def pool_requests(vocab: int):
 
 
 def drain(torch, sched, reqs, oversized=None):
-    """Submit ``reqs`` ((prompt, budget) each, and ``oversized``) to the
-    scheduler and run it dry -> (completions in request order, the
-    oversized one's or None, synchronised wall seconds)."""
+    """Submit ``reqs`` ((prompt, budget) each, or (prompt, budget, extras),
+    and ``oversized``) to the scheduler and run it dry -> (completions in
+    request order, the oversized one's or None, synchronised wall
+    seconds)."""
     from repro_torch.serve import Request
 
-    uids = [sched.submit(Request(tokens=p, max_new_tokens=n))
-            for p, n in reqs]
+    uids = [sched.submit(Request(tokens=r[0], max_new_tokens=r[1],
+                                 extras=r[2] if len(r) > 2 else None))
+            for r in reqs]
     big = None if oversized is None else sched.submit(
         Request(tokens=oversized[0], max_new_tokens=oversized[1]))
     t0 = time.perf_counter()
@@ -3264,40 +3311,51 @@ def instances_ran(torch, eng, params, cfg, batch, tok):
             {kernel_instance(n, "decode_split_kernel") for n in ran} - {None})
 
 
-def graph_traced(torch, K, eng, batch, what: str, want: dict):
-    """``graph_and_eager`` with the eager loop untraced: its launches are
-    the wrappers' counts (every eager launch counts), which must be
-    ``want``, as must each of the two traced generates' (the first runs a
-    step eagerly, captures it and replays; the second only replays, its
-    wrappers counting no decode kernel). The eager loop's trace of tens of
-    thousands of small kernels is the one the tracer most often loses
-    events from, and phase 10 (a) has no time to take it again."""
+def graph_traced(torch, K, eng, batch, what: str, want: dict,
+                 trace_eager: bool = False):
+    """``graph_and_eager`` with the eager loop untraced unless
+    ``trace_eager``: its launches are then the wrappers' counts (every
+    eager launch counts), which must be ``want``, as must each of the
+    traced calls' (the first generate runs a step eagerly, captures it and
+    replays; the second only replays, its wrappers counting no decode
+    kernel). The eager loop's trace of tens of thousands of small kernels
+    is the one the tracer most often loses events from, and phase 10 (a)
+    has no time to take it again. ``events``: each traced call's port
+    kernels in launch order, as (name, device µs)."""
     from repro_torch.serve.engine import GREEDY
 
-    before = K.launch_counts()
-    t0 = time.perf_counter()
-    eager = eng.generate_python_loop(batch, NEW_TOKENS)
-    torch.cuda.synchronize()
-    eager_ms = (time.perf_counter() - t0) * 1e3
-    after = K.launch_counts()
-    eager_c = {k: after[k] - before[k] for k in after}
+    retraced = 0
+
+    def traced(fn):
+        nonlocal retraced
+        for _ in range(TRACE_TRIES):
+            call = traced_call(torch, K, lambda: fn(batch, NEW_TOKENS))
+            if call[3] == want:
+                return call
+            retraced += 1
+            print(f"[trace] '{what}' {fn.__name__}: the trace holds "
+                  f"{call[3]}, expected {want}; traced again")
+        raise CheckFailed(f"'{what}' {fn.__name__}: {TRACE_TRIES} traces "
+                          f"differ from the launches expected")
+
+    events = []
+    if trace_eager:
+        eager, eager_ms, eager_c, _, ev = traced(eng.generate_python_loop)
+        events.append(ev)
+    else:
+        before = K.launch_counts()
+        t0 = time.perf_counter()
+        eager = eng.generate_python_loop(batch, NEW_TOKENS)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        after = K.launch_counts()
+        eager_c = {k: after[k] - before[k] for k in after}
     require(eager_c == want, f"'{what}': the eager loop launched {eager_c}, "
                              f"expected {want}")
-    calls, retraced = [], 0
-    for _ in range(2):
-        for _ in range(TRACE_TRIES):
-            call = traced_call(torch, K, lambda: eng.generate(batch,
-                                                              NEW_TOKENS))
-            if call[3] == want:
-                break
-            retraced += 1
-            print(f"[trace] '{what}' generate: the trace holds {call[3]}, "
-                  f"expected {want}; traced again")
-        else:
-            raise CheckFailed(f"'{what}': {TRACE_TRIES} traces differ from "
-                              f"the launches expected")
-        calls.append(call)
-    (first, first_ms, _, first_t), (graph, graph_ms, graph_c, graph_t) = calls
+    first, first_ms, _, first_t, ev = traced(eng.generate)
+    events.append(ev)
+    graph, graph_ms, graph_c, graph_t, ev = traced(eng.generate)
+    events.append(ev)
     require(graph_c["decode_attention"] == 0,
             f"'{what}': a replayed generate's wrappers counted {graph_c}")
     launches = dict(eager_c)
@@ -3306,16 +3364,18 @@ def graph_traced(torch, K, eng, batch, what: str, want: dict):
     return dict(toks=graph, first_ms=first_ms, graph_ms=graph_ms,
                 eager_ms=eager_ms, graph_n=graph_t, graph_counted=graph_c,
                 launches=launches, capture_s=eng.graphs[GREEDY].capture_s,
-                retraced=retraced,
+                retraced=retraced, events=events,
                 same=torch.equal(first, graph) and torch.equal(graph, eager))
 
 
-def run_matrix(torch, K, cfg, runs, batch, traced, n_attn, tag):
-    """The main path of phases 10 (a) and 11 (a). With the wrappers'
-    counts from 0, the runs of ``traced`` (keys (layout, attack, fused) of
-    ``runs``, its engines) are held against their eager loops with their
-    generates traced (``graph_traced``: ``n_attn`` B2 launches a generate,
-    as many B3 a decode step), and every other run serves one untraced
+def run_matrix(torch, K, cfg, runs, batch, traced, n_attn, tag,
+               n_decode=None, trace_eager=False):
+    """The main path of phases 10 (a), 11 (a) and 12 (a). With the
+    wrappers' counts from 0, the runs of ``traced`` (keys (layout, attack,
+    fused) of ``runs``, its engines) are held against their eager loops
+    with their generates traced (``graph_traced``, with ``trace_eager``:
+    ``n_attn`` B2 launches a generate, ``n_decode`` (else as many) B3 a
+    decode step), and every other run serves one untraced
     graph generate; the greedy tokens must be identical within each layout
     and graph = eager. Returns (the results by key, the traced launches in
     all and by layout, the wrappers' counts)."""
@@ -3328,7 +3388,8 @@ def run_matrix(torch, K, cfg, runs, batch, traced, n_attn, tag):
             f"{cfg.name} {' '.join(map(str, key))}",
             dict(aggregate=NEW_TOKENS - tail, aggregate_sample=tail,
                  flash_attention=n_attn,
-                 decode_attention=n_attn * (NEW_TOKENS - 1)))
+                 decode_attention=(n_attn if n_decode is None else n_decode)
+                 * (NEW_TOKENS - 1)), trace_eager)
     walls = {}
     for key, eng in runs.items():
         if key in res:
@@ -4090,6 +4151,369 @@ def phase_ssm(torch, dev, card):
     return moe_records(recs, card, tag="ssm")
 
 
+def encdec_reckoning(cfg, n_dec: int, rows: int) -> dict:
+    """The bytes one decode step of an encdec model must move at ``rows``
+    cache rows, each read once: the decoder's bf16 weights and the tied
+    embedding (the unembedding; the encoder does not run), each row's
+    cross K/V whole and its self K/V at the decode's mean length -> dict
+    of GB and MB and the bound ms."""
+    kv = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    cross = kv * cfg.encoder.n_frames
+    self_kv = kv * (PROMPT_LEN + NEW_TOKENS / 2)
+    total = 2 * n_dec + rows * (cross + self_kv)
+    return dict(weights_gb=2 * n_dec / 1e9, cross_mb=cross / 1e6,
+                self_mb=self_kv / 1e6, total_gb=total / 1e9,
+                ms=total / HBM_BYTES_PER_S * 1e3)
+
+
+def encdec_roles(res, traced, Le: int, L: int) -> dict:
+    """The device µs of each B2 and B3 launch in the traces of ``traced``
+    (keys of ``res``, run by ``run_matrix`` with ``trace_eager``), by role
+    and layout: a call's prefill launches B2 for the ``Le`` encoder layers,
+    then a self and a cross launch a decoder layer; each decode step B3
+    self, then cross, a decoder layer -> {(role, layout): [µs, ...]}."""
+    roles = {}
+    for key in traced:
+        for call in res[key]["events"]:
+            b2 = [us for name, us in call
+                  if any(k in name for k in WRAPPER_KERNELS[
+                      "flash_attention"])]
+            b3 = [us for name, us in call if "decode_split_kernel" in name]
+            for i, us in enumerate(b2):
+                role = ("b2 encoder" if i < Le else
+                        ("b2 self", "b2 cross")[(i - Le) % 2])
+                roles.setdefault((role, key[0]), []).append(us)
+            for j, us in enumerate(b3):
+                roles.setdefault((("b3 self", "b3 cross")[j % 2], key[0]),
+                                 []).append(us)
+    return roles
+
+
+def encdec_serve(torch, dev, card, flush):
+    """Phase 12 (a): whisper-medium at full width and depth, phase 3's
+    workload with numpy-seeded frames. Returns (cfg, params, [(``kernels``
+    record, its main path's launches)])."""
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core.estimator import Estimator
+    from repro_torch.models import model as M
+    from repro_torch.serve import RobustDecodeConfig, ServeEngine
+
+    cfg = get_arch("whisper-medium")
+    L, Le, F = cfg.n_layers, cfg.encoder.n_layers, cfg.encoder.n_frames
+    H, Hkv, dh, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    require((L, Le, F) == (24, 24, 1500), f"{cfg.name}: {L} + {Le} layers "
+                                          f"over {F} frames")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    torch.cuda.synchronize()
+    n_params = M.param_count(params)
+    n_dec = (M.param_count(params["dec_layers"]) + params["embed"].numel()
+             + params["norm_f"].numel())
+    print(f"[encdec] {cfg.name} at full width and depth: {Le} encoder and "
+          f"{L} decoder layers (d {D}, heads {H}/{Hkv} of {dh}, d_ff "
+          f"{cfg.d_ff} SwiGLU, sinusoidal positions), {F} stub frames, "
+          f"vocab {cfg.vocab} tied; {n_params / 1e9:.3f} B params bf16 "
+          f"({2 * n_params / 1e9:.2f} GB; decoder and embedding "
+          f"{2 * n_dec / 1e9:.3f} GB), seeded init "
+          f"{time.perf_counter() - t0:.1f} s; {N_PROMPTS} x {PROMPT_LEN} "
+          f"tokens, {NEW_TOKENS} new")
+    g = torch.Generator(device=dev).manual_seed(1)
+    frames = np.random.RandomState(ENCDEC_SEED).standard_normal(
+        (N_PROMPTS, F, D)).astype(np.float32)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (N_PROMPTS, PROMPT_LEN),
+                                     generator=g, device=dev),
+             "frames": torch.from_numpy(frames).to(dev, torch.bfloat16)}
+
+    def rcfg(**kw):
+        return RobustDecodeConfig(**{**dict(m=8, estimator="vrmom", K=8,
+                                            alpha=0.25), **kw})
+
+    def engine(robust, **kw):
+        return ServeEngine(cfg, params, max_len=MAX_LEN, robust=robust,
+                           device=dev, **kw)
+
+    runs = {key: engine(rcfg(attack=key[1], fuse_tail=key[2],
+                             share_replica_compute=key[0] == "shared"))
+            for key in SSM_RUNS}
+    warm = runs["shared", "none", True]
+    warm.generate_python_loop(batch, 2)  # warm-up
+    warm.generate(batch, 2)
+    torch.cuda.synchronize()
+
+    # ---- the main path: counts from 0; launches from its traces ---------
+    # B2 once an encoder layer and twice a decoder layer (self, cross) a
+    # prefill; B3 twice a decoder layer a step
+    n_flash, n_b3 = Le + 2 * L, 2 * L
+    lap = time.perf_counter()
+    res, counts, _, counted = run_matrix(
+        torch, K, cfg, runs, batch, ENCDEC_TRACED, n_flash, "encdec",
+        n_decode=n_b3, trace_eager=True)
+    t_runs = time.perf_counter() - lap
+    lap = time.perf_counter()
+    ref = res["shared", "none", True]["toks"]
+    fused = res["shared", "signflip", True]["graph_n"]
+    require(fused == dict(aggregate=0, aggregate_sample=NEW_TOKENS,
+                          flash_attention=n_flash,
+                          decode_attention=n_b3 * (NEW_TOKENS - 1)),
+            f"{cfg.name}: fused greedy launches {fused}")
+    for k in ("aggregate", "aggregate_sample", "flash_attention",
+              "decode_attention"):
+        require(counted[k] > 0, f"{cfg.name}: kernel {k} never launched on "
+                                f"the main path")
+    for k in ("aggregate", "aggregate_sample", "flash_attention",
+              "decode_attention"):
+        require(counts[k] > 0, f"{cfg.name}: no traced launch of {k}")
+    print(f"[encdec] {cfg.name} main-path launches {json.dumps(counts)} "
+          f"(traced; the wrappers counted {json.dumps(counted)}, eager "
+          f"launches only) ({card})")
+    print(f"[encdec] {cfg.name} shared vs replicated: " + layout_check(
+        torch, cfg, params, batch, MAX_LEN, ref,
+        res["replicated", "signflip", True]["toks"]))
+    t_layout = time.perf_counter() - lap
+    lap = time.perf_counter()
+    flash, dec = instances_ran(torch, warm, params, cfg, batch, ref[:, 0])
+    want = ({(dh,)}, {(dh, 8)})
+    require((flash, dec) == want, f"{cfg.name}: instances {flash} (B2) and "
+                                  f"{dec} (B3), expected {want}")
+    print(f"[encdec] {cfg.name} instances: B2 flash_fwd_wgmma<{dh}> (the "
+          f"encoder, non-causal; the decoder's causal self and non-causal "
+          f"cross attention), B3 decode_split_kernel<{dh}, 8> (self and "
+          f"cross, G {H // Hkv})")
+    # ---- prefill on the kernel path against the plain path --------------
+    eng_p = engine(rcfg(estimator=Estimator(method="vrmom", K=8,
+                                            backend="torch")),
+                   attn_backend="torch")
+    lk, _ = warm.prefill(batch)
+    lp, _ = eng_p.prefill(batch)
+    rel = max_err(lk, lp) / float(lp.float().abs().max())
+    require(bool(torch.isfinite(lk.float()).all()) and rel <= LAYOUT_TOL,
+            f"{cfg.name}: prefill logits kernel vs plain: {rel}")
+    print(f"[encdec] {cfg.name}: prefill logits kernel vs plain path max "
+          f"err / max|logit| = {rel:.3g} (tolerance {LAYOUT_TOL}: B2 "
+          f"non-causal over {F} frames and causal, against the plain mha)")
+    del eng_p, lk, lp
+    t_checks = time.perf_counter() - lap
+    lap = time.perf_counter()
+    # ---- times and bounds -----------------------------------------------
+    pre_ms = prefill_median(torch, warm, batch)
+    report_decode(torch, f"[encdec] {cfg.name} robust m=8 vrmom greedy "
+                  f"(shared none)", warm, batch, pre_ms, card,
+                  profiled="graph")
+    rep_eng = runs["replicated", "none", True]
+    rep_walls = []
+    for _ in range(3):
+        t = time.perf_counter()
+        rep_eng.generate(batch, NEW_TOKENS)
+        torch.cuda.synchronize()
+        rep_walls.append((time.perf_counter() - t) * 1e3)
+    rep_ms = statistics.median(rep_walls)
+    print(f"[encdec] {cfg.name} replicated (32 rows) none fused, graph: "
+          f"generate walls " + ", ".join(f"{w:.1f}" for w in rep_walls) +
+          f" ms: median {rep_ms:.1f}, decode "
+          f"{(rep_ms - pre_ms) / (NEW_TOKENS - 1):.2f} ms/token ({card})")
+    for rows, layout in ((N_PROMPTS, "shared"), (8 * N_PROMPTS,
+                                                  "replicated")):
+        b = encdec_reckoning(cfg, n_dec, rows)
+        print(f"[encdec] {cfg.name} decode bound, {layout} ({rows} rows): "
+              f"decoder weights and embedding {b['weights_gb']:.3f} GB + "
+              f"{rows} x ({b['cross_mb']:.1f} MB cross K/V + "
+              f"{b['self_mb']:.1f} MB self K/V read) = {b['total_gb']:.2f} "
+              f"GB / {HBM_BYTES_PER_S / 1e12:.2f} TB/s = {b['ms']:.2f} ms a "
+              f"step ({card})")
+    print(f"[encdec] {cfg.name} peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} "
+          f"({card})")
+    t_report = time.perf_counter() - lap
+    lap = time.perf_counter()
+
+    # ---- the kernels at this config's shapes ----------------------------
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    S, B, R = PROMPT_LEN, N_PROMPTS, 8 * N_PROMPTS
+    # each row's launches and time inside the main path, from its traces
+    roles = encdec_roles(res, ENCDEC_TRACED, Le, L)
+
+    def role(name, *layouts):
+        return [us for lay in layouts for us in roles.get((name, lay), [])]
+
+    in_path = [role("b2 encoder", "shared", "replicated"),
+               role("b2 cross", "shared", "replicated"),
+               role("b2 self", "shared", "replicated"),
+               role("b3 cross", "shared"), role("b3 cross", "replicated"),
+               role("b3 self", "shared")]
+    recs = [
+        (attn_record(torch, flush, f"B2 flash_attention (non-causal, "
+                     f"{cfg.name}'s encoder: q/k/v [{B},{F},{H},{dh}] bf16)",
+                     rand(B, F, H, dh), rand(B, F, Hkv, dh),
+                     rand(B, F, Hkv, dh), decode=False, causal=False),
+         len(in_path[0])),
+        (attn_record(torch, flush, f"B2 flash_attention (non-causal, "
+                     f"{cfg.name}'s cross attention: q [{B},{S},{H},{dh}], "
+                     f"k/v [{B},{F},{Hkv},{dh}] bf16)",
+                     rand(B, S, H, dh), rand(B, F, Hkv, dh),
+                     rand(B, F, Hkv, dh), decode=False, causal=False),
+         len(in_path[1])),
+        (attn_record(torch, flush, f"B2 flash_attention (causal, "
+                     f"{cfg.name}'s decoder self attention: q/k/v "
+                     f"[{B},{S},{H},{dh}] bf16)",
+                     rand(B, S, H, dh), rand(B, S, Hkv, dh),
+                     rand(B, S, Hkv, dh), decode=False),
+         len(in_path[2])),
+        (attn_record(torch, flush, f"B3 decode_attention ({cfg.name}'s "
+                     f"cross attention: q [{B},1,{H},{dh}] over the whole "
+                     f"encoder cache [{B},{F},{Hkv},{dh}] bf16, no length "
+                     f"mask)", rand(B, 1, H, dh), rand(B, F, Hkv, dh),
+                     rand(B, F, Hkv, dh), decode=True),
+         len(in_path[3])),
+        (attn_record(torch, flush, f"B3 decode_attention ({cfg.name}'s "
+                     f"cross attention, replicated: q [{R},1,{H},{dh}] over "
+                     f"the whole encoder cache [{R},{F},{Hkv},{dh}] bf16, no "
+                     f"length mask)", rand(R, 1, H, dh), rand(R, F, Hkv, dh),
+                     rand(R, F, Hkv, dh), decode=True),
+         len(in_path[4])),
+        (pool_b3_record(torch, flush, torch.full((B,), MAX_LEN,
+                                                 dtype=torch.int32,
+                                                 device=dev),
+                        H, Hkv, dh, MAX_LEN, g, dev,
+                        where=f"{cfg.name}'s decoder self attention, the "
+                              f"last step"),
+         len(in_path[5]))]
+    for (rec, n), us in zip(recs, in_path):
+        require(n > 0, f"{cfg.name}: no launch of {rec['name']} in the "
+                       f"main path's traces")
+        rec["in_path_ms"] = statistics.median(us) / 1e3
+        print(f"[encdec] {rec['name']}: in the main path "
+              f"{rec['in_path_ms'] * 1e3:.2f} us (median over its {n} "
+              f"launches in the traces of {len(ENCDEC_TRACED)} runs' eager "
+              f"loops and generates), cold {rec['ms'] * 1e3:.2f} us, SDPA "
+              f"{rec['library_ms'] * 1e3:.2f} us ({card})")
+    tail = pool_tail_records(torch, flush, N_PROMPTS, cfg.vocab, g, dev,
+                             where=f"{cfg.name} generate",
+                             b1_what=f"{cfg.name} unfused tail")
+    recs += [(tail["aggregate_sample"], counts["aggregate_sample"]),
+             (tail["aggregate"], counts["aggregate"])]
+    print(f"[time] phase 12 (a): runs {t_runs:.1f} s, layouts "
+          f"{t_layout:.1f}, instances and prefill {t_checks:.1f}, times "
+          f"{t_report:.1f}, kernels {time.perf_counter() - lap:.1f}")
+    del runs, warm, rep_eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return cfg, params, recs
+
+
+def encdec_pool(torch, dev, card, cfg, params):
+    """Phase 12 (b): whisper-medium behind ``Scheduler`` over 8 slots of 512
+    (robust m = 8, the pool's step replayed), 16 requests each with its own
+    numpy-seeded frames: every admission encodes its frames and writes its
+    slot's cross K/V."""
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve import RobustDecodeConfig, Scheduler, ServeEngine
+
+    F, D = cfg.encoder.n_frames, cfg.d_model
+    rs = np.random.RandomState(ENCDEC_SEED + 1)
+    reqs = []
+    for _ in range(MOE_POOL_REQUESTS):
+        S = int(rs.randint(POOL_PROMPT[0], POOL_PROMPT[1] + 1))
+        n = int(rs.randint(POOL_NEW[0], POOL_NEW[1] + 1))
+        reqs.append((rs.randint(0, cfg.vocab, size=(S,)).astype(np.int32), n,
+                     {"frames": rs.standard_normal((F, D)).astype(
+                         np.float32)}))
+    budget = sum(r[1] for r in reqs)
+    print(f"[encdec] {cfg.name} ServeEngine(max_len={POOL_MAX_LEN}, n_slots="
+          f"{MOE_POOL_SLOTS}, robust m=8 vrmom K=8 shared fused, obs), "
+          f"Scheduler(decode_block={POOL_BLOCK}), greedy; "
+          f"{MOE_POOL_REQUESTS} requests, prompts {POOL_PROMPT[0]}.."
+          f"{POOL_PROMPT[1]}, budgets {POOL_NEW[0]}..{POOL_NEW[1]} ({budget}"
+          f" tokens), {F} frames each")
+    scheds = {}
+    for attack in ("none", "signflip", "gaussian"):
+        eng = ServeEngine(cfg, params, max_len=POOL_MAX_LEN,
+                          n_slots=MOE_POOL_SLOTS, obs=MetricsRegistry(),
+                          robust=RobustDecodeConfig(m=8, estimator="vrmom",
+                                                    K=8, alpha=0.25,
+                                                    attack=attack),
+                          device=dev)
+        scheds[attack] = Scheduler(eng, decode_block=POOL_BLOCK)
+    eng = scheds["none"].engine
+    # a slot's self K/V over max_len and cross K/V over the frames, every
+    # layer, and its position
+    kv = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    want = kv * (POOL_MAX_LEN + F) + 4
+    got = eng.obs.gauges["serve.kv_bytes_per_slot"]
+    require(got == want, f"{cfg.name}: kv_bytes_per_slot {got}, expected "
+                         f"{want} (the cross K/V counted)")
+    print(f"[encdec] {cfg.name} serve.kv_bytes_per_slot {got:.0f} bytes = "
+          f"{kv * POOL_MAX_LEN / 1e6:.1f} MB self K/V + {kv * F / 1e6:.1f} "
+          f"MB cross K/V + 4 (its position)")
+    K.reset_launch_counts()
+    comp1, _, wall1 = drain(torch, scheds["none"], reqs)
+    comp2, _, wall2 = drain(torch, scheds["none"], reqs)
+    toks = [c.tokens for c in comp2]
+    require(toks == [c.tokens for c in comp1]
+            and all(c.finished_by == "length" and len(c.tokens) == r[1]
+                    and all(0 <= t < cfg.vocab for t in c.tokens)
+                    for c, r in zip(comp2, reqs)),
+            f"{cfg.name} pool: two drains differ, or a completion lacks its "
+            f"budget or leaves the vocabulary")
+    for attack in ("signflip", "gaussian"):
+        got, _, wall = drain(torch, scheds[attack], reqs)
+        require([c.tokens for c in got] == toks,
+                f"{cfg.name} pool tokens under {attack} differ from 'none'")
+        print(f"[encdec] {cfg.name} pool {attack} a=0.25: tokens identical "
+              f"to none (drain with set-up {wall:.3f} s)")
+    counted = K.launch_counts()
+    for name in ("aggregate_sample", "flash_attention", "decode_attention"):
+        require(counted[name] > 0, f"{cfg.name} pool: kernel {name} never "
+                                   f"launched")
+    step = eng.obs.histograms["serve.decode_step_s"]
+    print(f"[encdec] {cfg.name} pool drain {budget} tokens in {wall2:.3f} s "
+          f"= {budget / wall2:.1f} tok/s (round 2; round 1 with set-up "
+          f"{wall1:.3f} s); decode step p50 {step.percentile(50) * 1e3:.2f} "
+          f"ms p95 {step.percentile(95) * 1e3:.2f} ms ({step.count} blocks);"
+          f" the wrappers counted {json.dumps(counted)} (eager launches) "
+          f"({card})")
+    for i, (p, n, ex) in enumerate(reqs[:MOE_POOL_SOLO]):
+        batch = {"tokens": torch.from_numpy(p)[None].to(dev),
+                 "frames": torch.from_numpy(ex["frames"])[None].to(dev)}
+        solo = eng.generate(batch, n)
+        pooled = torch.tensor([toks[i]], dtype=solo.dtype, device=dev)
+        print(f"[encdec] {cfg.name} request {i} (prompt {len(p)}): solo vs "
+              f"pool " + ("tokens identical" if torch.equal(solo, pooled)
+                          else layout_check(torch, cfg, params, batch,
+                                            POOL_MAX_LEN, solo, pooled,
+                                            m=MOE_POOL_SLOTS,
+                                            what="solo vs pool")))
+    del scheds, eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_encdec(torch, dev, card):
+    """Phase 12: the encdec family. Returns the ``kernels`` records with
+    the launches of their paths."""
+    flush = make_flush(torch, dev)
+    t = time.perf_counter()
+    cfg, params, recs = encdec_serve(torch, dev, card, flush)
+    print(f"[time] phase 12 (a) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    encdec_pool(torch, dev, card, cfg, params)
+    print(f"[time] phase 12 (b) {time.perf_counter() - t:.1f} s")
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return moe_records(recs, card, tag="encdec")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside the script; "
@@ -4140,6 +4564,8 @@ def main() -> int:
         lap("phase 10 (moe)")
         ssm_recs = phase_ssm(torch, dev, card)
         lap("phase 11 (ssm and hybrid)")
+        encdec_recs = phase_encdec(torch, dev, card)
+        lap("phase 12 (encdec)")
         print(f"[time] all phases {time.perf_counter() - t_all:.1f} s")
     except (CheckFailed, AssertionError) as exc:
         print(f"chip_smoke.py: check failed: {exc}", file=sys.stderr)
@@ -4156,6 +4582,7 @@ def main() -> int:
     kernels.extend(consensus_recs)
     kernels.extend(moe_recs)
     kernels.extend(ssm_recs)
+    kernels.extend(encdec_recs)
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Architecture configuration (dense, vlm, moe, ssm and hybrid families).
+"""Architecture configuration (dense, vlm, moe, ssm, hybrid and encdec
+families).
 
 ``repro.configs.base`` imports JAX, so the port re-declares the fields of
 ``ArchConfig`` that the decoder and the train step read. Field names,
@@ -10,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +37,16 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Whisper-style encoder (``models/whisper.py``). The conv/mel frontend
+    is a stub: inputs are precomputed frame embeddings [B, n_frames,
+    d_model]."""
+
+    n_layers: int
+    n_frames: int = 1500
+
+
+@dataclasses.dataclass(frozen=True)
 class VisionStubConfig:
     """VLM frontend stub: precomputed patch embeddings [B, n_patches, d]."""
 
@@ -48,7 +59,8 @@ class ArchConfig:
     family: str  # "dense" | "vlm" (a dense LM behind stub patch
     # embeddings) | "moe" (the dense stack with expert FFNs) | "ssm" (a
     # stack of mamba2 blocks) | "hybrid" (mamba2 blocks and one shared
-    # attention block applied every ``hybrid_attn_every`` layers)
+    # attention block applied every ``hybrid_attn_every`` layers) |
+    # "encdec" (a whisper encoder and a decoder with cross attention)
     n_layers: int
     d_model: int
     n_heads: int
@@ -64,6 +76,7 @@ class ArchConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid_attn_every: int = 0  # zamba2: the shared block every k layers
+    encoder: Optional[EncoderConfig] = None
     vision: Optional[VisionStubConfig] = None
     norm_eps: float = 1e-5
     param_dtype: str = "bfloat16"
@@ -84,9 +97,8 @@ class ArchConfig:
 
     def __post_init__(self):
         if self.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {self.family!r} is not ported yet (see ROADMAP.md, "
-                f"A7); ported families: {FAMILIES}")
+            raise ValueError(f"unknown family {self.family!r}; known: "
+                             f"{FAMILIES}")
 
     @property
     def head_dim(self) -> int:
@@ -107,8 +119,8 @@ class ArchConfig:
         2), d_model 128 (the ssm family 64), <= 4 heads, head dim 32, vocab
         512, f32, 4 stub patches, <= 4 experts of top_k <= 2 at the same
         capacity factor, an SSM block of d_state 16, head dim 32 and chunk
-        16, loss chunks of 32, no remat — the cut ``repro``'s
-        ``reduced()`` makes."""
+        16, an encoder of 2 layers over 12 frames, loss chunks of 32, no
+        remat — the cut ``repro``'s ``reduced()`` makes."""
         n_heads = min(self.n_heads, 4)
         vision = None if self.vision is None else VisionStubConfig(
             n_patches=4)
@@ -118,6 +130,8 @@ class ArchConfig:
             capacity_factor=self.moe.capacity_factor)
         ssm = None if self.ssm is None else dataclasses.replace(
             self.ssm, d_state=16, head_dim=32, chunk=16)
+        encoder = None if self.encoder is None else EncoderConfig(
+            n_layers=2, n_frames=12)
         return dataclasses.replace(
             self,
             name=self.name + "-smoke",
@@ -134,6 +148,7 @@ class ArchConfig:
             vision=vision,
             moe=moe,
             ssm=ssm,
+            encoder=encoder,
             param_dtype="float32",
             compute_dtype="float32",
             attn_chunk=16,

@@ -9,8 +9,10 @@ imports JAX. The port keeps ``repro``'s layout — ``embed`` [V, D] (tied),
 and ``w_down`` [F, D] (a moe layer: ``moe`` ``router`` [D, E],
 ``w_gate``/``w_up`` [E, D, F], ``w_down`` [E, F, D]; an ssm layer:
 ``norm_ssm`` and the mamba2 block ``ssm``, whose ``A_log``, ``D`` and
-``dt_bias`` are f32 in every dtype), ``norm_f`` [D], and a hybrid's
-``mamba_g`` / ``mamba_t`` / ``shared`` tree — so conversion is a checked
+``dt_bias`` are f32 in every dtype), ``norm_f`` [D], a hybrid's
+``mamba_g`` / ``mamba_t`` / ``shared`` tree, and an encdec model's
+``enc_layers`` / ``dec_layers`` (``self`` and ``cross`` attention) /
+``norm_enc`` tree — so conversion is a checked
 copy, and both sides compute the same function. Optimizer states are
 dicts in ``repro``'s layout too (``optim``), so ``opt_state_from_jax``
 lets a run continue from ``repro``'s state, and ``adaptive_state_from_jax``
@@ -60,8 +62,27 @@ def _hybrid_shapes(cfg) -> dict:
         "mamba_t": {"norm": (tail, D), "ssm": _ssm_shapes(cfg, (tail,))},
         "shared": {"in_proj": (2 * D, D), "norm_attn": (D,),
                    "attn": _attn_shapes(cfg, ()), "norm_ffn": (D,),
-                   "mlp": {"w_gate": (D, F), "w_up": (D, F),
-                           "w_down": (F, D)}},
+                   "mlp": _mlp_shapes(D, F, ())},
+        "norm_f": (D,),
+    }
+
+
+def _mlp_shapes(D: int, F: int, lead: tuple) -> dict:
+    return {"w_gate": lead + (D, F), "w_up": lead + (D, F),
+            "w_down": lead + (F, D)}
+
+
+def _encdec_shapes(cfg) -> dict:
+    D, F = cfg.d_model, cfg.d_ff
+    Le, L = (cfg.encoder.n_layers,), (cfg.n_layers,)
+    return {
+        "embed": (cfg.vocab, D),
+        "enc_layers": {"norm_attn": Le + (D,), "attn": _attn_shapes(cfg, Le),
+                       "norm_ffn": Le + (D,), "mlp": _mlp_shapes(D, F, Le)},
+        "dec_layers": {"norm_self": L + (D,), "self": _attn_shapes(cfg, L),
+                       "norm_cross": L + (D,), "cross": _attn_shapes(cfg, L),
+                       "norm_ffn": L + (D,), "mlp": _mlp_shapes(D, F, L)},
+        "norm_enc": (D,),
         "norm_f": (D,),
     }
 
@@ -70,6 +91,8 @@ def expected_shapes(cfg) -> dict:
     """The model's parameter shapes, keyed like the param dict."""
     if cfg.family == "hybrid":
         return _hybrid_shapes(cfg)
+    if cfg.family == "encdec":
+        return _encdec_shapes(cfg)
     L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
     if cfg.family == "ssm":
         layers = {"norm_ssm": (L, D), "ssm": _ssm_shapes(cfg, (L,))}
@@ -81,8 +104,7 @@ def expected_shapes(cfg) -> dict:
         layers["moe"] = {"router": (L, D, E), "w_gate": (L, E, D, F),
                          "w_up": (L, E, D, F), "w_down": (L, E, F, D)}
     elif cfg.family != "ssm":
-        layers["mlp"] = {"w_gate": (L, D, F), "w_up": (L, D, F),
-                         "w_down": (L, F, D)}
+        layers["mlp"] = _mlp_shapes(D, F, (L,))
     shapes = {"embed": (cfg.vocab, D), "layers": layers, "norm_f": (D,)}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (D, cfg.vocab)

@@ -3,11 +3,12 @@
 * **LM token streams** (``lm_batch`` / ``lm_stream``): deterministic,
   counter-indexed batches of a noisy integer AR process, computed with
   numpy from ``(seed, step)`` alone, exactly as ``repro.data`` computes
-  them: a dense or vlm config gets ``repro``'s tokens (and a vlm's stub
-  patches) bit for bit, so a run restored from a checkpointed step
-  resumes on the data it would have seen. A vlm's ``patches`` take the
-  front of the sequence and shorten ``tokens`` to fit. There is no
-  ``shard_batch``: on one card the train step splits the batch over its
+  them: every config gets ``repro``'s tokens bit for bit, and a vlm's
+  stub patches or an encdec model's stub frames from the same draws, so
+  a run restored from a checkpointed step resumes on the data it would
+  have seen. A vlm's ``patches`` take the front of the sequence and
+  shorten ``tokens`` to fit; an encdec model's ``frames`` go to its
+  encoder. There is no ``shard_batch``: on one card the train step splits the batch over its
   workers itself.
 * **GLM simulation data** of the paper's Section 4: ``Shards`` /
   ``make_shards`` / ``paper_theta_star``, re-exported from
@@ -31,8 +32,9 @@ def lm_batch(cfg, step: int, batch: int, seq: int, seed: int = 0,
              device=None):
     """``{"tokens": [batch, seq] int32}`` (and ``"patches"`` [batch,
     n_patches, d_model] in the compute dtype for a vlm, whose tokens are
-    then ``seq - n_patches`` long) on ``device``: the card unless the
-    caller names another."""
+    then ``seq - n_patches`` long; ``"frames"`` [batch, n_frames, d_model]
+    in the compute dtype for an encdec model) on ``device``: the card
+    unless the caller names another."""
     device = resolve_device(device)
     rng = np.random.default_rng(np.uint64(seed * 1_000_003 + step))
     drift = rng.integers(1, 7, size=(batch, 1))
@@ -41,12 +43,17 @@ def lm_batch(cfg, step: int, batch: int, seq: int, seed: int = 0,
     toks = (start + drift * np.arange(seq)[None, :] + noise) % cfg.vocab
     toks = toks.astype(np.int32)
     out = {}
-    if cfg.family == "vlm":
-        n = cfg.vision.n_patches
-        p = rng.standard_normal((batch, n, cfg.d_model)).astype(np.float32)
-        out["patches"] = torch.from_numpy(p).to(
-            device=device, dtype=getattr(torch, cfg.compute_dtype))
-        toks = toks[:, : seq - n]
+
+    def stub(n):
+        x = rng.standard_normal((batch, n, cfg.d_model)).astype(np.float32)
+        return torch.from_numpy(x).to(device=device,
+                                      dtype=getattr(torch, cfg.compute_dtype))
+
+    if cfg.family == "encdec":
+        out["frames"] = stub(cfg.encoder.n_frames)
+    elif cfg.family == "vlm":
+        out["patches"] = stub(cfg.vision.n_patches)
+        toks = toks[:, : seq - cfg.vision.n_patches]
     out["tokens"] = torch.from_numpy(np.ascontiguousarray(toks)).to(device)
     return out
 

@@ -16,6 +16,11 @@ tensor on the cache's device (``repro``'s ``vectorize_pos`` form): each
 row writes its own slot and masks to its own length, and nothing in a
 decode step reads a position on the host, so a CUDA graph can capture
 the step. The positions advance functionally (``pos + 1``, a new tensor).
+
+Cross attention (the encdec family's decoder) takes its K/V from another
+sequence, ``kv_x`` of :func:`attn_forward`: its cache is the K/V over the
+encoder output, fixed for the whole decode, read by
+:func:`cross_attn_decode` with no length mask.
 """
 from __future__ import annotations
 
@@ -105,12 +110,18 @@ def rotary(cfg, positions):
     return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
 
-def _qkv(p, x, cfg, rot):
+def _query(p, x, cfg):
     q = _proj(x, p["wq"])
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+    return q
+
+
+def _qkv(p, x, cfg, rot):
+    q = _query(p, x, cfg)
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     if rot is not None:
         q = apply_rope(q, *rot)
@@ -167,21 +178,33 @@ def mha(q, k, v, *, causal: bool, window: Optional[int], chunk: int,
 
 
 def attn_forward(p, x, cfg, *, positions, causal=True, window="cfg",
-                 make_cache=False, cache_len=None, rot=None, out=None):
-    """Full-sequence attention (prefill). Returns (out [B,S,D], cache or
-    None). ``window`` overrides cfg.sliding_window when given; ``rot``:
-    the forward's :func:`rotary` tables (else made from ``positions``);
-    ``out``: a cache of the shape made here to copy the cache into and
-    return in its place."""
+                 kv_x=None, make_cache=False, cache_len=None, rot=None,
+                 out=None):
+    """Full-sequence attention (prefill, an encoder, cross attention).
+    Returns (out [B,S,D], cache or None). ``window`` overrides
+    cfg.sliding_window when given; ``rot``: the forward's :func:`rotary`
+    tables (else made from ``positions``); ``kv_x`` [B, F, D]: the sequence
+    K/V come from (cross attention, no rotary), whose cache is
+    :func:`make_cross_cache`'s K/V, the very tensors this call attended
+    over (``repro`` projects them once more for its cache), never padded
+    or quantised; ``out``: a cache of the shape made here to copy the
+    cache into and return in its place (a None field of ``out`` is not
+    written)."""
     from . import attn_backend as AB
 
     window = cfg.sliding_window if window == "cfg" else window
-    q, k, v = _qkv(p, x, cfg, rot if rot is not None
-                   else rotary(cfg, positions))
+    if kv_x is not None:
+        q, cross = _query(p, x, cfg), make_cross_cache(p, kv_x, cfg)
+        k, v = cross.k, cross.v
+    else:
+        q, k, v = _qkv(p, x, cfg, rot if rot is not None
+                       else rotary(cfg, positions))
     o = _out_proj(AB.full_attention(q, k, v, cfg, causal=causal,
                                     window=window), p["wo"])
     cache = None
-    if make_cache:
+    if make_cache and kv_x is not None:
+        cache = _copy_out(cross, out)
+    elif make_cache:
         S = k.shape[1]
         if window:
             # ring cache of `window` slots: position p lives at p % window
@@ -200,14 +223,44 @@ def attn_forward(p, x, cfg, *, positions, causal=True, window="cfg",
         cv, vs = quantize_kv(cv, dt)
         pos = torch.full((k.shape[0],), S, dtype=torch.int32,
                          device=k.device)
-        cache = KVCache(k=ck.contiguous(), v=cv.contiguous(), pos=pos,
-                        k_scale=ks, v_scale=vs)
-        if out is not None:
-            for dst, src in zip(out, cache):
-                if dst is not None:
-                    dst.copy_(src)
-            cache = out
+        cache = _copy_out(KVCache(k=ck.contiguous(), v=cv.contiguous(),
+                                  pos=pos, k_scale=ks, v_scale=vs), out)
     return o, cache
+
+
+def _copy_out(cache, out):
+    """``cache`` copied into ``out``'s tensors (its None fields skipped) and
+    ``out`` returned; ``cache`` itself when ``out`` is None."""
+    if out is None:
+        return cache
+    for dst, src in zip(out, cache):
+        if dst is not None:
+            dst.copy_(src)
+    return out
+
+
+def make_cross_cache(p, enc_out, cfg) -> KVCache:
+    """The K/V of cross attention over ``enc_out`` [B, F, D] (k normed
+    under ``qk_norm``), kept in the compute dtype for every decode step;
+    ``pos`` [B] is F."""
+    k = _proj(enc_out, p["wk"])
+    v = _proj(enc_out, p["wv"])
+    if cfg.qk_norm:
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    return KVCache(k=k, v=v, pos=torch.full(
+        (k.shape[0],), k.shape[1], dtype=torch.int32, device=k.device))
+
+
+def cross_attn_decode(p, x1, cfg, cross: KVCache):
+    """Decode-time cross attention of x1 [B, 1, D] over the whole fixed
+    cache ``cross`` [B, F, Hkv, dh]: B3 with the python-int length F, so no
+    length tensor is made and the call captures. Returns [B, 1, D]."""
+    from . import attn_backend as AB
+
+    q = _query(p, x1, cfg)
+    out = AB.decode_attention(q, cross.k, cross.v, cfg,
+                              kv_len=cross.k.shape[1])
+    return _out_proj(out, p["wo"])
 
 
 def _pad_time(x, T):

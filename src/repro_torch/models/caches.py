@@ -1,7 +1,7 @@
 """What the decode caches have in common.
 
-A cache is a NamedTuple: ``attention.KVCache``, ``mamba2.SSMCache`` or
-``hybrid.HybridCache``. Every field but ``pos`` is a tensor, or None (an
+A cache is a NamedTuple: ``attention.KVCache``, ``mamba2.SSMCache``,
+``hybrid.HybridCache`` or ``whisper.EncDecCache``. Every field but ``pos`` is a tensor, or None (an
 int8 cache's scales), stacked with its layer (or the hybrid's application
 of the shared block) on dim 0 and its row on dim 1; ``pos`` is the rows'
 [B] int32 positions. The serving code walks a cache's row tensors through

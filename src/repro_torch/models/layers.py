@@ -1,5 +1,5 @@
-"""Shared building blocks: norms, RoPE, SwiGLU, the seeded inits and the
-robust-backward-aware product ``_dot``."""
+"""Shared building blocks: norms, RoPE, sinusoidal positions, SwiGLU, the
+seeded inits and the robust-backward-aware product ``_dot``."""
 from __future__ import annotations
 
 import torch
@@ -57,6 +57,28 @@ def apply_rope(x, cos, sin):
 def rope(x, positions, theta: float = 10000.0):
     """Half-split rotary embedding. x: [..., S, H, dh]; positions: [..., S]."""
     return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+def sinusoid(positions, d: int):
+    """The f32 sinusoidal embedding [..., d] of int ``positions`` [...]:
+    sin at the even features, cos at the odd ones, of position times
+    exp(2i * -ln(10000) / d), in ``repro``'s f32 arithmetic. Made on the
+    positions' device, so a decode step at per-row positions reads no
+    host value."""
+    dev = positions.device
+    c = -torch.log(torch.full((), 10000.0, dtype=torch.float32,
+                              device=dev)) / d
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32,
+                                 device=dev) * c)
+    ang = positions.float()[..., None] * div  # [..., d/2]
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(
+        positions.shape + (d,))
+
+
+def sinusoidal_positions(n: int, d: int, dtype=torch.float32, device=None):
+    """[n, d] sinusoidal positions 0..n-1, computed in f32 and then cast to
+    ``dtype`` (``repro``'s ``sinusoidal_positions``; d even)."""
+    return sinusoid(torch.arange(n, device=device), d).to(dtype)
 
 
 def _dot(x, w):

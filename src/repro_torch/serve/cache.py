@@ -7,14 +7,15 @@ with its own fill level. Requests are admitted into free slots mid-decode
 and retired slots are reused without touching the others.
 
 The port's caches (``KVCache`` [L, rows, T, Hkv, dh], ``SSMCache``'s
-states and conv tails [L, rows, ...], a ``HybridCache`` holding both)
-all keep the row on dim 1 and a per-row ``pos`` [rows] int32
-(``vectorize_pos``), so ``repro``'s structural probe (``slot_dims``) has
-no counterpart: the pool walks a cache's row tensors
-(``models.caches.row_fields``). An SSM state is not masked by a length:
-a free slot's state keeps moving as the pool decodes, and an admission
-overwrites every row tensor of its slot. A pool whose replicas run
-replicated holds ``m * n_slots`` rows, replica-major as
+states and conv tails [L, rows, ...], a ``HybridCache`` holding both, an
+``EncDecCache``'s self and cross K/V) all keep the row on dim 1 and a
+per-row ``pos`` [rows] int32 (``vectorize_pos``), so ``repro``'s
+structural probe (``slot_dims``) has no counterpart: the pool walks a
+cache's row tensors (``models.caches.row_fields``). An SSM state is not
+masked by a length: a free slot's state keeps moving as the pool
+decodes, and an admission overwrites every row tensor of its slot (an
+encdec request's cross K/V, over its own frames, too). A pool whose
+replicas run replicated holds ``m * n_slots`` rows, replica-major as
 ``engine.DecodeBuffers`` lays them out (row ``r * n_slots + s`` is
 replica r of slot s): the decode step runs them as one batch, with no
 flatten per block. Every write is in place into the pool's own tensors,
@@ -39,7 +40,8 @@ class SlotPool(NamedTuple):
     """Cache pool: model caches + per-slot bookkeeping, all on the device.
 
     caches:  stacked caches [L, m * n_slots, ...] (a ``KVCache``,
-             ``SSMCache`` or ``HybridCache``) with ``pos`` [m * n_slots]
+             ``SSMCache``, ``HybridCache`` or ``EncDecCache``) with ``pos``
+             [m * n_slots]
              (m = 1 unless the replicas run replicated).
     lengths: [n_slots] int32 — tokens resident per slot (prompt +
              generated).
@@ -81,9 +83,9 @@ def pool_caches(cfg, n_slots: int, max_len: int, window="cfg", m: int = 1,
 def kv_bytes_per_slot(make: Callable[[int], Any], n_slots: int) -> int:
     """Device bytes one slot costs in the caches ``make(n_slots)`` builds:
     the sum of every stored tensor's bytes (int8 scales, an SSM's f32
-    states and conv tails, and positions included, so ``kv_dtype``
-    shrinking the cache shows here; a replicated pool's m replica rows all
-    count) over ``n_slots``. Give ``make`` a
+    states and conv tails, an encdec model's cross K/V, and positions
+    included, so ``kv_dtype`` shrinking the cache shows here; a replicated
+    pool's m replica rows all count) over ``n_slots``. Give ``make`` a
     ``device="meta"`` build and nothing is allocated."""
     caches = make(n_slots)
     total = sum(x.numel() * x.element_size() for x in caches

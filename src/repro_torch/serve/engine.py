@@ -3,7 +3,8 @@
 Two entry styles over one decode step:
 
 * fixed-batch ``generate`` prefills a [B, S] prompt batch (after a vlm's
-  stub patch embeddings) into cache buffers the engine keeps for that
+  stub patch embeddings; with an encdec model's stub frames, encoded into
+  its cross caches) into cache buffers the engine keeps for that
   batch size, samples the first token off the prefill logits, then
   decodes. ``repro`` decodes all tokens in one ``lax.scan`` dispatch; on
   the card the port's counterpart captures ONE decode step (embed,
@@ -260,7 +261,8 @@ class ServeEngine:
     def _inputs(self, batch):
         """(the batch on the engine's device, its prompt length). The prompt
         length counts a vlm's patch prefix, which takes cache positions as
-        tokens do (``repro`` counts the tokens only, ROADMAP.md §C)."""
+        tokens do (``repro`` counts the tokens only, ROADMAP.md §C); an
+        encdec model's ``frames`` go to its encoder and take none."""
         def dev(x):
             return (x if torch.is_tensor(x)
                     else torch.from_numpy(np.asarray(x))).to(self.device)
@@ -271,6 +273,8 @@ class ServeEngine:
             inputs["patches"] = dev(batch["patches"])
             if self.cfg.family == "vlm":
                 n += inputs["patches"].shape[1]
+        if "frames" in batch:
+            inputs["frames"] = dev(batch["frames"])
         return inputs, n
 
     def _check_capacity(self, prompt_len: int, n_tokens: int) -> None:
@@ -293,7 +297,8 @@ class ServeEngine:
     @torch.inference_mode()
     def prefill(self, batch):
         """-> (last-position logits [B, V], stacked caches). ``batch``:
-        ``tokens`` [B, S], and ``patches`` [B, n_patches, D] for a vlm."""
+        ``tokens`` [B, S], and ``patches`` [B, n_patches, D] for a vlm or
+        ``frames`` [B, n_frames, D] for an encdec model."""
         inputs, prompt_len = self._inputs(batch)
         self._check_capacity(prompt_len, 1)
         return self._prefill(inputs)

@@ -33,7 +33,7 @@ __all__ = ["Request", "Completion", "Scheduler"]
 @dataclasses.dataclass
 class Request:
     """One generation request. ``extras`` carries modality inputs (a vlm's
-    patches) keyed as the model batch expects. ``submit_t`` is stamped by
+    patches, an encdec model's frames) keyed as the model batch expects. ``submit_t`` is stamped by
     ``Scheduler.submit`` (obs clock) so admission can observe
     time-to-first-token including queue wait."""
 
@@ -164,8 +164,8 @@ class Scheduler:
                 break
             batch = {"tokens": req.tokens[None]}
             if req.extras:
-                # extras are per-request (unbatched) arrays, e.g. patches
-                # [P, D]; prepend the batch-1 dim
+                # extras are per-request (unbatched) arrays, e.g. frames
+                # [F, D] or patches [P, D]; prepend the batch-1 dim
                 for k, v in req.extras.items():
                     batch[k] = np.asarray(v)[None]
             shape_key = (req.tokens.shape[0],

@@ -1686,3 +1686,134 @@ def test_cuda_b2_b3_at_zamba2_shapes(cuda):
         == [(112,)]
     assert [kernel_instance(n, "decode_split_kernel")
             for n in names[1]] == [(112, 8)]
+
+
+# -- the encdec family: non-causal B2, B3 over the encoder cache -------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T", [(16, 1500), (192, 1500), (1500, 1500),
+                                 (33, 47)])
+def test_cuda_b2_noncausal_at_whisper_shapes(cuda, S, T):
+    """whisper-medium's non-causal B2 in bf16 at dh 64, G 1: the encoder
+    (S = T = 1500, 28 keys past the last 64-key tile), the cross attention
+    of a prompt over the 1500 frames, and a ragged small case, against the
+    f32 plain version of the same bf16 inputs at 1e-2 + 1e-2 * |ref|; one
+    launch of the dh-64 wgmma instance a call."""
+    g = torch.Generator(device=cuda).manual_seed(S + T)
+    q = torch.randn(4, S, 16, 64, device=cuda, generator=g).bfloat16()
+    k, v = (torch.randn(4, T, 16, 64, device=cuda, generator=g).bfloat16()
+            for _ in range(2))
+    got = flash_attention(q, k, v, causal=False)
+    torch.testing.assert_close(
+        got.float(), flash_attention_plain(q.float(), k.float(), v.float(),
+                                           causal=False),
+        rtol=1e-2, atol=1e-2)
+    names = kernels_in_calls([lambda: flash_attention(q, k, v,
+                                                      causal=False)])
+    assert [kernel_instance(n, "flash_fwd_wgmma") for n in names[0]] \
+        == [(64,)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4, 32])
+def test_cuda_b3_cross_over_the_whole_encoder_cache(cuda, B):
+    """B3 as the cross attention of a whisper decode step: q [B, 1, 16, 64]
+    over a [B, 1500, 16, 64] bf16 cache with no length (``kv_len=None``)
+    and with the python-int length 1500, the same bits, against the f32
+    plain version at 1e-2 + 1e-2 * |ref|; at 4 and at 32 (replicated)
+    rows."""
+    g = torch.Generator(device=cuda).manual_seed(B)
+    q = torch.randn(B, 1, 16, 64, device=cuda, generator=g).bfloat16()
+    k, v = (torch.randn(B, 1500, 16, 64, device=cuda, generator=g
+                        ).bfloat16() for _ in range(2))
+    got = decode_attention(q, k, v, kv_len=None)
+    assert torch.equal(got, decode_attention(q, k, v, kv_len=1500))
+    torch.testing.assert_close(
+        got.float(), decode_attention_plain(
+            q.float(), k.float(), v.float(), lengths(None, B, 1500, cuda)),
+        rtol=1e-2, atol=1e-2)
+
+
+def _whisper_served(cuda, seed=1):
+    cfg = get_arch("whisper-medium").reduced()
+    params = M.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                    device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 12), generator=g,
+                                     device=cuda),
+             "frames": torch.randn(2, cfg.encoder.n_frames, cfg.d_model,
+                                   generator=g, device=cuda)}
+    return cfg, params, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [True, False], ids=["shared",
+                                                      "replicated"])
+def test_cuda_whisper_replay_equals_eager(cuda, share):
+    """A reduced whisper decode step (the per-row sinusoid made on the
+    device, the self K/V written in place, the cross K/V read whole by B3)
+    captured once and replayed gives the eager loop's greedy tokens
+    bitwise, under signflip and with no robust tail."""
+    cfg, params, batch = _whisper_served(cuda)
+    for robust in (RobustDecodeConfig(m=8, attack="signflip",
+                                      share_replica_compute=share), None):
+        eng = ServeEngine(cfg, params, max_len=40, robust=robust,
+                          device=cuda)
+        got = eng.generate(batch, 10)
+        torch.testing.assert_close(got, eng.generate_python_loop(batch, 10),
+                                   rtol=0, atol=0)
+        (st,) = eng.graphs.values()
+        assert st.graph is not None and st.replays == 8
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_kernels_match_plain_path(cuda):
+    """The reduced whisper on the kernel path and on the plain path (torch
+    attention and estimator) give the same greedy tokens; a generate runs
+    B2 once an encoder layer and twice a decoder layer (self and cross),
+    B3 twice a decoder layer a step, and B4 every token."""
+    cfg, params, batch = _whisper_served(cuda)
+    plain = ServeEngine(cfg, params, max_len=40, attn_backend="torch",
+                        robust=RobustDecodeConfig(m=8, estimator=Estimator(
+                            "vrmom", K=8, backend="torch")), device=cuda)
+    fused = ServeEngine(cfg, params, max_len=40,
+                        robust=RobustDecodeConfig(m=8, attack="signflip"),
+                        device=cuda)
+    fused.generate(batch, 10)  # capture
+    toks, ran = device_kernel_counts(lambda: fused.generate(batch, 10),
+                                     DEVICE_KERNELS)
+    L = cfg.n_layers
+    assert ran == {"flash_fwd": cfg.encoder.n_layers + 2 * L,
+                   "decode_split_kernel": 2 * L * 9, "tail_kernel": 10,
+                   "agg_kernel": 0}
+    torch.testing.assert_close(toks, plain.generate(batch, 10), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_pool_replay_equals_eager(cuda):
+    """Seven requests, each with its own frames, through three slots: the
+    replayed pool gives the eagerly decoded pool's tokens (every admission
+    wrote its slot's self and cross K/V)."""
+    from repro_torch.serve import Request, Scheduler
+
+    cfg, params, _ = _whisper_served(cuda)
+    rs = np.random.RandomState(4)
+    reqs = [(p, n, rs.randn(cfg.encoder.n_frames, cfg.d_model).astype(
+        np.float32)) for p, n in _pool_requests(cfg, 7, 3)]
+    out = {}
+    for mode in ("graph", "eager"):
+        eng = ServeEngine(cfg, params, max_len=40, n_slots=3, device=cuda,
+                          robust=RobustDecodeConfig(m=8, attack="signflip"))
+        if mode == "eager":
+            eng._decode = _eager_decode(eng)
+        sched = Scheduler(eng, decode_block=3, seed=5)
+        uids = [sched.submit(Request(tokens=p, max_new_tokens=n,
+                                     extras={"frames": f}))
+                for p, n, f in reqs]
+        done = sched.run()
+        out[mode] = [done[u].tokens for u in uids]
+        if mode == "graph":
+            (st,) = eng.pool_graphs.values()
+            assert st.replays > 3
+    assert out["graph"] == out["eager"]

@@ -243,5 +243,7 @@ def test_params_from_jax_rejects_mismatch(models):
 
 
 def test_unported_family_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dataclasses.replace(t_get_arch("qwen3-1.7b"), family="encdec")
+    """Every family of repro is ported; a family string outside them
+    raises, naming the known ones."""
+    with pytest.raises(ValueError, match="unknown family.*encdec"):
+        dataclasses.replace(t_get_arch("qwen3-1.7b"), family="audio")

@@ -16,7 +16,7 @@ variation distance of the first token's distribution from the exact
 top-3 softmax is held within 0.12 and the two packages' empirical
 distributions of each token within 0.15 of each other. The ssm and hybrid
 families' pool cases (mamba2, zamba2) are ``test_torch_hybrid.py``'s;
-whisper's comes with ROADMAP.md A7.
+whisper's, each request with its own frames, ``test_torch_whisper.py``'s.
 """
 import dataclasses
 

@@ -453,8 +453,8 @@ def test_expected_shapes_at_full_width(name):
 
 
 def test_families_registered():
-    """Both configs come from the registry with ``repro``'s fields; only
-    whisper-medium still raises, naming A7."""
+    """Both configs come from the registry with ``repro``'s fields, as does
+    whisper-medium, the last family ported (its encoder too)."""
     for name in NAMES:
         jc, tc = j_get_arch(name), t_get_arch(name)
         for f in ("family", "n_layers", "d_model", "n_heads", "n_kv_heads",
@@ -468,5 +468,9 @@ def test_families_registered():
         for f in ("n_layers", "hybrid_attn_every", "d_model", "n_heads"):
             assert getattr(rt, f) == getattr(rj, f), f
         assert dataclasses.asdict(rt.ssm) == dataclasses.asdict(rj.ssm)
-    with pytest.raises(NotImplementedError, match="encdec.*A7"):
-        t_get_arch("whisper-medium")
+    jc, tc = j_get_arch("whisper-medium"), t_get_arch("whisper-medium")
+    for f in ("family", "n_layers", "d_model", "n_heads", "n_kv_heads",
+              "d_ff", "vocab", "rope", "tie_embeddings"):
+        assert getattr(tc, f) == getattr(jc, f), f
+    assert dataclasses.asdict(tc.encoder) == dataclasses.asdict(jc.encoder)
+    assert tc.ssm is None and not tc.attention_free
