@@ -222,6 +222,25 @@ whole encoder cache at 4 and 32 rows, B3 at the self cache [4, 216, 16,
 row with its launches and median device time (``in_path_ms``) in (a)'s
 traces, split by role from their launch order (the encoder's, then a
 self and a cross launch a decoder layer).
+Phase 13 trains whisper-medium at full width and depth (24 + 24 layers,
+seeded bf16 weights, remat on) through ``make_train_step`` with phase 7's
+W = 8, VRMOM K 10, AdamW lr 1e-4 and alphas, each worker one sample of
+1500 numpy-seeded frames and 448 decoder tokens (``data.lm_batch``): (a)
+a clean warm-up step, then 3 timed stacked-auto steps under signflip as
+its main path, B1 once a leaf and B2 twice an attention (the encoder's
+and the cross attention's non-causal under autograd, the decoder's
+causal), both by the wrappers' counts; it prints step seconds, tokens/s,
+6 (N_enc 1500 + N_dec 448) W over the bf16 peak, the split of a step,
+the device time by kernel group of one profiled step and peak memory
+against ``encdec_train_reckoning``, and requires the loss finite and
+batch 0's loss to fall; (b) phase 7's robustness gates and ``with_diag``
+on one step's gradient; (c) 2 inloop steps with the 8 samples in one
+forward, B1 on each of the 433 products' dW (``encdec_products``) and B2
+as in (a); (d) B2's forward at batch 1 at the encoder's, the cross
+attention's and the decoder's shapes beside SDPA, B2 under autograd at
+the encoder's and the cross shapes beside SDPA's forward and backward,
+B1 at ``enc_layers.mlp.w_gate`` [8, 100663296] bf16 and at one MLP
+product's dW [8, 1024*4096] f32 join the ``kernels`` line.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it lists every kernel with its launches, error and times. Any
@@ -363,6 +382,12 @@ ENCDEC_TRACED = (("shared", "signflip", True),
                  ("shared", "signflip", False),
                  ("replicated", "signflip", True))
 ENCDEC_SEED = 12
+
+# phase 13, training the encdec family: whisper-medium at full width and
+# depth (24 + 24 layers) with phase 7's W, K, lr and alphas; a worker's
+# sample is the model's 1500 stub frames and ENCDEC_TRAIN_SEQ decoder
+# tokens, whisper's published text context (n_text_ctx)
+ENCDEC_TRAIN_SEQ = 448
 
 
 class CheckFailed(Exception):
@@ -2128,56 +2153,37 @@ def robust_shift(torch, stack, est, gen, mask) -> dict:
     return out
 
 
-def phase_train(torch, dev, card: str):
-    """Phase 7: Byzantine-robust training of qwen3-1.7b at full width (28
-    layers, bf16, seeded weights; no cut), W = 8 workers emulated on the
-    card. Returns the ``kernels`` records of the phase with the launches
-    of its main path (the timed stacked steps and the inloop steps)."""
-    import torch.nn.functional as F
-
-    from repro_torch import kernels as K
+def train_setups(cfg, params, dev):
+    """Phase 7's and 13's optimizer and steps: VRMOM K ``TRAIN_K``, AdamW
+    at ``TRAIN_LR``, stacked-auto over ``TRAIN_W`` workers, under signflip
+    at ``TRAIN_ALPHA`` (``setup``) and clean (``clean``) -> (est, opt,
+    opt_state, setup, clean, n_byz)."""
     from repro_torch import optim as O
-    from repro_torch.configs import get as get_arch
-    from repro_torch.core import attacks as TA
     from repro_torch.core.estimator import Estimator
-    from repro_torch.data import lm_batch
-    from repro_torch.dist import robust_reduce as RR
-    from repro_torch.kernels.flash_attention import flash_attention_plain
-    from repro_torch.kernels.vrmom import aggregate, aggregate_plain
-    from repro_torch.models import model as M
-    from repro_torch.models.attn_backend import FlashAttentionFn
-    from repro_torch.train.step import make_train_step, stacked_grads
-    from repro_torch.tree import leaves
+    from repro_torch.train.step import make_train_step
 
-    torch.cuda.empty_cache()
-    t_phase = time.perf_counter()
-    cfg = get_arch("qwen3-1.7b")
-    W, S, L = TRAIN_W, TRAIN_SEQ, cfg.n_layers
-    params = M.init(cfg, torch.Generator(device=dev).manual_seed(7),
-                    device=dev)
-    n_params = M.param_count(params)
-    n_leaves = len(list(leaves(params)))
     est = Estimator("vrmom", K=TRAIN_K)
     opt = O.get("adamw", lr=TRAIN_LR)
-    opt_state = opt.init(params)
-    n_byz = int(TRAIN_ALPHA * (W - 1))
-    setup = make_train_step(cfg, W, estimator=est, mode="stacked-auto",
+    setup = make_train_step(cfg, TRAIN_W, estimator=est, mode="stacked-auto",
                             optimizer=opt, byzantine_frac=TRAIN_ALPHA,
                             attack="signflip", device=dev)
-    clean = make_train_step(cfg, W, estimator=est, mode="stacked-auto",
+    clean = make_train_step(cfg, TRAIN_W, estimator=est, mode="stacked-auto",
                             optimizer=opt, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    tokens = W * S
-    print(f"[train] {cfg.name} at full width ({L} layers, d {cfg.d_model}, "
-          f"{n_params / 1e9:.4f} B params, bf16), W = {W} workers of one "
-          f"{S}-token sequence each, VRMOM K {TRAIN_K}, AdamW lr "
-          f"{TRAIN_LR}, alpha {TRAIN_ALPHA} = int({TRAIN_ALPHA} * {W - 1}) "
-          f"= {n_byz} signflip row(s), remat {cfg.remat}")
+    return (est, opt, opt.init(params), setup, clean,
+            int(TRAIN_ALPHA * (TRAIN_W - 1)))
 
-    def batch(i, seq=S):
-        return lm_batch(cfg, i, W, seq, device=dev)
 
-    # -- (a) stacked-auto ------------------------------------------------------
+def train_main_path(torch, cfg, params, opt_state, setup, clean, batch,
+                    gen) -> dict:
+    """(a)'s main path of a training phase: a clean warm-up step on
+    ``batch(0)``, then 3 timed steps of ``setup`` on ``batch(1..3)``, each
+    synchronised, the launch counts set to 0 just before them. Requires
+    every loss finite and batch 0's loss to fall. Returns loss0 (the
+    warm-up's), losses, walls, step_s (their median), counts, peak (GB,
+    warm-up included) and loss0_after."""
+    from repro_torch import kernels as K
+    from repro_torch.models import model as M
+
     b0 = batch(0)
     torch.cuda.reset_peak_memory_stats()
     _, _, loss0 = clean.step_fn(params, opt_state, b0)  # warm-up, no attack
@@ -2195,59 +2201,77 @@ def phase_train(torch, dev, card: str):
     peak = torch.cuda.max_memory_allocated() / 1e9
     with torch.no_grad():
         loss0_after = float(M.loss(params, cfg, b0))
-    step_s = statistics.median(walls)
-    mfu = 6 * n_params * tokens / step_s / BF16_FLOP_PER_S
-    reck = train_reckoning(cfg, n_params, S)
-    n_fwd = 2 if cfg.remat else 1
     require(all(math.isfinite(x) for x in [loss0, loss0_after] + losses),
             f"non-finite training loss: {loss0}, {losses}, {loss0_after}")
     require(loss0_after < loss0,
             f"the loss of batch 0 did not fall: {loss0} before, "
             f"{loss0_after} after 4 steps")
-    require(counts["aggregate"] == 3 * n_leaves
-            and counts["flash_attention"] == 3 * W * L * n_fwd,
-            f"stacked steps launched {counts}; expected B1 {3 * n_leaves}, "
-            f"B2 {3 * W * L * n_fwd}")
-    print(f"[train] (a) stacked-auto, signflip: step {step_s:.4f} s "
-          f"(median of {[round(w, 4) for w in walls]}), "
-          f"{tokens / step_s:.1f} tokens/s, 6*N*tokens at "
-          f"{100 * mfu:.2f} % of the H100 SXM dense bf16 peak "
-          f"({BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s) ({card})")
-    print(f"[train] (a) loss: warm-up step (no attack) {loss0:.5f}, steps "
-          f"1-3 {[round(x, 5) for x in losses]}; batch 0 after 4 steps "
-          f"{loss0_after:.5f} (falls); launches {json.dumps(counts)}")
-    print(f"[train] (a) peak memory {peak:.2f} GB against a reckoning of "
-          f"{sum(reck.values()):.2f} GB ("
+    return dict(loss0=loss0, losses=losses, walls=walls,
+                step_s=statistics.median(walls), counts=counts, peak=peak,
+                loss0_after=loss0_after)
+
+
+def report_main_path(tag, card, r, tokens, flops, flop_what, reck) -> None:
+    """Print (a)'s step time, tokens/s, the share of the bf16 peak that
+    ``flops`` a step make (``flop_what`` names the count), the losses and
+    the peak against the reckoning ``reck`` (dict of GB)."""
+    step_s = r["step_s"]
+    print(f"[{tag}] (a) stacked-auto, signflip: step {step_s:.4f} s "
+          f"(median of {[round(w, 4) for w in r['walls']]}), "
+          f"{tokens / step_s:.1f} tokens/s, {flop_what} at "
+          f"{100 * flops / step_s / BF16_FLOP_PER_S:.2f} % of the H100 SXM "
+          f"dense bf16 peak ({BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s) ({card})")
+    print(f"[{tag}] (a) loss: warm-up step (no attack) {r['loss0']:.5f}, "
+          f"steps 1-3 {[round(x, 5) for x in r['losses']]}; batch 0 after "
+          f"4 steps {r['loss0_after']:.5f} (falls); launches "
+          f"{json.dumps(r['counts'])}")
+    print(f"[{tag}] (a) peak memory {r['peak']:.2f} GB against a reckoning "
+          f"of {sum(reck.values()):.2f} GB ("
           + ", ".join(f"{k} {v:.2f}" for k, v in reck.items()) + ")")
 
-    # one profiled step: the kernels it launched, the busy share
-    wall, busy, by = step_kernel_times(
-        torch, lambda: setup.step_fn(params, opt_state, batch(4), gen))
+
+def report_profiled_step(torch, tag, card, fn):
+    """Run ``fn`` (one train step) under the profiler and print its wall,
+    device-busy share, device time by kernel group and its 8 largest
+    kernels -> (B1, B2 launches in the trace)."""
+    wall, busy, by = step_kernel_times(torch, fn)
     n_b1 = sum(n for k, (n, _) in by.items() if "agg_kernel" in k)
     n_b2 = sum(n for k, (n, _) in by.items() if "flash_fwd" in k)
-    require(n_b1 == n_leaves and n_b2 == W * L * n_fwd,
-            f"the profiled stacked step ran B1 {n_b1} times and B2 {n_b2}; "
-            f"expected {n_leaves} and {W * L * n_fwd}")
     groups = {}
     for k, (n, s) in by.items():
         gn, gs = groups.get(kernel_group(k), (0, 0.0))
         groups[kernel_group(k)] = (gn + n, gs + s)
-    print(f"[train] (a) one profiled stacked step: {wall:.4f} s wall, device "
-          f"busy {busy:.4f} s ({100 * busy / wall:.1f} %), "
-          f"{sum(n for n, _ in by.values())} device kernels; B1 "
-          f"{n_b1} launches, B2 {n_b2} (two a layer and worker: the "
-          f"forward and its recompute) ({card})")
-    print("[train] (a) device time by group: " + ", ".join(
+    print(f"[{tag}] (a) one profiled stacked step: {wall:.4f} s wall, "
+          f"device busy {busy:.4f} s ({100 * busy / wall:.1f} %), "
+          f"{sum(n for n, _ in by.values())} device kernels; B1 {n_b1} "
+          f"launches, B2 {n_b2} in the trace ({card})")
+    print(f"[{tag}] (a) device time by group: " + ", ".join(
         f"{g} {s:.4f} s ({n}x)" for g, (n, s) in sorted(
             groups.items(), key=lambda kv: -kv[1][1])))
     for k, (n, s) in sorted(by.items(), key=lambda kv: -kv[1][1])[:8]:
-        print(f"[train] {s * 1e3:10.3f} ms {n:7d}x  {k[:90]}")
+        print(f"[{tag}] {s * 1e3:10.3f} ms {n:7d}x  {k[:90]}")
+    return n_b1, n_b2
 
-    # -- the split of a step, and (b) the robustness contract ------------------
-    bsplit = batch(5)
+
+def split_and_robustness(torch, cfg, params, opt, opt_state, est, gen, b,
+                         n_byz, tag, card) -> None:
+    """The split of one step, and (b) the robustness contract, on the
+    workers' gradient stack of batch ``b`` (``TRAIN_W`` workers): 2 rows
+    attacked (``TRAIN_ROBUST_ALPHA``) by each of ``ROBUST_ATTACKS``
+    (``robust_shift``) and the gates on the whole gradient and on the
+    leaves whose clean rows share a direction; ``with_diag`` under
+    omniscient must flag exactly the attacked rows. The stack, attacked
+    by signflip on ``n_byz`` rows, is aggregated and applied (AdamW) to
+    ``params`` in place, each part timed."""
+    from repro_torch.core import attacks as TA
+    from repro_torch.dist import robust_reduce as RR
+    from repro_torch.train.step import stacked_grads
+    from repro_torch.tree import leaves
+
+    W, dev = TRAIN_W, gen.device
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, stack = stacked_grads(cfg, params, bsplit, W)
+    _, stack = stacked_grads(cfg, params, b, W)
     torch.cuda.synchronize()
     t_grads = time.perf_counter() - t0
 
@@ -2267,17 +2291,17 @@ def phase_train(torch, dev, card: str):
                          ("vrmom", "mean") for atk in ROBUST_ATTACKS) + (
             f"; zeros {r['zero']['vrmom']:.4g}")
 
-    print(f"[train] (b) one step's gradient (params after (a), batch 5), "
+    print(f"[{tag}] (b) one step's gradient (params after (a)), "
           f"{int(mask_b.sum())} of {W} rows attacked (alpha "
           f"{TRAIN_ROBUST_ALPHA}): cosine with the clean aggregate / its "
           f"shift over the rows' RMS distance from it, whole gradient: "
           + shifts(rs))
-    print(f"[train] (b) each clean worker row's cosine with the clean VRMOM "
+    print(f"[{tag}] (b) each clean worker row's cosine with the clean VRMOM "
           f"aggregate {[round(c, 4) for c in rs['row_cos']]}; leaves where "
           f"the rows share a direction (mean row cosine >= {SIGNAL_COS}): "
           f"{sorted(signal)} of {len(rs['leaf'])}")
     for k, v in sorted(signal.items()):
-        print(f"[train] (b) {k}, row cosines "
+        print(f"[{tag}] (b) {k}, row cosines "
               f"{[round(c, 4) for c in v['row_cos']]}: " + shifts(v))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2291,7 +2315,7 @@ def phase_train(torch, dev, card: str):
     torch.cuda.synchronize()
     t_opt = time.perf_counter() - t0 - t_agg
     del agg_tree
-    print(f"[train] (a) the split of one step, synchronised: workers' "
+    print(f"[{tag}] (a) the split of one step, synchronised: workers' "
           f"forward + backward {t_grads:.4f} s, signflip + aggregation "
           f"{t_agg:.4f} s, AdamW {t_opt:.4f} s ({card})")
 
@@ -2300,7 +2324,7 @@ def phase_train(torch, dev, card: str):
     _, diag = RR.aggregate(stack, mode="stacked-auto", est=est,
                            with_diag=True)
     flagged = diag.suspected.tolist()
-    print(f"[train] (b) with_diag under omniscient: suspected {flagged}, "
+    print(f"[{tag}] (b) with_diag under omniscient: suspected {flagged}, "
           f"alpha_hat {float(diag.alpha_hat):.4f}, scores "
           f"{[float(f'{s:.4g}') for s in diag.scores.tolist()]}")
     del stack, diag
@@ -2332,26 +2356,198 @@ def phase_train(torch, dev, card: str):
                     f"rows' RMS distance; zeros {v['zero']['vrmom']}, the "
                     f"mean {v['ratio'][('mean', atk)]}")
 
-    # -- (c) inloop ------------------------------------------------------------
-    inloop = make_train_step(cfg, W, estimator=est, mode="inloop",
-                             optimizer=opt, device=dev)
+
+def inloop_steps(torch, setup, params, opt_state, batches):
+    """(c): one inloop step on each of ``batches``, synchronised, the
+    launch counts and the peak set to 0 just before them -> (losses,
+    walls, counts, peak GB). Requires every loss finite."""
+    from repro_torch import kernels as K
+
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()   # ---- the main path: counts from 0
-    in_losses, in_walls = [], []
-    for i in range(2):
-        b = batch(10 + i, INLOOP_SEQ)
+    losses, walls = [], []
+    for b in batches:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, _, loss = inloop.step_fn(params, opt_state, b)
-        in_losses.append(float(loss))
-        in_walls.append(time.perf_counter() - t0)
-    in_counts = K.launch_counts()
-    in_peak = torch.cuda.max_memory_allocated() / 1e9
+        _, _, loss = setup.step_fn(params, opt_state, b)
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+    require(all(math.isfinite(x) for x in losses),
+            f"non-finite inloop loss {losses}")
+    return (losses, walls, K.launch_counts(),
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def b1_stack_record(torch, flush, g, C, name, launches):
+    """B1 (vrmom, K ``TRAIN_K``) at a ``[TRAIN_W, C]`` bf16 gradient stack
+    (a layer-stacked leaf): held bitwise against its plain version on 2^20
+    sampled columns and against B1 of the f32 stack then cast, timed
+    beside the plain version over 2^25-column blocks."""
+    from repro_torch.kernels.vrmom import aggregate, aggregate_plain
+
+    W = TRAIN_W
+    x = torch.randn((W, C), generator=g, device=g.device,
+                    dtype=torch.bfloat16)
+    out = aggregate(x, "vrmom", K=TRAIN_K)
+    cols = torch.randint(0, C, (1 << 20,), generator=g, device=g.device)
+    want = aggregate_plain(x[:, cols], "vrmom", K=TRAIN_K)
+    err = max_err(out[cols], want)
+    require(torch.equal(out[cols], want),
+            f"B1 at [{W},{C}] bf16 differs from its plain version on "
+            f"sampled columns (max err {err})")
+    require(torch.equal(out, aggregate(x.float(), "vrmom", K=TRAIN_K).to(
+        torch.bfloat16)), f"B1 at [{W},{C}]: bf16 differs from f32 then cast")
+    del out
+
+    def plain_blocks():
+        for c0 in range(0, C, 1 << 25):
+            aggregate_plain(x[:, c0:c0 + (1 << 25)], "vrmom", K=TRAIN_K)
+
+    bb = bound(x.numel() * 2 + C * 2)
+    return dict(
+        name=name, route="cuda",
+        source="src/repro_torch/kernels/csrc/vrmom.cu",
+        replaces="src/repro/kernels/vrmom.py:142", launches=launches,
+        max_abs_err=err,
+        ms=timed_ms(lambda: aggregate(x, "vrmom", K=TRAIN_K), torch, flush),
+        plain_ms=timed_ms(plain_blocks, torch, flush, iters=3,
+                          spin=PLAIN_SPIN_CYCLES),
+        bound_ms=bb[0], bound_by=bb[1], library_ms=None)
+
+
+def b2_autograd_record(torch, flush, g, name, q, k, v, *, causal: bool,
+                       chunk: int, launches):
+    """B2 under autograd (``FlashAttentionFn``: B2's forward, the backward
+    the VJP of the chunked ``mha`` recomputed at ``chunk``) at q/k/v: its
+    gradients held against the plain path's within 2e-2 of the largest,
+    timed beside the plain path and SDPA's forward + backward."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models.attn_backend import FlashAttentionFn
+
+    _, S, H, dh = q.shape
+    T = k.shape[1]
+    dout = torch.randn(q.shape, generator=g, device=g.device,
+                       dtype=q.dtype)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    dt = dout.transpose(1, 2).contiguous()
+
+    def pair():
+        o = FlashAttentionFn.apply(qg, kg, vg, causal, chunk)
+        return torch.autograd.grad(o, (qg, kg, vg), dout)
+
+    def pair_plain():
+        o = flash_attention_plain(qg, kg, vg, causal=causal)
+        return torch.autograd.grad(o, (qg, kg, vg), dout)
+
+    def pair_sdpa():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, (qt, kt, vt), dt)
+
+    got, want = pair(), pair_plain()
+    scale = max(float(w.abs().max()) for w in want)
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    # the gradients come from the mha recompute (B2's output is not read
+    # by the backward); B2's forward is held against its plain version in
+    # the forward records at the same shapes
+    require(err <= 2e-2 * scale,
+            f"{name}: FlashAttentionFn's mha recompute backward: grads "
+            f"differ from the plain path's by {err} (largest {scale})")
+    pairs = S * (S + 1) // 2 if causal else S * T
+    # q, k, v and the output's gradient read, their three gradients
+    # written; 2 products forward, 4 in the backward
+    b = bound(2 * 2 * (q.numel() + k.numel() + v.numel()) + 2 * dout.numel(),
+              12 * dh * H * pairs)
+    return dict(
+        name=name, route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:76",
+        launches=launches, max_abs_err=err,
+        ms=timed_ms(pair, torch, flush, iters=5, spin=PLAIN_SPIN_CYCLES),
+        plain_ms=timed_ms(pair_plain, torch, flush, iters=5,
+                          spin=PLAIN_SPIN_CYCLES),
+        bound_ms=b[0], bound_by=b[1],
+        library_ms=timed_ms(pair_sdpa, torch, flush, iters=5,
+                            spin=PLAIN_SPIN_CYCLES))
+
+
+def print_train_records(tag, card, recs) -> None:
+    for r in recs:
+        print(f"[{tag}] (d) {r['name']}: {r['ms'] * 1e3:.2f} us device, "
+              f"plain {r['plain_ms']:.3f} ms, {r['bound_by']} bound "
+              f"{r['bound_ms'] * 1e3:.2f} us, library "
+              + ("none" if r["library_ms"] is None
+                 else f"{r['library_ms'] * 1e3:.2f} us")
+              + f", {r['launches']} launches on the main path ({card})")
+
+
+def phase_train(torch, dev, card: str):
+    """Phase 7: Byzantine-robust training of qwen3-1.7b at full width (28
+    layers, bf16, seeded weights; no cut), W = 8 workers emulated on the
+    card. Returns the ``kernels`` records of the phase with the launches
+    of its main path (the timed stacked steps and the inloop steps)."""
+    from repro_torch.configs import get as get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import leaves
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = get_arch("qwen3-1.7b")
+    W, S, L = TRAIN_W, TRAIN_SEQ, cfg.n_layers
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(7),
+                    device=dev)
+    n_params = M.param_count(params)
+    n_leaves = len(list(leaves(params)))
+    est, opt, opt_state, setup, clean, n_byz = train_setups(cfg, params, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = W * S
+    print(f"[train] {cfg.name} at full width ({L} layers, d {cfg.d_model}, "
+          f"{n_params / 1e9:.4f} B params, bf16), W = {W} workers of one "
+          f"{S}-token sequence each, VRMOM K {TRAIN_K}, AdamW lr "
+          f"{TRAIN_LR}, alpha {TRAIN_ALPHA} = int({TRAIN_ALPHA} * {W - 1}) "
+          f"= {n_byz} signflip row(s), remat {cfg.remat}")
+
+    def batch(i, seq=S):
+        return lm_batch(cfg, i, W, seq, device=dev)
+
+    # -- (a) stacked-auto ------------------------------------------------------
+    r = train_main_path(torch, cfg, params, opt_state, setup, clean, batch,
+                        gen)
+    counts = r["counts"]
+    n_fwd = 2 if cfg.remat else 1
+    require(counts["aggregate"] == 3 * n_leaves
+            and counts["flash_attention"] == 3 * W * L * n_fwd,
+            f"stacked steps launched {counts}; expected B1 {3 * n_leaves}, "
+            f"B2 {3 * W * L * n_fwd}")
+    report_main_path("train", card, r, tokens, 6 * n_params * tokens,
+                     "6*N*tokens", train_reckoning(cfg, n_params, S))
+    # one profiled step: the kernels it launched, the busy share
+    n_b1, n_b2 = report_profiled_step(
+        torch, "train", card,
+        lambda: setup.step_fn(params, opt_state, batch(4), gen))
+    require(n_b1 == n_leaves and n_b2 == W * L * n_fwd,
+            f"the profiled stacked step ran B1 {n_b1} times and B2 {n_b2}; "
+            f"expected {n_leaves} and {W * L * n_fwd}")
+
+    # -- the split of a step, and (b) the robustness contract ------------------
+    split_and_robustness(torch, cfg, params, opt, opt_state, est, gen,
+                         batch(5), n_byz, "train", card)
+
+    # -- (c) inloop ------------------------------------------------------------
+    inloop = make_train_step(cfg, W, estimator=est, mode="inloop",
+                             optimizer=opt, device=dev)
+    in_losses, in_walls, in_counts, in_peak = inloop_steps(
+        torch, inloop, params, opt_state,
+        [batch(10 + i, INLOOP_SEQ) for i in range(2)])
     # q, k, v, o, gate, up, down a layer; the unembedding once a loss chunk
     n_dots = 7 * L + -(-INLOOP_SEQ // cfg.loss_chunk)
-    require(all(math.isfinite(x) for x in in_losses),
-            f"non-finite inloop loss {in_losses}")
     require(in_counts["aggregate"] == 2 * n_dots
             and in_counts["flash_attention"] == 2 * L * n_fwd,
             f"inloop steps launched {in_counts}; expected B1 {2 * n_dots}, "
@@ -2369,50 +2565,15 @@ def phase_train(torch, dev, card: str):
     flush = make_flush(torch, dev)
     g = torch.Generator(device=dev).manual_seed(70)
     C = L * cfg.d_model * cfg.d_ff   # layers.mlp.w_gate
-    x = torch.randn((W, C), generator=g, device=dev, dtype=torch.bfloat16)
-    out = aggregate(x, "vrmom", K=TRAIN_K)
-    cols = torch.randint(0, C, (1 << 20,), generator=g, device=dev)
-    want = aggregate_plain(x[:, cols], "vrmom", K=TRAIN_K)
-    err = max_err(out[cols], want)
-    require(torch.equal(out[cols], want),
-            f"B1 at [{W},{C}] bf16 differs from its plain version on "
-            f"sampled columns (max err {err})")
-    require(torch.equal(out, aggregate(x.float(), "vrmom", K=TRAIN_K).to(
-        torch.bfloat16)), f"B1 at [{W},{C}]: bf16 differs from f32 then cast")
-
-    def plain_blocks():
-        for c0 in range(0, C, 1 << 25):
-            aggregate_plain(x[:, c0:c0 + (1 << 25)], "vrmom", K=TRAIN_K)
-
-    b1b = bound(x.numel() * 2 + C * 2)
-    rec_b1 = dict(
-        name=f"B1 aggregate on the gradient stacks (vrmom K={TRAIN_K}, "
-             f"bf16; timed at layers.mlp.w_gate [{W},{C}])",
-        route="cuda", source="src/repro_torch/kernels/csrc/vrmom.cu",
-        replaces="src/repro/kernels/vrmom.py:142",
-        launches=counts["aggregate"], max_abs_err=err,
-        ms=timed_ms(lambda: aggregate(x, "vrmom", K=TRAIN_K), torch, flush),
-        plain_ms=timed_ms(plain_blocks, torch, flush, iters=3,
-                          spin=PLAIN_SPIN_CYCLES),
-        bound_ms=b1b[0], bound_by=b1b[1], library_ms=None)
-    del x, out
-    xi = torch.randn((W, cfg.d_model * cfg.d_ff), generator=g, device=dev)
-    b1i = bound(xi.numel() * 4 + xi.shape[1] * 4)
-    outi = aggregate(xi, "vrmom", K=TRAIN_K)
-    wanti = aggregate_plain(xi, "vrmom", K=TRAIN_K)
-    require(torch.equal(outi, wanti), "B1 at the inloop dW stack differs "
-            "from its plain version")
-    rec_b1i = dict(
-        name=f"B1 aggregate in the backward (inloop: one matmul's dW, "
-             f"vrmom K={TRAIN_K}, [{W},{cfg.d_model}*{cfg.d_ff}] f32)",
-        route="cuda", source="src/repro_torch/kernels/csrc/vrmom.cu",
-        replaces="src/repro/kernels/vrmom.py:142",
-        launches=in_counts["aggregate"], max_abs_err=max_err(outi, wanti),
-        ms=timed_ms(lambda: aggregate(xi, "vrmom", K=TRAIN_K), torch, flush),
-        plain_ms=timed_ms(lambda: aggregate_plain(xi, "vrmom", K=TRAIN_K),
-                          torch, flush, iters=5, spin=PLAIN_SPIN_CYCLES),
-        bound_ms=b1i[0], bound_by=b1i[1], library_ms=None)
-    del xi, outi, wanti
+    rec_b1 = b1_stack_record(
+        torch, flush, g, C,
+        f"B1 aggregate on the gradient stacks (vrmom K={TRAIN_K}, bf16; "
+        f"timed at layers.mlp.w_gate [{W},{C}])", counts["aggregate"])
+    rec_b1i = b1_record(
+        torch, flush, f"B1 aggregate in the backward (inloop: one matmul's "
+        f"dW, vrmom K={TRAIN_K}, [{W},{cfg.d_model}*{cfg.d_ff}] f32)",
+        torch.randn((W, cfg.d_model * cfg.d_ff), generator=g, device=dev),
+        TRAIN_K, in_counts["aggregate"])
 
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = torch.randn((1, S, H, dh), generator=g, device=dev,
@@ -2434,64 +2595,17 @@ def phase_train(torch, dev, card: str):
             (W, INLOOP_SEQ, h, dh), generator=g, device=dev,
             dtype=torch.bfloat16) for h in (H, Hkv, Hkv)), decode=False)
     rec_b2i["launches"] = in_counts["flash_attention"]
-    dout = torch.randn((1, S, H, dh), generator=g, device=dev,
-                       dtype=torch.bfloat16)
-    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
-    qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_(True)
-                  for t in (q, k, v))
-    dt = dout.transpose(1, 2).contiguous()
-
-    def pair():
-        o = FlashAttentionFn.apply(qg, kg, vg, True, cfg.attn_chunk)
-        return torch.autograd.grad(o, (qg, kg, vg), dout)
-
-    def pair_plain():
-        o = flash_attention_plain(qg, kg, vg, causal=True)
-        return torch.autograd.grad(o, (qg, kg, vg), dout)
-
-    def pair_sdpa():
-        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                           enable_gqa=True)
-        return torch.autograd.grad(o, (qt, kt, vt), dt)
-
-    got, want2 = pair(), pair_plain()
-    scale = max(float(w.abs().max()) for w in want2)
-    err2 = max(max_err(a, b) for a, b in zip(got, want2))
-    # the gradients come from the mha recompute (B2's output is not read
-    # by the backward); B2's forward is held against its plain version in
-    # the records at both training shapes
-    require(err2 <= 2e-2 * scale,
-            f"FlashAttentionFn's mha recompute backward: grads differ from "
-            f"the plain path's by {err2} (largest {scale})")
-    pairs = S * (S + 1) // 2
-    # q, k, v and the output's gradient read, their three gradients written
-    b2p = bound(2 * 2 * (q.numel() + k.numel() + v.numel()),
-                12 * dh * H * pairs)
-    rec_pair = dict(
-        name=f"B2 under autograd (FlashAttentionFn: B2 forward + the mha "
-             f"recompute backward; max_abs_err is the recompute's gradient "
-             f"against the plain path's, launches are the stacked steps' "
-             f"B2 forwards as above), q [1,{S},{H},{dh}], k/v "
-             f"[1,{S},{Hkv},{dh}] bf16 causal; library: SDPA forward + "
-             f"backward",
-        route="cuda", source="src/repro_torch/kernels/csrc/"
-                             "flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:76",
-        launches=counts["flash_attention"], max_abs_err=err2,
-        ms=timed_ms(pair, torch, flush, iters=5, spin=PLAIN_SPIN_CYCLES),
-        plain_ms=timed_ms(pair_plain, torch, flush, iters=5,
-                          spin=PLAIN_SPIN_CYCLES),
-        bound_ms=b2p[0], bound_by=b2p[1],
-        library_ms=timed_ms(pair_sdpa, torch, flush, iters=5,
-                            spin=PLAIN_SPIN_CYCLES))
+    rec_pair = b2_autograd_record(
+        torch, flush, g,
+        f"B2 under autograd (FlashAttentionFn: B2 forward + the mha "
+        f"recompute backward; max_abs_err is the recompute's gradient "
+        f"against the plain path's, launches are the stacked steps' B2 "
+        f"forwards as above), q [1,{S},{H},{dh}], k/v [1,{S},{Hkv},{dh}] "
+        f"bf16 causal; library: SDPA forward + backward",
+        q, k, v, causal=True, chunk=cfg.attn_chunk,
+        launches=counts["flash_attention"])
     recs = [rec_b1, rec_b1i, rec_b2, rec_b2i, rec_pair]
-    for r in recs:
-        print(f"[train] (d) {r['name']}: {r['ms'] * 1e3:.2f} us device, plain "
-              f"{r['plain_ms']:.3f} ms, {r['bound_by']} bound "
-              f"{r['bound_ms'] * 1e3:.2f} us, library "
-              + ("none" if r["library_ms"] is None
-                 else f"{r['library_ms'] * 1e3:.2f} us")
-              + f", {r['launches']} launches on the main path ({card})")
+    print_train_records("train", card, recs)
     print(f"[train] phase 7 in {time.perf_counter() - t_phase:.1f} s")
     return recs
 
@@ -4514,6 +4628,170 @@ def phase_encdec(torch, dev, card):
     return moe_records(recs, card, tag="encdec")
 
 
+def encdec_train_reckoning(cfg, n_params: int, seq: int) -> dict:
+    """GB a stacked AdamW step of an encdec model should hold at its peak
+    (``train_reckoning``'s terms for both stacks): bf16 params and
+    autograd grads, the bf16 stack of W workers, f32 moments, the remat
+    boundaries of one worker's encoder (its frames) and decoder (``seq``
+    tokens), one recomputed encoder layer's ``mha`` (f32 scores and
+    probabilities of [H, frames, frames], every chunk kept by autograd)
+    and one f32 loss chunk of logits."""
+    D, H, V = cfg.d_model, cfg.n_heads, cfg.vocab
+    Le, Fr = cfg.encoder.n_layers, cfg.encoder.n_frames
+    return {"params": 2 * n_params / 1e9, "grads": 2 * n_params / 1e9,
+            "stack": 2 * n_params * TRAIN_W / 1e9,
+            "adamw m, v": 8 * n_params / 1e9,
+            "remat boundaries": (Le * Fr + cfg.n_layers * seq) * D * 2 / 1e9,
+            "one encoder layer's recompute": 2 * H * Fr * Fr * 4 / 1e9,
+            "loss chunk": min(cfg.loss_chunk, seq) * V * 4 / 1e9}
+
+
+def encdec_products(cfg, seq: int) -> int:
+    """The 3-D x 2-D products of one whisper forward over ``seq`` decoder
+    tokens, each one B1 on its ``dW`` stack in an inloop backward: q, k,
+    v, o and the MLP's gate, up, down an encoder layer; the self
+    attention's four, the cross attention's q, k, v (k and v over the
+    encoder output), o and the MLP's three a decoder layer; the tied
+    unembedding once a loss chunk."""
+    return (7 * cfg.encoder.n_layers + 11 * cfg.n_layers
+            + -(-seq // cfg.loss_chunk))
+
+
+def phase_train_encdec(torch, dev, card: str):
+    """Phase 13: Byzantine-robust training of whisper-medium at full width
+    and depth (24 encoder and 24 decoder layers, d 1024, 16 heads of 64,
+    V 51865 tied, bf16, seeded weights; no cut), phase 7's W = 8 workers
+    emulated on the card, each with 1500 stub frames and 448 decoder
+    tokens. Returns the ``kernels`` records of the phase with the
+    launches of its main path (the timed stacked steps and the inloop
+    steps)."""
+    from repro_torch.configs import get as get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import leaves
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tag = "train-encdec"
+    cfg = get_arch("whisper-medium")
+    W, S, L = TRAIN_W, ENCDEC_TRAIN_SEQ, cfg.n_layers
+    Le, Fr = cfg.encoder.n_layers, cfg.encoder.n_frames
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(13),
+                    device=dev)
+    n_params = M.param_count(params)
+    n_enc = M.param_count(params["enc_layers"]) + params["norm_enc"].numel()
+    n_dec = n_params - n_enc
+    n_leaves = len(list(leaves(params)))
+    est, opt, opt_state, setup, clean, n_byz = train_setups(cfg, params, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    print(f"[{tag}] {cfg.name} at full width and depth ({Le} encoder + {L} "
+          f"decoder layers, d {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim}, V {cfg.vocab} tied; {n_params / 1e9:.4f} B "
+          f"params: encoder {n_enc / 1e9:.4f}, decoder and embedding "
+          f"{n_dec / 1e9:.4f}; bf16), W = {W} workers of one sample each "
+          f"({Fr} frames, {S} decoder tokens), VRMOM K {TRAIN_K}, AdamW lr "
+          f"{TRAIN_LR}, alpha {TRAIN_ALPHA} = int({TRAIN_ALPHA} * {W - 1}) "
+          f"= {n_byz} signflip row(s), remat {cfg.remat}")
+
+    def batch(i):
+        return lm_batch(cfg, i, W, S, device=dev)
+
+    # -- (a) stacked-auto ------------------------------------------------------
+    r = train_main_path(torch, cfg, params, opt_state, setup, clean, batch,
+                        gen)
+    counts = r["counts"]
+    n_fwd = 2 if cfg.remat else 1
+    n_attn = Le + 2 * L   # B2: the encoder's, then a self and a cross
+    require(counts["aggregate"] == 3 * n_leaves
+            and counts["flash_attention"] == 3 * W * n_fwd * n_attn,
+            f"stacked steps launched {counts}; expected B1 {3 * n_leaves}, "
+            f"B2 {3 * W * n_fwd * n_attn}")
+    report_main_path(
+        tag, card, r, W * S, 6 * (n_enc * Fr + n_dec * S) * W,
+        f"6*(N_enc*{Fr} + N_dec*{S})*W", encdec_train_reckoning(
+            cfg, n_params, S))
+    # one profiled step, for the split of device time only: the tracer
+    # drops a trace's first events (the launch checks use the counter)
+    n_b1, n_b2 = report_profiled_step(
+        torch, tag, card,
+        lambda: setup.step_fn(params, opt_state, batch(4), gen))
+    print(f"[{tag}] (a) the counter's launches a step: B1 {n_leaves}, B2 "
+          f"{W * n_fwd * n_attn}; the trace held {n_b1} and {n_b2}")
+
+    # -- the split of a step, and (b) the robustness contract ------------------
+    split_and_robustness(torch, cfg, params, opt, opt_state, est, gen,
+                         batch(5), n_byz, tag, card)
+
+    # -- (c) inloop: the whole global batch in one forward ---------------------
+    inloop = make_train_step(cfg, W, estimator=est, mode="inloop",
+                             optimizer=opt, device=dev)
+    in_losses, in_walls, in_counts, in_peak = inloop_steps(
+        torch, inloop, params, opt_state, [batch(10 + i) for i in range(2)])
+    n_dots = encdec_products(cfg, S)
+    require(in_counts["aggregate"] == 2 * n_dots
+            and in_counts["flash_attention"] == 2 * n_fwd * n_attn,
+            f"inloop steps launched {in_counts}; expected B1 {2 * n_dots}, "
+            f"B2 {2 * n_fwd * n_attn}")
+    print(f"[{tag}] (c) inloop at {W} x ({Fr} frames, {S} tokens), "
+          f"{n_dots} products a step: losses "
+          f"{[round(x, 5) for x in in_losses]}, steps "
+          f"{[round(w, 4) for w in in_walls]} s (median "
+          f"{statistics.median(in_walls):.4f}), peak memory {in_peak:.2f} "
+          f"GB; launches {json.dumps(in_counts)} ({card})")
+    del params, opt_state
+    torch.cuda.empty_cache()
+
+    # -- (d) the kernels at the training shapes --------------------------------
+    flush = make_flush(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(130)
+    D, Ff, H, dh = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim
+    C = Le * D * Ff   # enc_layers.mlp.w_gate, the largest leaf
+    recs = [b1_stack_record(
+        torch, flush, g, C,
+        f"B1 aggregate on whisper-medium's gradient stacks (vrmom "
+        f"K={TRAIN_K}, bf16; timed at enc_layers.mlp.w_gate [{W},{C}])",
+        counts["aggregate"]), b1_record(
+        torch, flush, f"B1 aggregate in whisper-medium's inloop backward "
+        f"(one MLP product's dW, vrmom K={TRAIN_K}, [{W},{D}*{Ff}] f32)",
+        torch.randn((W, D * Ff), generator=g, device=dev), TRAIN_K,
+        in_counts["aggregate"])]
+
+    def qkv(s, t):
+        return (torch.randn((1, n, H, dh), generator=g, device=dev,
+                            dtype=torch.bfloat16) for n in (s, t, t))
+
+    # per role, its share of the counted B2 launches of the timed steps
+    # (every encoder layer one, every decoder layer a self and a cross,
+    # each twice under remat), held exact above
+    per_layer = 3 * W * n_fwd
+    for role, (s, t), causal, n in (("encoder", (Fr, Fr), False, Le),
+                                    ("cross", (S, Fr), False, L),
+                                    ("decoder self", (S, S), True, L)):
+        q, k, v = qkv(s, t)
+        what = (f"q [1,{s},{H},{dh}], k/v [1,{t},{H},{dh}] bf16 "
+                + ("causal" if causal else "non-causal"))
+        rec = attn_record(
+            torch, flush, f"B2 flash_attention forward, whisper-medium "
+            f"training, {role} ({what}; launches: the role's share of the "
+            f"stacked steps' counted B2)", q, k, v, decode=False,
+            causal=causal)
+        rec["launches"] = per_layer * n
+        recs.append(rec)
+        if not causal:
+            recs.append(b2_autograd_record(
+                torch, flush, g,
+                f"B2 under autograd, whisper-medium training, {role} "
+                f"(FlashAttentionFn: B2 forward + the mha recompute "
+                f"backward; max_abs_err is the recompute's gradient against "
+                f"the plain path's), {what}; library: SDPA forward + "
+                f"backward", q, k, v, causal=False, chunk=cfg.attn_chunk,
+                launches=per_layer * n))
+    print_train_records(tag, card, recs)
+    print(f"[{tag}] phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    return recs
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside the script; "
@@ -4566,6 +4844,8 @@ def main() -> int:
         lap("phase 11 (ssm and hybrid)")
         encdec_recs = phase_encdec(torch, dev, card)
         lap("phase 12 (encdec)")
+        train_encdec_recs = phase_train_encdec(torch, dev, card)
+        lap("phase 13 (training encdec)")
         print(f"[time] all phases {time.perf_counter() - t_all:.1f} s")
     except (CheckFailed, AssertionError) as exc:
         print(f"chip_smoke.py: check failed: {exc}", file=sys.stderr)
@@ -4583,6 +4863,7 @@ def main() -> int:
     kernels.extend(moe_recs)
     kernels.extend(ssm_recs)
     kernels.extend(encdec_recs)
+    kernels.extend(train_encdec_recs)
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

@@ -1715,6 +1715,40 @@ def test_cuda_b2_noncausal_at_whisper_shapes(cuda, S, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S,T", [(100, 100), (48, 150), (150, 48)])
+def test_cuda_b2_noncausal_autograd_grads_match_the_plain_path(cuda, S, T):
+    """FlashAttentionFn non-causal in bf16 at dh 64, G 1, as whisper's
+    training runs it (the encoder at S = T, the cross attention over keys
+    of another length): one B2 launch, the output against
+    ``flash_attention_plain`` of the f32 inputs at 1e-2 + 1e-2 * |ref|,
+    the gradients (the ``mha`` recompute) against the plain path's under
+    autograd within 2e-2 of the largest."""
+    from repro_torch.models.attn_backend import FlashAttentionFn
+
+    g = torch.Generator(device=cuda).manual_seed(S * 1000 + T)
+    q, dout = (torch.randn(2, S, 16, 64, device=cuda, generator=g
+                           ).bfloat16() for _ in range(2))
+    k, v = (torch.randn(2, T, 16, 64, device=cuda, generator=g).bfloat16()
+            for _ in range(2))
+    reset_launch_counts()
+    qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = FlashAttentionFn.apply(qa, ka, va, False, 64)
+    got = torch.autograd.grad(out, (qa, ka, va), dout)
+    assert launch_counts()["flash_attention"] == 1
+    torch.testing.assert_close(
+        out.float(), flash_attention_plain(q.float(), k.float(), v.float(),
+                                           causal=False),
+        rtol=1e-2, atol=1e-2)
+    qb, kb, vb = (t.clone().requires_grad_(True) for t in (q, k, v))
+    want = torch.autograd.grad(
+        flash_attention_plain(qb, kb, vb, causal=False), (qb, kb, vb), dout)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= 2e-2 * float(b.float().abs().max())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B", [4, 32])
 def test_cuda_b3_cross_over_the_whole_encoder_cache(cuda, B):
     """B3 as the cross attention of a whisper decode step: q [B, 1, 16, 64]
