@@ -241,6 +241,37 @@ attention's and the decoder's shapes beside SDPA, B2 under autograd at
 the encoder's and the cross shapes beside SDPA's forward and backward,
 B1 at ``enc_layers.mlp.w_gate`` [8, 100663296] bf16 and at one MLP
 product's dW [8, 1024*4096] f32 join the ``kernels`` line.
+Phase 14 trains granite-moe-3b-a800m at full width (d 1536, 24 heads
+over 8 kv heads of 64, 40 experts top-8 of d_ff 512, V 49155 tied, bf16,
+seeded weights, remat on) and MOE_TRAIN_LAYERS = 16 of its 32 layers
+through ``make_train_step`` with phase 7's W = 8, VRMOM K 10 and alphas,
+AdamW at lr 1e-5 (MOE_TRAIN_LR), each worker one 4096-token row (two
+routing groups of 2048, 512 rows an expert): (a) a clean warm-up step,
+then 3 timed stacked-auto steps under signflip as its main path, B1 once
+a leaf and B2 twice a layer and worker (768), both by the wrappers'
+counts; it prints step seconds, tokens/s, 6 N_active tokens over the
+bf16 peak (N_active: top-8 of 40 experts, ``model.active_param_count``),
+the split of a step, the device time by kernel group of one profiled
+step (the routing's scatter, gather, index and scan kernels a group of
+their own), peak memory against ``moe_train_reckoning``, and the share
+of (token, slot) pairs capacity dropped in that step's forward; requires
+the loss finite, batch 0's loss and its next-token CE to fall, and, as
+the gate's controls on the 4 steps' update d, p0 - d to raise both and
+p0 + d with random signs, over every leaf or over the moe leaves alone,
+to lower neither as far; one worker's gradients twice
+on one batch: the backward's recompute must route as the forward did,
+call for call, and whether the two runs' gradients are bit-equal is
+printed (the dispatch's backward adds a token's rows by atomics); (b)
+phase 7's robustness gates and ``with_diag``, the expert leaves' row
+cosines printed apart; (c) 2 inloop steps at 8 x 1024 tokens in one
+forward (a group of 1024 a row), B1 on each of the 4 L + 1 products' dW
+(q, k, v, o and the tied unembedding: the router and the experts are
+plain products, as in ``repro``) and B2 twice a layer, with the share of
+the params the wire covers; (d) B1 at ``layers.moe.w_gate`` [8,
+503316480] bf16 and at one attention product's dW [8, 1536*1536] f32,
+B2's forward at q [1, 4096, 24, 64] over k/v [1, 4096, 8, 64] causal
+beside SDPA, and B2 under autograd at that shape beside SDPA's forward
+and backward join the ``kernels`` line.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it lists every kernel with its launches, error and times. Any
@@ -388,6 +419,29 @@ ENCDEC_SEED = 12
 # sample is the model's 1500 stub frames and ENCDEC_TRAIN_SEQ decoder
 # tokens, whisper's published text context (n_text_ctx)
 ENCDEC_TRAIN_SEQ = 448
+
+# phase 14, training the moe family: granite-moe-3b-a800m at full width
+# with phase 7's W, K, lr, alphas, TRAIN_SEQ and INLOOP_SEQ, cut to
+# MOE_TRAIN_LAYERS of its 32 layers. train_reckoning's 28 B a parameter
+# at W = 8 (bf16 params, grads and stack of 8, f32 AdamW moments): a layer
+# holds 100,727,808 params and the tied embedding 75.5 M, so 32 layers
+# reckon at 92.4 GB, 20 at 58.5 and 16 at 47.2 before ~4 GB of
+# activations; qwen3's step peaked 16-18 % over its reckoning, which puts
+# 20 layers near 74 GB of the card's 80. W = 4 would leave int(0.25 * 3)
+# = 0 Byzantine rows.
+MOE_TRAIN_LAYERS = 16
+# AdamW's lr in phase 14, not phase 7's 1e-4 (PERF.md section 7). At 1e-4
+# the first steps move every router entry by about one bf16 ulp in the
+# sign of its gradient: on the seeded model batch 0's next-token CE falls
+# while the load-balance term, 0.01 x its sum over the 16 layers (its
+# top-1 fractions have no gradient), rises faster, so the loss rises. At
+# 1e-5 both fall.
+MOE_TRAIN_LR = 1e-5
+# phase 14's kernel groups ahead of kernel_group's own: the routing's
+# scatter and gather (the loss's gather among them), index_select and its
+# backward's index_add, and the capacity cumsum's scan
+MOE_ROUTING_KERNELS = tuple((key, "routing") for key in (
+    "scatter_gather", "indexSelect", "indexFunc", "scan", "Scan"))
 
 
 class CheckFailed(Exception):
@@ -2069,8 +2123,11 @@ def step_kernel_times(torch, fn):
     return wall, sum(s for _, s in by.values()), by
 
 
-def kernel_group(name: str) -> str:
+def kernel_group(name: str, extra=()) -> str:
+    """The group of a device kernel by its name; the (key, group) pairs of
+    ``extra`` are tried after B1's and B2's."""
     for key, group in (("agg_kernel", "B1"), ("flash_fwd", "B2"),
+                       *extra,
                        ("gemm", "matmul"), ("nvjet", "matmul"),
                        ("xmma", "matmul"), ("cutlass", "matmul"),
                        ("softmax", "softmax"), ("reduce", "reduction"),
@@ -2153,17 +2210,17 @@ def robust_shift(torch, stack, est, gen, mask) -> dict:
     return out
 
 
-def train_setups(cfg, params, dev):
+def train_setups(cfg, params, dev, lr=TRAIN_LR):
     """Phase 7's and 13's optimizer and steps: VRMOM K ``TRAIN_K``, AdamW
-    at ``TRAIN_LR``, stacked-auto over ``TRAIN_W`` workers, under signflip
-    at ``TRAIN_ALPHA`` (``setup``) and clean (``clean``) -> (est, opt,
+    at ``lr``, stacked-auto over ``TRAIN_W`` workers, under signflip at
+    ``TRAIN_ALPHA`` (``setup``) and clean (``clean``) -> (est, opt,
     opt_state, setup, clean, n_byz)."""
     from repro_torch import optim as O
     from repro_torch.core.estimator import Estimator
     from repro_torch.train.step import make_train_step
 
     est = Estimator("vrmom", K=TRAIN_K)
-    opt = O.get("adamw", lr=TRAIN_LR)
+    opt = O.get("adamw", lr=lr)
     setup = make_train_step(cfg, TRAIN_W, estimator=est, mode="stacked-auto",
                             optimizer=opt, byzantine_frac=TRAIN_ALPHA,
                             attack="signflip", device=dev)
@@ -2230,17 +2287,19 @@ def report_main_path(tag, card, r, tokens, flops, flop_what, reck) -> None:
           + ", ".join(f"{k} {v:.2f}" for k, v in reck.items()) + ")")
 
 
-def report_profiled_step(torch, tag, card, fn):
+def report_profiled_step(torch, tag, card, fn, extra_groups=()):
     """Run ``fn`` (one train step) under the profiler and print its wall,
-    device-busy share, device time by kernel group and its 8 largest
-    kernels -> (B1, B2 launches in the trace)."""
+    device-busy share, device time by kernel group (``kernel_group`` with
+    ``extra_groups``) and its 8 largest kernels -> (B1, B2 launches in the
+    trace)."""
     wall, busy, by = step_kernel_times(torch, fn)
     n_b1 = sum(n for k, (n, _) in by.items() if "agg_kernel" in k)
     n_b2 = sum(n for k, (n, _) in by.items() if "flash_fwd" in k)
     groups = {}
     for k, (n, s) in by.items():
-        gn, gs = groups.get(kernel_group(k), (0, 0.0))
-        groups[kernel_group(k)] = (gn + n, gs + s)
+        group = kernel_group(k, extra_groups)
+        gn, gs = groups.get(group, (0, 0.0))
+        groups[group] = (gn + n, gs + s)
     print(f"[{tag}] (a) one profiled stacked step: {wall:.4f} s wall, "
           f"device busy {busy:.4f} s ({100 * busy / wall:.1f} %), "
           f"{sum(n for n, _ in by.values())} device kernels; B1 {n_b1} "
@@ -2254,7 +2313,7 @@ def report_profiled_step(torch, tag, card, fn):
 
 
 def split_and_robustness(torch, cfg, params, opt, opt_state, est, gen, b,
-                         n_byz, tag, card) -> None:
+                         n_byz, tag, card, apart=()) -> None:
     """The split of one step, and (b) the robustness contract, on the
     workers' gradient stack of batch ``b`` (``TRAIN_W`` workers): 2 rows
     attacked (``TRAIN_ROBUST_ALPHA``) by each of ``ROBUST_ATTACKS``
@@ -2262,7 +2321,8 @@ def split_and_robustness(torch, cfg, params, opt, opt_state, est, gen, b,
     leaves whose clean rows share a direction; ``with_diag`` under
     omniscient must flag exactly the attacked rows. The stack, attacked
     by signflip on ``n_byz`` rows, is aggregated and applied (AdamW) to
-    ``params`` in place, each part timed."""
+    ``params`` in place, each part timed. The clean rows' cosines of the
+    leaves named in ``apart`` (dotted key paths) are printed apart."""
     from repro_torch.core import attacks as TA
     from repro_torch.dist import robust_reduce as RR
     from repro_torch.train.step import stacked_grads
@@ -2303,6 +2363,10 @@ def split_and_robustness(torch, cfg, params, opt, opt_state, est, gen, b,
     for k, v in sorted(signal.items()):
         print(f"[{tag}] (b) {k}, row cosines "
               f"{[round(c, 4) for c in v['row_cos']]}: " + shifts(v))
+    for k in apart:
+        print(f"[{tag}] (b) {k}: each clean worker row's cosine with the "
+              f"clean VRMOM aggregate "
+              f"{[round(c, 4) for c in rs['leaf'][k]['row_cos']]}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     mask = torch.arange(W, device=dev) >= W - n_byz
@@ -4792,6 +4856,321 @@ def phase_train_encdec(torch, dev, card: str):
     return recs
 
 
+def moe_train_reckoning(cfg, n_params: int, seq: int) -> dict:
+    """``train_reckoning``'s terms for a moe model, plus what autograd
+    keeps of the recomputed layer's routing: the dispatched rows [E, G C,
+    D] and the experts' output and its padded copy (bf16), the experts'
+    four [E, G C, F] hidden tensors (bf16), and the combine's [G, T, k, D]
+    gathered rows in bf16, their f32 cast and its weighted product, over
+    the G groups of one worker's ``seq`` tokens."""
+    from repro_torch.models import moe as X
+
+    m = cfg.moe
+    c = min(X.MOE_SEQ_CHUNK, seq)
+    c = c if seq % c == 0 else seq
+    G, C = seq // c, X.capacity(cfg, c)
+    E, D, Fd = m.n_experts, cfg.d_model, cfg.d_ff
+    rows = E * G * C
+    return dict(train_reckoning(cfg, n_params, seq), **{
+        "one layer's dispatch and experts": (
+            3 * 2 * rows * D + 4 * 2 * rows * Fd
+            + (2 + 4 + 4) * G * c * m.top_k * D) / 1e9})
+
+
+def drop_share(calls) -> tuple:
+    """(share of (token, slot) pairs past capacity over ``calls``, the
+    least and the largest share of one call)."""
+    per = [float((~r.keep).float().mean()) for r in calls]
+    n = sum(r.keep.numel() for r in calls)
+    return (sum(int((~r.keep).sum()) for r in calls) / n, min(per),
+            max(per))
+
+
+def recompute_routes(calls, L: int) -> list:
+    """The forward layer each call after the first ``L`` (the backward's
+    recomputes) routes as, matched by its decisions: a list of the layers
+    each matches (one, when the recompute routed as the forward did)."""
+    return [[i for i, a in enumerate(calls[:L])
+             if a.expert.equal(r.expert) and a.pos.equal(r.pos)]
+            for r in calls[L:]]
+
+
+def grads_parted(torch, ga, gb) -> dict:
+    """For each leaf whose two gradients are not bit-equal: (entries that
+    differ, the largest difference, the leaf's largest entry)."""
+    from repro_torch.tree import paths
+
+    out = {}
+    for (path, a), (_, b) in zip(paths(ga), paths(gb)):
+        if torch.equal(a, b):
+            continue
+        d = (a.float() - b.float()).abs()
+        out[".".join(path)] = (int((d > 0).sum()), float(d.max()),
+                               float(a.float().abs().max()))
+    return out
+
+
+def update_controls(torch, params, p0, dev, measure) -> dict:
+    """The loss gate's controls on the update the main path made, d = p -
+    p0 (``p0`` the leaves before it, on the host): ``measure()`` with the
+    params at p0 - d (the update reversed: what a backward of the wrong
+    sign applies), at p0 + s d with each entry's sign s drawn at random (a
+    backward whose signs carry nothing of the loss, each entry moved as
+    far), and at p0 + d with only the moe leaves' signs drawn (the router's
+    and the experts' share of the update). The params are restored
+    after."""
+    from repro_torch.tree import paths
+
+    now = [(".".join(k), x, x.clone()) for k, x in paths(params)]
+    g = torch.Generator(device=dev).manual_seed(141)
+    out = {}
+    for name in ("reversed", "random signs", "moe leaves' signs random"):
+        for (path, x, x1), x0 in zip(now, p0):
+            x0 = x0.to(dev).float()
+            d = x1.float() - x0
+            if name == "reversed":
+                d = -d
+            elif name == "random signs" or ".moe." in path:
+                d = torch.where(torch.rand(d.shape, generator=g, device=dev)
+                                < 0.5, -d, d)
+            x.copy_(x0 + d)
+            del x0, d
+        out[name] = measure()
+    for _, x, x1 in now:
+        x.copy_(x1)
+    return out
+
+
+def phase_train_moe(torch, dev, card: str):
+    """Phase 14: Byzantine-robust training of granite-moe-3b-a800m at full
+    width (d 1536, 24 heads over 8 kv heads of 64, 40 experts top-8 of
+    d_ff 512, V 49155 tied, bf16, seeded weights), MOE_TRAIN_LAYERS of its
+    32 layers, phase 7's W = 8 workers emulated on the card, each one
+    4096-token row. Returns the ``kernels`` records of the phase with the
+    launches of its main path (the timed stacked steps and the inloop
+    steps)."""
+    import dataclasses
+
+    from repro_torch.configs import get as get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as X
+    from repro_torch.models import transformer as T
+    from repro_torch.train.step import loss_and_grads, make_train_step
+    from repro_torch.tree import leaves
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tag = "train-moe"
+    full = get_arch("granite-moe-3b-a800m")
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    W, S, L = TRAIN_W, TRAIN_SEQ, cfg.n_layers
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(14),
+                    device=dev)
+    n_params = M.param_count(params)
+    n_active = M.active_param_count(params, cfg)
+    n_leaves = len(list(leaves(params)))
+    est, opt, opt_state, setup, clean, n_byz = train_setups(
+        cfg, params, dev, lr=MOE_TRAIN_LR)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    chunk = min(X.MOE_SEQ_CHUNK, S)
+    print(f"[{tag}] {cfg.name} at full width, depth cut to {L} of "
+          f"{full.n_layers} layers (MOE_TRAIN_LAYERS; the whole model "
+          f"reckons at 92.4 GB before activations): d {D}, {H} heads over "
+          f"{Hkv} kv heads of {dh}, {E} experts top-{k} of d_ff {cfg.d_ff}, "
+          f"V {cfg.vocab} tied; {n_params / 1e9:.4f} B params "
+          f"({n_active / 1e9:.4f} B active a token), {n_leaves} leaves, "
+          f"bf16; W = {W} workers of one {S}-token row each ({S // chunk} "
+          f"routing groups of {chunk}, capacity {X.capacity(cfg, chunk)} "
+          f"rows an expert), VRMOM K {TRAIN_K}, AdamW lr {MOE_TRAIN_LR}, "
+          f"alpha "
+          f"{TRAIN_ALPHA} = int({TRAIN_ALPHA} * {W - 1}) = {n_byz} signflip "
+          f"row(s), remat {cfg.remat}")
+
+    def batch(i, seq=S):
+        return lm_batch(cfg, i, W, seq, device=dev)
+
+    def ce_aux(b):
+        """(next-token CE, load-balance sum over the layers) of ``b``."""
+        with torch.no_grad():
+            h, _, aux = T.forward(params, cfg, b)
+            return (float(T.next_token_ce(params, cfg, h, b["tokens"])),
+                    float(aux))
+
+    # -- (a) stacked-auto ------------------------------------------------------
+    before = ce_aux(batch(0))
+    p0 = [x.cpu() for x in leaves(params)]
+    r = train_main_path(torch, cfg, params, opt_state, setup, clean, batch,
+                        gen)
+    after = ce_aux(batch(0))
+    controls = update_controls(torch, params, p0, dev,
+                               lambda: ce_aux(batch(0)))
+    del p0
+
+    def loss(ca):
+        return ca[0] + 0.01 * ca[1]
+
+    def show(ca):
+        return (f"CE {ca[0]:.5f}, load-balance sum {ca[1]:.4f}, loss "
+                f"{loss(ca):.5f}")
+
+    print(f"[{tag}] (a) batch 0 (the loss adds 0.01 x the load-balance sum "
+          f"over the layers): at the start {show(before)}; after the 4 "
+          f"steps {show(after)}; the controls, the update " + "; ".join(
+              f"{name}: {show(ca)}" for name, ca in controls.items()))
+    # the CE falls too, not the load-balance term alone; the gate fails
+    # for the reversed update; random signs, over every leaf or over the
+    # moe leaves alone, lower neither the CE nor the loss as far as the
+    # update made (the attention's and the embedding's updates make most
+    # of the fall, so this last holds the router's and experts' own)
+    rev, rnd = controls["reversed"], controls["random signs"]
+    moe = controls["moe leaves' signs random"]
+    require(after[0] < before[0],
+            f"batch 0's next-token CE did not fall: {before[0]} -> "
+            f"{after[0]}")
+    require(rev[0] > before[0] and loss(rev) > loss(before),
+            f"the update reversed did not raise batch 0's CE and loss "
+            f"({rev} from {before}): the gate would pass a backward of "
+            f"the wrong sign")
+    require(rnd[0] > after[0] and loss(rnd) > loss(after),
+            f"the update with random signs lowered batch 0's CE or loss "
+            f"as far as the update made ({rnd} against {after})")
+    require(moe[0] > after[0] and loss(moe) > loss(after),
+            f"the update with the moe leaves' signs random lowered batch "
+            f"0's CE or loss as far as the update made ({moe} against "
+            f"{after})")
+    counts = r["counts"]
+    n_fwd = 2 if cfg.remat else 1
+    require(counts["aggregate"] == 3 * n_leaves
+            and counts["flash_attention"] == 3 * W * n_fwd * L,
+            f"stacked steps launched {counts}; expected B1 {3 * n_leaves}, "
+            f"B2 {3 * W * n_fwd * L}")
+    report_main_path(tag, card, r, W * S, 6 * n_active * W * S,
+                     f"6*N_active*tokens (N_active {n_active / 1e9:.4f} B: "
+                     f"top-{k} of {E} experts)",
+                     moe_train_reckoning(cfg, n_params, S))
+    # the (token, slot) pairs capacity drops in the next step's forward:
+    # its 8 workers' rows routed as the step routes them (one row a
+    # forward, the same params)
+    b4 = batch(4)
+    with torch.no_grad():
+        _, calls = routed(lambda: [M.loss(params, cfg, {
+            key: v[w:w + 1] for key, v in b4.items()}) for w in range(W)])
+    share, lo, hi = drop_share(calls)
+    print(f"[{tag}] (a) capacity drops in the profiled step's forward: "
+          f"{100 * share:.2f} % of its {W} x {S} x {k} (token, slot) pairs "
+          f"({len(calls)} routings: {W} workers x {L} layers x {S // chunk} "
+          f"groups each; one layer and worker {100 * lo:.2f}-{100 * hi:.2f} "
+          f"%)")
+    del calls
+    # one profiled step, for the split of device time only: the tracer
+    # drops a trace's first events (the launch checks use the counter)
+    n_b1, n_b2 = report_profiled_step(
+        torch, tag, card, lambda: setup.step_fn(params, opt_state, b4, gen),
+        MOE_ROUTING_KERNELS)
+    print(f"[{tag}] (a) the counter's launches a step: B1 {n_leaves}, B2 "
+          f"{W * n_fwd * L}; the trace held {n_b1} and {n_b2}")
+
+    # -- one worker's gradients twice: the recompute's routing, determinism ---
+    b5 = batch(5)
+    bw = {key: v[:1] for key, v in b5.items()}
+    (la, ga), calls = routed(lambda: loss_and_grads(cfg, params, bw))
+    redo = recompute_routes(calls, L)
+    print(f"[{tag}] one worker's backward: {len(calls) - L} recomputed "
+          f"routings, each matched to the forward layer(s) "
+          f"{[m[0] if len(m) == 1 else m for m in redo]}")
+    require(len(calls) == 2 * L and all(len(m) == 1 for m in redo)
+            and sorted(m[0] for m in redo) == list(range(L)),
+            f"the backward's recompute did not route as the forward: "
+            f"{len(calls)} routings, matches {redo}")
+    del calls
+    lb, gb = loss_and_grads(cfg, params, bw)
+    parted = grads_parted(torch, ga, gb)
+    print(f"[{tag}] determinism: one worker's loss_and_grads twice on one "
+          f"batch: loss {float(la)!r} and {float(lb)!r} "
+          f"({'bit-equal' if torch.equal(la, lb) else 'parted'}); "
+          + ("every leaf's gradient bit-equal" if not parted else
+             f"{len(parted)} of {n_leaves} leaves parted (entries that "
+             f"differ, largest difference, the leaf's largest |entry|): "
+             + "; ".join(f"{p} {n}, {d:.4g}, {m:.4g}"
+                         for p, (n, d, m) in sorted(parted.items())))
+          + f" ({card})")
+    del ga, gb
+
+    # -- the split of a step, and (b) the robustness contract ------------------
+    split_and_robustness(torch, cfg, params, opt, opt_state, est, gen,
+                         batch(6), n_byz, tag, card,
+                         apart=[f"layers.moe.{n}" for n in
+                                ("router", "w_gate", "w_up", "w_down")])
+
+    # -- (c) inloop: the whole global batch in one forward ---------------------
+    inloop = make_train_step(cfg, W, estimator=est, mode="inloop",
+                             optimizer=opt, device=dev)
+    in_losses, in_walls, in_counts, in_peak = inloop_steps(
+        torch, inloop, params, opt_state,
+        [batch(10 + i, INLOOP_SEQ) for i in range(2)])
+    # q, k, v, o a layer; the tied unembedding once a loss chunk
+    n_dots = 4 * L + -(-INLOOP_SEQ // cfg.loss_chunk)
+    require(in_counts["aggregate"] == 2 * n_dots
+            and in_counts["flash_attention"] == 2 * n_fwd * L,
+            f"inloop steps launched {in_counts}; expected B1 {2 * n_dots}, "
+            f"B2 {2 * n_fwd * L}")
+    n_wire = (M.param_count(params["layers"]["attn"])
+              + params["embed"].numel())
+    print(f"[{tag}] (c) inloop at {W} x {INLOOP_SEQ} tokens (a routing "
+          f"group of {INLOOP_SEQ} a row, capacity "
+          f"{X.capacity(cfg, INLOOP_SEQ)}), {n_dots} products a step on the "
+          f"wire: losses {[round(x, 5) for x in in_losses]}, steps "
+          f"{[round(w, 4) for w in in_walls]} s (median "
+          f"{statistics.median(in_walls):.4f}), peak memory {in_peak:.2f} "
+          f"GB; launches {json.dumps(in_counts)}; the wire covers "
+          f"{n_wire / 1e9:.4f} B of {n_params / 1e9:.4f} B params "
+          f"({100 * n_wire / n_params:.2f} %: q, k, v, o and the tied "
+          f"embedding; the router and the experts take the plain batch "
+          f"gradient, as in repro) ({card})")
+    del params, opt_state
+    torch.cuda.empty_cache()
+
+    # -- (d) the kernels at the training shapes --------------------------------
+    flush = make_flush(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(140)
+    C = L * E * D * cfg.d_ff   # layers.moe.w_gate, the largest leaf
+    recs = [b1_stack_record(
+        torch, flush, g, C,
+        f"B1 aggregate on granite-moe-3b-a800m's gradient stacks (vrmom "
+        f"K={TRAIN_K}, bf16; timed at layers.moe.w_gate [{W},{C}], {L} "
+        f"layers)", counts["aggregate"]), b1_record(
+        torch, flush, f"B1 aggregate in granite-moe-3b-a800m's inloop "
+        f"backward (one attention product's dW, vrmom K={TRAIN_K}, "
+        f"[{W},{D}*{H * dh}] f32)",
+        torch.randn((W, D * H * dh), generator=g, device=dev), TRAIN_K,
+        in_counts["aggregate"])]
+    q = torch.randn((1, S, H, dh), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    kk, v = (torch.randn((1, S, Hkv, dh), generator=g, device=dev,
+                         dtype=torch.bfloat16) for _ in range(2))
+    what = f"q [1,{S},{H},{dh}], k/v [1,{S},{Hkv},{dh}] bf16 causal (G " \
+           f"{H // Hkv})"
+    rec = attn_record(
+        torch, flush, f"B2 flash_attention forward, granite-moe-3b-a800m "
+        f"training ({what})", q, kk, v, decode=False)
+    rec["launches"] = counts["flash_attention"]
+    recs.append(rec)
+    recs.append(b2_autograd_record(
+        torch, flush, g,
+        f"B2 under autograd, granite-moe-3b-a800m training (FlashAttentionFn: "
+        f"B2 forward + the mha recompute backward; max_abs_err is the "
+        f"recompute's gradient against the plain path's, launches are the "
+        f"stacked steps' B2 forwards), {what}; library: SDPA forward + "
+        f"backward", q, kk, v, causal=True, chunk=cfg.attn_chunk,
+        launches=counts["flash_attention"]))
+    print_train_records(tag, card, recs)
+    print(f"[{tag}] phase 14 in {time.perf_counter() - t_phase:.1f} s")
+    return recs
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside the script; "
@@ -4846,6 +5225,8 @@ def main() -> int:
         lap("phase 12 (encdec)")
         train_encdec_recs = phase_train_encdec(torch, dev, card)
         lap("phase 13 (training encdec)")
+        train_moe_recs = phase_train_moe(torch, dev, card)
+        lap("phase 14 (training moe)")
         print(f"[time] all phases {time.perf_counter() - t_all:.1f} s")
     except (CheckFailed, AssertionError) as exc:
         print(f"chip_smoke.py: check failed: {exc}", file=sys.stderr)
@@ -4864,6 +5245,7 @@ def main() -> int:
     kernels.extend(ssm_recs)
     kernels.extend(encdec_recs)
     kernels.extend(train_encdec_recs)
+    kernels.extend(train_moe_recs)
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

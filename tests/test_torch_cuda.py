@@ -1851,3 +1851,143 @@ def test_cuda_whisper_pool_replay_equals_eager(cuda):
             (st,) = eng.pool_graphs.values()
             assert st.replays > 3
     assert out["graph"] == out["eager"]
+
+
+# -- training the moe family: granite's attention shape, one moe layer -------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,chunk", [(200, 64), (1024, 1024)])
+def test_cuda_b2_gqa3_dh64_causal_autograd_grads_match_the_plain_path(
+        cuda, S, chunk):
+    """FlashAttentionFn causal in bf16 at granite-moe-3b-a800m's heads (24
+    query heads over 8 kv heads of 64, G 3): one B2 launch, the output
+    against ``flash_attention_plain`` of the f32 inputs at 1e-2 + 1e-2 *
+    |ref|, the gradients (the ``mha`` recompute) against the plain path's
+    under autograd within 2e-2 of the largest (``chip_smoke``'s
+    ``b2_autograd_record``)."""
+    from repro_torch.models.attn_backend import FlashAttentionFn
+
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q, dout = (torch.randn(2, S, 24, 64, device=cuda, generator=g
+                           ).bfloat16() for _ in range(2))
+    k, v = (torch.randn(2, S, 8, 64, device=cuda, generator=g).bfloat16()
+            for _ in range(2))
+    reset_launch_counts()
+    qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = FlashAttentionFn.apply(qa, ka, va, True, chunk)
+    got = torch.autograd.grad(out, (qa, ka, va), dout)
+    assert launch_counts()["flash_attention"] == 1
+    torch.testing.assert_close(
+        out.float(), flash_attention_plain(q.float(), k.float(), v.float(),
+                                           causal=True),
+        rtol=1e-2, atol=1e-2)
+    qb, kb, vb = (t.clone().requires_grad_(True) for t in (q, k, v))
+    want = torch.autograd.grad(
+        flash_attention_plain(qb, kb, vb, causal=True), (qb, kb, vb), dout)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= 2e-2 * float(b.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_moe_layer_backward_twice_at_granite_width(cuda):
+    """One moe layer at granite-moe-3b-a800m's full width (d 1536, 40
+    experts top-8 of d_ff 512, bf16) on one 4096-token row (two routing
+    groups of 2048, capacity 512), its forward and backward run twice on
+    the same inputs: the routing, the output and the load-balance loss are
+    bit-equal, and so are the router's and the experts' gradients (cuBLAS
+    and the combine's backward, one row a slot). The input's gradient
+    sums a token's up to 8 dispatched rows in the dispatch's backward
+    (``index_select``'s: bf16 atomic adds in no fixed order): the two
+    runs' ``dx`` stay within 8 bf16 roundings (8 * 2^-8) of the largest
+    entry (ROADMAP.md §C; on an H100 80GB HBM3 at 700 W, 61,267 of
+    6,291,456 entries differed, by at most 0.0156, one bf16 ulp of the
+    largest |dx|, 2.906)."""
+    from repro_torch.models import moe as X
+
+    cfg = get_arch("granite-moe-3b-a800m")
+    g = torch.Generator(device=cuda).manual_seed(27)
+    p = X.moe_init(g, cfg, device=cuda)
+    x = torch.randn(1, 4096, cfg.d_model, device=cuda, generator=g
+                    ).bfloat16()
+    dy = torch.randn(x.shape, device=cuda, generator=g).bfloat16()
+    names = sorted(p)
+
+    def run():
+        real, calls = X.route, []
+
+        def keep(*a):
+            calls.append(real(*a))
+            return calls[-1]
+
+        X.route = keep
+        try:
+            xa = x.clone().requires_grad_(True)
+            pa = {n: p[n].clone().requires_grad_(True) for n in names}
+            y, aux = X.moe_ffn(pa, xa, cfg)
+            grads = torch.autograd.grad(
+                (y.float() * dy.float()).sum() + aux,
+                [xa] + [pa[n] for n in names])
+        finally:
+            X.route = real
+        return calls[0], y, aux, grads
+
+    ra, ya, auxa, ga = run()
+    rb, yb, auxb, gb = run()
+    assert ra.capacity == 512 and ra.expert.shape == (2, 2048, 8)
+    assert torch.equal(ra.expert, rb.expert) and torch.equal(ra.pos, rb.pos)
+    assert torch.equal(ya, yb) and torch.equal(auxa, auxb)
+    for n, a, b in zip(names, ga[1:], gb[1:]):
+        assert torch.equal(a, b), n
+    dxa, dxb = ga[0].float(), gb[0].float()
+    err = float((dxa - dxb).abs().max())
+    print(f"dx: {int((dxa != dxb).sum())} of {dxa.numel()} entries differ, "
+          f"largest {err} of |dx| {float(dxa.abs().max())}")
+    assert err <= 8 * 2 ** -8 * float(dxa.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_moe_train_grads_at_granite_width_match_the_cpu(cuda):
+    """granite-moe-3b-a800m at full width, 2 layers, f32, remat as
+    configured, one 4096-token row (two routing groups of 2048): the card's
+    ``loss_and_grads`` routes every layer as the CPU does, forward and
+    recompute, and its loss and every leaf's gradient equal the CPU's
+    within 1e-4 of the leaf's largest entry: a backward that drops or
+    misroutes a slot parts by far more."""
+    from repro_torch.data import lm_batch
+    from repro_torch.models import moe as X
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import paths, tree_map
+
+    cfg = dataclasses.replace(get_arch("granite-moe-3b-a800m"), n_layers=2,
+                              param_dtype="float32", compute_dtype="float32")
+    pc = M.init(cfg, torch.Generator().manual_seed(3), device="cpu")
+    pg = tree_map(lambda x: x.to(cuda), pc)
+    bc = lm_batch(cfg, 0, 1, 4096, device="cpu")
+    bg = {k: v.to(cuda) for k, v in bc.items()}
+
+    def run(p, b):
+        real, calls = X.route, []
+
+        def keep(*a):
+            calls.append(real(*a))
+            return calls[-1]
+
+        X.route = keep
+        try:
+            return loss_and_grads(cfg, p, b), calls
+        finally:
+            X.route = real
+
+    (lc, gc), rc = run(pc, bc)
+    (lg, gg), rg = run(pg, bg)
+    assert len(rc) == len(rg) >= 2 * cfg.n_layers
+    for a, b in zip(rc, rg):
+        assert a.expert.shape == (2, 2048, 8)
+        assert torch.equal(a.expert, b.expert.cpu())
+        assert torch.equal(a.keep, b.keep.cpu())
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=1e-5)
+    for (path, a), (_, b) in zip(paths(gc), paths(gg)):
+        err = float((a - b.cpu()).abs().max())
+        assert err <= 1e-4 * float(a.abs().max()), (path, err)
