@@ -33,7 +33,8 @@ eager launches. On the eager loop the trace must hold exactly what the
 wrappers counted, kernel by kernel; each graph generate must launch,
 kernel by kernel, what the eager loop launches, with no decode kernel
 counted by a wrapper (every step a replay); a call whose trace lost an
-event is run and traced again.
+event is run and traced again, and one whose trace lost its spin is
+called again (printed; the first generate then captures anew).
 Phase 4 drives the paper's statistical path (RCSL, Algorithm 1, with
 plug-in sandwich CIs, replications batched into tensors): B1/B4 at
 K = 65 and 100 bitwise against their plain versions; the acceptance cell
@@ -273,6 +274,36 @@ B2's forward at q [1, 4096, 24, 64] over k/v [1, 4096, 8, 64] causal
 beside SDPA, and B2 under autograd at that shape beside SDPA's forward
 and backward join the ``kernels`` line.
 
+Phase 15 trains the ssm and hybrid families at full width through
+``make_train_step`` with phase 7's W = 8, VRMOM K 10, AdamW lr 1e-4 and
+alphas, each worker one 4096-token row, seeded bf16 weights, remat on:
+mamba2-2.7b at SSM_TRAIN_LAYERS = 32 of its 64 layers (d 2560, 80 heads
+of 64, N 128, V 50280 tied), then zamba2-7b at HYBRID_TRAIN_LAYERS = 15
+of its 81 (two groups of 6 mamba layers, each followed by the shared
+block at 32 heads of dh 112, G 1, then the 3-layer tail; V 32000 tied),
+each mamba layer recomputed in the backward and the shared block not.
+For each: (a) a clean warm-up step, then 3 timed stacked-auto steps under
+signflip as its main path, B1 once a leaf (14 and 36 leaves) and B2
+once a shared-block application and worker (0 and 48), by the wrappers'
+counts; batch 0's loss must fall, and, as the gate's controls on the 4
+steps' update d, p0 - d must raise it and p0 + d with random signs lower
+it less far; it prints step seconds, tokens/s, 6 N tokens over the bf16
+peak (zamba2's N counts the shared block once an application; the SSD's
+intra-chunk products are not in 6N), the device time by kernel group of
+one profiled step, and peak memory against ``ssm_train_reckoning``; (b)
+phase 7's robustness gates and ``with_diag``, the clean rows' cosines of
+every mamba and shared-block leaf printed apart; (c) 2 inloop steps at 8
+x 1024 tokens in one forward, B1 on each product's dW the wire reaches
+(the tied unembedding; zamba2 also q, k, v, o, gate, up and down of each
+application: the mamba projections and the shared block's in_proj are
+plain products, as in ``repro``), with the share of the params the wire
+covers; (d) B1 at ``layers.ssm.in_proj_z`` [8, 419430400] and
+``mamba_g.ssm.in_proj_z`` [8, 308281344] bf16, at the unembedding's dW
+[8, 2560*50280] and the shared block's ``wq`` dW [8, 3584*3584] f32, B2's
+forward at q/k/v [1, 4096, 32, 112] causal beside SDPA, and B2 under
+autograd at that shape beside SDPA's forward and backward join the
+``kernels`` line.
+
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it lists every kernel with its launches, error and times. Any
 failed check exits non-zero before that line. Without a CUDA device, or
@@ -442,6 +473,18 @@ MOE_TRAIN_LR = 1e-5
 # backward's index_add, and the capacity cumsum's scan
 MOE_ROUTING_KERNELS = tuple((key, "routing") for key in (
     "scatter_gather", "indexSelect", "indexFunc", "scan", "Scan"))
+
+# phase 15, training the ssm and hybrid families at full width with phase
+# 7's W, K, lr, alphas, TRAIN_SEQ and INLOOP_SEQ, cut in depth only.
+# train_reckoning's 28 B a parameter: a mamba2-2.7b layer holds 40,211,184
+# params and the tied embedding 128,716,800, so 32 of its 64 layers
+# reckon at 39.6 GB (64 at 75.7); a zamba2-7b mamba layer holds
+# 77,970,768, the shared block 231,218,176 and the embedding 114,688,000,
+# so 15 of its 81 layers (two groups of 6, each followed by the shared
+# block, then the 3-layer tail, as the published 13 x 6 + 3 ends) reckon
+# at 42.4 GB (21 at 55.5), each before its activations
+SSM_TRAIN_LAYERS = 32
+HYBRID_TRAIN_LAYERS = 15
 
 
 class CheckFailed(Exception):
@@ -854,23 +897,52 @@ def phase_kernels(torch, dev):
     return rec
 
 
-def traced_call(torch, K, fn):
-    """(result, host ms to a synchronised end under the tracer, the
-    launches the wrappers counted, the launches in the call's
-    torch.profiler trace: each wrapper's device kernels, eager or
-    replayed, and those kernels in launch order as (name, device µs))."""
+def traced_call(torch, K, fn, what: str, again=None):
+    """(result, host ms of the call to a synchronised end under the tracer
+    (the profiler's start, its fills and its spin left out), the launches
+    the wrappers counted, the launches in the call's torch.profiler trace:
+    each wrapper's device kernels, eager or replayed, those kernels in
+    launch order as (name, device µs), and the calls made beyond the
+    first). ``device_kernel_events`` calls ``fn`` again when its trace
+    lost the spin: each such call is printed and ``again()`` runs before
+    it; the result, the host ms and the wrappers' counts are those of the
+    call whose trace it returns, the last."""
     from repro_torch.device import device_kernel_events
 
-    before = K.launch_counts()
-    t0 = time.perf_counter()
-    out, evs = device_kernel_events(fn)
-    ms = (time.perf_counter() - t0) * 1e3
-    after = K.launch_counts()
+    calls, last = [], {}
+
+    def once():
+        if calls:
+            print(f"[trace] {what}: the trace lost its spin; re-called")
+            if again is not None:
+                again()
+        calls.append(1)
+        before = K.launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        last["ms"] = (time.perf_counter() - t0) * 1e3
+        after = K.launch_counts()
+        last["counted"] = {k: after[k] - before[k] for k in after}
+        return out
+
+    out, evs = device_kernel_events(once)
     ran = [(name, us) for name, us in evs
            if any(k in name for k in PORT_KERNELS)]
     traced = {w: sum(any(k in name for k in ks) for name, _ in ran)
               for w, ks in WRAPPER_KERNELS.items()}
-    return out, ms, {k: after[k] - before[k] for k in after}, traced, ran
+    return out, last["ms"], last["counted"], traced, ran, len(calls) - 1
+
+
+def first_generate(eng, key):
+    """``eng.generate`` that first drops the step captured for ``key``:
+    called again (a trace that lost its spin, or differed), the first
+    generate still runs its step eagerly on the capture stream and
+    captures anew, and its tokens are never a replay's."""
+    def first_generate(*args, **kw):
+        eng.graphs.pop(key, None)
+        return eng.generate(*args, **kw)
+    return first_generate
 
 
 def add_counts(total: dict, more: dict) -> None:
@@ -890,21 +962,32 @@ def graph_and_eager(torch, K, eng, batch, what: str, sampling=None,
     (its steps all replays). The tracer loses a run of events from some
     traces of tens of thousands (on an H100, about one phase-5 trace in
     seven): a call whose trace differs is run and traced again,
-    ``TRACE_TRIES`` times in all, before the check fails. ``launches``:
-    the three complete traces together."""
+    ``TRACE_TRIES`` times in all, before the check fails; a call whose
+    trace lost its spin is called again inside ``traced_call``. Both count
+    in ``retraced``. ``launches``: the three complete traces together."""
     from repro_torch.serve.engine import GREEDY
 
     args = (batch, NEW_TOKENS) if sampling is None else (
         batch, NEW_TOKENS, sampling)
     retraced = 0
 
+    def seeded(fn):
+        # a generator seeded anew at every call: traced_call may call again
+        # (a trace that lost its spin), and a generator made once would run
+        # that call from where the first left it, its sampled tokens apart
+        # from the eager loop's
+        def call():
+            kw = {} if seed is None else dict(generator=torch.Generator(
+                device=eng.device).manual_seed(seed))
+            return fn(*args, **kw)
+        return call
+
     def traced(fn, want=None):
         nonlocal retraced
         for _ in range(TRACE_TRIES):
-            kw = {} if seed is None else dict(generator=torch.Generator(
-                device=eng.device).manual_seed(seed))
-            out, ms, counted, ran, _ = traced_call(
-                torch, K, lambda: fn(*args, **kw))
+            out, ms, counted, ran, _, again = traced_call(
+                torch, K, seeded(fn), f"'{what}' {fn.__name__}")
+            retraced += again
             if ran == (counted if want is None else want):
                 return out, ms, counted, ran
             retraced += 1
@@ -915,7 +998,8 @@ def graph_and_eager(torch, K, eng, batch, what: str, sampling=None,
                           f"differ from the launches expected")
 
     eager, eager_ms, eager_c, eager_t = traced(eng.generate_python_loop)
-    first, first_ms, _, first_t = traced(eng.generate, eager_c)
+    first, first_ms, _, first_t = traced(
+        first_generate(eng, sampling or GREEDY), eager_c)
     graph, graph_ms, graph_c, graph_t = traced(eng.generate, eager_c)
     require(graph_c["decode_attention"] == 0 and eager_t[
         "decode_attention"] > 0, f"'{what}': a replayed generate's wrappers "
@@ -3507,7 +3591,10 @@ def graph_traced(torch, K, eng, batch, what: str, want: dict,
     def traced(fn):
         nonlocal retraced
         for _ in range(TRACE_TRIES):
-            call = traced_call(torch, K, lambda: fn(batch, NEW_TOKENS))
+            *call, again = traced_call(torch, K,
+                                       lambda: fn(batch, NEW_TOKENS),
+                                       f"'{what}' {fn.__name__}")
+            retraced += again
             if call[3] == want:
                 return call
             retraced += 1
@@ -3530,7 +3617,7 @@ def graph_traced(torch, K, eng, batch, what: str, want: dict,
         eager_c = {k: after[k] - before[k] for k in after}
     require(eager_c == want, f"'{what}': the eager loop launched {eager_c}, "
                              f"expected {want}")
-    first, first_ms, _, first_t, ev = traced(eng.generate)
+    first, first_ms, _, first_t, ev = traced(first_generate(eng, GREEDY))
     events.append(ev)
     graph, graph_ms, graph_c, graph_t, ev = traced(eng.generate)
     events.append(ev)
@@ -4910,27 +4997,29 @@ def grads_parted(torch, ga, gb) -> dict:
     return out
 
 
-def update_controls(torch, params, p0, dev, measure) -> dict:
+def update_controls(torch, params, p0, dev, measure, apart=None) -> dict:
     """The loss gate's controls on the update the main path made, d = p -
     p0 (``p0`` the leaves before it, on the host): ``measure()`` with the
     params at p0 - d (the update reversed: what a backward of the wrong
-    sign applies), at p0 + s d with each entry's sign s drawn at random (a
-    backward whose signs carry nothing of the loss, each entry moved as
-    far), and at p0 + d with only the moe leaves' signs drawn (the router's
-    and the experts' share of the update). The params are restored
-    after."""
+    sign applies) and at p0 + s d with each entry's sign s drawn at random
+    (a backward whose signs carry nothing of the loss, each entry moved as
+    far). ``apart``: (name, a predicate on a leaf's dotted key path) adds
+    p0 + d with only those leaves' signs drawn (phase 14: the moe leaves,
+    the router's and the experts' share of the update). The params are
+    restored after."""
     from repro_torch.tree import paths
 
     now = [(".".join(k), x, x.clone()) for k, x in paths(params)]
     g = torch.Generator(device=dev).manual_seed(141)
     out = {}
-    for name in ("reversed", "random signs", "moe leaves' signs random"):
+    for name in ("reversed", "random signs") + (() if apart is None
+                                                 else (apart[0],)):
         for (path, x, x1), x0 in zip(now, p0):
             x0 = x0.to(dev).float()
             d = x1.float() - x0
             if name == "reversed":
                 d = -d
-            elif name == "random signs" or ".moe." in path:
+            elif name == "random signs" or apart[1](path):
                 d = torch.where(torch.rand(d.shape, generator=g, device=dev)
                                 < 0.5, -d, d)
             x.copy_(x0 + d)
@@ -5005,8 +5094,9 @@ def phase_train_moe(torch, dev, card: str):
     r = train_main_path(torch, cfg, params, opt_state, setup, clean, batch,
                         gen)
     after = ce_aux(batch(0))
-    controls = update_controls(torch, params, p0, dev,
-                               lambda: ce_aux(batch(0)))
+    controls = update_controls(
+        torch, params, p0, dev, lambda: ce_aux(batch(0)),
+        apart=("moe leaves' signs random", lambda path: ".moe." in path))
     del p0
 
     def loss(ca):
@@ -5171,6 +5261,226 @@ def phase_train_moe(torch, dev, card: str):
     return recs
 
 
+def ssm_train_reckoning(cfg, n_params: int, seq: int) -> dict:
+    """``train_reckoning``'s terms for the ssm and hybrid families. What
+    autograd keeps of one recomputed mamba layer: the SSD's [nc, 1, H, L,
+    L] tensors (the decay matrix and C.B weighted by it in f32, C.B and
+    the scan's weights in bf16: 12 B an entry) and ten [seq, d_inner] bf16
+    tensors (the projections, the conv, the gate, the norm). A hybrid adds
+    each application's kept shared-block activations (its input, x, the
+    norms, q, k, v, the attention's output: twelve [seq, D] bf16 tensors,
+    four [seq, d_ff] of the MLP and four [seq, D] f32 of the norms and the
+    rotary) and ``train_reckoning``'s ``mha`` recompute at its H heads;
+    the ssm family has no attention."""
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    H = d_inner // s.head_dim
+    out = train_reckoning(cfg, n_params, seq)
+    mha = out.pop("one layer's recompute")
+    out["one mamba layer's recompute"] = (
+        12 * seq * H * s.chunk + 10 * 2 * seq * d_inner) / 1e9
+    if cfg.family == "hybrid":
+        D, G = cfg.d_model, cfg.n_layers // cfg.hybrid_attn_every
+        out["the shared block's activations"] = G * seq * (
+            2 * (12 * D + 4 * cfg.d_ff) + 4 * 4 * D) / 1e9
+        out["the shared block's mha recompute"] = mha
+    return out
+
+
+def train_ssm_model(torch, dev, card: str, name: str, n_layers: int,
+                    seed: int) -> list:
+    """Phase 15 for one model: ``name`` at full width and ``n_layers``
+    layers (seeded bf16 weights, remat on), phase 7's W workers of one
+    4096-token row. Returns its ``kernels`` records with the launches of
+    its main path (the timed stacked steps and the inloop steps)."""
+    import dataclasses
+
+    from repro_torch.configs import get as get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import leaves, paths
+
+    t_model = time.perf_counter()
+    tag = f"train-{name.split('-')[0]}"
+    full = get_arch(name)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    W, S, L, D, V = TRAIN_W, TRAIN_SEQ, n_layers, cfg.d_model, cfg.vocab
+    s = cfg.ssm
+    d_inner = s.expand * D
+    hybrid = cfg.family == "hybrid"
+    # the shared block's applications: G groups of `every`, then the tail
+    G = L // cfg.hybrid_attn_every if hybrid else 0
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                    device=dev)
+    n_params = M.param_count(params)
+    n_shared = M.param_count(params["shared"]) if hybrid else 0
+    # 6 N tokens with the shared block counted once an application
+    n_flop = n_params + max(G - 1, 0) * n_shared
+    n_leaves = len(list(leaves(params)))
+    est, opt, opt_state, setup, clean, n_byz = train_setups(cfg, params, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    what = (f"{G} groups of {cfg.hybrid_attn_every} mamba layers, each "
+            f"followed by the shared block ({cfg.n_heads} heads of "
+            f"{cfg.head_dim}, G 1, d_ff {cfg.d_ff}, {n_shared / 1e9:.4f} B "
+            f"params), then a tail of {L - G * cfg.hybrid_attn_every}"
+            if hybrid else "no attention")
+    print(f"[{tag}] {cfg.name} at full width, depth cut to {L} of "
+          f"{full.n_layers} layers: d {D}, {d_inner // s.head_dim} mamba "
+          f"heads of {s.head_dim}, N {s.d_state}, chunk {s.chunk}, {what}; "
+          f"V {V} tied; {n_params / 1e9:.4f} B params, {n_leaves} leaves, "
+          f"bf16; W = {W} workers of one {S}-token row each, VRMOM K "
+          f"{TRAIN_K}, AdamW lr {TRAIN_LR}, alpha {TRAIN_ALPHA} = "
+          f"int({TRAIN_ALPHA} * {W - 1}) = {n_byz} signflip row(s), remat "
+          f"{cfg.remat}")
+
+    def batch(i, seq=S):
+        return lm_batch(cfg, i, W, seq, device=dev)
+
+    def loss_b0():
+        with torch.no_grad():
+            return float(M.loss(params, cfg, batch(0)))
+
+    # -- (a) stacked-auto ------------------------------------------------------
+    before = loss_b0()
+    p0 = [x.to("cpu", copy=True) for x in leaves(params)]
+    r = train_main_path(torch, cfg, params, opt_state, setup, clean, batch,
+                        gen)
+    after = r["loss0_after"]
+    controls = update_controls(torch, params, p0, dev, loss_b0)
+    del p0
+    print(f"[{tag}] (a) batch 0's loss: at the start {before:.5f}; after "
+          f"the 4 steps {after:.5f}; the controls, the update " + "; ".join(
+              f"{k}: {v:.5f}" for k, v in controls.items()))
+    # the gate fails for the reversed update; random signs lower the loss
+    # less far than the update made
+    rev, rnd = controls["reversed"], controls["random signs"]
+    require(rev > before,
+            f"the update reversed did not raise batch 0's loss ({rev} from "
+            f"{before}): the gate would pass a backward of the wrong sign")
+    require(rnd > after,
+            f"the update with random signs lowered batch 0's loss as far "
+            f"as the update made ({rnd} against {after})")
+    counts = r["counts"]
+    # B1 once a leaf; B2 once an application and worker: hybrid.forward
+    # checkpoints the mamba layers only, so the shared block keeps its
+    # activations and is not recomputed
+    require(counts["aggregate"] == 3 * n_leaves
+            and counts["flash_attention"] == 3 * W * G,
+            f"stacked steps launched {counts}; expected B1 {3 * n_leaves}, "
+            f"B2 {3 * W * G}")
+    report_main_path(tag, card, r, W * S, 6 * n_flop * W * S,
+                     f"6*N*tokens (N {n_flop / 1e9:.4f} B"
+                     + (", the shared block once an application" if hybrid
+                        else "")
+                     + "; the SSD's intra-chunk products are not in 6N)",
+                     ssm_train_reckoning(cfg, n_params, S))
+    n_b1, n_b2 = report_profiled_step(
+        torch, tag, card,
+        lambda: setup.step_fn(params, opt_state, batch(4), gen),
+        (("scan", "scan"), ("Scan", "scan")))
+    print(f"[{tag}] (a) the counter's launches a step: B1 {n_leaves}, B2 "
+          f"{W * G}; the trace held {n_b1} and {n_b2}")
+
+    # -- the split of a step, and (b) the robustness contract ------------------
+    split_and_robustness(
+        torch, cfg, params, opt, opt_state, est, gen, batch(5), n_byz, tag,
+        card, apart=[".".join(k) for k, _ in paths(params)
+                     if k[0] not in ("embed", "norm_f")])
+
+    # -- (c) inloop: the whole global batch in one forward ---------------------
+    inloop = make_train_step(cfg, W, estimator=est, mode="inloop",
+                             optimizer=opt, device=dev)
+    in_losses, in_walls, in_counts, in_peak = inloop_steps(
+        torch, inloop, params, opt_state,
+        [batch(10 + i, INLOOP_SEQ) for i in range(2)])
+    # the tied unembedding once a loss chunk; an application's q, k, v, o,
+    # gate, up and down. The mamba projections and the shared block's
+    # in_proj are plain products (as in repro), off the wire
+    n_dots = 7 * G + -(-INLOOP_SEQ // cfg.loss_chunk)
+    require(in_counts["aggregate"] == 2 * n_dots
+            and in_counts["flash_attention"] == 2 * G,
+            f"inloop steps launched {in_counts}; expected B1 {2 * n_dots}, "
+            f"B2 {2 * G}")
+    n_wire = params["embed"].numel() + (
+        M.param_count(params["shared"]["attn"])
+        + M.param_count(params["shared"]["mlp"]) if hybrid else 0)
+    print(f"[{tag}] (c) inloop at {W} x {INLOOP_SEQ} tokens, {n_dots} "
+          f"products a step on the wire: losses "
+          f"{[round(x, 5) for x in in_losses]}, steps "
+          f"{[round(w, 4) for w in in_walls]} s (median "
+          f"{statistics.median(in_walls):.4f}), peak memory {in_peak:.2f} "
+          f"GB; launches {json.dumps(in_counts)}; the wire covers "
+          f"{n_wire / 1e9:.4f} B of {n_params / 1e9:.4f} B params "
+          f"({100 * n_wire / n_params:.2f} %: the tied embedding"
+          + (", the shared block's q, k, v, o, gate, up and down" if hybrid
+             else "") + "; the mamba projections take the plain batch "
+          f"gradient, as in repro) ({card})")
+    del params, opt_state
+    torch.cuda.empty_cache()
+    t_d = time.perf_counter()
+
+    # -- (d) the kernels at the training shapes --------------------------------
+    flush = make_flush(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(150 + seed)
+    # the in_proj_z stack: zamba2's groups (its tail is a leaf apart)
+    stacked = "mamba_g" if hybrid else "layers"
+    C = (G * cfg.hybrid_attn_every if hybrid else L) * D * d_inner
+    recs = [b1_stack_record(
+        torch, flush, g, C,
+        f"B1 aggregate on {name}'s gradient stacks (vrmom K={TRAIN_K}, "
+        f"bf16; timed at {stacked}.ssm.in_proj_z [{W},{C}], {L} layers)",
+        counts["aggregate"])]
+    if hybrid:
+        H, dh = cfg.n_heads, cfg.head_dim
+        recs.append(b1_record(
+            torch, flush, f"B1 aggregate in {name}'s inloop backward (the "
+            f"shared block's wq dW, vrmom K={TRAIN_K}, [{W},{D}*{H * dh}] "
+            f"f32)", torch.randn((W, D * H * dh), generator=g, device=dev),
+            TRAIN_K, in_counts["aggregate"]))
+        q, k, v = (torch.randn((1, S, H, dh), generator=g, device=dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+        shape = f"q/k/v [1,{S},{H},{dh}] bf16 causal (G 1)"
+        rec = attn_record(
+            torch, flush, f"B2 flash_attention forward, {name} training's "
+            f"shared block ({shape})", q, k, v, decode=False)
+        rec["launches"] = counts["flash_attention"]
+        recs.append(rec)
+        recs.append(b2_autograd_record(
+            torch, flush, g,
+            f"B2 under autograd, {name} training's shared block "
+            f"(FlashAttentionFn: B2 forward + the mha recompute backward; "
+            f"max_abs_err is the recompute's gradient against the plain "
+            f"path's, launches are the stacked steps' B2 forwards), {shape}; "
+            f"library: SDPA forward + backward", q, k, v, causal=True,
+            chunk=cfg.attn_chunk, launches=counts["flash_attention"]))
+        del q, k, v
+    else:
+        recs.append(b1_record(
+            torch, flush, f"B1 aggregate in {name}'s inloop backward (the "
+            f"tied unembedding's dW, vrmom K={TRAIN_K}, [{W},{D}*{V}] f32)",
+            torch.randn((W, D * V), generator=g, device=dev), TRAIN_K,
+            in_counts["aggregate"]))
+    print_train_records(tag, card, recs)
+    torch.cuda.empty_cache()
+    print(f"[time] phase 15 {name}: (a)-(c) {t_d - t_model:.1f} s, (d) "
+          f"{time.perf_counter() - t_d:.1f} s")
+    return recs
+
+
+def phase_train_ssm(torch, dev, card: str):
+    """Phase 15: Byzantine-robust training of the ssm and hybrid families
+    at full width, mamba2-2.7b at SSM_TRAIN_LAYERS of its 64 layers and
+    zamba2-7b at HYBRID_TRAIN_LAYERS of its 81, one after the other.
+    Returns the ``kernels`` records with the launches of their main
+    paths."""
+    torch.cuda.empty_cache()
+    return (train_ssm_model(torch, dev, card, "mamba2-2.7b",
+                            SSM_TRAIN_LAYERS, 15)
+            + train_ssm_model(torch, dev, card, "zamba2-7b",
+                              HYBRID_TRAIN_LAYERS, 16))
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside the script; "
@@ -5227,6 +5537,8 @@ def main() -> int:
         lap("phase 13 (training encdec)")
         train_moe_recs = phase_train_moe(torch, dev, card)
         lap("phase 14 (training moe)")
+        train_ssm_recs = phase_train_ssm(torch, dev, card)
+        lap("phase 15 (training ssm and hybrid)")
         print(f"[time] all phases {time.perf_counter() - t_all:.1f} s")
     except (CheckFailed, AssertionError) as exc:
         print(f"chip_smoke.py: check failed: {exc}", file=sys.stderr)
@@ -5246,6 +5558,7 @@ def main() -> int:
     kernels.extend(encdec_recs)
     kernels.extend(train_encdec_recs)
     kernels.extend(train_moe_recs)
+    kernels.extend(train_ssm_recs)
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

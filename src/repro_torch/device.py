@@ -69,7 +69,8 @@ def device_kernel_events(fn: Callable[[], object], tries: int = 3
     completion; the call's kernels are those after the spin. A trace that
     holds no spin (no device event at all, or too many dropped) is taken
     again, with ``fn`` called again, up to ``tries`` times in all, before
-    this raises."""
+    this raises: a call that draws from a generator must seed it anew each
+    time, or its second run starts where the first left off."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 

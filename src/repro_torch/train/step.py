@@ -75,7 +75,9 @@ class TrainSetup:
 
 def loss_and_grads(cfg, params, batch, micro: int = 1):
     """(loss, grads) of ``model.loss`` at ``params`` on ``batch``: grads a
-    dict like params, in the param dtype. With ``micro`` > 1 the batch is
+    dict like params, in the param dtype. A leaf the loss does not reach
+    (a hybrid's unused tail layer at tail 0) gets a zero gradient, as
+    ``jax.value_and_grad`` gives it. With ``micro`` > 1 the batch is
     cut into ``micro`` consecutive slices whose gradients are summed in
     f32 and averaged, then cast back (``repro``'s accumulation)."""
     leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
@@ -83,7 +85,8 @@ def loss_and_grads(cfg, params, batch, micro: int = 1):
 
     def one(b):
         loss = M.loss(p, cfg, b)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
+        return loss.detach(), torch.autograd.grad(
+            loss, leaves, allow_unused=True, materialize_grads=True)
 
     if micro <= 1:
         loss, g = one(batch)

@@ -658,8 +658,14 @@ def test_cuda_engine_kernels_match_plain_path(cuda, kv_dtype):
     fused = ServeEngine(cfg, params, max_len=40, attn_backend="flash",
                         robust=RobustDecodeConfig(m=8, attack="signflip"),
                         device=cuda)
-    toks, ran = device_kernel_counts(lambda: fused.generate(batch, 10),
-                                     DEVICE_KERNELS)
+    def generate():
+        # a trace that lost its spin calls this again: each call counts
+        # from 0 and captures anew, as the first did
+        fused.graphs.clear()
+        reset_launch_counts()
+        return fused.generate(batch, 10)
+
+    toks, ran = device_kernel_counts(generate, DEVICE_KERNELS)
     counts = launch_counts()
     assert ran == {"flash_fwd": cfg.n_layers,
                    "decode_split_kernel": cfg.n_layers * 9,
@@ -782,9 +788,16 @@ def test_cuda_second_generate_reuses_graph(cuda):
     first = eng.generate(batch, 10)
     (st,) = eng.graphs.values()
     graph, buf = st.graph, eng.buffers
-    reset_launch_counts()
-    again, ran = device_kernel_counts(lambda: eng.generate(batch, 10),
-                                      DEVICE_KERNELS)
+    calls = []
+
+    def generate():
+        # a trace that lost its spin calls this again: each call counts
+        # from 0, and each replays the graph 9 times
+        calls.append(1)
+        reset_launch_counts()
+        return eng.generate(batch, 10)
+
+    again, ran = device_kernel_counts(generate, DEVICE_KERNELS)
     counts = launch_counts()
     assert ran["decode_split_kernel"] == cfg.n_layers * 9
     assert ran["tail_kernel"] == 10
@@ -792,7 +805,8 @@ def test_cuda_second_generate_reuses_graph(cuda):
     assert counts["aggregate_sample"] == 1  # token 0, off the prefill
     moved = eng.generate(other, 10)
     (st2,) = eng.graphs.values()
-    assert st2 is st and st.graph is graph and st.replays == 8 + 9 + 9
+    assert st2 is st and st.graph is graph
+    assert st.replays == 8 + 9 * len(calls) + 9
     assert eng.buffers is buf
     torch.testing.assert_close(first, again, rtol=0, atol=0)
     fresh = ServeEngine(cfg, params, max_len=40, robust=rc, device=cuda)
@@ -1991,3 +2005,167 @@ def test_cuda_moe_train_grads_at_granite_width_match_the_cpu(cuda):
     for (path, a), (_, b) in zip(paths(gc), paths(gg)):
         err = float((a - b.cpu()).abs().max())
         assert err <= 1e-4 * float(a.abs().max()), (path, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1000, 32, 112), (1, 4096, 32, 112)],
+                         ids=["S1000", "zamba2-train"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_b2_dh112_causal_autograd_grads_match_mha(cuda, dtype, shape):
+    """FlashAttentionFn causal at zamba2-7b's shared block (32 heads of
+    112, G 1), chunk 1024, against ``mha`` under autograd: one B2 launch;
+    the output at the file's attention tolerance (f32 against ``mha``,
+    bf16 against ``flash_attention_plain`` of the f32 inputs), the
+    gradients at 1e-4 (f32) or within 2e-2 of the largest (bf16: B2 and
+    ``mha`` round P to bf16 at other places)."""
+    from repro_torch.models.attention import mha
+    from repro_torch.models.attn_backend import FlashAttentionFn
+
+    g = torch.Generator(device=cuda).manual_seed(shape[1])
+    q, k, v, dout = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+                     for _ in range(4))
+    reset_launch_counts()
+    qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = FlashAttentionFn.apply(qa, ka, va, True, 1024)
+    got = torch.autograd.grad(out, (qa, ka, va), dout)
+    assert launch_counts()["flash_attention"] == 1
+    qb, kb, vb = (t.clone().requires_grad_(True) for t in (q, k, v))
+    ref = mha(qb, kb, vb, causal=True, window=None, chunk=1024)
+    want = torch.autograd.grad(ref, (qb, kb, vb), dout)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    else:
+        torch.testing.assert_close(
+            out.float(), flash_attention_plain(q.float(), k.float(),
+                                               v.float(), causal=True),
+            rtol=1e-2, atol=1e-2)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        else:
+            err = float((a.float() - b.float()).abs().max())
+            assert err <= 2e-2 * float(b.float().abs().max())
+
+
+# the ssm and hybrid families' training cuts: every width as published,
+# f32; mamba2-2.7b at 2 layers, zamba2-7b at 7 (one group of 6 and its
+# shared-block application, then a tail layer)
+SSM_TRAIN_CUTS = {"mamba2-2.7b": 2, "zamba2-7b": 7}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SSM_TRAIN_CUTS))
+def test_cuda_ssm_train_grads_at_full_width_match_the_cpu(cuda, name):
+    """mamba2-2.7b and zamba2-7b at full width (SSM_TRAIN_CUTS layers),
+    f32, remat as configured, one 320-token row (two chunks of 128 and a
+    padded third): the card's ``loss_and_grads`` (the chunked SSD scan
+    and, for zamba2, B2 at dh 112 under autograd) equals the CPU's, the
+    loss at 1e-5 and every leaf's gradient within 1e-4 of its largest
+    entry."""
+    from repro_torch.data import lm_batch
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import paths, tree_map
+
+    cfg = dataclasses.replace(get_arch(name), n_layers=SSM_TRAIN_CUTS[name],
+                              param_dtype="float32", compute_dtype="float32")
+    pc = M.init(cfg, torch.Generator().manual_seed(5), device="cpu")
+    pg = tree_map(lambda x: x.to(cuda), pc)
+    bc = lm_batch(cfg, 0, 1, 320, device="cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(8)
+    try:
+        lc, gc = loss_and_grads(cfg, pc, bc)
+    finally:
+        torch.set_num_threads(threads)
+    reset_launch_counts()
+    lg, gg = loss_and_grads(cfg, pg, {k: v.to(cuda) for k, v in bc.items()})
+    # B2 once an application (the shared block is not recomputed)
+    assert launch_counts()["flash_attention"] == (
+        1 if cfg.family == "hybrid" else 0)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=1e-5)
+    for (path, a), (_, b) in zip(paths(gc), paths(gg)):
+        err = float((a - b.cpu()).abs().max())
+        assert err <= 1e-4 * float(a.abs().max()), (path, err)
+
+
+@pytest.mark.cuda
+def test_cuda_top50_replay_equals_eager_over_20_seeds(cuda):
+    """``chip_smoke.py`` phase 3's top-50 call, 20 times: full-width
+    qwen3-1.7b, robust m = 8 VRMOM K 8 under the gaussian attack, the
+    fused tail, 4 x 192-token prompts, 24 new tokens, seeds 7 to 26; the
+    graphs dropped before every fourth pair, so that pair's ``generate``
+    runs the eager step on the capture stream and captures anew. Each
+    pair's tokens and its generator's state after are bitwise the eager
+    loop's (the contract phase 3 checks once)."""
+    from repro_torch.serve import Sampling
+
+    cfg = get_arch("qwen3-1.7b")
+    params = M.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                    device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (4, 192), generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    eng = ServeEngine(cfg, params, max_len=216, device=cuda,
+                      robust=RobustDecodeConfig(m=8, attack="gaussian",
+                                                fuse_tail=True))
+    sc = Sampling("top_k", 1.0, top_k=50)
+    for i in range(20):
+        if i % 4 == 0:
+            eng.graphs.clear()
+        ga = torch.Generator(device=cuda).manual_seed(7 + i)
+        gb = torch.Generator(device=cuda).manual_seed(7 + i)
+        want = eng.generate_python_loop({"tokens": tokens}, 24, sc,
+                                        generator=ga)
+        got = eng.generate({"tokens": tokens}, 24, sc, generator=gb)
+        assert torch.equal(got, want), i
+        assert torch.equal(ga.get_state(), gb.get_state()), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["temperature", "top_k"])
+def test_cuda_retraced_sampled_generate_keeps_its_seed(cuda, monkeypatch,
+                                                       method):
+    """``chip_smoke.graph_and_eager`` on phase 3's sampled calls when the
+    tracer loses a generate's spin: ``device_kernel_events`` then calls
+    the generate again, and that call must run from the seed again. The
+    spin of each generate's first trace is dropped here (the 2nd and 4th
+    traces: the eager loop's, then two tries of each generate); sampled
+    under the gaussian attack, the graph's tokens equal the eager loop's,
+    the first generate's re-call captured anew, and both re-calls count
+    in ``retraced``. A generator made once per try ran the second call
+    from where the first left it, and the tokens parted (ROADMAP.md §C)."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch import device as D
+    from repro_torch import kernels as K
+    from repro_torch.serve import Sampling
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent
+        / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg, params, batch = _served(cuda)
+    eng = ServeEngine(cfg, params, max_len=40, device=cuda,
+                      robust=RobustDecodeConfig(m=8, attack="gaussian"))
+    sc = (Sampling("temperature", 1.0) if method == "temperature"
+          else Sampling("top_k", 1.0, top_k=50))
+    real, spins = torch.cuda._sleep, []
+
+    def sleep(cycles):
+        if cycles == D.TRACE_SPIN_CYCLES:
+            spins.append(len(spins) + 1 not in (2, 4))
+            if not spins[-1]:
+                return
+        real(cycles)
+
+    monkeypatch.setattr(torch.cuda, "_sleep", sleep)
+    r = smoke.graph_and_eager(torch, K, eng, batch, method, sc, 7)
+    assert spins == [True, False, True, False, True]
+    assert r["same"] and r["retraced"] == 2
+    # the graph the first generate's re-call captured: its own replays and
+    # those of the second generate's two calls (the first try's graph was
+    # dropped, not replayed again)
+    n = smoke.NEW_TOKENS
+    assert eng.graphs[sc].replays == (n - 2) + 2 * (n - 1)

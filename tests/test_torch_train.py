@@ -4,10 +4,10 @@
 sides start from the same function; the data is ``lm_batch`` on both
 sides. ``repro``'s ``make_train_step`` needs a mesh of several devices,
 which this process does not have, so the port's step is held against the
-mesh-free composition of ``repro``'s own pieces on one device:
-``jax.vmap(jax.value_and_grad(model.loss))`` over the workers, the attack
-of ``repro.core.attacks``, ``robust_reduce.aggregate_stacked_auto`` and
-``repro.optim``'s update. ``repro``'s Estimator runs its ``ref`` oracle
+mesh-free composition of ``repro``'s own pieces on one device
+(``repro_compose``): ``jax.vmap(jax.value_and_grad(model.loss))`` over
+the workers, the attack of ``repro.core.attacks``,
+``robust_reduce.aggregate_stacked_auto`` and ``repro.optim``'s update. ``repro``'s Estimator runs its ``ref`` oracle
 (the semantics its Pallas kernel is tested against) to keep the test
 short.
 
@@ -45,7 +45,6 @@ from repro.models import model as JM
 from repro.obs import diag as JD
 from repro_torch import optim as TO
 from repro_torch.configs import get as t_get_arch
-from repro_torch.convert import params_from_jax
 from repro_torch.core.estimator import Estimator
 from repro_torch.data import lm_batch
 from repro_torch.dist import robust_reduce as RR
@@ -54,6 +53,9 @@ from repro_torch.obs import diag as TD
 from repro_torch.train.step import (loss_and_grads, make_train_step,
                                     stacked_grads)
 from repro_torch.tree import leaves as _leaves
+
+import repro_compose as RC
+from repro_compose import close_tree, tparams
 
 torch.set_num_threads(1)
 
@@ -72,19 +74,6 @@ def _models(name="qwen3-1.7b"):
     jcfg, tcfg = _cfgs(name)
     jp = JM.init(jax.random.PRNGKey(0), jcfg)
     return jcfg, tcfg, jp
-
-
-def _tparams(jp, tcfg):
-    return params_from_jax(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
-
-
-def _close_tree(jtree, ttree, tol):
-    jl, tl = jax.tree.leaves(jtree), list(_leaves(ttree))
-    assert len(jl) == len(tl)
-    for a, b in zip(jl, tl):
-        np.testing.assert_allclose(np.asarray(b.detach().float()),
-                                   np.asarray(a, np.float32),
-                                   rtol=tol, atol=tol)
 
 
 def _jbatch(cfg, step, batch=BATCH, seq=SEQ):
@@ -145,12 +134,12 @@ def test_loss_and_grads_match(name, remat, block, seq):
     tcfg = dataclasses.replace(tcfg, remat=remat, remat_block=block)
     jb = _jbatch(jcfg, 1, 2, seq)
     jl, jg = _j_value_and_grad(jcfg)(jp, jb)
-    tl, tg = loss_and_grads(tcfg, _tparams(jp, tcfg), _tbatch(tcfg, 1, 2, seq))
+    tl, tg = loss_and_grads(tcfg, tparams(jp, tcfg), _tbatch(tcfg, 1, 2, seq))
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5, atol=1e-5)
-    _close_tree(jg, tg, 1e-4)
+    close_tree(jg, tg, 1e-4)
     # and through the model API, forward only
     with torch.no_grad():
-        l2 = TM.loss(_tparams(jp, tcfg), tcfg, _tbatch(tcfg, 1, 2, seq))
+        l2 = TM.loss(tparams(jp, tcfg), tcfg, _tbatch(tcfg, 1, 2, seq))
     np.testing.assert_allclose(float(l2), float(jl), rtol=1e-5, atol=1e-5)
 
 
@@ -160,11 +149,11 @@ def test_microbatch_accumulation_matches_repro_scan():
     jb = _jbatch(jcfg, 2, 4, SEQ)
     l0, g0 = _j_value_and_grad(jcfg)(jp, {"tokens": jb["tokens"][:2]})
     l1, g1 = _j_value_and_grad(jcfg)(jp, {"tokens": jb["tokens"][2:]})
-    tl, tg = loss_and_grads(tcfg, _tparams(jp, tcfg), _tbatch(tcfg, 2, 4),
+    tl, tg = loss_and_grads(tcfg, tparams(jp, tcfg), _tbatch(tcfg, 2, 4),
                             micro=2)
     np.testing.assert_allclose(float(tl), float(l0 + l1) / 2, rtol=1e-5,
                                atol=1e-5)
-    _close_tree(jax.tree.map(lambda a, b: (a + b) / 2, g0, g1), tg, 1e-4)
+    close_tree(jax.tree.map(lambda a, b: (a + b) / 2, g0, g1), tg, 1e-4)
 
 
 def test_flash_attention_fn_grads_match_mha():
@@ -177,7 +166,7 @@ def test_flash_attention_fn_grads_match_mha():
     grads = {}
     for backend in ("torch", "flash"):
         c = dataclasses.replace(tcfg, attn_backend=backend)
-        grads[backend] = loss_and_grads(c, _tparams(jp, c), b)[1]
+        grads[backend] = loss_and_grads(c, tparams(jp, c), b)[1]
     for a, g in zip(_leaves(grads["torch"]), _leaves(grads["flash"])):
         torch.testing.assert_close(g, a, rtol=1e-4, atol=1e-4)
 
@@ -185,32 +174,6 @@ def test_flash_attention_fn_grads_match_mha():
 # ---------------------------------------------------------------------------
 # the stacked step against repro's mesh-free composition
 # ---------------------------------------------------------------------------
-
-@functools.lru_cache(maxsize=None)
-def _j_worker_grads(jcfg):
-    vg = jax.value_and_grad(lambda p, b: JM.loss(p, jcfg, b))
-    return jax.jit(jax.vmap(vg, in_axes=(None, 0)))
-
-
-def _j_stack(jcfg, jp, jb):
-    bw = jax.tree.map(lambda x: x.reshape((W, -1) + x.shape[1:]), jb)
-    return _j_worker_grads(jcfg)(jp, bw)
-
-
-def _j_step(jcfg, jp, jo, jb, est, attack, n_byz, opt, mode):
-    losses, g = _j_stack(jcfg, jp, jb)
-    if n_byz:
-        mask = jnp.arange(W) >= (W - n_byz)
-        g = jax.tree.map(
-            lambda x: JA.get(attack)(jax.random.PRNGKey(0), x, mask), g)
-    if mode == "mean":
-        agg = jax.tree.map(lambda x: jnp.mean(x.astype(jnp.float32), axis=0
-                                              ).astype(x.dtype), g)
-    else:
-        agg = JRR.aggregate_stacked_auto(g, est)
-    jp, jo = opt.update(agg, jo, jp)
-    return jp, jo, jnp.mean(losses)
-
 
 CASES = [  # (mode, estimator method, attack, byzantine fraction)
     ("stacked-rrs", "mean", "none", 0.0),
@@ -238,18 +201,18 @@ def test_three_stacked_steps_match_repro(mode, method, attack, byz):
     setup = make_train_step(tcfg, W, estimator=Estimator(method, beta=beta),
                             mode=mode, optimizer=topt, byzantine_frac=byz,
                             attack=attack, device="cpu")
-    tp = _tparams(jp, tcfg)
+    tp = tparams(jp, tcfg)
     to = topt.init(tp)
     n_byz = int(byz * (W - 1))
     jest = JEstimator(method, beta=beta, backend="ref")
     for i in range(3):
-        jp, jo, jl = _j_step(jcfg, jp, jo, _jbatch(jcfg, i), jest, attack,
-                             n_byz, jopt, mode)
+        jp, jo, jl = RC.step(jcfg, jp, jo, _jbatch(jcfg, i), jest, attack,
+                             n_byz, jopt, mode, W)
         tp, to, tl = setup.step_fn(tp, to, _tbatch(tcfg, i))
         np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5,
                                    atol=1e-5)
-    _close_tree(jp, tp, 2e-5)
-    _close_tree(jo["m"], to["m"], 2e-5)
+    close_tree(jp, tp, 2e-5)
+    close_tree(jo["m"], to["m"], 2e-5)
     assert int(to["step"]) == int(jo["step"]) == 3
 
 
@@ -257,7 +220,7 @@ def test_vrmom_on_repro_stack():
     """VRMOM (K 10 and 8, and under an attack) of ``repro``'s own
     per-worker gradient stack: the port's aggregate equals ``repro``'s."""
     jcfg, tcfg, jp = _models()
-    _, g = _j_stack(jcfg, jp, _jbatch(jcfg, 0))
+    _, g = RC.stack(jcfg, jp, _jbatch(jcfg, 0), W)
     mask = jnp.arange(W) >= W - 1
     for K, attack in ((10, "none"), (8, "signflip")):
         if attack != "none":
@@ -266,7 +229,7 @@ def test_vrmom_on_repro_stack():
                                                         backend="ref"))
         tg = jax.tree.map(lambda x: torch.from_numpy(np.asarray(x)), g)
         got = RR.aggregate_stacked_auto(tg, Estimator("vrmom", K=K))
-        _close_tree(want, got, 1e-5)
+        close_tree(want, got, 1e-5)
 
 
 def test_vrmom_step_runs_and_descends():
@@ -274,7 +237,7 @@ def test_vrmom_step_runs_and_descends():
     _, tcfg, jp = _models()
     setup = make_train_step(tcfg, W, estimator="vrmom", lr=1e-2,
                             device="cpu")
-    tp = _tparams(jp, tcfg)
+    tp = tparams(jp, tcfg)
     to = setup.optimizer.init(tp)
     losses = []
     for i in range(3):
@@ -290,7 +253,7 @@ def test_random_attacks_keep_vrmom_robust():
     (bounded influence; measured 0.03-0.26), the mean's by over 100 times
     it under gaussian noise (measured 364)."""
     _, tcfg, jp = _models()
-    tp = _tparams(jp, tcfg)
+    tp = tparams(jp, tcfg)
     _, stack = stacked_grads(tcfg, tp, _tbatch(tcfg, 0, 16), 8)
     from repro_torch.core import attacks as TA
 
@@ -328,7 +291,7 @@ def test_train_step_robust_vs_byzantine():
         setup = make_train_step(tcfg, W, estimator=aggregator, lr=1e-2,
                                 byzantine_frac=byz, attack="omniscient",
                                 device="cpu")
-        p = _tparams(jp, tcfg)
+        p = tparams(jp, tcfg)
         st = setup.optimizer.init(p)
         losses = []
         for i in range(8):
@@ -408,7 +371,7 @@ def test_inloop_weight_grads_carry_one_over_w():
                                np.einsum("bsd,bsf->df", x, dy),
                                rtol=1e-4, atol=1e-4)
     _, tcfg, jp = _models()
-    tp = _tparams(jp, tcfg)
+    tp = tparams(jp, tcfg)
     b = _tbatch(tcfg, 0)
     _, plain = loss_and_grads(tcfg, tp, b)
     with RR.robust_backward(W, "mean"):
@@ -426,7 +389,7 @@ def test_inloop_step_and_its_refusals():
     _, tcfg, jp = _models()
     setup = make_train_step(tcfg, W, estimator="vrmom", mode="inloop",
                             lr=1e-2, device="cpu")
-    tp = _tparams(jp, tcfg)
+    tp = tparams(jp, tcfg)
     to = setup.optimizer.init(tp)
     losses = []
     for i in range(2):
@@ -436,7 +399,7 @@ def test_inloop_step_and_its_refusals():
     # the strided micro-split: 2 micro-steps of one sequence per worker
     micro = make_train_step(tcfg, W, estimator="vrmom", mode="inloop",
                             microbatch=2, device="cpu")
-    p2 = _tparams(jp, tcfg)
+    p2 = tparams(jp, tcfg)
     _, _, loss = micro.step_fn(p2, micro.optimizer.init(p2), _tbatch(tcfg, 0))
     assert np.isfinite(float(loss))
     with pytest.raises(ValueError, match="with_diag is unavailable"):
@@ -451,7 +414,7 @@ def test_inloop_step_and_its_refusals():
         make_train_step(tcfg, W, reduce_backend="consensus", device="cpu")
     cons = make_train_step(tcfg, W, reduce_backend="consensus",
                            consensus=ConsensusConfig(f=0), device="cpu")
-    p3 = _tparams(jp, tcfg)
+    p3 = tparams(jp, tcfg)
     _, _, loss, caux = cons.step_fn(p3, cons.optimizer.init(p3),
                                     _tbatch(tcfg, 0))
     assert np.isfinite(float(loss)) and not bool(caux.quorum_lost)
@@ -512,7 +475,7 @@ def test_step_with_diag_flags_the_attacked_workers():
     setup = make_train_step(tcfg, 8, estimator="vrmom", with_diag=True,
                             byzantine_frac=0.3, attack="omniscient",
                             device="cpu")
-    tp = _tparams(jp, tcfg)
+    tp = tparams(jp, tcfg)
     _, _, loss, diag = setup.step_fn(tp, setup.optimizer.init(tp),
                                      _tbatch(tcfg, 0, 16))
     assert np.isfinite(float(loss))

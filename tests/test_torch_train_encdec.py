@@ -6,7 +6,8 @@ frames) in f32 at ``repro``'s seeded params (``convert.params_from_jax``),
 on ``lm_batch``'s tokens and frames, numpy-made and bitwise alike on both
 sides. As in ``test_torch_train.py``, ``repro``'s ``make_train_step``
 needs a mesh of several devices, so the port's step is held against the
-mesh-free composition of ``repro``'s own pieces: ``jax.vmap`` of
+mesh-free composition of ``repro``'s own pieces (``repro_compose``):
+``jax.vmap`` of
 ``jax.value_and_grad(model.loss)`` over the workers (each with its
 frames), the attack of ``repro.core.attacks``,
 ``robust_reduce.aggregate_stacked_auto`` and ``repro.optim``'s update,
@@ -30,21 +31,17 @@ import sys
 from pathlib import Path
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro import optim as JO
 from repro.configs import get as j_get_arch
-from repro.core import attacks as JA
 from repro.core.estimator import Estimator as JEstimator
 from repro.data import lm_batch as j_lm_batch
-from repro.dist import robust_reduce as JRR
 from repro.models import model as JM
 from repro_torch import optim as TO
 from repro_torch.configs import get as t_get_arch
-from repro_torch.convert import params_from_jax
 from repro_torch.core.estimator import Estimator
 from repro_torch.data import lm_batch
 from repro_torch.dist import robust_reduce as RR
@@ -52,7 +49,10 @@ from repro_torch.models import attention as TA
 from repro_torch.models.attn_backend import FlashAttentionFn
 from repro_torch.train.step import (loss_and_grads, make_train_step,
                                     stacked_grads)
-from repro_torch.tree import at, leaves as _leaves, paths
+from repro_torch.tree import at, paths
+
+import repro_compose as RC
+from repro_compose import close_tree, tparams
 
 torch.set_num_threads(1)
 # the module (the package re-exports its function under the same name)
@@ -70,19 +70,6 @@ def _models():
     return jcfg, tcfg, JM.init(jax.random.PRNGKey(0), jcfg)
 
 
-def _tparams(jp, tcfg):
-    return params_from_jax(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
-
-
-def _close_tree(jtree, ttree, tol):
-    jl, tl = jax.tree.leaves(jtree), list(_leaves(ttree))
-    assert len(jl) == len(tl)
-    for a, b in zip(jl, tl):
-        np.testing.assert_allclose(np.asarray(b.detach().float()),
-                                   np.asarray(a, np.float32),
-                                   rtol=tol, atol=tol)
-
-
 def _tbatch(cfg, step, batch=BATCH, seq=SEQ):
     return lm_batch(cfg, step, batch, seq, device="cpu")
 
@@ -90,28 +77,6 @@ def _tbatch(cfg, step, batch=BATCH, seq=SEQ):
 # ---------------------------------------------------------------------------
 # the stacked step against repro's mesh-free composition
 # ---------------------------------------------------------------------------
-
-@functools.lru_cache(maxsize=None)
-def _j_worker_grads(jcfg):
-    vg = jax.value_and_grad(lambda p, b: JM.loss(p, jcfg, b))
-    return jax.jit(jax.vmap(vg, in_axes=(None, 0)))
-
-
-def _j_step(jcfg, jp, jo, jb, est, attack, n_byz, opt, mode):
-    bw = jax.tree.map(lambda x: x.reshape((W, -1) + x.shape[1:]), jb)
-    losses, g = _j_worker_grads(jcfg)(jp, bw)
-    if n_byz:
-        mask = jnp.arange(W) >= (W - n_byz)
-        g = jax.tree.map(
-            lambda x: JA.get(attack)(jax.random.PRNGKey(0), x, mask), g)
-    if mode == "mean":
-        agg = jax.tree.map(lambda x: jnp.mean(x.astype(jnp.float32), axis=0
-                                              ).astype(x.dtype), g)
-    else:
-        agg = JRR.aggregate_stacked_auto(g, est)
-    jp, jo = opt.update(agg, jo, jp)
-    return jp, jo, jnp.mean(losses)
-
 
 @pytest.mark.parametrize("mode,method,attack,byz", [
     ("stacked-auto", "median", "signflip", 0.4),
@@ -132,18 +97,18 @@ def test_three_stacked_steps_match_repro(mode, method, attack, byz):
     setup = make_train_step(tcfg, W, estimator=Estimator(method, beta=beta),
                             mode=mode, optimizer=topt, byzantine_frac=byz,
                             attack=attack, device="cpu")
-    tp = _tparams(jp, tcfg)
+    tp = tparams(jp, tcfg)
     to = topt.init(tp)
     n_byz = int(byz * (W - 1))
     jest = JEstimator(method, beta=beta, backend="ref")
     for i in range(3):
-        jp, jo, jl = _j_step(jcfg, jp, jo, j_lm_batch(jcfg, i, BATCH, SEQ),
-                             jest, attack, n_byz, jopt, mode)
+        jp, jo, jl = RC.step(jcfg, jp, jo, j_lm_batch(jcfg, i, BATCH, SEQ),
+                             jest, attack, n_byz, jopt, mode, W)
         tp, to, tl = setup.step_fn(tp, to, _tbatch(tcfg, i))
         np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5,
                                    atol=1e-5)
-    _close_tree(jp, tp, 2e-5)
-    _close_tree(jo["m"], to["m"], 2e-5)
+    close_tree(jp, tp, 2e-5)
+    close_tree(jo["m"], to["m"], 2e-5)
     assert int(to["step"]) == int(jo["step"]) == 3
 
 
@@ -151,7 +116,7 @@ def test_stacked_grads_split_frames_per_worker():
     """Row w of each leaf's stack is worker w's own gradient: the loss and
     grads of its slice of the frames and tokens alone, bitwise."""
     _, tcfg, jp = _models()
-    tp = _tparams(jp, tcfg)
+    tp = tparams(jp, tcfg)
     b = _tbatch(tcfg, 4)
     loss, stack = stacked_grads(tcfg, tp, b, W)
     per = BATCH // W
@@ -213,9 +178,9 @@ def test_flash_backend_under_remat_matches_repro(monkeypatch):
         return plain(q, k, v, **kw)
 
     monkeypatch.setattr(TFA, "flash_attention", counted)
-    tl, tg = loss_and_grads(tcfg, _tparams(jp, tcfg), _tbatch(tcfg, 2, 2))
+    tl, tg = loss_and_grads(tcfg, tparams(jp, tcfg), _tbatch(tcfg, 2, 2))
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5, atol=1e-5)
-    _close_tree(jg, tg, 1e-4)
+    close_tree(jg, tg, 1e-4)
     Le, L, Fr = tcfg.encoder.n_layers, tcfg.n_layers, tcfg.encoder.n_frames
     assert len(calls) == 2 * (Le + 2 * L)
     assert calls.count((Fr, Fr, False)) == 2 * Le
@@ -255,7 +220,7 @@ def test_inloop_weight_grads_carry_one_over_w():
     output included, is the plain global dW / W, while a leaf outside the
     products (the norms) gets the full gradient."""
     _, tcfg, jp = _models()
-    tp = _tparams(jp, tcfg)
+    tp = tparams(jp, tcfg)
     b = _tbatch(tcfg, 0)
     _, plain = loss_and_grads(tcfg, tp, b)
     with RR.robust_backward(W, "mean"):
@@ -276,7 +241,7 @@ def test_inloop_groups_every_product_by_worker():
     over the encoder's [B, F, D] rows included, is the median of the
     stacked workers' own grads."""
     _, tcfg, jp = _models()
-    tp = _tparams(jp, tcfg)
+    tp = tparams(jp, tcfg)
     b = _tbatch(tcfg, 1)
     _, stack = stacked_grads(tcfg, tp, b, W)
     with RR.robust_backward(W, "median"):
@@ -307,7 +272,7 @@ def test_inloop_aggregates_each_product_once(monkeypatch, remat, seq):
     monkeypatch.setattr(RR, "aggregate_stacked_auto", counted)
     setup = make_train_step(tcfg, W, estimator="vrmom", mode="inloop",
                             lr=1e-2, device="cpu")
-    tp = _tparams(jp, tcfg)
+    tp = tparams(jp, tcfg)
     _, _, loss = setup.step_fn(tp, setup.optimizer.init(tp),
                                _tbatch(tcfg, 3, BATCH, seq))
     assert np.isfinite(float(loss))

@@ -8,12 +8,12 @@ routing, 40 experts top-8 at capacity factor 1.25, and d_model 64, at
 int(1.25 * 8 * 24 / 40) = 6 rows an expert, and the seeded router drops
 slots there. As in ``test_torch_train.py``, ``repro``'s ``make_train_step``
 needs a mesh of several devices, so the port's step is held against the
-mesh-free composition of ``repro``'s own pieces: ``jax.vmap`` of
-``jax.value_and_grad(model.loss)`` over the workers, the attack of
-``repro.core.attacks``, ``robust_reduce.aggregate_stacked_auto`` and
-``repro.optim``'s update, the Estimator on its ``ref`` oracle; its inloop
-wire is ``repro``'s ``_robust_dot_bwd`` with that mesh-free aggregate in
-place of the mesh's.
+mesh-free composition of ``repro``'s own pieces (``repro_compose``):
+``jax.vmap`` of ``jax.value_and_grad(model.loss)`` over the workers, the
+attack of ``repro.core.attacks``, ``robust_reduce.aggregate_stacked_auto``
+and ``repro.optim``'s update, the Estimator on its ``ref`` oracle; its
+inloop wire is ``repro``'s ``_robust_dot_bwd`` with that mesh-free
+aggregate in place of the mesh's.
 
 Tolerances: the loss at 1e-5, three train steps' params and momentum at
 2e-5 (SGD with momentum, as in ``test_torch_train.py``: AdamW turns float
@@ -49,14 +49,12 @@ from repro.configs import get as j_get_arch
 from repro.core import attacks as JA
 from repro.core.estimator import Estimator as JEstimator
 from repro.data import lm_batch as j_lm_batch
-from repro.dist import ctx as JCTX
 from repro.dist import robust_reduce as JRR
 from repro.models import model as JM
 from repro.models import moe as JX
 from repro_torch import optim as TO
 from repro_torch.configs import MoEConfig as TMoE
 from repro_torch.configs import get as t_get_arch
-from repro_torch.convert import params_from_jax
 from repro_torch.core.estimator import Estimator
 from repro_torch.data import lm_batch
 from repro_torch.dist import robust_reduce as RR
@@ -65,6 +63,9 @@ from repro_torch.train import step as TS
 from repro_torch.train.step import (loss_and_grads, make_train_step,
                                     stacked_grads)
 from repro_torch.tree import at, leaves as _leaves, paths
+
+import repro_compose as RC
+from repro_compose import close_tree, tparams
 
 torch.set_num_threads(1)
 
@@ -89,19 +90,6 @@ def _cfgs(**kw):
 def _models():
     jcfg, tcfg = _cfgs()
     return jcfg, tcfg, JM.init(jax.random.PRNGKey(0), jcfg)
-
-
-def _tparams(jp, tcfg):
-    return params_from_jax(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
-
-
-def _close_tree(jtree, ttree, tol):
-    jl, tl = jax.tree.leaves(jtree), list(_leaves(ttree))
-    assert len(jl) == len(tl)
-    for a, b in zip(jl, tl):
-        np.testing.assert_allclose(np.asarray(b.detach().float()),
-                                   np.asarray(a, np.float32),
-                                   rtol=tol, atol=tol)
 
 
 def _tbatch(cfg, step, batch=BATCH, seq=SEQ):
@@ -129,28 +117,6 @@ def _routings(fn):
 # the stacked step against repro's mesh-free composition
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _j_worker_grads(jcfg):
-    vg = jax.value_and_grad(lambda p, b: JM.loss(p, jcfg, b))
-    return jax.jit(jax.vmap(vg, in_axes=(None, 0)))
-
-
-def _j_step(jcfg, jp, jo, jb, est, attack, n_byz, opt, mode):
-    bw = jax.tree.map(lambda x: x.reshape((W, -1) + x.shape[1:]), jb)
-    losses, g = _j_worker_grads(jcfg)(jp, bw)
-    if n_byz:
-        mask = jnp.arange(W) >= (W - n_byz)
-        g = jax.tree.map(
-            lambda x: JA.get(attack)(jax.random.PRNGKey(0), x, mask), g)
-    if mode == "mean":
-        agg = jax.tree.map(lambda x: jnp.mean(x.astype(jnp.float32), axis=0
-                                              ).astype(x.dtype), g)
-    else:
-        agg = JRR.aggregate_stacked_auto(g, est)
-    jp, jo = opt.update(agg, jo, jp)
-    return jp, jo, jnp.mean(losses)
-
-
 @pytest.mark.parametrize("mode,method,attack,byz", [
     ("stacked-auto", "trimmed_mean", "none", 0.0),
     ("stacked-auto", "median", "signflip", 0.4),
@@ -169,18 +135,18 @@ def test_three_stacked_steps_match_repro(mode, method, attack, byz):
     setup = make_train_step(tcfg, W, estimator=Estimator(method, beta=beta),
                             mode=mode, optimizer=topt, byzantine_frac=byz,
                             attack=attack, device="cpu")
-    tp = _tparams(jp, tcfg)
+    tp = tparams(jp, tcfg)
     to = topt.init(tp)
     n_byz = int(byz * (W - 1))
     jest = JEstimator(method, beta=beta, backend="ref")
     for i in range(3):
-        jp, jo, jl = _j_step(jcfg, jp, jo, j_lm_batch(jcfg, i, BATCH, SEQ),
-                             jest, attack, n_byz, jopt, mode)
+        jp, jo, jl = RC.step(jcfg, jp, jo, j_lm_batch(jcfg, i, BATCH, SEQ),
+                             jest, attack, n_byz, jopt, mode, W)
         tp, to, tl = setup.step_fn(tp, to, _tbatch(tcfg, i))
         np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5,
                                    atol=1e-5)
-    _close_tree(jp, tp, 2e-5)
-    _close_tree(jo["m"], to["m"], 2e-5)
+    close_tree(jp, tp, 2e-5)
+    close_tree(jo["m"], to["m"], 2e-5)
     assert int(to["step"]) == int(jo["step"]) == 3
 
 
@@ -191,15 +157,14 @@ def test_vrmom_on_repro_stack(attack):
     aggregate equals ``repro``'s, every leaf (router and experts too)."""
     jcfg, _, jp = _models()
     jb = j_lm_batch(jcfg, 0, BATCH, SEQ)
-    bw = jax.tree.map(lambda x: x.reshape((W, -1) + x.shape[1:]), jb)
-    _, g = _j_worker_grads(jcfg)(jp, bw)
+    _, g = RC.stack(jcfg, jp, jb, W)
     if attack != "none":
         mask = jnp.arange(W) >= W - 1
         g = jax.tree.map(lambda x: JA.get(attack)(None, x, mask), g)
     want = JRR.aggregate_stacked_auto(g, JEstimator("vrmom", K=10,
                                                     backend="ref"))
     tg = jax.tree.map(lambda x: torch.from_numpy(np.asarray(x)), g)
-    _close_tree(want, RR.aggregate_stacked_auto(tg, Estimator("vrmom",
+    close_tree(want, RR.aggregate_stacked_auto(tg, Estimator("vrmom",
                                                               K=10)), 1e-5)
 
 
@@ -217,25 +182,24 @@ def test_three_vrmom_steps_on_repro_stacks(monkeypatch, attack, byz):
     setup = make_train_step(tcfg, W, estimator=Estimator("vrmom", K=10),
                             mode="stacked-auto", optimizer=topt,
                             byzantine_frac=byz, attack=attack, device="cpu")
-    tp = _tparams(jp, tcfg)
+    tp = tparams(jp, tcfg)
     to = topt.init(tp)
     n_byz = int(byz * (W - 1))
     jest = JEstimator("vrmom", K=10, backend="ref")
     for i in range(3):
         jb = j_lm_batch(jcfg, i, BATCH, SEQ)
-        bw = jax.tree.map(lambda x: x.reshape((W, -1) + x.shape[1:]), jb)
-        losses, g = _j_worker_grads(jcfg)(jp, bw)
+        losses, g = RC.stack(jcfg, jp, jb, W)
         fed = (torch.tensor(float(jnp.mean(losses))),
                jax.tree.map(lambda x: torch.from_numpy(np.array(x)), g))
         monkeypatch.setattr(TS, "stacked_grads",
                             lambda *a, fed=fed, **k: fed)
-        jp, jo, jl = _j_step(jcfg, jp, jo, jb, jest, attack, n_byz, jopt,
-                             "stacked-auto")
+        jp, jo, jl = RC.step(jcfg, jp, jo, jb, jest, attack, n_byz, jopt,
+                             "stacked-auto", W)
         tp, to, tl = setup.step_fn(tp, to, _tbatch(tcfg, i))
         assert float(tl) == float(fed[0])
         np.testing.assert_allclose(float(tl), float(jl), rtol=1e-6)
-    _close_tree(jp, tp, 2e-5)
-    _close_tree(jo["m"], to["m"], 2e-5)
+    close_tree(jp, tp, 2e-5)
+    close_tree(jo["m"], to["m"], 2e-5)
     assert int(to["step"]) == int(jo["step"]) == 3
 
 
@@ -245,7 +209,7 @@ def test_stacked_grads_are_each_workers_own():
     groups never mix with another's (each routes the same with and
     without the others' rows beside it)."""
     _, tcfg, jp = _models()
-    tp = _tparams(jp, tcfg)
+    tp = tparams(jp, tcfg)
     b = _tbatch(tcfg, 4)
     (loss, stack), together = _routings(lambda: stacked_grads(tcfg, tp, b,
                                                               W))
@@ -297,7 +261,7 @@ def test_remat_recompute_routes_as_the_forward(monkeypatch, remat_block):
     _, tcfg, jp = _models()
     seq = 32
     jl, jg = _j_loss_grads(seq, 16, True)
-    tp = _tparams(jp, tcfg)
+    tp = tparams(jp, tcfg)
     tb = _tbatch(tcfg, 6, 2, seq)
     plain, fwd = _routings(lambda: loss_and_grads(tcfg, tp, tb))
     rcfg = dataclasses.replace(tcfg, remat=True, remat_block=remat_block)
@@ -324,7 +288,7 @@ def test_remat_recompute_routes_as_the_forward(monkeypatch, remat_block):
         torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-6,
                                    msg=str(path))
     np.testing.assert_allclose(float(rl), float(jl), rtol=1e-5, atol=1e-5)
-    _close_tree(jg, rg, 1e-4)
+    close_tree(jg, rg, 1e-4)
 
 
 def test_a_recompute_that_routes_otherwise_is_flagged(monkeypatch):
@@ -342,7 +306,7 @@ def test_a_recompute_that_routes_otherwise_is_flagged(monkeypatch):
     spec.loader.exec_module(smoke)
     monkeypatch.setattr(TX, "MOE_SEQ_CHUNK", 16)
     _, tcfg, jp = _models()
-    tp = _tparams(jp, tcfg)
+    tp = tparams(jp, tcfg)
     tb = _tbatch(tcfg, 6, 2, 32)
     rcfg = dataclasses.replace(tcfg, remat=True, remat_block=1)
     L = tcfg.n_layers
@@ -377,46 +341,6 @@ def test_a_recompute_that_routes_otherwise_is_flagged(monkeypatch):
 # router and the experts plain products in both packages
 # ---------------------------------------------------------------------------
 
-def _j_inloop_dot(est):
-    """``repro``'s ``_robust_dot`` (``dist/robust_reduce.py:378-409``)
-    with ``aggregate_stacked_auto`` in place of the mesh's aggregate."""
-
-    @jax.custom_vjp
-    def dot(x, w):
-        return jnp.einsum("bsd,df->bsf", x, w)
-
-    def fwd(x, w):
-        return dot(x, w), (x, w)
-
-    def bwd(res, dy):
-        x, w = res
-        dx = jnp.einsum("bsf,df->bsd", dy, w).astype(x.dtype)
-        B = x.shape[0]
-        xw = x.reshape((W, B // W) + x.shape[1:])
-        dyw = dy.reshape((W, B // W) + dy.shape[1:])
-        dws = jnp.einsum("wbsd,wbsf->wdf", xw.astype(jnp.float32),
-                         dyw.astype(jnp.float32))
-        return dx, JRR.aggregate_stacked_auto(dws, est).astype(w.dtype)
-
-    dot.defvjp(fwd, bwd)
-    return dot
-
-
-def _j_grads(monkeypatch, jcfg, jp, jb, method=None):
-    """``repro``'s loss gradients, on its inloop wire when ``method``."""
-    loss = jax.value_and_grad(lambda p: JM.loss(p, jcfg, jb))
-    if method is None:
-        return loss(jp)[1]
-    monkeypatch.setattr(JRR, "robust_dot", _j_inloop_dot(
-        JEstimator(method, backend="ref")))
-    JCTX.push_robust_backward(JCTX.RobustBackwardState(None, ("data",),
-                                                       method))
-    try:
-        return loss(jp)[1]
-    finally:
-        JCTX.pop_robust_backward()
-
-
 def test_inloop_wire_leaves_the_router_and_experts_plain(monkeypatch):
     """Recorded and pinned (ROADMAP.md §C): only 3-D x 2-D products reach
     the wire, so a moe model's router and expert gradients are the plain
@@ -425,7 +349,7 @@ def test_inloop_wire_leaves_the_router_and_experts_plain(monkeypatch):
     median of the stacked workers' own grads); the port's inloop
     gradients equal ``repro``'s wire at 1e-4, every leaf."""
     jcfg, tcfg, jp = _models()
-    tp = _tparams(jp, tcfg)
+    tp = tparams(jp, tcfg)
     b = _tbatch(tcfg, 1)
     jb = j_lm_batch(jcfg, 1, BATCH, SEQ)
     _, plain = loss_and_grads(tcfg, tp, b)
@@ -442,14 +366,14 @@ def test_inloop_wire_leaves_the_router_and_experts_plain(monkeypatch):
             got, want, rtol=0, atol=1e-5 * float(want.abs().max()), msg=k)
         assert not torch.allclose(got / W, plain["layers"]["attn"][k],
                                   rtol=1e-3, atol=0), k
-    j_plain = _j_grads(monkeypatch, jcfg, jp, jb)
-    j_inloop = _j_grads(monkeypatch, jcfg, jp, jb, "median")
+    j_plain = RC.grads(monkeypatch, jcfg, jp, jb, W)
+    j_inloop = RC.grads(monkeypatch, jcfg, jp, jb, W, "median")
     for k in MOE_LEAVES:
         np.testing.assert_allclose(
             np.asarray(j_inloop["layers"]["moe"][k]),
             np.asarray(j_plain["layers"]["moe"][k]), rtol=1e-6, atol=1e-6,
             err_msg=k)
-    _close_tree(j_inloop, inloop, 1e-4)
+    close_tree(j_inloop, inloop, 1e-4)
 
 
 @pytest.mark.parametrize("remat,seq", [(False, SEQ), (True, 40)])
@@ -470,7 +394,7 @@ def test_inloop_aggregates_each_product_once(monkeypatch, remat, seq):
     monkeypatch.setattr(RR, "aggregate_stacked_auto", counted)
     setup = make_train_step(tcfg, W, estimator="vrmom", mode="inloop",
                             lr=1e-2, device="cpu")
-    tp = _tparams(jp, tcfg)
+    tp = tparams(jp, tcfg)
     _, _, loss = setup.step_fn(tp, setup.optimizer.init(tp),
                                _tbatch(tcfg, 3, BATCH, seq))
     assert np.isfinite(float(loss))
