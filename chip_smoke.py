@@ -304,6 +304,19 @@ forward at q/k/v [1, 4096, 32, 112] causal beside SDPA, and B2 under
 autograd at that shape beside SDPA's forward and backward join the
 ``kernels`` line.
 
+Phase 16 is static analysis and the audit (``repro_torch.lint``), and
+adds no kernel row: (a) the AST rules over the port's tree (its package,
+its tests and this script) must report no error a waiver does not cover;
+it prints the file count and the waived count; (b) ``run_audit`` on the
+card must pass every RL2xx check but RL201, which skips (no multi-rank
+wire until ROADMAP A5); it prints each check's wall and the launches of
+B1-B4 by the wrappers' counters; (c) RL209 at full width: a seeded
+qwen3-1.7b robust engine (m 8, VRMOM K 8) serves three greedy
+``generate`` calls of 4 x 192 tokens with 8 new, each with a freshly
+built ``Sampling`` equal to the first: one capture, the later calls
+replay the same ``StepGraph``, and the third call's tokens equal the
+first's.
+
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it lists every kernel with its launches, error and times. Any
 failed check exits non-zero before that line. Without a CUDA device, or
@@ -485,6 +498,8 @@ MOE_ROUTING_KERNELS = tuple((key, "routing") for key in (
 # at 42.4 GB (21 at 55.5), each before its activations
 SSM_TRAIN_LAYERS = 32
 HYBRID_TRAIN_LAYERS = 15
+# phase 16 (c): new tokens a generate of the full-width capture check
+LINT_NEW_TOKENS = 8
 
 
 class CheckFailed(Exception):
@@ -5481,6 +5496,76 @@ def phase_train_ssm(torch, dev, card: str):
                               HYBRID_TRAIN_LAYERS, 16))
 
 
+def phase_lint(torch, dev, card: str) -> None:
+    """Phase 16: the AST rules over the port's tree, the RL2xx audit on the
+    card, and RL209's capture check at full width."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get as get_arch
+    from repro_torch.lint import (AUDIT_CHECKS, Report, default_paths,
+                                  iter_py_files, lint_paths)
+    from repro_torch.lint.auditor import engine_capture_stability, run_audit
+    from repro_torch.models import model as M
+    from repro_torch.serve import RobustDecodeConfig, Sampling, ServeEngine
+
+    t = time.perf_counter()
+    paths = default_paths(str(ROOT))
+    findings = lint_paths(paths, str(ROOT))
+    report = Report(findings=findings, audit=[])
+    waived = [f for f in findings if f.waived]
+    print(f"[lint] (a) AST rules over {len(iter_py_files(paths, str(ROOT)))}"
+          f" files: {len(report.errors)} errors, {len(waived)} waived "
+          f"({time.perf_counter() - t:.2f} s)")
+    require(not report.errors, "lint errors:\n" + "\n".join(
+        f.render() for f in report.errors))
+    require(all(f.waive_reason for f in waived), "a waiver with no reason")
+    print(f"[time] phase 16 (a) {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    K.reset_launch_counts()
+    results = run_audit(dev)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    for r in results:
+        print(f"[lint] (b) {r.render()}")
+    fails = [r.render() for r in results if r.status == "fail"]
+    require(not fails, "audit failures:\n" + "\n".join(fails))
+    skipped = sorted({r.check_id for r in results if r.status == "skip"})
+    require(skipped == ["RL201"], f"audit skips {skipped}, not RL201 only")
+    missing = {c.id for c in AUDIT_CHECKS} - {r.check_id for r in results}
+    require(not missing, f"audit checks that reported nothing: {missing}")
+    print(f"[lint] (b) launches by the wrappers' counters: B1 "
+          f"{counts['aggregate']}, B4 {counts['aggregate_sample']}, B2 "
+          f"{counts['flash_attention']}, B3 {counts['decode_attention']}")
+    print(f"[time] phase 16 (b) {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    cfg = get_arch("qwen3-1.7b")
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    tokens = torch.randint(0, cfg.vocab, (N_PROMPTS, PROMPT_LEN),
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(1), device=dev)
+    eng = ServeEngine(cfg, params, max_len=PROMPT_LEN + LINT_NEW_TOKENS,
+                      robust=RobustDecodeConfig(m=8, estimator="vrmom", K=8),
+                      device=dev)
+    detail, first = engine_capture_stability(
+        eng, {"tokens": tokens}, n_tokens=LINT_NEW_TOKENS,
+        sampling=Sampling("greedy"), pool=False)
+    require(tuple(first.shape) == (N_PROMPTS, LINT_NEW_TOKENS),
+            f"tokens {tuple(first.shape)}")
+    require(bool(((first >= 0) & (first < cfg.vocab)).all()),
+            "tokens outside the vocabulary")
+    print(f"[lint] (c) {cfg.name} at full width ({cfg.n_layers} layers), "
+          f"robust m 8 VRMOM K 8, {N_PROMPTS} x {PROMPT_LEN} tokens + "
+          f"{LINT_NEW_TOKENS} new: {detail}; the third generate's tokens "
+          f"equal the first's; capture "
+          f"{next(iter(eng.graphs.values())).capture_s * 1e3:.1f} ms")
+    del eng, params
+    torch.cuda.empty_cache()
+    print(f"[time] phase 16 (c) {time.perf_counter() - t:.1f} s [card] "
+          f"{card}")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside the script; "
@@ -5539,6 +5624,8 @@ def main() -> int:
         lap("phase 14 (training moe)")
         train_ssm_recs = phase_train_ssm(torch, dev, card)
         lap("phase 15 (training ssm and hybrid)")
+        phase_lint(torch, dev, card)
+        lap("phase 16 (static analysis and the audit)")
         print(f"[time] all phases {time.perf_counter() - t_all:.1f} s")
     except (CheckFailed, AssertionError) as exc:
         print(f"chip_smoke.py: check failed: {exc}", file=sys.stderr)

@@ -11,6 +11,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from ..lint.hashguard import check_hashable_fields
+
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 
@@ -96,6 +98,10 @@ class ArchConfig:
     source: str = ""  # citation
 
     def __post_init__(self):
+        # ArchConfig keys the port's caches as repro's keys its jit
+        # statics: an unhashable field fails here, naming the field
+        # (reprolint RL004)
+        check_hashable_fields(self)
         if self.family not in FAMILIES:
             raise ValueError(f"unknown family {self.family!r}; known: "
                              f"{FAMILIES}")

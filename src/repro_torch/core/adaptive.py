@@ -62,7 +62,7 @@ __all__ = ["StackCensus", "AdaptiveState", "census", "census_from_distances",
            "select_k", "k_ladder", "ladder_select", "init_state", "ema",
            "momentum_update", "apply_adaptive", "Z_THRESH", "REL_FLOOR",
            "SUSPECT_WEIGHT", "LOUD_RATIO", "K_LADDER_THRESHOLDS",
-           "DUP_REL_TOL"]
+           "DUP_REL_TOL", "census_of_blocks"]
 
 # The suspicion convention of obs.diag: the same robust z-score, threshold
 # and relative floor (tests hold the two equal).
@@ -166,6 +166,25 @@ def _census(flat, kernel: bool) -> StackCensus:
     center = _coordinatewise(flat, "median", 0, kernel)
     dev = torch.sqrt(torch.sum(torch.square(flat - center[:, None]), dim=-1))
     return census_from_distances(dev, _A.pairwise_sq(flat), center)
+
+
+def census_of_blocks(blocks, kernel: bool) -> StackCensus:
+    """The census of a ``[W, C]`` stack handed in as ``[W, c]`` column
+    blocks (the chunked training wire), accumulated block by block: each
+    row's squared deviation from the block's coordinatewise median and the
+    rows' squared distances (direct differences) in f32. No centre is
+    kept (``center=None``)."""
+    dev2 = d2 = None
+    for block in blocks:
+        f = block.float().contiguous()[None]
+        if dev2 is None:
+            W, dev = f.shape[1], f.device
+            dev2 = torch.zeros((1, W), dtype=torch.float32, device=dev)
+            d2 = torch.zeros((1, W, W), dtype=torch.float32, device=dev)
+        center = _coordinatewise(f, "median", 0, kernel)
+        dev2 += torch.sum(torch.square(f - center[:, None]), dim=-1)
+        d2 += _A.pairwise_sq(f)
+    return _squeeze(census_from_distances(torch.sqrt(dev2), d2))
 
 
 def _squeeze(cen: StackCensus) -> StackCensus:

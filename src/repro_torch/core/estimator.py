@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..lint.hashguard import check_hashable_fields
 from . import aggregators as _A
 
 __all__ = ["Estimator", "COORDINATEWISE_METHODS", "WHOLE_VECTOR_METHODS",
@@ -262,3 +263,21 @@ class Estimator(NamedTuple):
         if self.method == "trimmed_mean":
             return _R.ref_trimmed_mean(flat, beta=self.beta)
         return _R.ref_vrmom(flat, K=self.K)
+
+
+# Construction-time hashability backstop (reprolint RL004): an Estimator
+# carrying an unhashable field (a list of betas, a tensor-valued K) would
+# fail where it keys a cache, far from its cause. typing.NamedTuple
+# forbids overriding __new__ in the class body, so the guard wraps it
+# after the definition. ``_replace`` builds through the raw tuple
+# constructor and skips it, as in repro.
+_orig_new = Estimator.__new__
+
+
+def _checked_new(cls, *args, **kwargs):
+    self = _orig_new(cls, *args, **kwargs)
+    check_hashable_fields(self)
+    return self
+
+
+Estimator.__new__ = _checked_new

@@ -26,6 +26,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..lint.hashguard import check_hashable_fields
+
 __all__ = ["FaultPlan"]
 
 
@@ -128,19 +130,13 @@ class FaultPlan(NamedTuple):
 
 # A plan is a static spec that keys caches and compares by value, as in
 # repro: reject unhashable fields at construction, naming the field.
+# (``_replace`` builds through the raw tuple constructor and skips this.)
 _orig_new = FaultPlan.__new__
 
 
 def _checked_new(cls, *args, **kwargs):
     plan = _orig_new(cls, *args, **kwargs)
-    for name, value in plan._asdict().items():
-        try:
-            hash(value)
-        except TypeError:
-            raise TypeError(
-                f"FaultPlan.{name} = {value!r} ({type(value).__name__}) is "
-                f"unhashable; FaultPlan is a static spec and every field "
-                f"must be hashable (use a tuple / frozen type)") from None
+    check_hashable_fields(plan)
     return plan
 
 

@@ -55,7 +55,6 @@ from typing import Union
 import torch
 
 from ..core import adaptive as AD
-from ..core import aggregators as AG
 from ..core.estimator import Estimator
 from ..obs.trace import named_span
 from ..tree import leaves as _leaves, tree_map, unflatten as _unflatten
@@ -217,19 +216,10 @@ def _blocks(leaves):
 
 
 def _wire_census(leaves, kernel: bool) -> AD.StackCensus:
-    """The census of the raveled stack, accumulated block by block: each
-    row's squared deviation from the block's coordinatewise median and the
-    rows' squared distances (direct differences) in f32. No centre is
-    kept (``center=None``)."""
-    W, dev = leaves[0].shape[0], leaves[0].device
-    dev2 = torch.zeros((1, W), dtype=torch.float32, device=dev)
-    d2 = torch.zeros((1, W, W), dtype=torch.float32, device=dev)
-    for _, _, _, block in _blocks(leaves):
-        f = block.float().contiguous()[None]
-        center = AD._coordinatewise(f, "median", 0, kernel)
-        dev2 += torch.sum(torch.square(f - center[:, None]), dim=-1)
-        d2 += AG.pairwise_sq(f)
-    return AD._squeeze(AD.census_from_distances(torch.sqrt(dev2), d2))
+    """The census of the raveled stack, accumulated over its column
+    blocks by ``core.adaptive.census_of_blocks``."""
+    return AD.census_of_blocks((block for *_, block in _blocks(leaves)),
+                               kernel)
 
 
 def weiszfeld_stacked(grads, pi, iters: int = 8, eps: float = 1e-8):

@@ -314,7 +314,7 @@ class ServeEngine:
         rep = logits[None].expand((rcfg.m,) + logits.shape)
         return R.robust_sample(rep, rcfg, generator, sc)
 
-    def _decode_step(self, tok, caches, generator, sc,
+    def _decode_step(self, tok, caches, generator, sc: Sampling,
                      with_diag: bool = False):
         """One step of decode -> (attack, aggregate) -> sample: (tok,
         caches, the replica-disagreement rates [B] with ``with_diag``, else
@@ -342,7 +342,7 @@ class ServeEngine:
             return tok, caches, dis
         return R.robust_sample(logits_r, rcfg, generator, sc), caches, None
 
-    def _step(self, buf: DecodeBuffers, generator, sc) -> None:
+    def _step(self, buf: DecodeBuffers, generator, sc: Sampling) -> None:
         """One decode step over ``buf``: reads ``buf.tok`` and the caches,
         writes the next token into ``buf.tok`` and row ``buf.t`` of
         ``buf.out``, advances the positions and ``buf.t``, and with diag
@@ -359,6 +359,7 @@ class ServeEngine:
         buf.t.add_(1)
         buf.tok.copy_(tok)
         if dis is not None:
+            # reprolint-torch: disable=RL003 buf.edges is on the device
             counts, total = serve_diag(dis, buf.edges, mask=buf.active)
             buf.diag[:-1].add_(counts)
             buf.diag[-1].add_(total)

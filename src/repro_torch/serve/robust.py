@@ -27,6 +27,7 @@ import torch
 
 from ..core import attacks as ATK
 from ..core.estimator import Estimator
+from ..lint.hashguard import check_hashable_fields
 from ..models import model as M
 from ..models.attention import row_pos
 from ..models.caches import map_rows, row_fields
@@ -88,10 +89,14 @@ class RobustDecodeConfig:
                 f"got {type(est)!r}")
         est.require_stackable("replicated logit aggregation (serve.robust)")
         est.validate(self.m)
+        object.__setattr__(self, "estimator", est)
+        # the config keys the engine's captured steps: an unhashable field
+        # fails here, naming the field (reprolint RL004), before the
+        # attack lookup would hash it and raise a bare TypeError
+        check_hashable_fields(self)
         if self.attack not in ATK.REGISTRY:
             raise ValueError(f"unknown attack {self.attack!r}; known: "
                              f"{sorted(ATK.REGISTRY)}")
-        object.__setattr__(self, "estimator", est)
 
 
 def replica_mask(m: int, alpha: float, device=None) -> torch.Tensor:

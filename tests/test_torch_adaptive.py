@@ -27,7 +27,7 @@ from repro import optim as JO
 from repro.configs import get as j_get_arch
 from repro.core import adaptive as JAD
 # reprolint: disable=RL001 oracle: the port's aggregators are held against repro's below the Estimator layer
-from repro.core import aggregators as JAG
+from repro.core import aggregators as JAG  # reprolint-torch: disable=RL001 oracle
 from repro.core import attacks as JA
 from repro.core.estimator import Estimator as JE
 from repro.data import lm_batch as j_lm_batch
@@ -39,7 +39,7 @@ from repro_torch.configs import get as t_get_arch
 from repro_torch.convert import adaptive_state_from_jax, params_from_jax
 from repro_torch.core import adaptive as AD
 # reprolint: disable=RL001 oracle: the port's whole-vector aggregators and pairwise distances are held below the Estimator layer
-from repro_torch.core import aggregators as AG
+from repro_torch.core import aggregators as AG  # reprolint-torch: disable=RL001 oracle
 from repro_torch.core.estimator import METHODS, Estimator
 from repro_torch.data import lm_batch
 from repro_torch.dist import robust_reduce as RR
@@ -131,6 +131,7 @@ def test_duplicates_found_by_direct_differences():
     there, far above DUP_REL_TOL times the median distance."""
     v = _stack(5, (8, 4096)) * 1e3
     v[6] = v[7] = v[0] * 1.0001
+    # reprolint-torch: disable=RL001 unit under test: the distances
     d2 = AG.pairwise_sq(_t(v)[None])[0]
     assert float(d2[6, 7]) == 0.0 and float(d2[7, 6]) == 0.0
     x = _t(v).double()
@@ -202,6 +203,7 @@ def test_vrmom_adaptive_honest_bit_identical_to_vrmom(backend):
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_auto_gm_honest_bit_identical_to_geometric_median(backend):
     v = _t(_stack(3))
+    # reprolint-torch: disable=RL001 oracle: auto_gm's honest fixed point
     want = AG.geometric_median(v)
     _same(AD.auto_gm(v, backend=backend), want)
     _same(Estimator("auto_gm", backend=backend).apply(v), want)
@@ -563,6 +565,7 @@ def test_weiszfeld_stacked_equals_the_flat_weiszfeld(chunk, monkeypatch):
     _, g = _grads("gaussian")
     wire = torch.cat([x.reshape(8, -1) for x in _leaves(g)], dim=1)
     pi = torch.linspace(0.5, 1.0, 8)
+    # reprolint-torch: disable=RL001 oracle: the blockwise wire's plain iterate
     _close(RR.weiszfeld_stacked(g, pi), AG.weiszfeld(wire, pi), 1e-6)
 
 
@@ -711,6 +714,7 @@ def test_krum_reference_fault_pinned():
         k = max(m - f - 2, 1)
         return x[int(np.argmin(np.sort(d2, axis=1)[:, :k].sum(1)))]
 
+    # reprolint-torch: disable=RL001 unit under test: Krum below the Estimator
     got = AG.krum(_t(v))
     _same(got, oracle(v, 0))
     assert not np.array_equal(got.numpy(), v[0])

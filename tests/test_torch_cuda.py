@@ -1067,6 +1067,7 @@ def test_cuda_b4_with_agg_tokens_in_a_graph(cuda, k):
     torch.cuda.current_stream(cuda).wait_stream(s)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=s):
+        # reprolint-torch: disable=RL003 x on the card; K 8's table on the host
         on = aggregate_sample(x, "vrmom", K=8, top_k=k, with_agg=True)
         off = aggregate_sample(x, "vrmom", K=8, top_k=k, with_agg=False)
     for seed in range(3):
@@ -2169,3 +2170,64 @@ def test_cuda_retraced_sampled_generate_keeps_its_seed(cuda, monkeypatch,
     # dropped, not replayed again)
     n = smoke.NEW_TOKENS
     assert eng.graphs[sc].replays == (n - 2) + 2 * (n - 1)
+
+
+# -- the lint's auditor and RL209's capture stability on the card ------------
+
+@pytest.mark.cuda
+def test_cuda_run_audit_has_no_failure(cuda):
+    """``repro_torch.lint.run_audit`` on the card: every RL2xx check passes
+    but RL201, which skips (no multi-rank wire yet)."""
+    from repro_torch.lint import AUDIT_CHECKS, run_audit
+
+    results = run_audit(device="cuda")
+    fails = [r.render() for r in results if r.status == "fail"]
+    assert not fails, "\n".join(fails)
+    assert sorted({r.check_id for r in results
+                   if r.status == "skip"}) == ["RL201"]
+    assert {c.id for c in AUDIT_CHECKS} <= {r.check_id for r in results}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["generate", "decode_pool"])
+def test_cuda_fresh_equal_sampling_captures_nothing_new(cuda, path):
+    """A second call with a freshly built ``Sampling`` equal to the first
+    replays the step the first captured: one entry, the same
+    ``StepGraph``, and (same seed) the same tokens."""
+    from repro_torch.serve import Sampling
+
+    cfg, params, batch = _served(cuda)
+    eng = ServeEngine(cfg, params, max_len=40, n_slots=2, device=cuda,
+                      robust=RobustDecodeConfig(m=4))
+
+    def fresh():
+        return Sampling("top_k", 0.7, top_k=5)
+
+    def seeded():
+        return torch.Generator(device=cuda).manual_seed(3)
+
+    if path == "generate":
+        def call():
+            return eng.generate(batch, 6, fresh(), seeded())
+        graphs = eng.graphs
+    else:
+        pool = eng.make_pool()
+        cur = torch.zeros((pool.n_slots,), dtype=torch.int32, device=cuda)
+        # the pool's state, put back before each call: same inputs
+        state = [t for t in list(pool.caches) + [pool.lengths, pool.active]
+                 if torch.is_tensor(t)]
+        saved = [t.clone() for t in state]
+
+        def call():
+            for t, s in zip(state, saved):
+                t.copy_(s)
+            return eng.decode_pool(pool, cur, 5, fresh(), seeded())[1]
+        graphs = eng.pool_graphs
+    first = call()
+    assert len(graphs) == 1
+    st = graphs[fresh()]
+    replays = st.replays
+    second = call()
+    assert list(graphs.values()) == [st]
+    assert st.replays == replays + 5
+    torch.testing.assert_close(second, first, rtol=0, atol=0)

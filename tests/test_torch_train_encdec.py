@@ -247,6 +247,7 @@ def test_inloop_groups_every_product_by_worker():
     with RR.robust_backward(W, "median"):
         _, inloop = loss_and_grads(tcfg, tp, b)
     for leaf in PRODUCT_LEAVES:
+        # reprolint-torch: disable=RL001 oracle: the stack's median
         want = torch.quantile(_leaf(stack, leaf), 0.5, dim=0)
         got = _leaf(inloop, leaf) * W
         torch.testing.assert_close(
