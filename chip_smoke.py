@@ -16,25 +16,26 @@ call and that one B3 call with a python-int length, and one B4 call
 (greedy or top-50), is one device kernel, and times kernel, plain
 version and (for attention) one PyTorch library call as a yardstick, on
 device time only, each call after a read-only flush of L2.
-Phase 3 serves qwen3-1.7b at full width (28 layers, bf16, seeded random
-weights) with robust replicated decoding (m = 8 replicas, VRMOM, alpha =
-0.25) through ``ServeEngine.generate``, which captures one decode step as
-a CUDA graph and replays it every token, and through
-``generate_python_loop``, the eager loop: greedy tokens must be identical
-between the two and across none/signflip/gaussian x fused/unfused x
-shared/replicated (and plain), temperature and top-50 tokens identical
-between graph and eager from one seed, and every kernel must have
-launched on that path. For both it prints decode ms/token, the capture
-time, host launches and device kernels a token and the device-busy share
-of one profiled generate. Every call of the main path runs under
-torch.profiler, and its launches are the port's device kernels in that
-trace: a replay calls no kernel wrapper, so the wrappers count only
-eager launches. On the eager loop the trace must hold exactly what the
-wrappers counted, kernel by kernel; each graph generate must launch,
-kernel by kernel, what the eager loop launches, with no decode kernel
-counted by a wrapper (every step a replay); a call whose trace lost an
-event is run and traced again, and one whose trace lost its spin is
-called again (printed; the first generate then captures anew).
+Phase 3 serves qwen3-1.7b at full width (QWEN_CUT_LAYERS = 14 of its 28
+layers, bf16, seeded random weights) with robust replicated decoding (m
+= 8 replicas, VRMOM, alpha = 0.25) through ``ServeEngine.generate``,
+which captures one decode step as a CUDA graph and replays it every
+token, and through ``generate_python_loop``, the eager loop: greedy
+tokens must be identical between the two and across
+none/signflip/gaussian x fused/unfused x shared/replicated (and plain),
+temperature and top-50 tokens identical between graph and eager from one
+seed, and every kernel must have launched on that path. For both it
+prints decode ms/token, the capture time, host launches and device
+kernels a token and the device-busy share of one profiled generate.
+Every call of the main path runs under torch.profiler, and its launches
+are the port's device kernels in that trace: a replay calls no kernel
+wrapper, so the wrappers count only eager launches. On the eager loop
+the trace must hold exactly what the wrappers counted, kernel by kernel;
+each graph generate must launch, kernel by kernel, what the eager loop
+launches, with no decode kernel counted by a wrapper (every step a
+replay); a call whose trace lost an event is run and traced again, and
+one whose trace lost its spin is called again (printed; the first
+generate then captures anew).
 Phase 4 drives the paper's statistical path (RCSL, Algorithm 1, with
 plug-in sandwich CIs, replications batched into tensors): B1/B4 at
 K = 65 and 100 bitwise against their plain versions; the acceptance cell
@@ -63,26 +64,26 @@ teacher-forced logits must agree within 5e-2 of the largest logit. The
 new instances must have run (traced launches, and the template arguments
 of the device kernels in a trace of a prefill and a decode step), and
 each is held against its plain version and timed at its shape.
-Phase 6 serves qwen3-1.7b at full width through continuous batching:
-``Scheduler(decode_block=8)`` over ``ServeEngine(max_len=512,
-n_slots=32)`` with robust m = 8 VRMOM K = 8 shared fused replicas and a
-``MetricsRegistry``, 64 requests made with numpy (prompts 32..320,
-budgets 16..64) and one too long for a slot, which must come back
-rejected. Each admission prefills at batch 1 (B2) into its slot; each
-block replays the pool's captured step 8 times. Every completion must
-have its budget; the tokens must be identical under signflip and
-gaussian at alpha 0.25, the signflip disagreement histogram must count
-exactly the live tokens with mean exactly 0.25, and the tokens of 8
-requests must equal a solo generate or part only at a near-tie
-(``layout_check`` at batch 1 against 32). Its main path (a traced drain
-and a temperature round, which runs B1 inside the replayed step) must
-launch what the blocks imply, kernel by kernel. It prints tokens/s of a
-drain, TTFT and decode-step percentiles from the registry, the capture,
-host launch calls, device kernels and the device-busy share of one
-profiled block, and the kv_bytes_per_slot gauge, and adds B3 at the
-pool's batch 32 with ragged lengths (beside SDPA with the same mask), B4
-with ``with_agg``, B1 at the pool's stack and B2 at batch 1 to the
-``kernels`` line.
+Phase 6 serves qwen3-1.7b at full width (phase 3's 14 of 28 layers)
+through continuous batching: ``Scheduler(decode_block=8)`` over
+``ServeEngine(max_len=512, n_slots=32)`` with robust m = 8 VRMOM K = 8
+shared fused replicas and a ``MetricsRegistry``, 64 requests made with
+numpy (prompts 32..320, budgets 16..64) and one too long for a slot,
+which must come back rejected. Each admission prefills at batch 1 (B2)
+into its slot; each block replays the pool's captured step 8 times.
+Every completion must have its budget; the tokens must be identical
+under signflip and gaussian at alpha 0.25, the signflip disagreement
+histogram must count exactly the live tokens with mean exactly 0.25, and
+the tokens of 8 requests must equal a solo generate or part only at a
+near-tie (``layout_check`` at batch 1 against 32). Its main path (a
+traced drain and a temperature round, which runs B1 inside the replayed
+step) must launch what the blocks imply, kernel by kernel. It prints
+tokens/s of a drain, TTFT and decode-step percentiles from the registry,
+the capture, host launch calls, device kernels and the device-busy share
+of one profiled block, and the kv_bytes_per_slot gauge, and adds B3 at
+the pool's batch 32 with ragged lengths (beside SDPA with the same
+mask), B4 with ``with_agg``, B1 at the pool's stack and B2 at batch 1 to
+the ``kernels`` line.
 Phase 7 trains qwen3-1.7b at full width (seeded weights, bf16, remat on)
 through ``make_train_step`` with W = 8 workers emulated on the card, one
 4096-token sequence each (``data.lm_batch``), VRMOM K 10, AdamW lr 1e-4:
@@ -105,48 +106,49 @@ B2's forward at q [1, 4096, 16, 128] and at the inloop q [8, 1024, 16,
 128] beside SDPA's, and B2 under autograd (its forward and the ``mha``
 recompute backward) beside SDPA's forward and backward join the
 ``kernels`` line.
-Phase 8 drives the adaptive tier (census, vrmom_adaptive, auto_gm):
-(a) BENCH_regimes.json's coverage block (linear, alpha 0.2, m 100, n 100,
-p 5, 4 rounds) under alie and ipm at 480 replications, vrmom and median
-at assumed_alpha 0 and the adaptive arms at the census's alpha_hat (which
+Phase 8 drives the adaptive tier (census, vrmom_adaptive, auto_gm): (a)
+BENCH_regimes.json's coverage block (linear, alpha 0.2, m 100, n 100, p
+5, 4 rounds) under alie and ipm at 480 replications, vrmom and median at
+assumed_alpha 0 and the adaptive arms at the census's alpha_hat (which
 must be the record's 0.198), printed beside the JAX record; the record's
 own criterion must hold (a regime where both fixed arms fall below 0.90
 and both adaptive arms reach it) and both adaptive arms must reach 0.90
-under each; (b) phase 7's full-width training with stacked-adaptive
-vrmom_adaptive and auto_gm: on one honest stack each aggregate equals its
-fixed baseline's bit for bit (B1 vrmom; the geometric median) with the
-state at its unit fixed point, then 3 steps under ipm on int(0.4 * 7) = 2
-rows carry the state, whose alpha_hat must be (1 - 0.5^s) * 0.25 and the
-two rows' weights the EMA toward 1/2, the rest 1.0, the loss finite and
-stable, B1 and B2 launched as the wire's column blocks imply; (c) phase
-3's serving workload with the adaptive tails under none, signflip and
-gaussian: graph tokens equal eager and phase 3's clean tokens, traced B1
-launches a token as the ladder implies, the mean control corrupted, and
-decode ms/token. B1 at the phase's three stacks joins the ``kernels``
-line.
-Phase 9 drives the consensus backend (``dist.consensus``, ``FaultPlan``):
-(a) BENCH_dist.json's emulated degradation grid (n 8, f 1, midpoint trim,
-vrmom, alie and omniscient on one pinned row, C 512) under dropout 0 to
-0.5 at 64 seeds in one batched call a cell, the port's own draws: quorum,
-messages_dropped and quorum_lost must lie within 4 standard errors of
-their closed forms (P(Bin(7, 1 - d) >= 6), 40 * 56 * d, (1 - q)^8), the
-decision at dropout 0 must equal the fault-free run's, and the unpinned
-fault-free mean-trim decision B1's direct aggregate, bit for bit;
-err_vs_honest_mean and rounds_to_eps print beside the record's. (b) One
-round at the train wire's [8, 2^22] f32 block, device time: B1 on
-identical rows (the degenerate-scale branch of every fault-free round
-after the first; bitwise its plain version, and a ``kernels`` record), a
-whole fault-free round, a fault-path round (the masked trim of 8
-receivers, and the same views through torch.sort beside it) and the
-spread. (c) tests/test_consensus.py's coverage cell (linear, alie alpha
-0.1, vrmom K 5, m 20, n 100, p 3, 4 rounds, f 2, 10% dropout) at 480
-replications: coverage >= 0.6 and a finite RMSE. (d) Phase 7's training
-with ``reduce_backend="consensus"`` (f 1): on one honest stack the
-consensus aggregate equals the stacked-auto aggregate bit for bit; 3
+under each; (b) phase 7's training at full width (14 of 28 layers) with
+stacked-adaptive vrmom_adaptive and auto_gm: on one honest stack each
+aggregate equals its fixed baseline's bit for bit (B1 vrmom; the
+geometric median) with the state at its unit fixed point, then 3 steps
+under ipm on int(0.4 * 7) = 2 rows carry the state, whose alpha_hat must
+be (1 - 0.5^s) * 0.25 and the two rows' weights the EMA toward 1/2, the
+rest 1.0, the loss finite and stable, B1 and B2 launched as the wire's
+column blocks imply; (c) phase 3's serving workload (its model at 14
+layers) with the adaptive tails under none, signflip and gaussian: graph
+tokens equal eager and phase 3's clean tokens, traced B1 launches a
+token as the ladder implies, the mean control corrupted, and decode
+ms/token. B1 at the phase's three stacks joins the ``kernels`` line.
+Phase 9 drives the consensus backend (``dist.consensus``,
+``FaultPlan``): (a) BENCH_dist.json's emulated degradation grid (n 8, f
+1, midpoint trim, vrmom, alie and omniscient on one pinned row, C 512)
+under dropout 0 to 0.5 at 64 seeds in one batched call a cell, the
+port's own draws: quorum, messages_dropped and quorum_lost must lie
+within 4 standard errors of their closed forms (P(Bin(7, 1 - d) >= 6),
+40 * 56 * d, (1 - q)^8), the decision at dropout 0 must equal the
+fault-free run's, and the unpinned fault-free mean-trim decision B1's
+direct aggregate, bit for bit; err_vs_honest_mean and rounds_to_eps
+print beside the record's. (b) One round at the train wire's [8, 2^22]
+f32 block, device time: B1 on identical rows (the degenerate-scale
+branch of every fault-free round after the first; bitwise its plain
+version, and a ``kernels`` record), a whole fault-free round, a
+fault-path round (the masked trim of 8 receivers, and the same views
+through torch.sort beside it) and the spread. (c)
+tests/test_consensus.py's coverage cell (linear, alie alpha 0.1, vrmom K
+5, m 20, n 100, p 3, 4 rounds, f 2, 10% dropout) at 480 replications:
+coverage >= 0.6 and a finite RMSE. (d) Phase 7's training at 14 of its
+28 layers with ``reduce_backend="consensus"`` (f 1): on one honest stack
+the consensus aggregate equals the stacked-auto aggregate bit for bit; 3
 steps under alie on 1 pinned row (its main path, B1 once a block and
 round), the loss finite and quorum kept, the split of a step printed;
-then one step under repro's plan (dropout 0.1, a crash at round 2) at the
-depth its reckoned time allows, printed with the cut; peak memory.
+then one step under repro's plan (dropout 0.1, a crash at round 2) at
+the depth its reckoned time allows, printed with the cut; peak memory.
 Phase 10 serves the moe family (``models/moe.py``): (a) granite-moe-3b-
 a800m at full width and 8 of its 32 layers (40 experts top-8, dh 64, G 3,
 V 49155; seeded bf16 weights) with phase 3's workload: greedy tokens
@@ -170,59 +172,60 @@ prompt of 4090 tokens whose 24 new ones run the ring past its end, graph
 B1) at V 49155 (odd: B4's scalar loads) and 32000 join the ``kernels``
 line.
 Phase 11 serves the ssm and hybrid families (``models/mamba2.py``,
-``models/hybrid.py``): (a) mamba2-2.7b (64 mamba2 layers, no attention, V
-50280) and zamba2-7b (81 mamba2 layers and a shared attention block after
-every 6: 13 applications at dh 112, G 1; V 32000) at full width and
-depth, seeded bf16 weights, phase 3's workload, one engine for each of
-seven (layout, attack, tail) runs covering none/signflip/gaussian and
-fused/unfused in each layout: greedy tokens identical within each layout;
-two signflip runs (mamba2: fused and unfused shared; zamba2: fused shared
-and replicated) graph = eager, the eager loop's launches (the wrappers'
-counts) and each traced generate's what the step implies kernel by
-kernel (zamba2: B2 once an application, B3 once an application a step;
-mamba2: neither); shared vs replicated held by ``layout_check``; the
-instances that ran (zamba2: B2 <112>, B3 <112, 8>); the prefill on the
-kernel path against the plain path (mamba2: the same bits; zamba2:
-within LAYOUT_TOL); decode ms/token, capture, launches and busy share (of
-the graph), the replicated layout's decode ms/token, each layout's decode
-bound from the bytes a step moves (the weights, the f32 state read and
-written, the K/V), and peak memory;
-(b) zamba2-7b behind ``Scheduler`` over 8 slots of 512 (16 numpy-seeded
-requests): tokens identical under none/signflip/gaussian, a second drain
-(every admission into a slot whose state moved while it sat free)
-identical to the first, the first request admitted after an eviction
-equal to its run alone in a new pool, 5 requests against a solo generate;
-(c) B2 and B3 at zamba2's dh 112, G 1 (and B3 at its 32 replicated rows),
-and B4 and B1 at mamba2's V 50280 join the ``kernels`` line with the
-launches of (a)'s traces.
+``models/hybrid.py``): (a) mamba2-2.7b (16 of its 64 mamba2 layers, no
+attention, V 50280) and zamba2-7b (15 of its 81 mamba2 layers and a
+shared attention block after every 6: 2 applications at dh 112, G 1; V
+32000) at full width (SSM_SERVE_LAYERS), seeded bf16 weights, phase 3's
+workload, one engine for each of seven (layout, attack, tail) runs
+covering none/signflip/gaussian and fused/unfused in each layout: greedy
+tokens identical within each layout; two signflip runs (mamba2: fused
+and unfused shared; zamba2: fused shared and replicated) graph = eager,
+the eager loop's launches (the wrappers' counts) and each traced
+generate's what the step implies kernel by kernel (zamba2: B2 once an
+application, B3 once an application a step; mamba2: neither); shared vs
+replicated held by ``layout_check``; the instances that ran (zamba2: B2
+<112>, B3 <112, 8>); the prefill on the kernel path against the plain
+path (mamba2: the same bits; zamba2: within LAYOUT_TOL); decode
+ms/token, capture, launches and busy share (of the graph), the
+replicated layout's decode ms/token, each layout's decode bound from the
+bytes a step moves (the weights, the f32 state read and written, the
+K/V), and peak memory; (b) zamba2-7b behind ``Scheduler`` over 8 slots
+of 512 (16 numpy-seeded requests): tokens identical under
+none/signflip/gaussian, a second drain (every admission into a slot
+whose state moved while it sat free) identical to the first, the first
+request admitted after an eviction equal to its run alone in a new pool,
+5 requests against a solo generate; (c) B2 and B3 at zamba2's dh 112, G
+1 (and B3 at its 32 replicated rows), and B4 and B1 at mamba2's V 50280
+join the ``kernels`` line with the launches of (a)'s traces.
 Phase 12 serves the encdec family (``models/whisper.py``): (a)
-whisper-medium at full width and depth (24 encoder and 24 decoder layers,
-dh 64, G 1, V 51865 tied; seeded bf16 weights) with phase 3's workload
-and numpy-seeded stub frames [4, 1500, 1024] bf16, one engine for each of
-phase 11's seven (layout, attack, tail) runs: greedy tokens identical
-within each layout; the signflip runs (shared fused and unfused,
-replicated fused) graph = eager, every call of theirs traced: the eager
-loop's and each generate's launches what the step implies kernel by
-kernel (B2 once an encoder layer and twice a decoder layer a prefill, the
-encoder's and the cross attention's non-causal; B3 twice a decoder layer
-a step, the cross one over the whole 1500-frame cache with no length
-mask); shared vs replicated held by ``layout_check``; the instances that
-ran (B2 <64>, B3 <64, 8>); the kernel prefill within LAYOUT_TOL of the
-plain one; decode ms/token (graph, eager, replicated), capture, launches
-and busy share, prefill ms, each layout's decode bound from the bytes a
-step moves (the decoder's weights and the embedding, each row's cross
-K/V and self K/V), peak memory; (b) the same model behind ``Scheduler``
-over 8 slots of 512 (16 requests, each with its own numpy-seeded
-frames): the cross K/V counted in ``serve.kv_bytes_per_slot``, tokens
-identical under none/signflip/gaussian and in a second drain, 4 requests
-against a solo generate (or a near-tie); (c) B2 non-causal at the
-encoder's [4, 1500, 16, 64] and the cross attention's q [4, 192, 16, 64]
-over 1500 keys, B2 causal at the decoder's [4, 192, 16, 64], B3 over the
-whole encoder cache at 4 and 32 rows, B3 at the self cache [4, 216, 16,
-64], and B4 and B1 at V 51865 join the ``kernels`` line, each B2 and B3
-row with its launches and median device time (``in_path_ms``) in (a)'s
-traces, split by role from their launch order (the encoder's, then a
-self and a cross launch a decoder layer).
+whisper-medium at full width and 12 of its 24 encoder and 12 of its 24
+decoder layers (ENCDEC_LAYERS; dh 64, G 1, V 51865 tied; seeded bf16
+weights) with phase 3's workload and numpy-seeded stub frames [4, 1500,
+1024] bf16, one engine for each of phase 11's seven (layout, attack,
+tail) runs: greedy tokens identical within each layout; the signflip
+runs (shared fused and unfused, replicated fused) graph = eager, every
+call of theirs traced: the eager loop's and each generate's launches
+what the step implies kernel by kernel (B2 once an encoder layer and
+twice a decoder layer a prefill, the encoder's and the cross attention's
+non-causal; B3 twice a decoder layer a step, the cross one over the
+whole 1500-frame cache with no length mask); shared vs replicated held
+by ``layout_check``; the instances that ran (B2 <64>, B3 <64, 8>); the
+kernel prefill within LAYOUT_TOL of the plain one; decode ms/token
+(graph, eager, replicated), capture, launches and busy share, prefill
+ms, each layout's decode bound from the bytes a step moves (the
+decoder's weights and the embedding, each row's cross K/V and self K/V),
+peak memory; (b) the same model behind ``Scheduler`` over 8 slots of 512
+(16 requests, each with its own numpy-seeded frames): the cross K/V
+counted in ``serve.kv_bytes_per_slot``, tokens identical under
+none/signflip/gaussian and in a second drain, 4 requests against a solo
+generate (or a near-tie); (c) B2 non-causal at the encoder's [4, 1500,
+16, 64] and the cross attention's q [4, 192, 16, 64] over 1500 keys, B2
+causal at the decoder's [4, 192, 16, 64], B3 over the whole encoder
+cache at 4 and 32 rows, B3 at the self cache [4, 216, 16, 64], and B4
+and B1 at V 51865 join the ``kernels`` line, each B2 and B3 row with its
+launches and median device time (``in_path_ms``) in (a)'s traces, split
+by role from their launch order (the encoder's, then a self and a cross
+launch a decoder layer).
 Phase 13 trains whisper-medium at full width and depth (24 + 24 layers,
 seeded bf16 weights, remat on) through ``make_train_step`` with phase 7's
 W = 8, VRMOM K 10, AdamW lr 1e-4 and alphas, each worker one sample of
@@ -277,7 +280,7 @@ and backward join the ``kernels`` line.
 Phase 15 trains the ssm and hybrid families at full width through
 ``make_train_step`` with phase 7's W = 8, VRMOM K 10, AdamW lr 1e-4 and
 alphas, each worker one 4096-token row, seeded bf16 weights, remat on:
-mamba2-2.7b at SSM_TRAIN_LAYERS = 32 of its 64 layers (d 2560, 80 heads
+mamba2-2.7b at SSM_TRAIN_LAYERS = 16 of its 64 layers (d 2560, 80 heads
 of 64, N 128, V 50280 tied), then zamba2-7b at HYBRID_TRAIN_LAYERS = 15
 of its 81 (two groups of 6 mamba layers, each followed by the shared
 block at 32 heads of dh 112, G 1, then the 3-layer tail; V 32000 tied),
@@ -297,7 +300,7 @@ x 1024 tokens in one forward, B1 on each product's dW the wire reaches
 (the tied unembedding; zamba2 also q, k, v, o, gate, up and down of each
 application: the mamba projections and the shared block's in_proj are
 plain products, as in ``repro``), with the share of the params the wire
-covers; (d) B1 at ``layers.ssm.in_proj_z`` [8, 419430400] and
+covers; (d) B1 at ``layers.ssm.in_proj_z`` [8, 209715200] and
 ``mamba_g.ssm.in_proj_z`` [8, 308281344] bf16, at the unembedding's dW
 [8, 2560*50280] and the shared block's ``wq`` dW [8, 3584*3584] f32, B2's
 forward at q/k/v [1, 4096, 32, 112] causal beside SDPA, and B2 under
@@ -317,6 +320,25 @@ built ``Sampling`` equal to the first: one capture, the later calls
 replay the same ``StepGraph``, and the third call's tokens equal the
 first's.
 
+Phase 17 is the one-card accounting (``repro_torch.launch``) held
+against a real run, on full-width qwen3-1.7b with seeded weights at the
+shapes above: (a) ``op_cost.counting("cuda")`` on the meta device over
+the 4 x 192 prefill (B2: 28 calls), one decode step at batch 4 over its
+216-slot cache (B3: 28) and one stacked-rrs train step at W = 8 x 4096
+(B1 on each of 13 leaves, B2 forward under autograd), the step counted
+twice: traced whole and by trip count (``op_cost.trips``), which must
+agree exactly in FLOPs, bytes, peak and kernel calls, and phase 7's step
+(stacked-auto, signflip) counted for its peak; (b) the same three
+calls on the card under the same count: FLOPs and bytes equal the meta
+count's exactly, op by op (an op that parts is named and fails it), the
+wrappers' launch counters rise by the kernel calls the meta count
+recorded, each call's untraced wall is printed against its roofline
+bound (989 TFLOP/s bf16, 3.35 TB/s), and the train step's
+``max_memory_allocated`` must lie within 10 % of the meta peak; (c)
+``launch.dryrun.dryrun_one`` for every arch at ``decode_32k`` and the
+``launch.report`` table of those rows. B1, B2 and B3 at phase 17's
+shapes join the ``kernels`` line with the bounds of ``kernels/*.cost``.
+
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it lists every kernel with its launches, error and times. Any
 failed check exits non-zero before that line. Without a CUDA device, or
@@ -324,6 +346,7 @@ without the repository beside it, the script exits non-zero.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import statistics
@@ -354,6 +377,15 @@ WRAPPER_KERNELS = {"aggregate": ("agg_kernel",),
 # workload of phase 3
 N_PROMPTS, PROMPT_LEN, NEW_TOKENS = 4, 192, 24
 MAX_LEN = PROMPT_LEN + NEW_TOKENS
+
+# qwen3-1.7b's depth in the serving of phases 3, 6 and 8 (c) and the
+# training of phases 8 (b) and 9 (d): 14 of its 28 layers, every width as
+# published (phases 7, 16 and 17 keep all 28). With these phases and
+# phases 11, 12, 13 and 15 at the depths they had before, the whole smoke
+# took 1,055.6 s of phases on one host and passed the 1200 s allowed on
+# another: their traced eager loops, profiled steps and consensus rounds
+# scale with the depth
+QWEN_CUT_LAYERS = 14
 
 # traces of one main-path call before a lost event fails the check
 TRACE_TRIES = 8
@@ -431,11 +463,11 @@ MOE_MIXTRAL_LAYERS, MOE_RING_PROMPT = 4, 4090
 MOE_GRANITE_LAYERS = 8
 
 # phase 11, the ssm and hybrid families: mamba2-2.7b and zamba2-7b at full
-# width and depth with phase 3's workload, one engine a (layout, attack,
-# fused) run of SSM_RUNS, each serving a graph generate; the two runs of
-# SSM_TRACED also serve the eager loop, their generates traced (mamba2:
-# both tails, whose kernels it times; zamba2: both layouts, whose B3 shapes
-# it times); zamba2 behind the scheduler as phase 10 (b)
+# width and the depth of SSM_SERVE_LAYERS with phase 3's workload, one engine a
+# (layout, attack, fused) run of SSM_RUNS, each serving a graph generate; the
+# two runs of SSM_TRACED also serve the eager loop, their generates traced
+# (mamba2: both tails, whose kernels it times; zamba2: both layouts, whose B3
+# shapes it times); zamba2 behind the scheduler as phase 10 (b)
 SSM_RUNS = (("shared", "none", True), ("shared", "signflip", True),
             ("shared", "signflip", False), ("shared", "gaussian", True),
             ("replicated", "none", True), ("replicated", "signflip", True),
@@ -445,18 +477,29 @@ SSM_TRACED = {"mamba2-2.7b": (("shared", "signflip", True),
               "zamba2-7b": (("shared", "signflip", True),
                             ("replicated", "signflip", True))}
 SSM_CONFIGS = tuple(SSM_TRACED)
+# phase 11's depths (QWEN_CUT_LAYERS says why): mamba2-2.7b at 16 of its
+# 64 layers; zamba2-7b at phase 15's 15 of its 81, two groups of 6 each
+# followed by the shared block, then the 3-layer tail
+SSM_SERVE_LAYERS = {"mamba2-2.7b": 16, "zamba2-7b": 15}
 
-# phase 12, the encdec family: whisper-medium at full width and depth (24
-# encoder and 24 decoder layers) with phase 3's workload and ENCDEC_FRAMES
-# numpy-seeded stub frames a prompt, one engine a run of SSM_RUNS (phase
-# 11's matrix), the runs of ENCDEC_TRACED held against their eager loops,
-# every call of theirs traced (both tails, whose kernels it times, and
-# both layouts, whose B3 shapes it times); behind the scheduler as phase
-# 10 (b), each request with its own frames
+# phase 12, the encdec family: whisper-medium at full width and ENCDEC_LAYERS
+# of its 24 encoder and 24 decoder layers with phase 3's workload and
+# ENCDEC_FRAMES numpy-seeded stub frames a prompt, one engine a run of SSM_RUNS
+# (phase 11's matrix), the runs of ENCDEC_TRACED held against their eager
+# loops, every call of theirs traced (both tails, whose kernels it times, and
+# both layouts, whose B3 shapes it times); behind the scheduler as phase 10
+# (b), each request with its own frames
 ENCDEC_TRACED = (("shared", "signflip", True),
                  ("shared", "signflip", False),
                  ("replicated", "signflip", True))
 ENCDEC_SEED = 12
+# phase 12's depth (QWEN_CUT_LAYERS says why): 12 of whisper-medium's 24
+# encoder and 12 of its 24 decoder layers. Phase 13 trains it whole: cut,
+# its (d) records draw other q/k/v (their generator first fills the B1
+# stack of enc_layers.mlp.w_gate, whose size follows the depth), and the
+# encoder's B2 under autograd then parts from the f32 plain path by 2.13 %
+# of the largest gradient, past its 2e-2 (ROADMAP section C)
+ENCDEC_LAYERS = 12
 
 # phase 13, training the encdec family: whisper-medium at full width and
 # depth (24 + 24 layers) with phase 7's W, K, lr and alphas; a worker's
@@ -490,13 +533,14 @@ MOE_ROUTING_KERNELS = tuple((key, "routing") for key in (
 # phase 15, training the ssm and hybrid families at full width with phase
 # 7's W, K, lr, alphas, TRAIN_SEQ and INLOOP_SEQ, cut in depth only.
 # train_reckoning's 28 B a parameter: a mamba2-2.7b layer holds 40,211,184
-# params and the tied embedding 128,716,800, so 32 of its 64 layers
-# reckon at 39.6 GB (64 at 75.7); a zamba2-7b mamba layer holds
+# params and the tied embedding 128,716,800, so 16 of its 64 layers
+# reckon at 21.6 GB (32 at 39.6, 64 at 75.7; 16 since phase 15 ran at 32
+# for QWEN_CUT_LAYERS' reason); a zamba2-7b mamba layer holds
 # 77,970,768, the shared block 231,218,176 and the embedding 114,688,000,
 # so 15 of its 81 layers (two groups of 6, each followed by the shared
 # block, then the 3-layer tail, as the published 13 x 6 + 3 ends) reckon
 # at 42.4 GB (21 at 55.5), each before its activations
-SSM_TRAIN_LAYERS = 32
+SSM_TRAIN_LAYERS = 16
 HYBRID_TRAIN_LAYERS = 15
 # phase 16 (c): new tokens a generate of the full-width capture check
 LINT_NEW_TOKENS = 8
@@ -504,6 +548,17 @@ LINT_NEW_TOKENS = 8
 
 class CheckFailed(Exception):
     pass
+
+
+def at_depth(cfg, layers: int):
+    """``cfg`` with ``layers`` layers (an encdec config: that many encoder
+    and decoder layers), every width as published."""
+    import dataclasses
+
+    if cfg.encoder is not None:
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+            cfg.encoder, n_layers=layers))
+    return dataclasses.replace(cfg, n_layers=layers)
 
 
 def require(ok: bool, what: str) -> None:
@@ -1042,13 +1097,15 @@ def phase_serve(torch, dev, card: str):
     from repro_torch.models import model as M
     from repro_torch.serve import RobustDecodeConfig, Sampling, ServeEngine
 
-    cfg = get_arch("qwen3-1.7b")
+    full = get_arch("qwen3-1.7b")
+    cfg = at_depth(full, QWEN_CUT_LAYERS)
     t0 = time.perf_counter()
     params = M.init(cfg, torch.Generator(device=dev).manual_seed(0),
                     device=dev)
     torch.cuda.synchronize()
     n_params = M.param_count(params)
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+    print(f"[serve] {cfg.name}: {cfg.n_layers} of {full.n_layers} layers "
+          f"(QWEN_CUT_LAYERS), d {cfg.d_model}, "
           f"heads {cfg.n_heads}/{cfg.n_kv_heads}, dh {cfg.head_dim}, d_ff "
           f"{cfg.d_ff}, vocab {cfg.vocab}, {n_params / 1e9:.3f} B params "
           f"bf16 ({2 * n_params / 1e9:.2f} GB), seeded init "
@@ -1152,7 +1209,7 @@ def phase_serve(torch, dev, card: str):
     lp, _ = eng_p.prefill(batch)
     rel = max_err(lk, lp) / float(lp.float().abs().max())
     # bf16 rounds at other places on the two paths (f32 scores in the
-    # kernel, bf16 scores in the plain mha) through 28 layers
+    # kernel, bf16 scores in the plain mha) through the layers
     require(rel <= 5e-2 and bool(torch.isfinite(lk.float()).all()),
             f"prefill logits kernel vs plain: max err / max |logit| = {rel}")
     print(f"[serve] prefill logits kernel path vs plain path: max err / "
@@ -1741,7 +1798,7 @@ def phase_pool(torch, dev, card: str):
                                    Sampling, Scheduler, ServeEngine)
 
     t_phase = time.perf_counter()
-    cfg = get_arch("qwen3-1.7b")
+    cfg = at_depth(get_arch("qwen3-1.7b"), QWEN_CUT_LAYERS)
     params = M.init(cfg, torch.Generator(device=dev).manual_seed(0),
                     device=dev)
     L, Hkv, dh, H = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
@@ -1751,7 +1808,8 @@ def phase_pool(torch, dev, card: str):
     # ceil((n - 1) / block) blocks of POOL_BLOCK steps after admission
     live = POOL_BLOCK * sum(-(-(n - 1) // POOL_BLOCK) for _, n in reqs)
     slot_bytes = L * 2 * POOL_MAX_LEN * Hkv * dh * 2
-    print(f"[pool] {cfg.name} at full width, ServeEngine(max_len="
+    print(f"[pool] {cfg.name} at full width and {L} layers, "
+          f"ServeEngine(max_len="
           f"{POOL_MAX_LEN}, n_slots={POOL_SLOTS}, robust m=8 vrmom K=8 "
           f"shared fused, obs), Scheduler(decode_block={POOL_BLOCK}), greedy;"
           f" {POOL_REQUESTS} requests, prompts {POOL_PROMPT[0]}.."
@@ -2904,7 +2962,7 @@ def adaptive_train(torch, dev, card: str):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_arch("qwen3-1.7b")
+    cfg = at_depth(get_arch("qwen3-1.7b"), QWEN_CUT_LAYERS)
     W, S = TRAIN_W, TRAIN_SEQ
     params = M.init(cfg, torch.Generator(device=dev).manual_seed(7),
                     device=dev)
@@ -2913,7 +2971,8 @@ def adaptive_train(torch, dev, card: str):
     opt_state = opt.init(params)
     n_byz = int(ADAPT_TRAIN_ALPHA * (W - 1))
     blocks = sum(-(-p.numel() // RR.WIRE_CHUNK) for p in leaves(params))
-    print(f"[adapt] (b) {cfg.name} at full width, W = {W} x {S} tokens, "
+    print(f"[adapt] (b) {cfg.name} at full width and {cfg.n_layers} "
+          f"layers (QWEN_CUT_LAYERS), W = {W} x {S} tokens, "
           f"AdamW lr {TRAIN_LR}; the adaptive wire walks {blocks} column "
           f"blocks of {RR.WIRE_CHUNK} (an f32 block [{W}, {RR.WIRE_CHUNK}] "
           f"is {W * RR.WIRE_CHUNK * 4 / 1e6:.0f} MB); AdaptiveState momentum "
@@ -3044,14 +3103,14 @@ def adaptive_serve(torch, dev, card: str):
     from repro_torch.models import model as M
     from repro_torch.serve import RobustDecodeConfig, ServeEngine
 
-    cfg = get_arch("qwen3-1.7b")
+    cfg = at_depth(get_arch("qwen3-1.7b"), QWEN_CUT_LAYERS)
     params = M.init(cfg, torch.Generator(device=dev).manual_seed(0),
                     device=dev)
     tokens = torch.randint(0, cfg.vocab, (N_PROMPTS, PROMPT_LEN),
                            generator=torch.Generator(device=dev)
                            .manual_seed(1), device=dev)
     batch = {"tokens": tokens}
-    # phase 3's clean tokens (the same seeded weights and prompts)
+    # phase 3's clean tokens (the same seeded weights, depth and prompts)
     clean = ServeEngine(cfg, params, max_len=MAX_LEN, device=dev).generate(
         batch, NEW_TOKENS)
     engines = {}
@@ -3352,7 +3411,8 @@ def consensus_train(torch, dev, card, fault_ms):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_arch("qwen3-1.7b")
+    full = get_arch("qwen3-1.7b")
+    cfg = at_depth(full, QWEN_CUT_LAYERS)
     W, S = TRAIN_W, TRAIN_SEQ
     est = Estimator("vrmom", K=TRAIN_K)
     cons = ConsensusConfig(f=1)
@@ -3371,7 +3431,8 @@ def consensus_train(torch, dev, card, fault_ms):
     opt_state = opt.init(params)
     n_byz = int(TRAIN_ALPHA * (W - 1))
     mask = torch.arange(W, device=dev) >= W - n_byz
-    print(f"[cons] (d) {cfg.name} at full width, W = {W} x {S} tokens, "
+    print(f"[cons] (d) {cfg.name} at full width and {cfg.n_layers} of "
+          f"{full.n_layers} layers (QWEN_CUT_LAYERS), W = {W} x {S} tokens, "
           f"VRMOM K {TRAIN_K}, AdamW lr {TRAIN_LR}, reduce_backend="
           f"consensus f {cons.f} ({P} rounds fault-free); the wire walks "
           f"{blocks} column blocks of {RR.WIRE_CHUNK}")
@@ -3450,14 +3511,15 @@ def consensus_train(torch, dev, card, fault_ms):
           f"{W * S / step_s:.1f} tokens/s; rounds_run "
           f"{int(caux.rounds_run)}, rounds_to_eps {int(caux.rounds_to_eps)},"
           f" quorum {float(caux.quorum):.4f}; launches {json.dumps(counts)};"
-          f" peak memory {peak:.2f} GB (phase 7's: 60.7 GB) ({card})")
+          f" peak memory {peak:.2f} GB ({card})")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
     # (iii) repro's plan (tests/test_consensus.py:262) under alie, one step
     plan = FaultPlan(dropout=0.1, n_crashed=1, crash_round=2)
     Pf = cons.phases(plan)
-    reckon = blocks * Pf * fault_ms / 1e3
+    blocks_full = wire_blocks(full)
+    reckon = blocks_full * Pf * fault_ms / 1e3
     depth = cfg.n_layers  # the deepest cut whose rounds fit the budget
     while depth > 1 and wire_blocks(dataclasses.replace(
             cfg, n_layers=depth)) * Pf * fault_ms / 1e3 > CONS_FAULT_BUDGET_S:
@@ -3468,8 +3530,9 @@ def consensus_train(torch, dev, card, fault_ms):
     params, blocks_cut = init(cut), wire_blocks(cut)
     opt_state = opt.init(params)
     print(f"[cons] (d) (iii) plan {tuple(plan)}: reckoned at full depth "
-          f"{blocks} blocks x {Pf} rounds x {fault_ms:.3f} ms = {reckon:.1f}"
-          f" s of fault-path rounds; run at {depth} of {cfg.n_layers} "
+          f"{blocks_full} blocks x {Pf} rounds x {fault_ms:.3f} ms = "
+          f"{reckon:.1f} s of fault-path rounds; run at {depth} of "
+          f"{full.n_layers} "
           f"layers ({blocks_cut} blocks; every width as published), "
           f"reckoned {blocks_cut * Pf * fault_ms / 1e3:.1f} s")
     faulted = make_train_step(cut, W, estimator=est, optimizer=opt,
@@ -4114,15 +4177,16 @@ def ssm_reckoning(cfg, n_params: int, rows: int) -> dict:
 
 def ssm_serve(torch, dev, card, flush, name):
     """Phase 11 (a): ``name`` (mamba2-2.7b or zamba2-7b) at full width and
-    depth, phase 3's workload. Returns (cfg, params, [(``kernels`` record,
-    its main path's launches)])."""
+    the depth of SSM_SERVE_LAYERS, phase 3's workload. Returns (cfg,
+    params, [(``kernels`` record, its main path's launches)])."""
     from repro_torch import kernels as K
     from repro_torch.configs import get as get_arch
     from repro_torch.core.estimator import Estimator
     from repro_torch.models import model as M
     from repro_torch.serve import RobustDecodeConfig, ServeEngine
 
-    cfg = get_arch(name)
+    full = get_arch(name)
+    cfg = at_depth(full, SSM_SERVE_LAYERS[name])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -4139,8 +4203,9 @@ def ssm_serve(torch, dev, card, flush, name):
             f"{cfg.hybrid_attn_every} ({n_attn} applications; heads "
             f"{H}/{Hkv}, dh {dh}, d_ff {cfg.d_ff})" if hybrid
             else "no attention")
-    print(f"[ssm] {cfg.name} at full width and depth: {cfg.n_layers} mamba2 "
-          f"layers (d {cfg.d_model}, d_inner {E}, {E // s.head_dim} heads of "
+    print(f"[ssm] {cfg.name} at full width, depth cut to {cfg.n_layers} of "
+          f"{full.n_layers} mamba2 layers (SSM_SERVE_LAYERS; d "
+          f"{cfg.d_model}, d_inner {E}, {E // s.head_dim} heads of "
           f"{s.head_dim}, d_state {s.d_state}, chunk {s.chunk}), {attn}, "
           f"vocab {cfg.vocab}; {n_params / 1e9:.3f} B params bf16 "
           f"({2 * n_params / 1e9:.2f} GB), seeded init "
@@ -4470,9 +4535,9 @@ def encdec_roles(res, traced, Le: int, L: int) -> dict:
 
 
 def encdec_serve(torch, dev, card, flush):
-    """Phase 12 (a): whisper-medium at full width and depth, phase 3's
-    workload with numpy-seeded frames. Returns (cfg, params, [(``kernels``
-    record, its main path's launches)])."""
+    """Phase 12 (a): whisper-medium at full width and ENCDEC_LAYERS of its
+    24 + 24 layers, phase 3's workload with numpy-seeded frames. Returns
+    (cfg, params, [(``kernels`` record, its main path's launches)])."""
     import numpy as np
 
     from repro_torch import kernels as K
@@ -4481,11 +4546,13 @@ def encdec_serve(torch, dev, card, flush):
     from repro_torch.models import model as M
     from repro_torch.serve import RobustDecodeConfig, ServeEngine
 
-    cfg = get_arch("whisper-medium")
+    full = get_arch("whisper-medium")
+    cfg = at_depth(full, ENCDEC_LAYERS)
     L, Le, F = cfg.n_layers, cfg.encoder.n_layers, cfg.encoder.n_frames
     H, Hkv, dh, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
-    require((L, Le, F) == (24, 24, 1500), f"{cfg.name}: {L} + {Le} layers "
-                                          f"over {F} frames")
+    require((full.n_layers, full.encoder.n_layers, F) == (24, 24, 1500)
+            and (L, Le) == (ENCDEC_LAYERS, ENCDEC_LAYERS),
+            f"{cfg.name}: {L} + {Le} layers over {F} frames")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -4494,9 +4561,10 @@ def encdec_serve(torch, dev, card, flush):
     n_params = M.param_count(params)
     n_dec = (M.param_count(params["dec_layers"]) + params["embed"].numel()
              + params["norm_f"].numel())
-    print(f"[encdec] {cfg.name} at full width and depth: {Le} encoder and "
-          f"{L} decoder layers (d {D}, heads {H}/{Hkv} of {dh}, d_ff "
-          f"{cfg.d_ff} SwiGLU, sinusoidal positions), {F} stub frames, "
+    print(f"[encdec] {cfg.name} at full width, depth cut to {Le} of "
+          f"{full.encoder.n_layers} encoder and {L} of {full.n_layers} "
+          f"decoder layers (ENCDEC_LAYERS; d {D}, heads {H}/{Hkv} of {dh}, "
+          f"d_ff {cfg.d_ff} SwiGLU, sinusoidal positions), {F} stub frames, "
           f"vocab {cfg.vocab} tied; {n_params / 1e9:.3f} B params bf16 "
           f"({2 * n_params / 1e9:.2f} GB; decoder and embedding "
           f"{2 * n_dec / 1e9:.3f} GB), seeded init "
@@ -5566,6 +5634,249 @@ def phase_lint(torch, dev, card: str) -> None:
           f"{card}")
 
 
+LAUNCH_SEED = 17
+
+
+def launch_parts(meta, card) -> dict:
+    """{op: (meta [calls, flops, bytes], card [...])} of the ops whose
+    counts part between two ``OpCost``s."""
+    return {op: (meta.by_op.get(op), card.by_op.get(op))
+            for op in sorted(set(meta.by_op) | set(card.by_op))
+            if meta.by_op.get(op) != card.by_op.get(op)}
+
+
+def phase_launch(torch, dev, card: str):
+    """Phase 17: ``launch.op_cost`` / ``launch.dryrun`` on the meta device
+    held against the same calls on the card. Returns the ``kernels``
+    records of the phase with the launches of its card run."""
+    from repro_torch import kernels as K
+    from repro_torch import optim as O
+    from repro_torch.configs import InputShape, get as get_arch, input_specs
+    from repro_torch.core.estimator import Estimator
+    from repro_torch.data import lm_batch
+    # the package's names are the wrappers: the modules by their paths
+    DA = importlib.import_module("repro_torch.kernels.decode_attention")
+    FA = importlib.import_module("repro_torch.kernels.flash_attention")
+    VR = importlib.import_module("repro_torch.kernels.vrmom")
+    from repro_torch.launch import dryrun, report
+    from repro_torch.launch.op_cost import counting, tensor_bytes
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_train_step
+
+    torch.cuda.empty_cache()
+    t = t_phase = time.perf_counter()
+    cfg = get_arch("qwen3-1.7b")
+    W, S, B = TRAIN_W, TRAIN_SEQ, N_PROMPTS
+    opt = O.get("adamw", lr=TRAIN_LR)
+
+    def main_path(params, tokens, batch, opt_state, reckon=False):
+        """The three counted calls on ``params``' device -> {name: OpCost},
+        and the prefill's outputs."""
+        setup = make_train_step(cfg, W, mode="stacked-rrs", optimizer=opt,
+                                device=tokens.device)
+        res = {}
+        with counting("cuda") as res["prefill"]:
+            logits, caches = M.prefill(params, cfg, {"tokens": tokens},
+                                       cache_len=MAX_LEN, last_only=True)
+        tok = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
+        with counting("cuda") as res["decode"]:
+            M.decode_step(params, cfg, caches, tok)
+        with counting("cuda", reckon=reckon) as res["train"]:
+            setup.step_fn(params, opt_state, batch)
+        return res, setup, (logits, caches, tok)
+
+    # -- (a) the meta count --------------------------------------------------
+    pm = M.init(cfg, torch.Generator(), device="meta")
+    st_m = opt.init(pm)
+    batch_m = input_specs(cfg, InputShape("phase 7", S, W, "train"))
+    toks_m = torch.empty((B, PROMPT_LEN), dtype=torch.int32, device="meta")
+    meta, _, _ = main_path(pm, toks_m, batch_m, st_m)
+    t_whole = time.perf_counter() - t
+    t1 = time.perf_counter()
+    setup_m = make_train_step(cfg, W, mode="stacked-rrs", optimizer=opt,
+                              device="meta")
+    with counting("cuda", reckon=True) as reck:
+        setup_m.step_fn(pm, st_m, batch_m)
+    t_reck = time.perf_counter() - t1
+    whole = meta["train"]
+    require((whole.cost.flops, whole.cost.bytes, whole.peak,
+             whole.kernels) == (reck.cost.flops, reck.cost.bytes, reck.peak,
+                                reck.kernels),
+            f"the trip-count reckoning parts from the whole trace: "
+            f"{launch_parts(whole, reck)}, peaks {whole.peak} (at "
+            f"{whole.peak_op}) and {reck.peak} (at {reck.peak_op}), "
+            f"kernels {whole.kernels} and {reck.kernels}")
+    args_m = tensor_bytes((pm, st_m, batch_m))
+    meta_peak = args_m + whole.peak
+    # phase 7's step: stacked-auto, signflip on int(0.25 * 7) = 1 row
+    p7 = make_train_step(cfg, W, estimator=Estimator("vrmom", K=TRAIN_K),
+                         mode="stacked-auto", optimizer=opt,
+                         byzantine_frac=TRAIN_ALPHA, attack="signflip",
+                         device="meta")
+    with counting("cuda", reckon=True) as oc7:
+        p7.step_fn(pm, st_m, batch_m)
+    print(f"[launch] (a) phase 7's step (stacked-auto, signflip on 1 row) "
+          f"on meta: peak {(args_m + oc7.peak) / 1e9:.3f} GB (at "
+          f"{oc7.peak_op}), {(oc7.peak - whole.peak) / 1e9:+.3f} GB over "
+          f"the clean stacked-rrs step")
+    want = {"prefill": {"flash_attention": cfg.n_layers},
+            "decode": {"decode_attention": cfg.n_layers},
+            "train": {"aggregate": 13, "flash_attention":
+                      W * cfg.n_layers * (2 if cfg.remat else 1)}}
+    for name, oc in meta.items():
+        calls = {k: v["calls"] for k, v in oc.kernels.items()}
+        require(calls == want[name], f"meta {name}: kernel calls {calls}, "
+                f"expected {want[name]}")
+        print(f"[launch] (a) meta {name}: {oc.cost.flops:.6e} FLOPs, "
+              f"{oc.cost.bytes:.6e} bytes, peak {oc.peak / 1e9:.3f} GB "
+              f"above the arguments (at {oc.peak_op}), kernels {calls}")
+    print(f"[launch] (a) the train step traced whole in {t_whole:.1f} s "
+          f"(the three calls) and by trip count in {t_reck:.1f} s: equal "
+          f"FLOPs, bytes, peak and kernel calls; meta peak "
+          f"{meta_peak / 1e9:.3f} GB = arguments {args_m / 1e9:.3f} "
+          f"(params, AdamW m and v, batch) + {whole.peak / 1e9:.3f} (at "
+          f"{whole.peak_op})")
+    print(f"[time] phase 17 (a) {time.perf_counter() - t:.1f} s")
+
+    # -- (b) the same calls on the card, counted ------------------------------
+    t = time.perf_counter()
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(
+        LAUNCH_SEED), device=dev)
+    opt_state = opt.init(params)
+    tokens = torch.randint(0, cfg.vocab, (B, PROMPT_LEN), generator=torch
+                           .Generator(device=dev).manual_seed(LAUNCH_SEED),
+                           device=dev, dtype=torch.int32)
+    batch = lm_batch(cfg, LAUNCH_SEED, W, S, device=dev)
+    # warm-up: libraries loaded, B3's split scratch made for this shape
+    _, caches = M.prefill(params, cfg, {"tokens": tokens}, cache_len=MAX_LEN,
+                          last_only=True)
+    M.decode_step(params, cfg, caches, torch.zeros(
+        (B,), dtype=torch.int32, device=dev))
+    del caches
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    cardc, setup, (logits, caches, tok) = main_path(params, tokens, batch,
+                                                    opt_state)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    kernel_calls = {}
+    for oc in meta.values():
+        for k, v in oc.kernels.items():
+            kernel_calls[k] = kernel_calls.get(k, 0) + v["calls"]
+    require({k: n for k, n in launches.items() if n} == kernel_calls,
+            f"the card's launch counters {launches} against the meta "
+            f"count's kernel calls {kernel_calls}")
+    for name in meta:
+        m, c = meta[name], cardc[name]
+        parts = launch_parts(m, c)
+        # op by op: a branch on the device (an item assignment dispatches
+        # fill_ on the card and scalar_tensor + copy_ on meta) shows here
+        require(not parts, f"{name}: the card's count parts from the meta "
+                           f"count at {parts}")
+        print(f"[launch] (b) card {name}: FLOPs {c.cost.flops:.6e} and "
+              f"bytes {c.cost.bytes:.6e} equal the meta count's, op by op; "
+              f"kernels {({k: v['calls'] for k, v in c.kernels.items()})}")
+
+    # untraced walls against the roofline bounds
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    walls = {
+        "prefill": wall(lambda: M.prefill(params, cfg, {"tokens": tokens},
+                                          cache_len=MAX_LEN,
+                                          last_only=True)),
+        "decode": wall(lambda: M.decode_step(params, cfg, caches, tok)),
+    }
+    del logits, caches
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    walls["train"] = wall(lambda: setup.step_fn(params, opt_state, batch))
+    args_c = tensor_bytes((params, opt_state, batch))
+    card_peak = torch.cuda.max_memory_allocated() - base + args_c
+    for name, oc in meta.items():
+        b_ms, b_by = bound(oc.cost.bytes, oc.cost.flops)
+        print(f"[launch] (b) {name}: wall {walls[name] * 1e3:.3f} ms "
+              f"untraced, roofline bound {b_ms:.3f} ms ({b_by}): "
+              f"{100 * b_ms / 1e3 / walls[name]:.2f} % of the bound "
+              f"({card})")
+    gap = card_peak / meta_peak - 1
+    print(f"[launch] (b) train step peak: max_memory_allocated "
+          f"{card_peak / 1e9:.3f} GB (the step's arguments "
+          f"{args_c / 1e9:.3f} + {(card_peak - args_c) / 1e9:.3f} above "
+          f"them) against the meta peak {meta_peak / 1e9:.3f} GB: "
+          f"{100 * gap:+.2f} % ({card})")
+    require(abs(gap) <= 0.10, f"the step's peak {card_peak} is not within "
+                              f"10 % of the meta peak {meta_peak}")
+    del params, opt_state, batch, setup
+    torch.cuda.empty_cache()
+    print(f"[time] phase 17 (b) {time.perf_counter() - t:.1f} s")
+
+    # -- (c) the dry run of every arch at decode_32k --------------------------
+    t = time.perf_counter()
+    res = {}
+    for arch in report.ORDER_ARCHS:
+        r = dryrun.dryrun_one(arch, "decode_32k", verbose=False)
+        require(r["flops_per_chip"] > 0 and r["hbm_bytes_per_chip"] > 0
+                and math.isfinite(r["compute_s"] + r["memory_s"]),
+                f"dryrun {arch}: {r}")
+        res[(arch, "decode_32k", dryrun.MESH)] = r
+        print(f"[launch] (c) {arch} x decode_32k: {r['flops_per_chip']:.4e} "
+              f"FLOPs, {r['hbm_bytes_per_chip']:.4e} bytes, peak "
+              f"{r['peak_memory_bytes'] / 1e9:.1f} GB, {r['bottleneck']}, "
+              f"kernels {r['kernels']}, counted in {r['host_s']:.2f} s")
+    table = report.roofline_table(res, dryrun.MESH)
+    for line in table.splitlines():
+        if "decode_32k" in line or line.startswith("| arch") or "---" in line:
+            print(f"[launch] (c) {line}")
+    print(f"[time] phase 17 (c) {time.perf_counter() - t:.1f} s")
+
+    # -- (d) the kernels at phase 17's shapes, bounds from kernels/*.cost -----
+    flush = make_flush(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(LAUNCH_SEED)
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    def with_bound(rec, cost):
+        rec["bound_ms"], rec["bound_by"] = bound(cost[1], cost[0])
+        return rec
+
+    q, k, v = randn(1, S, H, dh), randn(1, S, Hkv, dh), randn(1, S, Hkv, dh)
+    rec_b2 = with_bound(attn_record(
+        torch, flush, f"B2 flash_attention under launch.op_cost (q "
+        f"[1,{S},{H},{dh}] bf16 causal; launches: phase 17's card prefill "
+        f"and train step)", q, k, v, decode=False),
+        FA.cost(q.shape, k.shape, q.dtype, causal=True))
+    rec_b2["launches"] = launches["flash_attention"]
+    q, k, v = randn(B, 1, H, dh), randn(B, MAX_LEN, Hkv, dh), randn(
+        B, MAX_LEN, Hkv, dh)
+    rec_b3 = with_bound(attn_record(
+        torch, flush, f"B3 decode_attention under launch.op_cost (q "
+        f"[{B},1,{H},{dh}] over [{B},{MAX_LEN},{Hkv},{dh}] bf16; launches: "
+        f"phase 17's card decode step)", q, k, v, decode=True),
+        DA.cost(q.shape, k.shape, q.dtype, k.dtype, MAX_LEN))
+    rec_b3["launches"] = launches["decode_attention"]
+    C = cfg.n_layers * cfg.d_model * Hkv * dh   # layers.attn.wk
+    rec_b1 = b1_stack_record(
+        torch, flush, g, C, f"B1 aggregate under launch.op_cost (vrmom "
+        f"K={TRAIN_K}, bf16; timed at layers.attn.wk [{W},{C}]; launches: "
+        f"phase 17's card train step, one a leaf)", launches["aggregate"])
+    with_bound(rec_b1, VR.aggregate_cost((W, C), torch.bfloat16))
+    del q, k, v
+    recs = [rec_b1, rec_b2, rec_b3]
+    print_train_records("launch", card, recs)
+    print(f"[launch] phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    return recs
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside the script; "
@@ -5626,6 +5937,8 @@ def main() -> int:
         lap("phase 15 (training ssm and hybrid)")
         phase_lint(torch, dev, card)
         lap("phase 16 (static analysis and the audit)")
+        launch_recs = phase_launch(torch, dev, card)
+        lap("phase 17 (one-card accounting)")
         print(f"[time] all phases {time.perf_counter() - t_all:.1f} s")
     except (CheckFailed, AssertionError) as exc:
         print(f"chip_smoke.py: check failed: {exc}", file=sys.stderr)
@@ -5646,6 +5959,7 @@ def main() -> int:
     kernels.extend(train_encdec_recs)
     kernels.extend(train_moe_recs)
     kernels.extend(train_ssm_recs)
+    kernels.extend(launch_recs)
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,7 @@ model, and the same training set-up, on both sides.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 from ..lint.hashguard import check_hashable_fields
 
@@ -161,3 +161,55 @@ class ArchConfig:
             loss_chunk=32,
             remat=False,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
+def input_specs(cfg: ArchConfig, shape: Union[InputShape, str],
+                device="meta") -> dict:
+    """Stand-ins for a step's data inputs: empty tensors on ``device`` (the
+    meta device by default, which allocates nothing) with ``repro``'s
+    shapes and dtypes.
+
+    train, prefill: ``tokens`` [B, S] int32, with ``frames`` [B, n_frames,
+    D] for an encdec model, or ``patches`` [B, n_patches, D] and
+    ``tokens`` of ``S - n_patches`` for a vlm (the stubs in the compute
+    dtype); decode: ``token`` [B] int32 (the positions are the cache's).
+    """
+    import torch
+
+    if isinstance(shape, str):
+        shape = INPUT_SHAPES[shape]
+    B, S = shape.global_batch, shape.seq_len
+    emb = getattr(torch, cfg.compute_dtype)
+
+    def empty(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device=device)
+
+    if shape.kind == "decode":
+        return {"token": empty((B,), torch.int32)}
+    if shape.kind not in ("train", "prefill"):
+        raise ValueError(shape.kind)
+    specs = {}
+    if cfg.family == "encdec":
+        specs["frames"] = empty((B, cfg.encoder.n_frames, cfg.d_model), emb)
+    elif cfg.family == "vlm":
+        n_img = cfg.vision.n_patches
+        specs["patches"] = empty((B, n_img, cfg.d_model), emb)
+        S -= n_img
+    specs["tokens"] = empty((B, S), torch.int32)
+    return specs

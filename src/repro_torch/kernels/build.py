@@ -10,6 +10,14 @@ module import: the first kernel call (or :func:`build_all`) builds.
 
 Every C entry point returns the ``cudaGetLastError()`` of its launches;
 :func:`check` raises on anything but 0.
+
+The cost count (``launch.op_cost.counting``) is held here, where every
+wrapper reads it: :func:`counting_target` is the device a meta tensor
+stands for ("cuda" or "cpu"; None outside a count) and
+:func:`record_cost` adds a kernel's ``cost(...)`` to the active count.
+The count is process-wide, not a context variable: the autograd engine
+runs a CUDA backward, and with it the forward a checkpointed layer
+recomputes (B2 included), on a device thread of its own.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ COMMON_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 EXTRA_FLAGS = {"vrmom": ("--fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_COUNT = None   # the active launch.op_cost.OpCost, or None
 
 
 def nvcc_path() -> str:
@@ -144,6 +153,46 @@ def count_launch(fn) -> None:
 
     if not torch.cuda.is_current_stream_capturing():
         fn.launches += 1
+
+
+def active_count():
+    """The active cost count (a ``launch.op_cost.OpCost``), or None."""
+    return _COUNT
+
+
+def set_count(count):
+    """Make ``count`` the active cost count; returns the one it replaces."""
+    global _COUNT
+    prev, _COUNT = _COUNT, count
+    return prev
+
+
+def counting_target():
+    """The device a meta tensor stands for inside
+    ``launch.op_cost.counting`` ("cuda" or "cpu"); None outside a count."""
+    return None if _COUNT is None else _COUNT.target
+
+
+def record_cost(name: str, flops: float, nbytes: float) -> None:
+    """Add one call of kernel ``name`` (its ``cost(...)``) to the active
+    count, if there is one."""
+    if _COUNT is not None:
+        _COUNT.add_kernel(name, flops, nbytes)
+
+
+def device_kind(device, what: str) -> str:
+    """The kind of device a tensor on ``device`` runs on: its own ("cpu",
+    "cuda", ...), or for the meta device the count's target. A meta tensor
+    outside ``launch.op_cost.counting`` raises, as any device but cpu and
+    cuda does: meta computes nothing, so there is no fallback to run."""
+    kind = device.type
+    if kind != "meta":
+        return kind
+    target = counting_target()
+    if target is None:
+        raise ValueError(f"{what}: tensor on {device} (a meta tensor is "
+                         f"taken only inside launch.op_cost.counting)")
+    return target
 
 
 def stream_handle(device) -> ctypes.c_void_p:

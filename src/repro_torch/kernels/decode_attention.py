@@ -15,7 +15,10 @@ The wrapper launches the kernel for CUDA tensors (q f32/bf16, cache
 f32/bf16/int8, dh in ``HEAD_DIMS``, H / Hkv <= ``MAX_GROUP``, contiguous),
 raises on anything else, and counts launches in
 ``decode_attention.launches`` (eager ones: ``build.count_launch``); for
-CPU tensors it runs ``decode_attention_plain``. A python-int ``kv_len``
+CPU tensors it runs ``decode_attention_plain``. Meta tensors are taken
+only inside ``launch.op_cost.counting`` (target "cuda": checked as the
+card's, an empty output; "cpu": the plain version), and inside a count
+each kernel call adds :func:`cost` to it. A python-int ``kv_len``
 goes to the kernel as a scalar argument, so a call makes no other device
 work. Calls of one shape on one stream share their scratch and ticket
 counters, so they must be ordered on that stream.
@@ -28,7 +31,7 @@ import torch
 
 from . import build as _B
 
-__all__ = ["decode_attention", "decode_attention_plain", "lengths",
+__all__ = ["decode_attention", "decode_attention_plain", "cost", "lengths",
            "plan_splits", "SplitPlan", "HEAD_DIMS", "MAX_GROUP", "CHUNK"]
 
 HEAD_DIMS = (32, 64, 96, 112, 128)  # the instances csrc compiles
@@ -102,6 +105,24 @@ def lengths(kv_len, B: int, T: int, device):
     return torch.clamp(lens.expand(B), max=T).contiguous()
 
 
+def cost(q_shape, kv_shape, q_dtype=torch.bfloat16, kv_dtype=None,
+         kv_len=None, quantized: bool = False):
+    """(flops, bytes) of one call: 4 * dh operations a (head, key) pair over
+    the cache rows the lengths reach, the rows of k and v read once (int8
+    with their f32 scales where ``quantized``), q read and the output
+    written once. A length known on the host (None: the whole cache; a
+    python int) gives the rows; a tensor of lengths is not read, so every
+    row of the cache counts, on the card as on the meta device."""
+    B, _, H, dh = q_shape
+    T, Hkv = kv_shape[1], kv_shape[2]
+    rows = T if not isinstance(kv_len, int) else max(0, min(kv_len, T))
+    nbytes = (2 * B * H * dh * q_dtype.itemsize
+              + 2 * B * rows * Hkv * dh * (kv_dtype or q_dtype).itemsize)
+    if quantized:
+        nbytes += 2 * B * rows * 4
+    return 4 * B * H * rows * dh, nbytes
+
+
 def decode_attention_plain(q, k, v, lens, k_scale=None, v_scale=None):
     """Plain version: grouped single-query attention in f32 over the first
     ``lens[b]`` cache positions of each row; a row with no valid position
@@ -145,10 +166,11 @@ def decode_attention(q, k, v, *, kv_len=None, k_scale=None, v_scale=None):
     if k_scale is not None:
         k_scale = k_scale.float().expand(B, T).contiguous()
         v_scale = v_scale.float().expand(B, T).contiguous()
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, lengths(kv_len, B, T, "cpu"),
-                                      k_scale, v_scale)
-    if q.device.type != "cuda":
+    target = _B.device_kind(q.device, "decode_attention")
+    if target == "cpu":
+        return decode_attention_plain(
+            q, k, v, lengths(kv_len, B, T, q.device), k_scale, v_scale)
+    if target != "cuda":
         raise ValueError(f"decode_attention: tensor on {q.device}")
     if q.dtype not in _Q_DTYPE or k.dtype not in _KV_DTYPE \
             or v.dtype != k.dtype:
@@ -174,10 +196,14 @@ def decode_attention(q, k, v, *, kv_len=None, k_scale=None, v_scale=None):
                 and lens.device == q.device and lens.shape == (B,)
                 and lens.is_contiguous()):
             lens = lengths(kv_len, B, T, q.device)
+    out = torch.empty_like(q)
+    _B.record_cost("decode_attention", *cost(
+        q.shape, k.shape, q.dtype, k.dtype, kv_len, k_scale is not None))
+    if q.device.type == "meta":
+        return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     n_split, cps, part, tickets = _launch_state(q.device, stream, B, T, H,
                                                 Hkv, dh)[:4]
-    out = torch.empty_like(q)
     lib = _B.load("decode_attention", _SIGNATURES)
     err = lib.decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),

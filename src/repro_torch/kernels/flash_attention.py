@@ -22,7 +22,7 @@ import torch
 
 from . import build as _B
 
-__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_plain", "cost", "HEAD_DIMS"]
 
 HEAD_DIMS = (32, 64, 96, 112, 128)  # the instances csrc compiles
 _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
@@ -44,6 +44,19 @@ def _check_shapes(q, k, v):
                          f"disagree on batch or head dim")
     if H % k.shape[2]:
         raise ValueError(f"H={H} not a multiple of Hkv={k.shape[2]}")
+
+
+def cost(q_shape, kv_shape, dtype=torch.bfloat16, *, causal: bool = True):
+    """(flops, bytes) of one call: the two products, 2 * dh operations a
+    (query, key, head) pair each, over every pair (half of them when
+    causal with S = T); q, k and v read once and the output written once
+    (PERF.md's bound)."""
+    B, S, H, dh = q_shape
+    T, Hkv = kv_shape[1], kv_shape[2]
+    flops = 4 * B * H * S * T * dh
+    if causal and S == T:
+        flops //= 2
+    return flops, dtype.itemsize * (2 * B * S * H * dh + 2 * B * T * Hkv * dh)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True):
@@ -68,9 +81,10 @@ def flash_attention(q, k, v, *, causal: bool = True):
     The causal mask is ``k_pos <= q_pos`` with no offset; T may differ
     from S (ragged key lengths are masked in-kernel)."""
     _check_shapes(q, k, v)
-    if q.device.type == "cpu":
+    target = _B.device_kind(q.device, "flash_attention")
+    if target == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
-    if q.device.type != "cuda":
+    if target != "cuda":
         raise ValueError(f"flash_attention: tensor on {q.device}")
     if q.dtype not in _DTYPE_ID or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes q/k/v all float32 or all "
@@ -86,6 +100,10 @@ def flash_attention(q, k, v, *, causal: bool = True):
                          f"(instances: {HEAD_DIMS}; see ROADMAP.md, queue "
                          f"B)")
     out = torch.empty_like(q)
+    _B.record_cost("flash_attention", *cost(q.shape, k.shape, q.dtype,
+                                            causal=causal))
+    if q.device.type == "meta":
+        return out
     lib = _B.load("flash_attention", _SIGNATURES)
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -25,12 +25,17 @@ the kernel does not take, and counts its launches in ``.launches`` (one
 per eager call: ``build.count_launch``). For a tensor on the CPU it runs
 the plain PyTorch version beside it (``aggregate_plain`` /
 ``aggregate_sample_plain``), which repeats the kernel's arithmetic op
-for op. Selection follows torch's order: value descending, index
-ascending, NaN above every number.
+for op. Meta tensors are taken only inside ``launch.op_cost.counting``
+(target "cuda": checked as the card's, empty outputs; "cpu": the plain
+version), and inside a count each kernel call adds its cost
+(:func:`aggregate_cost`, :func:`aggregate_sample_cost`) to it. Selection
+follows torch's order: value descending, index ascending, NaN above
+every number.
 Dispatch policy lives in ``core.estimator.Estimator``.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -41,7 +46,8 @@ from . import build as _B
 from .ref import f32_scalar
 
 __all__ = ["aggregate", "aggregate_sample", "aggregate_plain",
-           "aggregate_sample_plain", "resolve_method", "plan_tail",
+           "aggregate_sample_plain", "aggregate_cost",
+           "aggregate_sample_cost", "resolve_method", "plan_tail",
            "TailPlan", "count_table", "MAX_M", "MAX_K_BY_VALUE"]
 
 MAX_M = 128  # widest sorting network compiled (csrc/vrmom.cu)
@@ -166,6 +172,28 @@ def aggregate_sample_plain(x, method: str = "vrmom", K: int = 10,
     return agg, topv, topi
 
 
+# -- costs ---------------------------------------------------------------------
+
+def aggregate_cost(shape, dtype=torch.float32):
+    """(flops, bytes) of one B1 call on an ``[m, ...]`` stack: the stack
+    read once and the aggregate written once, in its dtype. Its
+    operations are comparisons and adds, which a FLOP count (as
+    ``torch.utils.flop_counter`` counts elementwise work) takes as 0."""
+    m, C = shape[0], math.prod(shape[1:])
+    return 0, (m + 1) * C * dtype.itemsize
+
+
+def aggregate_sample_cost(shape, dtype=torch.float32, top_k: int = 0,
+                          with_agg: bool = True):
+    """(flops, bytes) of one B4 call on an ``[m, B, V]`` stack: the stack
+    read once, the ``[B, V]`` aggregate (``with_agg``) and the ``[B, k]``
+    f32 values and int32 indices written once; 0 FLOPs, as for B1."""
+    m, B, V = shape
+    size = dtype.itemsize
+    return 0, (m * B * V * size + (B * V * size if with_agg else 0)
+               + B * max(top_k, 1) * 8)
+
+
 # -- kernel wrappers ----------------------------------------------------------
 
 def _lib():
@@ -173,7 +201,7 @@ def _lib():
 
 
 def _check_stack(x, what: str):
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"{what}: tensor on {x.device}, expected cuda or cpu")
     if x.dtype not in _DTYPE_ID:
         raise TypeError(f"{what}: dtype {x.dtype} not supported "
@@ -266,7 +294,8 @@ def aggregate(x, method: str = "vrmom", K: int = 10, beta: float = 0.1,
     m = x.shape[0]
     method, k_trim = resolve_method(method, beta, m)
     shape = x.shape[1:]
-    if x.device.type == "cpu":
+    target = _B.device_kind(x.device, "aggregate")
+    if target == "cpu":
         return aggregate_plain(x.reshape(m, -1), method, K, k_trim,
                                eps).reshape(shape)
     _check_stack(x, "aggregate")
@@ -274,6 +303,9 @@ def aggregate(x, method: str = "vrmom", K: int = 10, beta: float = 0.1,
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     C = x[0].numel()
     if C == 0:
+        return out
+    _B.record_cost("aggregate", *aggregate_cost(x.shape, x.dtype))
+    if x.device.type == "meta":
         return out
     err = _lib().agg_launch(
         x.data_ptr(), out.data_ptr(), _DTYPE_ID[x.dtype], m, C,
@@ -308,19 +340,24 @@ def aggregate_sample(x, method: str = "vrmom", K: int = 10, beta: float = 0.1,
     if not 0 <= top_k <= V:
         raise ValueError(f"top_k={top_k} out of range for V={V}")
     method, k_trim = resolve_method(method, beta, m)
-    if x.device.type == "cpu":
+    target = _B.device_kind(x.device, "aggregate_sample")
+    if target == "cpu":
         return aggregate_sample_plain(x, method, K, k_trim, top_k, eps,
                                       with_agg)
     _check_stack(x, "aggregate_sample")
     plan = plan_tail(m, V, top_k)
     p = _params(method, K, m, x.device)
     dev = x.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rec, tickets = _launch_state(dev, stream, B, V, plan)[:2]
     k = max(top_k, 1)
     topv = torch.empty((B, k), dtype=torch.float32, device=dev)
     topi = torch.empty((B, k), dtype=torch.int32, device=dev)
     agg = torch.empty((B, V), dtype=x.dtype, device=dev) if with_agg else None
+    _B.record_cost("aggregate_sample", *aggregate_sample_cost(
+        x.shape, x.dtype, top_k, with_agg))
+    if dev.type == "meta":
+        return (agg, topi[:, 0]) if top_k == 0 else (agg, topv, topi)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rec, tickets = _launch_state(dev, stream, B, V, plan)[:2]
     err = _lib().agg_sample_launch(
         x.data_ptr(), agg.data_ptr() if with_agg else None, rec, tickets,
         topv.data_ptr(), topi.data_ptr(), _DTYPE_ID[x.dtype], m, B, V, k,

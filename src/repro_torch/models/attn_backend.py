@@ -12,6 +12,7 @@ the model config (``ArchConfig.attn_backend``) decides what runs:
 * ``"auto"``  — ``"flash"`` for decode everywhere; for full-sequence
   attention ``"flash"`` on CUDA tensors and ``"torch"`` on the CPU. On the
   card that is kernels for prefill and decode, the TPU policy of ``repro``.
+  A meta tensor (``launch.op_cost.counting``) takes the count's target.
 
 Calls the kernels cannot express (a sliding window; a query offset or a
 valid-length mask on full attention) go to ``mha`` whatever the backend.
@@ -44,8 +45,13 @@ def resolve_backend(backend: str, *, decode: bool, window=None,
     if backend == "auto":
         if decode:
             return "flash"
-        on_cuda = device is not None and torch.device(device).type == "cuda"
-        return "flash" if on_cuda else "torch"
+        kind = None if device is None else torch.device(device).type
+        if kind == "meta":
+            # a meta tensor stands for the count's target device
+            from ..kernels.build import counting_target
+
+            kind = counting_target()
+        return "flash" if kind == "cuda" else "torch"
     return backend
 
 

@@ -300,7 +300,10 @@ def next_token_ce(p, cfg, h, tokens):
     labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     mask = torch.ones(labels.shape, dtype=torch.float32,
                       device=labels.device)
-    mask[:, -1] = 0.0
+    # zero_, not ``= 0.0``: item assignment of a number dispatches fill_
+    # on the card and scalar_tensor + copy_ on the meta device, and the
+    # two counts of a step (launch.op_cost) must agree
+    mask[:, -1].zero_()
     return chunked_ce(p, cfg, h, labels, mask)
 
 

@@ -32,9 +32,11 @@ count takes the place of ``repro``'s mesh.
 
 The step is eager: it runs on the device of the params, the card unless
 the caller names another, and reads no device value on the host (the
-loss stays a 0-d tensor). Spans ``train.worker_grads``,
-``train.aggregate`` and ``train.optimizer`` name its parts in a
-profiler trace.
+loss stays a 0-d tensor). Its worker and micro-step loops run the same
+ops on the same shapes every trip (``launch.op_cost.trips``), so a cost
+count can count one trip and multiply it (``launch.dryrun``). Spans
+``train.worker_grads``, ``train.aggregate`` and ``train.optimizer`` name
+its parts in a profiler trace.
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ from ..convert import expected_shapes
 from ..core.estimator import Estimator
 from ..device import resolve_device
 from ..dist import robust_reduce as RR
+from ..launch.op_cost import trips
 from ..models import model as M
 from ..obs.trace import named_span
 from ..tree import (leaves as _leaves, paths as tree_paths, tree_map,
@@ -88,6 +91,13 @@ def loss_and_grads(cfg, params, batch, micro: int = 1):
         return loss.detach(), torch.autograd.grad(
             loss, leaves, allow_unused=True, materialize_grads=True)
 
+    def micro_step(b, acc):
+        # a function, so no trip's tensors outlive it
+        loss, g = one(b)
+        for a, gg in zip(acc, g):
+            a += gg.float()
+        return loss
+
     if micro <= 1:
         loss, g = one(batch)
         return loss, _unflatten(params, g)
@@ -95,16 +105,12 @@ def loss_and_grads(cfg, params, batch, micro: int = 1):
     if n % micro:
         raise ValueError(f"microbatch={micro} must divide the batch {n}")
     size = n // micro
-    tot = None
     acc = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
            for t in leaves]
-    for i in range(micro):
-        loss, g = one({k: v[i * size:(i + 1) * size]
-                       for k, v in batch.items()})
-        tot = loss if tot is None else tot + loss
-        for a, gg in zip(acc, g):
-            a += gg.float()
-        del g
+    tot = torch.zeros((), dtype=torch.float32, device=acc[0].device)
+    for i in trips(micro):   # every micro-step the same ops
+        tot = tot + micro_step({k: v[i * size:(i + 1) * size]
+                                for k, v in batch.items()}, acc)
     return tot / micro, _unflatten(params, [
         (a / micro).to(t.dtype) for a, t in zip(acc, leaves)])
 
@@ -130,15 +136,20 @@ def stacked_grads(cfg, params, batch, n_workers: int,
     stack = tree_map(lambda p: torch.empty(
         (n_workers,) + tuple(p.shape), dtype=p.dtype, device=p.device),
         params)
-    losses = []
-    for w in range(n_workers):
+    losses = torch.empty(n_workers, dtype=torch.float32,
+                         device=batch["tokens"].device)
+
+    def worker(w):
+        # a function, so no trip's tensors outlive it
         bw = {k: v[w * per:(w + 1) * per] for k, v in batch.items()}
         loss, g = loss_and_grads(cfg, params, bw, micro)
         for s, gg in zip(_leaves(stack), _leaves(g)):
             s[w].copy_(gg)
-        del g
-        losses.append(loss)
-    return torch.mean(torch.stack(losses)), stack
+        losses[w] = loss
+
+    for w in trips(n_workers):   # every worker the same ops
+        worker(w)
+    return torch.mean(losses), stack
 
 
 def _split_micro(x, n_workers: int, micro: int):

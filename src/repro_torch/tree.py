@@ -40,11 +40,13 @@ def tree_map(fn, *trees):
 def unflatten(like, flat):
     """A tree of ``like``'s structure holding ``flat`` (in ``leaves``
     order)."""
-    it = iter(flat)
+    return _build(like, iter(flat))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
 
-    return build(like)
+def _build(t, it):
+    # a module-level function: a nested one that calls itself is a
+    # reference cycle, which would hold ``flat`` (a step's gradients)
+    # until the cyclic collector ran
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    return next(it)

@@ -2231,3 +2231,53 @@ def test_cuda_fresh_equal_sampling_captures_nothing_new(cuda, path):
     assert list(graphs.values()) == [st]
     assert st.replays == replays + 5
     torch.testing.assert_close(second, first, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", ["prefill", "decode", "train"])
+def test_cuda_count_equals_the_meta_count(cuda, call):
+    """``launch.op_cost.counting("cuda")`` of a call on the card equals the
+    same call's count on the meta device (reduced qwen3-1.7b, f32): FLOPs,
+    bytes and calls of every op, and the kernels' calls, which the
+    wrappers' launch counters match."""
+    from repro_torch import optim as O
+    from repro_torch.launch.op_cost import counting
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_arch("qwen3-1.7b").reduced()
+
+    def count(dev, params):
+        opt = O.get("adamw", lr=1e-3)
+        st = opt.init(params)
+        setup = make_train_step(cfg, 2, mode="stacked-rrs", optimizer=opt,
+                                device=dev)
+        zeros = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)
+        toks, batch, tok = zeros(2, 24), {"tokens": zeros(4, 32)}, zeros(2)
+        _, caches = M.prefill(params, cfg, {"tokens": toks}, cache_len=32,
+                              last_only=True)
+        fn = {"prefill": lambda: M.prefill(params, cfg, {"tokens": toks},
+                                           cache_len=32, last_only=True),
+              "decode": lambda: M.decode_step(params, cfg, caches, tok),
+              "train": lambda: setup.step_fn(params, st, batch)}[call]
+        if dev.type == "cuda":
+            with counting("cuda"):
+                fn()        # warm-up: B3's split scratch for this shape
+            torch.cuda.synchronize()
+        reset_launch_counts()
+        with counting("cuda") as oc:
+            fn()
+        return oc, launch_counts()
+
+    meta, _ = count(torch.device("meta"), M.init(
+        cfg, torch.Generator(), device="meta"))
+    card, launches = count(cuda, M.init(
+        cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda))
+    assert card.by_op == meta.by_op
+    assert (card.cost.flops, card.cost.bytes) == (meta.cost.flops,
+                                                  meta.cost.bytes)
+    assert card.kernels == meta.kernels
+    calls = {k: v["calls"] for k, v in meta.kernels.items()}
+    assert {k: n for k, n in launches.items() if n} == calls
+    assert calls == {"prefill": {"flash_attention": 2},
+                     "decode": {"decode_attention": 2},
+                     "train": {"flash_attention": 4, "aggregate": 13}}[call]
