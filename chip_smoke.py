@@ -311,8 +311,9 @@ Phase 16 is static analysis and the audit (``repro_torch.lint``), and
 adds no kernel row: (a) the AST rules over the port's tree (its package,
 its tests and this script) must report no error a waiver does not cover;
 it prints the file count and the waived count; (b) ``run_audit`` on the
-card must pass every RL2xx check but RL201, which skips (no multi-rank
-wire until ROADMAP A5); it prints each check's wall and the launches of
+card must pass every RL2xx check but RL201, which skips off a process
+group (phase 18 runs it on its ranks); it prints each check's wall and
+the launches of
 B1-B4 by the wrappers' counters; (c) RL209 at full width: a seeded
 qwen3-1.7b robust engine (m 8, VRMOM K 8) serves three greedy
 ``generate`` calls of 4 x 192 tokens with 8 new, each with a freshly
@@ -338,6 +339,44 @@ bound (989 TFLOP/s bf16, 3.35 TB/s), and the train step's
 ``launch.dryrun.dryrun_one`` for every arch at ``decode_32k`` and the
 ``launch.report`` table of those rows. B1, B2 and B3 at phase 17's
 shapes join the ``kernels`` line with the bounds of ``kernels/*.cost``.
+
+Phase 18 is the Robust-Reduce-Scatter wire over ranks
+(``dist.robust_reduce.aggregate_stacked_rrs``): after phase 17 the
+allocator's cache is emptied and 4 ranks are started
+(``torch.multiprocessing``, from a forkserver that preloads torch and the
+port, since there is no fork after CUDA is initialised), each on the one
+card, joined in a
+``gloo`` group through a ``FileStore`` in a temporary directory, removed
+with what the ranks left there when the phase ends (NCCL cannot put
+several ranks on one GPU); they load the kernels phase 1
+built and never run nvcc. Each rank is one worker of qwen3-1.7b at full
+width cut to 2 of 28 layers (seeded weights; ~28 B a param a rank), one
+4096-token sample of ``lm_batch`` each; the main path, counts from 0:
+(a) the worker's gradient down the wire once (B1 once on the rank's
+[4, 102959744] f32 slice), the SHA-256 of each gradient and aggregate
+leaf recorded, rank 0's aggregate saved; the wire's synchronised wall,
+and the host walls of its ``rrs.*`` spans from a profiler trace
+(all_to_all; B1's launch, which returns at once; all_gather, which holds
+B1's device time, since its copy to the host waits for B1); (b) two
+stacked-rrs steps over the group (AdamW, signflip on the last rank's
+worker), params identical on every rank after each, losses finite, B1
+once and B2 2 x 2 a rank and step; (c) one ``robust_dot`` product at
+``wq``'s width ([2048, 2048] f32 dW, B1 once); (d) RL201 ``ok`` on every
+rank; (e) one inloop step over the group at phase 7's inloop length
+(1024 tokens a worker; fresh params, AdamW, signflip): B1 once a product
+(15: 7 a layer and the tied unembedding once a loss chunk), params
+identical on every rank, loss finite, and the ``all_reduce`` after the
+backward summing exactly the leaves off the wire (the norms and the tied
+embedding; counted from the profiler's ``gloo:all_reduce`` shapes), with
+the step's wall and its collectives' spans and elements printed (the
+inloop step against one process is held on the CPU, in
+``tests/test_torch_rrs.py``). Then this process recomputes the four
+workers' gradients (each must hash as its rank's), runs
+``aggregate_stacked_auto`` (rank 0's aggregate must equal it bit for
+bit), the one-process ``make_train_step(mode="stacked-rrs")`` on the same
+batches (params equal, gate 0 as the CPU test) and the one-process
+``_RobustDot`` (dW equal). A rank's failure raises through the join. B1
+at the wire's slice joins the ``kernels`` line.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it lists every kernel with its launches, error and times. Any
@@ -5877,6 +5916,558 @@ def phase_launch(torch, dev, card: str):
     return recs
 
 
+# phase 18, the RRS wire over ranks: WIRE_W ranks on the one card, each
+# one worker of one TRAIN_SEQ-token sample, joined in a gloo group through
+# a FileStore; qwen3-1.7b at full width, cut in depth so that the four
+# ranks fit the card together (~28 B a param a rank: bf16 params and
+# grads, f32 AdamW moments, the f32 wire and its all_to_all and all_gather
+# buffers; 0.41 B params at 2 of 28 layers, ~46 GB for four before
+# activations); signflip on the last rank's worker (int(0.34 * 3) = 1)
+WIRE_W, WIRE_LAYERS, WIRE_SEED, WIRE_ALPHA = 4, 2, 18, 0.34
+WIRE_TIMEOUT_S = 600
+# the leaves whose every use is a 3-D x 2-D product (robust_dot under
+# inloop): (e) sums every other leaf over the ranks, the tied embedding
+# included (its lookup half)
+WIRE_PRODUCTS = ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/w_gate",
+                 "mlp/w_up", "mlp/w_down")
+# the ranks fork from a server that has imported these once (no CUDA
+# there): spawning each rank's interpreter anew costs ~19 s of the phase
+# (torch._dynamo and sympy come in lazily with the first checkpointed
+# backward: ~800 modules, seconds a rank)
+WIRE_PRELOAD = ("__main__", "torch", "torch.distributed", "torch._dynamo",
+                "repro_torch.train.step", "repro_torch.dist.robust_reduce",
+                "repro_torch.lint.auditor")
+
+
+def _tree_sha(torch, trees, threads: int = 4):
+    """{leaf path: SHA-256 of its bytes} of a tree (or a list of them), the
+    leaves hashed in threads (hashlib lets go of the GIL on large
+    buffers)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.tree import paths
+
+    many = isinstance(trees, list)
+    flat = [[("/".join(p), t.detach().contiguous().view(torch.uint8).cpu())
+             for p, t in paths(tree)] for tree in (trees if many else [trees])]
+
+    def one(t):
+        import hashlib
+
+        return hashlib.sha256(t.numpy()).hexdigest()
+
+    with ThreadPoolExecutor(threads) as ex:
+        out = [dict(zip([k for k, _ in f], ex.map(one, [t for _, t in f])))
+               for f in flat]
+    return out if many else out[0]
+
+
+# odd 64-bit multipliers of _fingerprint (two's complement in int64)
+_FP_MUL, _FP_ADD = -0x61C8864680B583EB, 0x632BE59BD9B4E019
+
+
+def _fingerprint(torch, tree) -> dict:
+    """{leaf path: a 64-bit digest of its bits}, computed on the tensors'
+    device: the sum over elements of (bits + 1) * w(i) mod 2^64, w(i) odd
+    and different for every index i, so any one element that differs
+    changes it. Cheap next to a host hash of 0.8 GB; used where two runs
+    must agree after each step, with SHA-256 kept for the gradients and
+    aggregates of (a)."""
+    from repro_torch.tree import paths
+
+    out = {}
+    for p, t in paths(tree):
+        x = t.detach().contiguous().view(-1)
+        bits = {2: torch.int16, 4: torch.int32}[x.element_size()]
+        mask = (1 << 8 * x.element_size()) - 1
+        h = torch.zeros((), dtype=torch.int64, device=x.device)
+        for a in range(0, x.numel(), 1 << 24):
+            b = x[a:a + (1 << 24)].view(bits).to(torch.int64) & mask
+            i = torch.arange(a, a + b.numel(), dtype=torch.int64,
+                             device=x.device)
+            h += torch.sum((b + 1) * ((i * _FP_MUL + _FP_ADD) | 1))
+        out["/".join(p)] = int(h)
+    return out
+
+
+def wire_setup(torch, dev):
+    """Phase 18's model, estimator and batches, the same in every rank and
+    in the parent: (cfg, params, est, batch(i))."""
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core.estimator import Estimator
+    from repro_torch.data import lm_batch
+    from repro_torch.models import model as M
+
+    cfg = at_depth(get_arch("qwen3-1.7b"), WIRE_LAYERS)
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(WIRE_SEED),
+                    device=dev)
+    est = Estimator("vrmom", K=TRAIN_K)
+
+    def batch(i, seq=TRAIN_SEQ):
+        return lm_batch(cfg, i, WIRE_W, seq, device=dev)
+
+    return cfg, params, est, batch
+
+
+def wire_dot_rows(torch, dev):
+    """(c)'s product: x, dy [WIRE_W, TRAIN_SEQ, D] f32 and w [D, H dh] f32
+    at qwen3's ``wq`` width, seeded alike everywhere."""
+    g = torch.Generator(device=dev).manual_seed(WIRE_SEED + 1)
+    D = 2048
+    x = torch.randn((WIRE_W, TRAIN_SEQ, D), generator=g, device=dev)
+    dy = torch.randn((WIRE_W, TRAIN_SEQ, D), generator=g, device=dev)
+    w = torch.randn((D, D), generator=g, device=dev) / D ** 0.5
+    return x, dy, w
+
+
+def wire_train_setup(cfg, est, dev, group, mode="stacked-rrs"):
+    from repro_torch import optim as O
+    from repro_torch.train.step import make_train_step
+
+    opt = O.get("adamw", lr=TRAIN_LR)
+    return opt, make_train_step(cfg, WIRE_W, estimator=est,
+                                mode=mode, optimizer=opt,
+                                byzantine_frac=WIRE_ALPHA, attack="signflip",
+                                device=dev, group=group)
+
+
+def wire_rank(rank: int, world: int, tmp: str, t_start: float) -> None:
+    """One rank of phase 18 (started by ``torch.multiprocessing``): the
+    library built in phase 1 is loaded, never built; results go to
+    ``rank<r>.json`` in ``tmp``, rank 0's tensors to ``.pt`` files there.
+    A failure raises, and the parent's join raises with it."""
+    import datetime
+    import os
+
+    t_entry = time.time()
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch.dist import robust_reduce as RR
+    from repro_torch.kernels import build
+    from repro_torch.lint.auditor import _check_rrs_wire
+    from repro_torch.train.step import worker_grads
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name in build.SOURCES:
+        require(build.library_path(name).exists(),
+                f"rank {rank}: {name} is not built (phase 1 builds it)")
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(
+            seconds=WIRE_TIMEOUT_S))
+    G = dist.group.WORLD
+    out = {"rank": rank, "t": {"start": t_entry - t_start,
+                               "join the group": time.time() - t_entry}}
+    t_rank = t_mark = time.perf_counter()
+
+    def mark(what):
+        nonlocal t_mark
+        now = time.perf_counter()
+        out["t"][what] = out["t"].get(what, 0.0) + now - t_mark
+        t_mark = now
+
+    def sync_wall(fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    # -- (a) one worker's gradient down the wire ------------------------------
+    cfg, params, est, batch = wire_setup(torch, dev)
+    b = {k: v[rank:rank + 1] for k, v in batch(0).items()}
+    mark("set-up")
+    losses, stack = worker_grads(cfg, params, b, 1)
+    out["loss_a"] = float(losses[0])
+    mark("first gradient")
+    out["grad_sha"] = _tree_sha(torch, stack)
+    mark("hashes")
+    K.reset_launch_counts()   # ---- the main path: counts from 0
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        agg, out["wire_s"] = sync_wall(lambda: RR.aggregate_stacked_rrs(
+            stack, G, est))
+    out["launches_a"] = K.launch_counts()
+    mark("(a) wire")
+    # the wire's parts: its spans' host walls (the collectives block the
+    # host; B1's launch returns at once and the all_gather's copy to the
+    # host waits for it)
+    out["spans_s"] = {e.key: e.cpu_time_total / 1e6
+                      for e in prof.key_averages()
+                      if e.key.startswith("rrs.")}
+    out["agg_sha"] = _tree_sha(torch, agg)
+    mark("hashes")
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in _flat(agg).items()},
+                   os.path.join(tmp, "agg.pt"))
+    n = sum(t[0].numel() for t in _flat(stack).values())
+    out["slice"] = [world, -(-n // world)]
+    del agg, stack
+    mark("saves")
+
+    # -- (b) two stacked-rrs steps over the group -----------------------------
+    opt, setup = wire_train_setup(cfg, est, dev, G)
+    opt_state = opt.init(params)
+    out["steps"] = []
+    mark("set-up")
+    for i in (1, 2):
+        K.reset_launch_counts()
+        (params, opt_state, loss), wall = sync_wall(
+            lambda: setup.step_fn(params, opt_state, batch(i)))
+        launches = K.launch_counts()
+        mark("(b) steps")
+        fp = _fingerprint(torch, params)
+        fps = [None] * world
+        dist.all_gather_object(fps, fp)
+        out["steps"].append(dict(loss=float(loss), wall_s=wall,
+                                 launches=launches, fp=fp,
+                                 same_on_every_rank=all(f == fp
+                                                        for f in fps)))
+        mark("hashes")
+    if rank == 0:   # the last step's params, for the largest difference
+        torch.save({k: v.cpu() for k, v in _flat(params).items()},
+                   os.path.join(tmp, "params.pt"))
+    del params, opt_state, setup
+    mark("saves")
+
+    # -- (c) one robust_dot product at wq's width -----------------------------
+    x, dy, w0 = wire_dot_rows(torch, dev)
+    w = w0.clone().requires_grad_(True)
+    K.reset_launch_counts()
+
+    def dot():
+        with RR.robust_backward(WIRE_W, est, G):
+            y = RR.robust_dot(x[rank:rank + 1], w)
+        y.backward(dy[rank:rank + 1])
+
+    _, out["dot_s"] = sync_wall(dot)
+    out["launches_c"] = K.launch_counts()
+    if rank == 0:
+        torch.save(w.grad.cpu(), os.path.join(tmp, "dw.pt"))
+    else:
+        require(not bool(torch.any(w.grad)), "a rank but 0 carried dW")
+    del x, dy, w0, w
+    mark("(c) robust_dot")
+
+    # -- (d) RL201 ------------------------------------------------------------
+    (r,) = _check_rrs_wire(dev)
+    out["rl201"] = [r.status, r.detail]
+    mark("(d) RL201")
+
+    # -- (e) one inloop step over the group ------------------------------------
+    cfg, params, est, batch = wire_setup(torch, dev)
+    opt, setup = wire_train_setup(cfg, est, dev, G, mode="inloop")
+    opt_state = opt.init(params)
+    mark("set-up")
+    K.reset_launch_counts()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            record_shapes=True) as prof:
+        (params, opt_state, loss), wall = sync_wall(
+            lambda: setup.step_fn(params, opt_state, batch(3, INLOOP_SEQ)))
+    launches = K.launch_counts()
+    mark("(e) inloop step")
+    moved = {}                # elements a collective took on this rank
+    for e in prof.events():
+        if e.name.startswith("gloo:"):
+            moved[e.name] = moved.get(e.name, 0) + sum(
+                math.prod(sh) for sh in e.input_shapes if sh)
+    fp = _fingerprint(torch, params)
+    fps = [None] * world
+    dist.all_gather_object(fps, fp)
+    flat = _flat(params)
+    out["inloop"] = dict(
+        loss=float(loss), wall_s=wall, launches=launches, moved=moved,
+        spans_s={e.key: e.cpu_time_total / 1e6
+                 for e in prof.key_averages()
+                 if e.key.startswith(("rrs.", "train."))},
+        off_wire=sum(t.numel() for k, t in flat.items()
+                     if not k.endswith(WIRE_PRODUCTS)),
+        products=sum(t.numel() for k, t in flat.items()
+                     if k.endswith(WIRE_PRODUCTS)),
+        same_on_every_rank=all(f == fp for f in fps))
+    del params, opt_state, setup, flat, prof
+    mark("hashes")
+
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["rank_s"] = time.perf_counter() - t_rank
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _flat(tree) -> dict:
+    from repro_torch.tree import paths
+
+    return {"/".join(p): t for p, t in paths(tree)}
+
+
+def wire_references(torch, dev) -> dict:
+    """What phase 18's ranks must equal, computed here in one process:
+    the four workers' gradient SHA-256s and ``aggregate_stacked_auto`` of
+    their stack (a), the params' SHA-256s after each of two one-process
+    stacked-rrs steps, the last params and the losses (b), and the
+    one-process ``_RobustDot`` dW (c)."""
+    from repro_torch.dist import robust_reduce as RR
+    from repro_torch.train.step import worker_grads
+
+    ref = {"t": {}}
+    t = time.perf_counter()
+
+    def mark(what):
+        nonlocal t
+        torch.cuda.synchronize()
+        ref["t"][what] = time.perf_counter() - t
+        t = time.perf_counter()
+
+    cfg, params, est, batch = wire_setup(torch, dev)
+    _, stack = worker_grads(cfg, params, batch(0), WIRE_W)
+    mark("gradients")
+    ref["grad_sha"] = _tree_sha(torch, [{k: v[w:w + 1] for k, v in
+                                         _flat(stack).items()}
+                                        for w in range(WIRE_W)], threads=8)
+    mark("hashes")
+    ref["agg"] = _flat(RR.aggregate_stacked_auto(stack, est))
+    del stack
+    mark("aggregate")
+    opt, setup = wire_train_setup(cfg, est, dev, None)
+    opt_state = opt.init(params)
+    ref["fp"], ref["losses"] = [], []
+    for i in (1, 2):
+        params, opt_state, loss = setup.step_fn(params, opt_state, batch(i))
+        ref["fp"].append(_fingerprint(torch, params))
+        ref["losses"].append(float(loss))
+    ref["params"] = _flat(params)
+    del opt_state, setup
+    mark("two steps")
+    x, dy, w0 = wire_dot_rows(torch, dev)
+    w = w0.clone().requires_grad_(True)
+    with RR.robust_backward(WIRE_W, est):
+        y = RR.robust_dot(x, w)
+    y.backward(dy)
+    ref["dw"] = w.grad
+    mark("robust_dot")
+    return ref
+
+
+def phase_wire(torch, dev, card: str):
+    """Phase 18: the RRS wire over WIRE_W ranks on the card, each a worker,
+    against the one-process paths, which this process computes while the
+    ranks start (the forkserver's imports take one core; once the ranks'
+    gloo copies and sockets run, they keep the host's cores busy and work
+    beside them slows both). Returns B1's ``kernels`` record at the
+    wire's slice."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="wire18-") as tmp:
+        return _phase_wire(torch, dev, card, tmp)
+
+
+def _phase_wire(torch, dev, card: str, tmp: str):
+    """Phase 18 with its FileStore, the ranks' results and rank 0's
+    tensors (~1.6 GB) in ``tmp``, which the caller removes."""
+    import os
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.kernels import vrmom as VR
+    from repro_torch.models import model as M
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg, params, est, batch = wire_setup(torch, dev)
+    n_params = M.param_count(params)
+    del params
+    print(f"[wire] {cfg.name} at full width, {WIRE_LAYERS} of 28 layers "
+          f"({n_params / 1e9:.4f} B params, bf16), {WIRE_W} ranks on one "
+          f"card over gloo (FileStore), one worker of one {TRAIN_SEQ}-token "
+          f"sample each; VRMOM K {TRAIN_K}, AdamW lr {TRAIN_LR}; reckoned "
+          f"~28 B a param a rank = {28 * n_params * WIRE_W / 1e9:.1f} GB "
+          f"for the ranks before activations")
+
+    # -- the ranks, and the one-process references meanwhile ------------------
+    t = time.perf_counter()
+    mp.get_context("forkserver").set_forkserver_preload(list(WIRE_PRELOAD))
+    ctx = mp.start_processes(wire_rank, args=(WIRE_W, tmp, time.time()),
+                             nprocs=WIRE_W, join=False,
+                             start_method="forkserver")
+    # start_processes returns once the server has made its imports
+    server_s = time.perf_counter() - t
+    try:
+        ref = wire_references(torch, dev)
+        ref_s = time.perf_counter() - t - server_s
+        torch.cuda.empty_cache()
+        while not ctx.join(timeout=0.5):
+            require(time.perf_counter() - t < WIRE_TIMEOUT_S,
+                    f"the ranks still ran after {WIRE_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks = []
+    for r in range(WIRE_W):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    ranks_s = time.perf_counter() - t
+    n_fwd = 2 if cfg.remat else 1
+    # (e)'s products: 7 a layer and the tied unembedding once a loss chunk
+    n_products = WIRE_LAYERS * len(WIRE_PRODUCTS) + -(-INLOOP_SEQ
+                                                       // cfg.loss_chunk)
+    for r in ranks:
+        sp = r["spans_s"]
+        walls = ", ".join("%.3f s" % s["wall_s"] for s in r["steps"])
+        losses = ", ".join("%.4f" % s["loss"] for s in r["steps"])
+        steps = [(s["launches"]["aggregate"], s["launches"]["flash_attention"])
+                 for s in r["steps"]]
+        print(f"[wire] rank {r['rank']}: (a) loss {r['loss_a']:.4f}, the "
+              f"wire {r['wire_s'] * 1e3:.1f} ms, synchronised; its spans' "
+              f"host walls: pack {sp['rrs.pack'] * 1e3:.1f}, all_to_all "
+              f"{sp['rrs.all_to_all'] * 1e3:.1f}, estimator (B1's launch) "
+              f"{sp['rrs.estimator'] * 1e3:.2f}, all_gather (B1's device "
+              f"time inside) {sp['rrs.all_gather'] * 1e3:.1f} ms; B1 "
+              f"{r['launches_a']['aggregate']} launch; (b) steps {walls}, "
+              f"losses {losses}, B1 and B2 a step {steps}; (c) robust_dot "
+              f"{r['dot_s'] * 1e3:.1f} ms; peak {r['peak_gb']:.1f} GB; the "
+              f"rank's wall {r['rank_s']:.1f} s: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in r["t"].items()))
+    print(f"[wire] the ranks took {ranks_s:.1f} s (the forkserver's "
+          f"imports {server_s:.1f} s, then the ranks' start, set-up and "
+          f"(a)-(d)), the one-process references here {ref_s:.1f} s while "
+          f"the ranks started ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in ref["t"].items())
+          + f"); slice [{ranks[0]['slice'][0]}, {ranks[0]['slice'][1]}] "
+          f"f32 a rank")
+    for r in ranks:
+        require(r["launches_a"]["aggregate"] == 1,
+                f"rank {r['rank']}: the wire launched B1 "
+                f"{r['launches_a']['aggregate']} times, not once")
+        require(r["launches_c"]["aggregate"] == 1,
+                f"rank {r['rank']}: robust_dot launched B1 "
+                f"{r['launches_c']['aggregate']} times, not once")
+        for i, s in enumerate(r["steps"]):
+            require(s["launches"]["aggregate"] == 1
+                    and s["launches"]["flash_attention"]
+                    == WIRE_LAYERS * n_fwd,
+                    f"rank {r['rank']} step {i + 1}: launched "
+                    f"{s['launches']}; expected B1 1, B2 "
+                    f"{WIRE_LAYERS * n_fwd}")
+            require(s["same_on_every_rank"],
+                    f"step {i + 1}: params differ across the ranks")
+            require(math.isfinite(s["loss"]), f"step {i + 1}: loss {s}")
+        require(r["rl201"][0] == "ok", f"rank {r['rank']}: RL201 {r['rl201']}")
+        e = r["inloop"]
+        require(e["launches"]["aggregate"] == n_products
+                and e["launches"]["flash_attention"] == WIRE_LAYERS * n_fwd,
+                f"rank {r['rank']} (e): launched {e['launches']}; expected "
+                f"B1 {n_products} (a product's dW), B2 "
+                f"{WIRE_LAYERS * n_fwd}")
+        require(e["same_on_every_rank"],
+                "(e): params differ across the ranks after the inloop step")
+        require(math.isfinite(e["loss"]), f"(e): loss {e['loss']}")
+        require(e["moved"].get("gloo:all_reduce", 0) == e["off_wire"],
+                f"rank {r['rank']} (e): all_reduce summed "
+                f"{e['moved'].get('gloo:all_reduce', 0)} elements; the "
+                f"leaves off the wire hold {e['off_wire']}")
+        require(r["agg_sha"] == ranks[0]["agg_sha"],
+                f"rank {r['rank']}'s aggregate differs from rank 0's")
+    print(f"[wire] (d) RL201 ok on every rank: {ranks[0]['rl201'][1]}")
+    for r in ranks:
+        e = r["inloop"]
+        sp = e["spans_s"]
+        print(f"[wire] (e) rank {r['rank']}: one inloop step over the group "
+              f"(a worker of {INLOOP_SEQ} tokens a rank) "
+              f"{e['wall_s']:.3f} s, synchronised, loss {e['loss']:.4f}; B1 "
+              f"{e['launches']['aggregate']} (one a product's dW), B2 "
+              f"{e['launches']['flash_attention']}; spans' host walls: "
+              f"all_to_all {sp.get('rrs.all_to_all', 0.0):.3f}, all_gather "
+              f"{sp.get('rrs.all_gather', 0.0):.3f}, the sum over the ranks "
+              f"{sp.get('train.sum_over_ranks', 0.0):.3f} s; elements into "
+              f"each collective on this rank {e['moved']}")
+    e = ranks[0]["inloop"]
+    print(f"[wire] (e) params identical on every rank; the all_reduce "
+          f"after the backward summed {e['off_wire']} elements, the leaves "
+          f"off the wire (norms, the tied embedding), and not the "
+          f"{e['products']} of the products whose dW came off the wire")
+
+    # -- (a) against the one-process stacked path -----------------------------
+    parted = [(w, k) for w in range(WIRE_W) for k, h in
+              ranks[w]["grad_sha"].items() if ref["grad_sha"][w][k] != h]
+    require(not parted, f"workers' gradients differ between the ranks and "
+                        f"this process: {parted[:6]} (ROADMAP §C)")
+    got = torch.load(os.path.join(tmp, "agg.pt"))
+    want = ref["agg"]
+    diff = max(max_err(got[k].to(dev), want[k]) for k in want)
+    require(all(torch.equal(got[k].to(dev), want[k]) for k in want),
+            f"rank 0's aggregate differs from aggregate_stacked_auto by "
+            f"{diff}")
+    print(f"[wire] (a) every worker's gradient equals its rank's (SHA-256 "
+          f"of each of {len(want)} leaves); every rank's aggregate is "
+          f"the same; rank 0's equals aggregate_stacked_auto (B1 leaf by "
+          f"leaf) bit for bit")
+    del got, want
+
+    # -- (b) against the one-process stacked-rrs step -------------------------
+    for i in (1, 2):
+        parted = [k for k, h in ranks[0]["steps"][i - 1]["fp"].items()
+                  if ref["fp"][i - 1][k] != h]
+        require(not parted, f"step {i}: the group's params part from the "
+                            f"one-process step's in {parted}")
+        require(ref["losses"][i - 1] == ranks[0]["steps"][i - 1]["loss"],
+                f"step {i}: loss {ref['losses'][i - 1]} in one process, "
+                f"{ranks[0]['steps'][i - 1]['loss']} over the group")
+    got = torch.load(os.path.join(tmp, "params.pt"))
+    worst = max(max_err(got[k].to(dev), v) for k, v in ref["params"].items())
+    print(f"[wire] (b) 2 stacked-rrs steps over the group (signflip on rank "
+          f"{WIRE_W - 1}'s worker): params identical on every rank and to "
+          f"the one-process step's after each (a 64-bit digest of every "
+          f"leaf's bits); the "
+          f"largest difference after step 2 {worst} (gate 0, as the CPU "
+          f"test); losses equal")
+    require(worst == 0.0, f"the group's params part from the one-process "
+                          f"step's by {worst}")
+
+    # -- (c) robust_dot against the one-process product -----------------------
+    got = torch.load(os.path.join(tmp, "dw.pt")).to(dev)
+    require(torch.equal(got, ref["dw"]), f"(c) robust_dot over the group "
+                                         f"parts from one process by "
+                                         f"{max_err(got, ref['dw'])}")
+    print(f"[wire] (c) robust_dot's dW [2048, 2048] f32 over the group "
+          f"equals the one-process _RobustDot bit for bit")
+    del got, ref
+    torch.cuda.empty_cache()
+
+    # -- B1 at the wire's slice -----------------------------------------------
+    flush = make_flush(torch, dev)
+    W, c = ranks[0]["slice"]
+    g = torch.Generator(device=dev).manual_seed(WIRE_SEED + 2)
+    xs = torch.randn((W, c), generator=g, device=dev)
+    rec = b1_record(torch, flush, f"B1 aggregate on the RRS wire's slice "
+                    f"(vrmom K={TRAIN_K}, [{W},{c}] f32, a rank's share of "
+                    f"{cfg.name} at {WIRE_LAYERS} layers; launches: phase "
+                    f"18's ranks, (a) + (b) + (c) + (e))", xs, TRAIN_K,
+                    sum(r["launches_a"]["aggregate"]
+                        + r["launches_c"]["aggregate"]
+                        + sum(s["launches"]["aggregate"] for s in r["steps"])
+                        + r["inloop"]["launches"]["aggregate"]
+                        for r in ranks))
+    rec["bound_ms"], rec["bound_by"] = bound(
+        VR.aggregate_cost((W, c), torch.float32)[1])
+    del xs
+    print_train_records("wire", card, [rec])
+    print(f"[wire] phase 18 in {time.perf_counter() - t_phase:.1f} s "
+          f"(the ranks' peak {max(r['peak_gb'] for r in ranks):.1f} GB "
+          f"each at most) [card] {card}")
+    return [rec]
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: src/repro_torch not found beside the script; "
@@ -5939,6 +6530,8 @@ def main() -> int:
         lap("phase 16 (static analysis and the audit)")
         launch_recs = phase_launch(torch, dev, card)
         lap("phase 17 (one-card accounting)")
+        wire_recs = phase_wire(torch, dev, card)
+        lap("phase 18 (the RRS wire over ranks)")
         print(f"[time] all phases {time.perf_counter() - t_all:.1f} s")
     except (CheckFailed, AssertionError) as exc:
         print(f"chip_smoke.py: check failed: {exc}", file=sys.stderr)
@@ -5960,6 +6553,7 @@ def main() -> int:
     kernels.extend(train_moe_recs)
     kernels.extend(train_ssm_recs)
     kernels.extend(launch_recs)
+    kernels.extend(wire_recs)
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,7 @@ Attack = Callable[[Optional[torch.Generator], torch.Tensor, torch.Tensor],
 
 __all__ = ["byzantine_mask", "gaussian", "omniscient", "alie", "ipm", "mimic",
            "bitflip", "signflip", "zero", "wrong_value", "get", "attack_stack",
-           "REGISTRY", "OMNISCIENT_ATTACKS"]
+           "REGISTRY", "OMNISCIENT_ATTACKS", "COORDINATEWISE"]
 
 
 def byzantine_mask(m_plus_1: int, alpha: float, device=None) -> torch.Tensor:
@@ -44,9 +44,10 @@ def gaussian(generator, v, mask, std: float = 200.0 ** 0.5):
 
 
 def omniscient(generator, v, mask, scale: float = 1e10):
-    """Omniscient attack: scaled negative of the mean (paper 4.2(b))."""
-    honest_mean = torch.mean(v, dim=0, keepdim=True)
-    return _apply(mask, v, (-scale * honest_mean).expand_as(v))
+    """Omniscient attack: scaled negative of the mean over every row (paper
+    4.2(b)), the mean in f32 then in v's dtype."""
+    mean, _ = _honest_moments(v, torch.zeros_like(mask), with_std=False)
+    return _apply(mask, v, (-scale * mean.to(v.dtype)).expand_as(v))
 
 
 # coordinates of a stack made f32 at a time by the honest moments: a
@@ -55,10 +56,22 @@ def omniscient(generator, v, mask, scale: float = 1e10):
 _MOMENT_BLOCK = 1 << 24
 
 
+def _rows_sum(x, keep):
+    """``x`` [n, c] f32 times ``keep`` [n, 1] summed over the rows, one row
+    after another: each coordinate's sum is the same bits whatever the
+    stack's width or layout (a reduction kernel's order follows them), so
+    an attack on a slice of the coordinates is the attack on the stack."""
+    acc = x[0:1] * keep[0]
+    for i in range(1, x.shape[0]):
+        acc = acc + x[i:i + 1] * keep[i]
+    return acc
+
+
 def _honest_moments(v, mask, with_std: bool = True):
     """Per-coordinate f32 mean/std over the unmasked rows, keepdim (std
     None without ``with_std``), in blocks of ``_MOMENT_BLOCK`` coordinates
-    (each coordinate's arithmetic is the same in any block)."""
+    (each coordinate's arithmetic is the same in any block, and on any
+    slice of the coordinates: ``_rows_sum``)."""
     n = v.shape[0]
     flat = v.reshape(n, -1)
     keep = (~mask).to(v.device).reshape(n, 1).float()
@@ -68,10 +81,10 @@ def _honest_moments(v, mask, with_std: bool = True):
     std = torch.empty_like(mean) if with_std else None
     for a in range(0, C, _MOMENT_BLOCK):
         f32 = flat[:, a:a + _MOMENT_BLOCK].float()
-        m = torch.sum(f32 * keep, dim=0, keepdim=True) / n_h
+        m = _rows_sum(f32, keep) / n_h
         mean[:, a:a + _MOMENT_BLOCK] = m
         if with_std:
-            var = torch.sum((f32 - m) ** 2 * keep, dim=0, keepdim=True) / n_h
+            var = _rows_sum((f32 - m) ** 2, keep) / n_h
             std[:, a:a + _MOMENT_BLOCK] = torch.sqrt(torch.clamp_min(var,
                                                                      0.0))
     shape = (1,) + v.shape[1:]
@@ -163,6 +176,16 @@ REGISTRY = {
 }
 
 OMNISCIENT_ATTACKS = ("omniscient", "alie", "ipm", "mimic")
+
+# The attacks whose corrupted value at a coordinate depends only on the
+# workers' values at that coordinate, so that on any set of columns of a
+# stack they give those columns of the attacked stack: what the multi-rank
+# wire needs, which attacks a rank's slice of the coordinates. ``mimic``
+# picks its victim over a whole row, ``bitflip`` flips by position in the
+# last dim, and ``gaussian`` draws its noise in the stack's shape, so a
+# slice draws other values (tests/test_torch_rrs.py checks the split).
+COORDINATEWISE = ("none", "omniscient", "alie", "ipm", "signflip", "zero",
+                  "wrong_value")
 
 
 def get(name: str) -> Attack:

@@ -19,8 +19,9 @@ dropout, stragglers and crashes of a :class:`dist.faults.FaultPlan`.
 ``[..., n, C]`` stack on one device (every receiver's view is
 materialized, ``O(n^2 C)`` on the fault path); leading dims are
 independent runs, each with its own draws. ``repro``'s ``shard_map`` wire
-(``aggregate_stacked_consensus``) comes with multi-card training
-(ROADMAP.md, A5); ``repro`` proves it equal to this emulation.
+(``aggregate_stacked_consensus``) over the ranks of a process group is
+still to come (ROADMAP.md, A5c); ``repro`` proves it equal to this
+emulation.
 
 Fault-free with ``trim="mean"``, a round is one ``Estimator`` aggregate of
 the sent stack (B1 on the card); every peer computes the identical value.

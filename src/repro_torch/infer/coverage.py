@@ -92,7 +92,7 @@ def coverage_run(
     ``FaultPlan``), a chunk's replications in one call, each with its own
     dropout, drawn from a generator of their own seeded from ``seed``.
     Replicating over several devices (``repro``'s ``mesh``) is not ported
-    (ROADMAP.md, queue A5).
+    (ROADMAP.md, queue A5d).
     """
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)

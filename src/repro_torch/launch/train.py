@@ -1,5 +1,6 @@
 """Training launcher (``repro.launch.train``'s port): robust training of
-one model on one card, its workers emulated there.
+one model on one card, its workers emulated there, or over the ranks of
+a torchrun group (below).
 
   python -m repro_torch.launch.train --arch qwen3-1.7b --steps 20 \\
       --workers 8 --aggregator vrmom --byzantine 0.25 --attack signflip
@@ -12,10 +13,26 @@ same as ``stacked-auto``), ``stacked-auto``, ``mean`` or ``inloop``.
 ``AggDiagnostics``) into a ``MetricsRegistry`` and appends one snapshot a
 step to PATH as a JSON line. ``--checkpoint DIR`` saves params and
 optimizer state in ``repro``'s format at the end.
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) every rank joins the default
+process group from the environment over ``gloo``, on the CPU and on the
+card alike (on the card ``LOCAL_RANK`` picks; gloo takes CUDA tensors and
+lets several ranks share one card, and NCCL waits for a host with a card
+a rank to be run; ROADMAP §C) and the ranks hold the workers, ``--workers /
+WORLD_SIZE`` each: ``stacked-rrs`` and ``inloop`` aggregate over the
+multi-rank wire (``make_train_step(group=...)``), and every rank logs the
+loss with its rank. Rank 0 alone writes the metrics and the checkpoint.
+With ``--byzantine`` the attack must be coordinate-wise
+(``core.attacks.COORDINATEWISE``; not the default ``gaussian``).
+
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.train --arch qwen3-1.7b --reduced --steps 2 \
+      --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
@@ -71,18 +88,27 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    group, rank, tag = _join_group()
+    if group is not None and device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))
+                              % torch.cuda.device_count())
+        torch.cuda.set_device(device)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     beta = args.beta if args.beta is not None else max(0.1,
                                                        1.0 / args.workers)
+    # every rank takes the same path (the diagnostics' all_reduce); rank 0
+    # alone writes the files
     with_diag = args.metrics is not None and args.mode != "inloop"
+    if rank:
+        args.metrics = args.checkpoint = None
     optimizer = O.get(cfg.optimizer, lr=args.lr)
     setup = make_train_step(
         cfg, args.workers,
         estimator=Estimator(method=args.aggregator, K=args.K, beta=beta),
         mode=args.mode, optimizer=optimizer, byzantine_frac=args.byzantine,
-        attack=args.attack, with_diag=with_diag, device=device)
+        attack=args.attack, with_diag=with_diag, device=device, group=group)
 
     params = M.init(cfg, torch.Generator(device=device).manual_seed(
         args.seed), device=device)
@@ -91,7 +117,7 @@ def main(argv=None):
     sink = JsonlSink(args.metrics) if args.metrics else None
 
     n_params = M.param_count(params)
-    print(f"arch={cfg.name} params={n_params/1e6:.1f}M device={device} "
+    print(f"{tag}arch={cfg.name} params={n_params/1e6:.1f}M device={device} "
           f"workers={setup.n_workers} aggregator={args.aggregator} "
           f"mode={args.mode} byzantine={args.byzantine} attack={args.attack}")
 
@@ -112,13 +138,30 @@ def main(argv=None):
             sink.write_registry(reg, step=i)
         if i % args.log_every == 0 or i == args.steps - 1:
             dt = now() - t0
-            print(f"step {i:4d} loss {loss:.4f} ({dt/(i+1):.2f} s/step)")
+            print(f"{tag}step {i:4d} loss {loss:.4f} ({dt/(i+1):.2f} "
+                  f"s/step)")
     if sink is not None:
         sink.close()
         print("metrics written to", args.metrics)
     if args.checkpoint:
         ckpt_save(args.checkpoint, {"params": params, "opt": opt_state})
         print("checkpoint saved to", args.checkpoint)
+    if group is not None:
+        torch.distributed.destroy_process_group()
+
+
+def _join_group():
+    """(group, rank, log prefix): the default process group joined over
+    gloo from torchrun's environment when ``WORLD_SIZE`` > 1, else (None,
+    0, "")."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1:
+        return None, 0, ""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo")
+    rank = dist.get_rank()
+    return dist.group.WORLD, rank, f"[rank {rank}/{world}] "
 
 
 if __name__ == "__main__":

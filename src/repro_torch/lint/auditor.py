@@ -25,8 +25,10 @@ Entry points audited:
 9. the consensus wire                                    (RL210)
 10. ``core.adaptive`` init_state/apply_adaptive carry    (RL211)
 
-RL201 (the multi-rank RRS wire) reports ``skip``: the port has no
-multi-rank wire until ROADMAP A5, as ``repro``'s skips off-mesh.
+RL201 (the multi-rank RRS wire) runs ``aggregate_stacked_rrs`` over the
+default process group when one of two or more ranks is initialised, and
+reports ``skip`` off a group, as ``repro``'s skips with fewer than two
+devices.
 
 ``run_audit(device=None)`` runs on the card (``device.resolve_device``:
 no card raises); pass ``"cpu"`` for the host. Every check's failure is a
@@ -141,9 +143,33 @@ def _layout(tree):
 
 def _check_rrs_wire(dev) -> List[AuditResult]:
     def body():
-        raise _Skip("no multi-rank wire until ROADMAP A5: one card is one "
-                    "worker rank, and aggregate_stacked_auto (RL204) is "
-                    "the stacked path")
+        import torch.distributed as dist
+
+        from ..core.estimator import Estimator
+        from ..dist.robust_reduce import aggregate_stacked_rrs
+
+        nw = (dist.get_world_size()
+              if dist.is_available() and dist.is_initialized() else 1)
+        if nw < 2:
+            raise _Skip(f"needs a process group of >= 2 ranks for the "
+                        f"multi-rank wire, have {nw} (run the audit on "
+                        f"each rank of one)")
+        est = Estimator(method="vrmom", K=3)
+        # deliberately wire-unfriendly sizes: 4*6 + 5 = 29 coordinates,
+        # coprime with any nw >= 2, so the zero-pad path is exercised;
+        # each rank holds one worker's row
+        grads = {"w": _randn(dev, (1, 4, 6), torch.bfloat16,
+                             seed=dist.get_rank()),
+                 "b": _randn(dev, (1, 5), seed=100 + dist.get_rank())}
+        out = aggregate_stacked_rrs(grads, dist.group.WORLD, est)
+        _need(tuple(out["w"].shape) == (4, 6), tuple(out["w"].shape))
+        _need(tuple(out["b"].shape) == (5,), tuple(out["b"].shape))
+        _need(out["w"].dtype == torch.bfloat16, (
+            f"bf16 leaf upcast to {out['w'].dtype} on the wire"))
+        _need(out["b"].dtype == torch.float32, out["b"].dtype)
+        return (f"[1, ...] rows on each of {nw} ranks -> worker dim "
+                f"removed, dtypes preserved (bf16 stays bf16) across the "
+                f"padded f32 wire")
 
     return [_result("RL201", "dist.aggregate_stacked_rrs", body)]
 

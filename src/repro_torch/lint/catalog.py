@@ -79,9 +79,9 @@ AUDIT_CHECKS = (
     RuleInfo(
         "RL201", "rrs-wire-shapes",
         "The multi-rank RRS wire keeps every leaf's shape (minus the "
-        "worker dim) and dtype for every worker count of the mesh. The "
-        "port has no multi-rank wire until ROADMAP A5: the check skips.",
-        "DESIGN §3; waits on ROADMAP A5"),
+        "worker dim) and dtype for every worker count of the group. "
+        "Off a process group of two or more ranks the check skips.",
+        "DESIGN §3"),
     RuleInfo(
         "RL202", "symmetric-triangle-wire",
         "aggregate_symmetric_stacked puts exactly p(p+1)/2 upper-"

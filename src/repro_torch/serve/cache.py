@@ -9,9 +9,10 @@ and retired slots are reused without touching the others.
 The port's caches (``KVCache`` [L, rows, T, Hkv, dh], ``SSMCache``'s
 states and conv tails [L, rows, ...], a ``HybridCache`` holding both, an
 ``EncDecCache``'s self and cross K/V) all keep the row on dim 1 and a
-per-row ``pos`` [rows] int32 (``vectorize_pos``), so ``repro``'s
-structural probe (``slot_dims``) has no counterpart: the pool walks a
-cache's row tensors (``models.caches.row_fields``). An SSM state is not
+per-row ``pos`` [rows] int32 (``vectorize_pos``), so the pool walks a
+cache's row tensors (``models.caches.row_fields``); ``slot_dims``,
+``repro``'s structural probe, serves the spec layer (it probes on the
+meta device at two slot counts). An SSM state is not
 masked by a length: a free slot's state keeps moving as the pool
 decodes, and an admission overwrites every row tensor of its slot (an
 encdec request's cross K/V, over its own frames, too). A pool whose
@@ -19,8 +20,9 @@ replicas run replicated holds ``m * n_slots`` rows, replica-major as
 ``engine.DecodeBuffers`` lays them out (row ``r * n_slots + s`` is
 replica r of slot s): the decode step runs them as one batch, with no
 flatten per block. Every write is in place into the pool's own tensors,
-whose addresses a captured decode step keeps. (``repro``'s
-``pool_specs`` shards a pool over a mesh: ROADMAP.md, queue A5.)
+whose addresses a captured decode step keeps. ``pool_specs`` gives a
+pool's partition specs (``dist.sharding.cache_specs``, the rows playing
+the batch).
 """
 from __future__ import annotations
 
@@ -33,7 +35,10 @@ from ..models.attention import row_pos
 from ..models.caches import row_fields
 
 __all__ = ["SlotPool", "vectorize_pos", "kv_bytes_per_slot", "pool_caches",
-           "init_pool", "write_slot", "evict_slot"]
+           "init_pool", "write_slot", "evict_slot", "slot_dims",
+           "pool_specs", "NO_SLOT_DIM"]
+
+NO_SLOT_DIM = -1  # a field with no slot dim (``repro``'s ``_NO_SLOT_DIM``)
 
 
 class SlotPool(NamedTuple):
@@ -131,3 +136,31 @@ def evict_slot(pool: SlotPool, slot: int) -> SlotPool:
     pool.lengths[slot] = 0
     pool.active[slot] = False
     return pool
+
+
+def slot_dims(make: Callable[[int], Any], n_a: int = 2, n_b: int = 3):
+    """Per-field slot-dim index of the caches ``make(n_slots)`` builds:
+    ``make`` is probed at two slot counts (give it a ``device="meta"``
+    build and nothing is allocated), and each field gets the index of the
+    first dim whose size tracked the count, or ``NO_SLOT_DIM``."""
+    sa, sb = make(n_a), make(n_b)
+
+    def one(x, y):
+        diffs = [i for i, (p, q) in enumerate(zip(x.shape, y.shape))
+                 if p != q]
+        return diffs[0] if diffs else NO_SLOT_DIM
+
+    return sa._replace(**{f: one(getattr(sa, f), getattr(sb, f))
+                          for f in sa._fields if getattr(sa, f) is not None})
+
+
+def pool_specs(cfg, pool: SlotPool, mesh, batch_axes) -> SlotPool:
+    """Partition specs of a pool (``repro``'s ``pool_specs``): the caches
+    by ``dist.sharding.cache_specs`` with the pool's rows as the batch
+    (``n_slots`` rows unless the replicas run replicated), the
+    bookkeeping replicated."""
+    from ..dist import sharding as S
+
+    cspecs = S.cache_specs(cfg, pool.caches, mesh, batch_axes,
+                           global_batch=pool.caches.pos.shape[0])
+    return SlotPool(caches=cspecs, lengths=(None,), active=(None,))

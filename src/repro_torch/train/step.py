@@ -1,10 +1,15 @@
 """The Byzantine-robust train step (``repro.train.step``'s port).
 
-``make_train_step`` wires the paper's technique into training on one
-card, with W workers emulated there: per-worker gradients, the simulated
-Byzantine corruption of the last rows, coordinate-wise robust
+``make_train_step`` wires the paper's technique into training, with W
+workers emulated on one card or held by the ranks of a
+``torch.distributed`` group (``group=``: the ranks hold W / world
+workers each and the aggregation rides the RRS wire,
+``dist.robust_reduce.aggregate_stacked_rrs``): per-worker gradients, the
+simulated Byzantine corruption of the last rows, coordinate-wise robust
 aggregation (``dist.robust_reduce``), the optimizer update. The worker
-count takes the place of ``repro``'s mesh.
+count and the group take the place of ``repro``'s mesh.
+``make_serve_steps`` is ``repro``'s serving counterpart: the prefill and
+decode step under a mesh context, with the caches' partition specs.
 
 * **Stacked modes** (``stacked-rrs``, ``stacked-auto``, ``mean``, and
   ``stacked-adaptive``, which an adaptive estimator selects): the
@@ -58,8 +63,8 @@ from ..obs.trace import named_span
 from ..tree import (leaves as _leaves, paths as tree_paths, tree_map,
                     unflatten as _unflatten)
 
-__all__ = ["TrainSetup", "make_train_step", "stacked_grads", "loss_and_grads",
-           "MODES"]
+__all__ = ["TrainSetup", "make_train_step", "make_serve_steps",
+           "stacked_grads", "worker_grads", "loss_and_grads", "MODES"]
 
 MODES = ("stacked-rrs", "stacked-auto", "mean", "inloop")
 
@@ -76,20 +81,24 @@ class TrainSetup:
     init_state: Optional[Callable] = None
 
 
-def loss_and_grads(cfg, params, batch, micro: int = 1):
+def loss_and_grads(cfg, params, batch, micro: int = 1, scale: float = 1.0):
     """(loss, grads) of ``model.loss`` at ``params`` on ``batch``: grads a
     dict like params, in the param dtype. A leaf the loss does not reach
     (a hybrid's unused tail layer at tail 0) gets a zero gradient, as
     ``jax.value_and_grad`` gives it. With ``micro`` > 1 the batch is
     cut into ``micro`` consecutive slices whose gradients are summed in
-    f32 and averaged, then cast back (``repro``'s accumulation)."""
+    f32 and averaged, then cast back (``repro``'s accumulation). The
+    gradients are those of ``scale`` times the loss (a group's rank takes
+    its share 1 / world of the global loss); the loss comes unscaled."""
     leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
     p = _unflatten(params, leaves)
 
     def one(b):
         loss = M.loss(p, cfg, b)
+        RR.mark_wire_products(loss, leaves)   # a group's inloop step only
         return loss.detach(), torch.autograd.grad(
-            loss, leaves, allow_unused=True, materialize_grads=True)
+            loss * scale if scale != 1.0 else loss, leaves,
+            allow_unused=True, materialize_grads=True)
 
     def micro_step(b, acc):
         # a function, so no trip's tensors outlive it
@@ -127,6 +136,14 @@ def stacked_grads(cfg, params, batch, n_workers: int,
     split into ``n_workers`` equal slices, each worker's gradients are
     computed in turn and copied into a preallocated ``[W, ...]`` stack per
     leaf, in the param dtype."""
+    losses, stack = worker_grads(cfg, params, batch, n_workers, microbatch)
+    return torch.mean(losses), stack
+
+
+def worker_grads(cfg, params, batch, n_workers: int,
+                 microbatch: Optional[int] = None):
+    """(each worker's loss [W] f32, stacked grads): ``stacked_grads``
+    before the mean of the losses."""
     B, seq = batch["tokens"].shape[:2]
     if B % n_workers:
         raise ValueError(f"global batch {B} must be divisible by the "
@@ -149,7 +166,54 @@ def stacked_grads(cfg, params, batch, n_workers: int,
 
     for w in trips(n_workers):   # every worker the same ops
         worker(w)
-    return torch.mean(losses), stack
+    return losses, stack
+
+
+def _check_group(world: int, n_workers: int, mode: str, est, reduce_backend,
+                 n_byz: int, attack: str) -> None:
+    """Refuse at build what the multi-rank wire does not take."""
+    G = RR.GroupRefusal
+    if n_workers % world:
+        raise G(f"{n_workers} workers over a group of {world} ranks: the "
+                f"world size must divide the workers")
+    if reduce_backend == "consensus":
+        raise G("the consensus backend over a group of ranks: its wire "
+                "over ranks is still to come; one process emulates it")
+    if est.adaptive:
+        raise G(f"adaptive estimator {est.method!r} over a group of ranks: "
+                "its census needs complete worker rows, and a rank holds "
+                "a slice of the coordinates")
+    if mode not in ("stacked-rrs", "inloop"):
+        raise G(f"mode {mode!r} over a group of ranks: only 'stacked-rrs' "
+                "and 'inloop' ride the multi-rank wire")
+    if n_byz and mode == "stacked-rrs" and attack not in atk.COORDINATEWISE:
+        raise G(f"attack {attack!r} over a group of ranks: it is not "
+                f"coordinate-wise, so on a rank's slice of the coordinates "
+                f"it would differ from the same attack on the stack "
+                f"(coordinate-wise: {atk.COORDINATEWISE})")
+
+
+def _sum_over_ranks(grads, group, which) -> None:
+    """The leaves of ``grads`` at the indices ``which`` summed over the
+    ranks in place, in f32."""
+    import torch.distributed as dist
+
+    for i, g in enumerate(_leaves(grads)):
+        if i in which:
+            f = g.float()
+            dist.all_reduce(f, group=group)
+            g.copy_(f)
+
+
+def _mean_over_ranks(losses, group):
+    """The mean of every rank's ``losses`` [n] (rank order)."""
+    if group is None:
+        return torch.mean(losses)
+    n = losses.shape[0]
+    out = torch.empty(n * RR.group_world(group), dtype=losses.dtype,
+                      device=losses.device)
+    RR.all_gather_into(out, losses.contiguous(), group)
+    return torch.mean(out)
 
 
 def _split_micro(x, n_workers: int, micro: int):
@@ -169,7 +233,7 @@ def make_train_step(cfg, n_workers: int, *, estimator=Estimator(),
                     with_diag: bool = False, reduce_backend: str = "rrs",
                     consensus=None, fault_plan=None,
                     weights_beta: float = 0.5, momentum: float = 0.0,
-                    device=None) -> TrainSetup:
+                    device=None, group=None) -> TrainSetup:
     """The step ``step_fn(params, opt_state, batch, generator=None,
     agg_state=None) -> (params, opt_state, loss[, agg_state][, caux][,
     diag])``,
@@ -192,11 +256,34 @@ def make_train_step(cfg, n_workers: int, *, estimator=Estimator(),
     ``consensus`` (a ``ConsensusConfig``; by default f =
     ``max(int(byzantine_frac * (W - 1)), 1)``, validated here when W > 1)
     and ``fault_plan`` (a ``FaultPlan``); the step then returns the
-    ``ConsensusAux`` after the loss."""
+    ``ConsensusAux`` after the loss.
+
+    ``group``: a ``torch.distributed`` process group whose ranks hold the
+    workers, ``n_workers / world`` each (rank r the r-th block; the world
+    size must divide ``n_workers``). Every rank calls the step with the
+    same global batch and params and takes its own workers' rows of the
+    batch. ``stacked-rrs`` sends the rank's stack down the RRS wire
+    (``dist.robust_reduce.aggregate_stacked_rrs``), the attack applied to
+    the received slice (so only coordinate-wise attacks,
+    ``core.attacks.COORDINATEWISE``); ``inloop`` sends each product's
+    ``dW`` stack down it inside the backward and sums over the ranks,
+    with one f32 ``all_reduce`` a leaf, only the leaves whose gradient is
+    not wholly wire products (the norms, the embedding, tied or not: its
+    lookup's gradient is one partial a rank;
+    ``dist.robust_reduce.mark_wire_products``). The optimizer then runs on
+    replicated params, the same on every rank; the loss is the mean over
+    all the workers. Every other mode, an adaptive estimator, the
+    consensus backend and the other attacks raise ``GroupRefusal``."""
     device = resolve_device(device)
     est = Estimator.coerce(estimator)
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; known: {MODES}")
+    world = RR.group_world(group)
+    if world > 1:
+        _check_group(world, n_workers, mode, est, reduce_backend,
+                     int(byzantine_frac * (n_workers - 1)), attack)
+    else:
+        group = None
     if with_diag and mode == "inloop":
         raise ValueError(
             "with_diag is unavailable in inloop mode: IB-RRS aggregates "
@@ -246,22 +333,43 @@ def make_train_step(cfg, n_workers: int, *, estimator=Estimator(),
     mask = torch.arange(n_workers, device=device) >= (n_workers - n_byz)
     attack_fn = atk.get(attack)
 
+    w_loc = n_workers // world
+
+    def own_rows(batch):
+        """This rank's workers' rows of the global batch."""
+        B = batch["tokens"].shape[0]
+        if B % n_workers:
+            raise ValueError(f"global batch {B} must be divisible by the "
+                             f"{n_workers} workers")
+        if group is None:
+            return batch
+        import torch.distributed as dist
+
+        per = B // world
+        r = dist.get_rank(group)
+        return {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
+
     def inloop_grads(params, batch):
+        batch = own_rows(batch)
         B, seq = batch["tokens"].shape[:2]
         micro = microbatch if microbatch is not None else (
-            max(B // n_workers, 1) if seq >= 2048 else 1)
-        if B % n_workers:
-            raise ValueError(f"inloop global batch {B} must be divisible "
-                             f"by the {n_workers} workers")
-        per_worker = B // n_workers
+            max(B // w_loc, 1) if seq >= 2048 else 1)
+        per_worker = B // w_loc
         if micro > 1 and per_worker % micro:
             raise ValueError(f"inloop microbatch={micro} must divide the "
                              f"per-worker batch {per_worker}")
         if micro > 1:
-            batch = {k: _split_micro(v, n_workers, micro).reshape(
+            batch = {k: _split_micro(v, w_loc, micro).reshape(
                 (-1,) + v.shape[1:]) for k, v in batch.items()}
-        with RR.robust_backward(n_workers, est):
-            return loss_and_grads(cfg, params, batch, micro)
+        with RR.robust_backward(n_workers, est, group=group) as rb:
+            loss, grads = loss_and_grads(cfg, params, batch, micro,
+                                         scale=1.0 / world)
+        if group is not None:   # the leaves not wholly on the wire
+            with named_span("train.sum_over_ranks"):
+                _sum_over_ranks(grads, group, rb.summed)
+            loss = _mean_over_ranks(loss.reshape(1), group)
+        return loss, grads
+
 
     def train_step(params, opt_state, batch, generator=None,
                    agg_state=None):
@@ -272,6 +380,19 @@ def make_train_step(cfg, n_workers: int, *, estimator=Estimator(),
         if mode == "inloop":
             with named_span("train.worker_grads"):
                 loss, agg = inloop_grads(params, batch)
+        elif group is not None:
+            with named_span("train.worker_grads"):
+                losses, grads = worker_grads(cfg, params, own_rows(batch),
+                                             w_loc, microbatch)
+                loss = _mean_over_ranks(losses, group)
+            with named_span("train.aggregate"):
+                agg = RR.aggregate_stacked_rrs(
+                    grads, group, est, with_diag=with_diag,
+                    attack=(lambda v: attack_fn(generator, v, mask))
+                    if n_byz else None)
+                if with_diag:
+                    agg, diag = agg
+                del grads
         else:
             with named_span("train.worker_grads"):
                 loss, grads = stacked_grads(cfg, params, batch, n_workers,
@@ -312,3 +433,39 @@ def make_train_step(cfg, n_workers: int, *, estimator=Estimator(),
     return TrainSetup(step_fn=train_step, n_workers=n_workers,
                       optimizer=optimizer, device=device,
                       init_state=init_state)
+
+
+def make_serve_steps(cfg, mesh, *, shape, window="cfg"):
+    """``(prefill_fn, decode_fn, cache_shapes, specs, batch_axes)``
+    (``repro``'s ``make_serve_steps``): ``prefill_fn(params, batch)`` and
+    ``decode_fn(params, caches, token)`` run ``models.model.prefill``
+    (last-position logits, caches of ``shape.seq_len``) and
+    ``decode_step`` under ``dist.ctx.mesh_context(mesh)``;
+    ``cache_shapes()`` is the decode cache of ``shape`` on the meta device
+    (nothing allocated) and ``specs()`` its ``dist.sharding.cache_specs``
+    with the batch on ``batch_axes`` (``batch_axes_for(mesh,
+    shape.global_batch)``). ``mesh`` is a ``launch.mesh.MeshShape`` or a
+    ``DeviceMesh``."""
+    from ..dist import ctx as CTX
+    from ..dist import sharding as S
+
+    batch_axes = S.batch_axes_for(mesh, shape.global_batch)
+
+    def prefill_fn(params, batch):
+        with CTX.mesh_context(mesh):
+            return M.prefill(params, cfg, batch, window=window,
+                             cache_len=shape.seq_len, last_only=True)
+
+    def decode_fn(params, caches, token):
+        with CTX.mesh_context(mesh):
+            return M.decode_step(params, cfg, caches, token, window=window)
+
+    def cache_shapes():
+        return M.init_cache(cfg, shape.global_batch, shape.seq_len,
+                            window=window, device="meta")
+
+    def specs():
+        return S.cache_specs(cfg, cache_shapes(), mesh, batch_axes,
+                             global_batch=shape.global_batch)
+
+    return prefill_fn, decode_fn, cache_shapes, specs, batch_axes

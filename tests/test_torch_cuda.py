@@ -2177,7 +2177,7 @@ def test_cuda_retraced_sampled_generate_keeps_its_seed(cuda, monkeypatch,
 @pytest.mark.cuda
 def test_cuda_run_audit_has_no_failure(cuda):
     """``repro_torch.lint.run_audit`` on the card: every RL2xx check passes
-    but RL201, which skips (no multi-rank wire yet)."""
+    but RL201, which skips off a process group."""
     from repro_torch.lint import AUDIT_CHECKS, run_audit
 
     results = run_audit(device="cuda")

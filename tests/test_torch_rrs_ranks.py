@@ -1,0 +1,448 @@
+"""The ranks of ``tests/test_torch_rrs.py``: every check of the multi-rank
+wire on one ``gloo`` group of CPU ranks, started by
+``torch.multiprocessing``, rendezvous through a ``FileStore`` (no port).
+
+Each rank runs every check in the same order (a check that raises is
+recorded, not thrown, so no rank leaves the others waiting in a
+collective), writes ``{check: [status, detail]}`` to ``rank<r>.json`` in
+the run's directory, and rank 0 saves the wire's output on ``repro``'s
+RRS test arrays to ``port_rrs.npz`` there. The module imports neither
+jax nor ``repro``: a spawned rank imports only what it runs. It holds no
+test of its own.
+"""
+from __future__ import annotations
+
+import datetime
+import hashlib
+import json
+import os
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+SEED = 31
+WIRE_ESTIMATORS = {"vrmom_K3": ("vrmom", dict(K=3)),
+                   "vrmom_K10": ("vrmom", dict(K=10)),
+                   "mom": ("mom", {}), "median": ("median", {}),
+                   "trimmed_mean": ("trimmed_mean", {}),
+                   # B1's mean (its plain version here); the default
+                   # backend's torch.mean is held apart, "mean_ref"
+                   "mean": ("mean", dict(backend="cuda"))}
+# the reduced qwen3's leaves every one of whose products rides the wire
+WIRE_LEAVES = ("layers/attn/wq", "layers/attn/wk", "layers/attn/wv",
+               "layers/attn/wo", "layers/mlp/w_gate", "layers/mlp/w_up",
+               "layers/mlp/w_down")
+# the inloop step's leaves off the wire: the ranks' f32 partial sums of the
+# norms' and the embedding lookup's gradients against the one process's
+# single sum (summation order), over SGD at lr 1e-2
+INLOOP_TOL = 1e-6
+TRAIN_SEQ = 24
+
+
+def run_ranks(world: int, path: str, timeout: float = 300.0) -> None:
+    """Start ``world`` ranks of :func:`rank_main` and wait for them; a rank
+    that fails or a run past ``timeout`` raises (every rank is ended)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(rank_main, args=(world, path), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = datetime.datetime.now() + datetime.timedelta(seconds=timeout)
+    try:
+        while not ctx.join(timeout=1.0):
+            if datetime.datetime.now() > deadline:
+                raise TimeoutError(f"{world} ranks still running after "
+                                   f"{timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def _tree(rng, W: int):
+    """A stacked tree of f32 and bf16 leaves whose 1,925 coordinates end
+    mid-slice on any world size here."""
+    bf = lambda *s: torch.from_numpy(rng.standard_normal(s, np.float32)
+                                     ).to(torch.bfloat16)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s, np.float32))
+    return {"w": bf(W, 4, 6), "b": f(W, 5),
+            "big": {"e": f(W, 37, 11), "f": bf(W, 300)},
+            "z": {"a": f(W, 3, 7, 9), "c": bf(W, 1000)}}
+
+
+def _rows(tree, lo: int, hi: int):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda g: g[lo:hi].contiguous(), tree)
+
+
+def _equal(a, b) -> bool:
+    from repro_torch.tree import leaves
+
+    return all(x.dtype == y.dtype and torch.equal(x, y)
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+def _digest(tree) -> str:
+    from repro_torch.tree import paths
+
+    h = hashlib.sha256()
+    for p, t in paths(tree):
+        h.update("/".join(p).encode())
+        h.update(t.detach().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _same_on_every_rank(value: str) -> bool:
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, value)
+    return len(set(out)) == 1
+
+
+def _raises(fn, exc, text: str) -> str:
+    try:
+        fn()
+    except exc as e:
+        if text not in str(e):
+            raise AssertionError(f"{type(e).__name__} without {text!r}: "
+                                 f"{e}")
+        return f"{type(e).__name__}: {str(e)[:80]}"
+    raise AssertionError(f"expected {exc.__name__}, nothing raised")
+
+
+def rank_main(rank: int, world: int, path: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(path, "store"), world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=120))
+    results = {}
+
+    def check(name, fn):
+        try:
+            results[name] = ["ok", str(fn())]
+        except Exception:  # noqa: BLE001 — every failure is a result
+            results[name] = ["fail", traceback.format_exc()[-3000:]]
+
+    for name, fn in _checks(rank, world, path):
+        check(name, fn)
+    with open(os.path.join(path, f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _checks(rank: int, world: int, path: str):
+    from repro_torch.core import attacks as atk
+    from repro_torch.core.estimator import Estimator
+    from repro_torch.dist import robust_reduce as RR
+    from repro_torch.tree import leaves as _leaves, tree_map
+
+    G = dist.group.WORLD
+    W = world
+    full = _tree(np.random.default_rng(SEED), W)
+    mine = _rows(full, rank, rank + 1)
+
+    def wire(method, kw):
+        def fn():
+            if method == "trimmed_mean":
+                kw["beta"] = 1.0 / W
+            est = Estimator(method, **kw)
+            got = RR.aggregate_stacked_rrs(mine, G, est)
+            want = RR.aggregate_stacked_auto(full, est)
+            assert _equal(got, want), "the wire differs from the stack"
+            assert _same_on_every_rank(_digest(got))
+            return "bitwise"
+        return fn
+
+    for name, (method, kw) in WIRE_ESTIMATORS.items():
+        yield f"wire[{name}]", wire(method, dict(kw))
+
+    def mean_ref():
+        # torch.mean's reduction order follows the stack's layout, so the
+        # slice and the leaf sum alike only to f32 rounding
+        got = RR.aggregate_stacked_rrs(mine, G, "mean")
+        want = RR.aggregate_stacked_auto(full, "mean")
+        for x, y in zip(_leaves(got), _leaves(want)):
+            torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-6)
+        return "f32 rounding"
+
+    yield "wire[mean_ref]", mean_ref
+
+    def wire_29():
+        rng = np.random.default_rng(SEED + 1)
+        t = {"w": torch.from_numpy(rng.standard_normal((W, 4, 6), np.float32)
+                                   ).to(torch.bfloat16),
+             "b": torch.from_numpy(rng.standard_normal((W, 5), np.float32))}
+        got = RR.aggregate_stacked_rrs(_rows(t, rank, rank + 1), G, "vrmom")
+        assert _equal(got, RR.aggregate_stacked_auto(t, "vrmom"))
+        return "29 coordinates padded to a multiple of the world size"
+
+    yield "wire[29_coordinates]", wire_29
+
+    def two_rows_a_rank():
+        t = _tree(np.random.default_rng(SEED + 2), 2 * W)
+        got = RR.aggregate_stacked_rrs(_rows(t, 2 * rank, 2 * rank + 2), G,
+                                       "vrmom")
+        assert _equal(got, RR.aggregate_stacked_auto(t, "vrmom"))
+        return f"W = {2 * W}, two rows a rank"
+
+    yield "wire[two_rows_a_rank]", two_rows_a_rank
+
+    def diag():
+        got, d = RR.aggregate_stacked_rrs(mine, G, "vrmom", with_diag=True)
+        want, e = RR.aggregate_stacked_auto(full, "vrmom", with_diag=True)
+        assert _equal(got, want)
+        assert torch.equal(d.suspected, e.suspected)
+        for f in ("scores", "alpha_hat", "pre_norms", "post_norm"):
+            torch.testing.assert_close(getattr(d, f), getattr(e, f),
+                                       rtol=1e-6, atol=1e-6)
+        return "aggregate bitwise, moments at 1e-6"
+
+    yield "diag", diag
+
+    mask = torch.arange(W) >= W - 1
+
+    def attack(name):
+        def fn():
+            a = atk.get(name)
+            got = RR.aggregate_stacked_rrs(
+                mine, G, "vrmom", attack=lambda v: a(None, v, mask))
+            hit = tree_map(lambda g: a(None, g, mask), full)
+            assert _equal(got, RR.aggregate_stacked_auto(hit, "vrmom"))
+            return "the slice's attack equals the stack's"
+        return fn
+
+    for name in atk.COORDINATEWISE:
+        yield f"attack[{name}]", attack(name)
+
+    yield from _refusals(world)
+    yield "robust_dot", lambda: _robust_dot(rank, world)
+    if W == 4:
+        for mode in ("stacked-rrs", "inloop"):
+            yield f"train[{mode}]", lambda m=mode: _train(rank, world, m)
+        yield "train[inloop_sums]", lambda: _inloop_sums(rank, world)
+
+    def rl201():
+        from repro_torch.lint.auditor import _check_rrs_wire
+
+        (r,) = _check_rrs_wire(torch.device("cpu"))
+        assert r.status == "ok", r.render()
+        return r.detail
+
+    yield "rl201", rl201
+
+    def to_named():
+        from torch.distributed.tensor import (Replicate, Shard,
+                                              distribute_tensor)
+
+        from repro_torch.configs import get
+        from repro_torch.convert import expected_shapes
+        from repro_torch.dist import sharding as S
+        from repro_torch.launch.mesh import device_mesh, make_host_mesh
+
+        mesh = device_mesh(make_host_mesh(W // 2, 2), "cpu")
+        shapes = expected_shapes(get("qwen3-1.7b").reduced())
+        named = S.to_named(mesh, S.param_specs(shapes, mesh))
+        wq = named["layers"]["attn"]["wq"]
+        assert wq.placements == (Shard(1), Shard(2)), wq.placements
+        assert named["norm_f"].placements == (Replicate(), Replicate())
+        t = distribute_tensor(torch.zeros(shapes["layers"]["attn"]["wq"]),
+                              wq.mesh, wq.placements)
+        return f"wq local {tuple(t.to_local().shape)}"
+
+    yield "to_named", to_named
+
+    if W == 4:
+        yield "port_rrs_saved", lambda: _save_port_rrs(path)
+
+
+def _refusals(world: int):
+    from repro_torch.configs import get
+    from repro_torch.core.estimator import Estimator
+    from repro_torch.dist import robust_reduce as RR
+    from repro_torch.train.step import make_train_step
+
+    G = dist.group.WORLD
+    cfg = get("qwen3-1.7b").reduced()
+    R = RR.GroupRefusal
+
+    def mk(**kw):
+        args = dict(device="cpu", group=G)
+        args.update(kw)
+        n = args.pop("n", world)
+        return lambda: make_train_step(cfg, n, **args)
+
+    cases = {
+        "whole_vector_estimator": (lambda: RR.aggregate_stacked_rrs(
+            {"w": torch.zeros(1, 8)}, G, "geometric_median"),
+            ValueError, "whole-vector"),
+        "workers_not_divided": (mk(n=world + 1), R, "must divide"),
+        "robust_backward_not_divided": (
+            lambda: RR.robust_backward(world + 1, "vrmom", G).__enter__(),
+            R, "must divide"),
+        "mode_stacked_auto": (mk(mode="stacked-auto"), R, "stacked-auto"),
+        "mode_mean": (mk(mode="mean"), R, "'mean'"),
+        "adaptive": (mk(estimator=Estimator("vrmom_adaptive")), R,
+                     "census"),
+        "consensus": (mk(reduce_backend="consensus"), R, "consensus"),
+        "aggregate_stacked_auto": (lambda: RR.aggregate(
+            {"w": torch.zeros(1, 8)}, mode="stacked-auto", group=G), R,
+            "stacked-auto"),
+    }
+    for name in ("mimic", "bitflip", "gaussian"):
+        cases[f"attack_{name}"] = (mk(byzantine_frac=0.5, attack=name), R,
+                                   name)
+    for name, (fn, exc, text) in cases.items():
+        yield f"refuse[{name}]", lambda f=fn, e=exc, t=text: _raises(f, e, t)
+
+
+def _robust_dot(rank: int, world: int) -> str:
+    """One product's ``dW`` over the group equals the one-process
+    ``_RobustDot`` on the same workers' rows, bit for bit."""
+    from repro_torch.dist import robust_reduce as RR
+
+    rng = np.random.default_rng(SEED + 3)
+    x = torch.from_numpy(rng.standard_normal((world * 2, 5, 12), np.float32))
+    dy = torch.from_numpy(rng.standard_normal((world * 2, 5, 9), np.float32))
+    w0 = torch.from_numpy(rng.standard_normal((12, 9), np.float32))
+
+    def dw(xs, dys, group):
+        w = w0.clone().requires_grad_(True)
+        with RR.robust_backward(world, "vrmom", group):
+            y = RR.robust_dot(xs, w)
+        y.backward(dys)
+        return w.grad
+
+    want = dw(x, dy, None)
+    got = dw(x[2 * rank:2 * rank + 2], dy[2 * rank:2 * rank + 2],
+             dist.group.WORLD)
+    total = got.clone()
+    dist.all_reduce(total)        # rank 0 carries it, the rest zeros
+    assert torch.equal(total, want), float((total - want).abs().max())
+    assert rank == 0 or not torch.any(got)
+    return "bitwise (rank 0 carries the aggregate)"
+
+
+def _train(rank: int, world: int, mode: str) -> str:
+    """Two steps of the group's train step against the one-process step on
+    the same batches (reduced qwen3, signflip on the last rank's worker),
+    the one-process step on rank 0; params identical on every rank."""
+    from repro_torch import optim as O
+    from repro_torch.configs import get
+    from repro_torch.data import lm_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import paths
+
+    cfg = get("qwen3-1.7b").reduced()
+    opt_name = "adamw" if mode == "stacked-rrs" else "sgd"
+
+    def run(group):
+        params = M.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+        opt = O.get(opt_name, lr=1e-2)
+        st = make_train_step(cfg, world, estimator="vrmom", mode=mode,
+                             optimizer=opt, byzantine_frac=1.5 / (world - 1),
+                             attack="signflip", device="cpu", group=group)
+        state = opt.init(params)
+        out = []
+        for i in range(2):
+            b = lm_batch(cfg, i, world, TRAIN_SEQ, device="cpu")
+            params, state, loss = st.step_fn(params, state, b)
+            out.append(({"/".join(p): t.clone() for p, t in paths(params)},
+                        float(loss)))
+        return out
+
+    got = run(dist.group.WORLD)
+    for params, _ in got:
+        h = hashlib.sha256(b"".join(t.numpy().tobytes() for t in
+                                    params.values())).hexdigest()
+        assert _same_on_every_rank(h), "params differ across the ranks"
+    if rank:
+        return "params as rank 0's"
+    want = run(None)
+    worst = {}
+    for s, ((gp, gl), (wp, wl)) in enumerate(zip(got, want)):
+        for k in gp:
+            d = float((gp[k] - wp[k]).abs().max())
+            worst[k] = max(worst.get(k, 0.0), d)
+            if mode == "stacked-rrs" or (s == 0 and k in WIRE_LEAVES):
+                assert d == 0.0, (s, k, d)
+            else:
+                assert d <= INLOOP_TOL, (s, k, d)
+        if mode == "stacked-rrs":
+            assert gl == wl, (s, gl, wl)
+        else:
+            assert abs(gl - wl) <= 1e-5, (s, gl, wl)
+    return json.dumps({k: v for k, v in worst.items() if v})
+
+
+def _inloop_sums(rank: int, world: int) -> str:
+    """One inloop step over the group, each layer checkpointed (``remat``):
+    the ``all_reduce`` after the backward sums only the leaves whose
+    gradients are not wholly wire products (every product's ``dW`` is
+    already the aggregate on every rank), the params are the same on every
+    rank, and they match the one-process step as ``_train``'s step 1."""
+    import dataclasses
+
+    from repro_torch import optim as O
+    from repro_torch.configs import get
+    from repro_torch.data import lm_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import paths
+
+    cfg = dataclasses.replace(get("qwen3-1.7b").reduced(), remat=True)
+    batch = lm_batch(cfg, 0, world, TRAIN_SEQ, device="cpu")
+
+    def run(group):
+        params = M.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+        opt = O.get("sgd", lr=1e-2)
+        st = make_train_step(cfg, world, estimator="vrmom", mode="inloop",
+                             optimizer=opt, byzantine_frac=1.5 / (world - 1),
+                             attack="signflip", device="cpu", group=group)
+        params, _, _ = st.step_fn(params, opt.init(params), batch)
+        return {"/".join(p): t for p, t in paths(params)}
+
+    summed, real = [], dist.all_reduce
+
+    def counting(t, *a, **k):
+        summed.append(t.numel())
+        return real(t, *a, **k)
+
+    dist.all_reduce = counting
+    try:
+        got = run(dist.group.WORLD)
+    finally:
+        dist.all_reduce = real
+    off = [k for k in got if k not in WIRE_LEAVES]
+    assert cfg.tie_embeddings and "embed" in off   # lookup and unembedding
+    assert sorted(summed) == sorted(got[k].numel() for k in off), \
+        (summed, off)
+    h = hashlib.sha256(b"".join(t.numpy().tobytes() for t in
+                                got.values())).hexdigest()
+    assert _same_on_every_rank(h), "params differ across the ranks"
+    if rank:
+        return "params as rank 0's"
+    want = run(None)
+    for k in got:
+        d = float((got[k] - want[k]).abs().max())
+        assert d == 0.0 if k in WIRE_LEAVES else d <= INLOOP_TOL, (k, d)
+    return f"summed {len(off)} of {len(got)} leaves, {sum(summed)} elements"
+
+
+def _save_port_rrs(path: str) -> str:
+    """The wire's output on ``repro``'s RRS test arrays (vrmom, f32) from
+    ``rrs_input.npz``; rank 0 writes ``port_rrs.npz``."""
+    from repro_torch.dist import robust_reduce as RR
+
+    rank = dist.get_rank()
+    data = np.load(os.path.join(path, "rrs_input.npz"))
+    t = {"a": {"w_gate": torch.from_numpy(data["w_gate"][rank:rank + 1])},
+         "b": torch.from_numpy(data["b"][rank:rank + 1])}
+    out = RR.aggregate_stacked_rrs(t, dist.group.WORLD, "vrmom")
+    if rank == 0:
+        np.savez(os.path.join(path, "port_rrs.npz"),
+                 w_gate=out["a"]["w_gate"].numpy(), b=out["b"].numpy())
+    return "saved"
