@@ -340,8 +340,9 @@ bound (989 TFLOP/s bf16, 3.35 TB/s), and the train step's
 ``launch.report`` table of those rows. B1, B2 and B3 at phase 17's
 shapes join the ``kernels`` line with the bounds of ``kernels/*.cost``.
 
-Phase 18 is the Robust-Reduce-Scatter wire over ranks
-(``dist.robust_reduce.aggregate_stacked_rrs``): after phase 17 the
+Phase 18 is the Robust-Reduce-Scatter wire and the consensus wire over
+ranks (``dist.robust_reduce.aggregate_stacked_rrs``,
+``dist.consensus.aggregate_stacked_consensus``): after phase 17 the
 allocator's cache is emptied and 4 ranks are started
 (``torch.multiprocessing``, from a forkserver that preloads torch and the
 port, since there is no fork after CUDA is initialised), each on the one
@@ -370,13 +371,25 @@ backward summing exactly the leaves off the wire (the norms and the tied
 embedding; counted from the profiler's ``gloo:all_reduce`` shapes), with
 the step's wall and its collectives' spans and elements printed (the
 inloop step against one process is held on the CPU, in
-``tests/test_torch_rrs.py``). Then this process recomputes the four
-workers' gradients (each must hash as its rank's), runs
+``tests/test_torch_rrs.py``); (f) (a)'s worker gradient down the
+consensus wire fault-free (``ConsensusConfig(f=0)``: 4 peers allow no
+more, n > 5f; trivial plan, no pins): its SHA-256 leaf by leaf must equal
+(a)'s RRS aggregate's, the aux be the same on every rank, and each
+``WIRE_CHUNK`` block take exactly one ``all_gather`` (counted at
+``robust_reduce.all_gather_into``) and one B1 (the wrappers' counter),
+its synchronised wall printed; (g) the leaf ``layers/attn/wk`` alone with
+one stale straggler (f = 0, p_end 21): ``p_end + 1`` = 22 ``all_gather``s,
+output and aux the same on every rank. The f = 1 fault paths are held on 8
+CPU ranks (``tests/test_torch_rrs.py``). Then this process recomputes the
+four workers' gradients (each must hash as its rank's), runs
 ``aggregate_stacked_auto`` (rank 0's aggregate must equal it bit for
-bit), the one-process ``make_train_step(mode="stacked-rrs")`` on the same
-batches (params equal, gate 0 as the CPU test) and the one-process
-``_RobustDot`` (dW equal). A rank's failure raises through the join. B1
-at the wire's slice joins the ``kernels`` line.
+bit) and the one-process ``aggregate(mode="stacked-consensus")`` on their
+``wk`` with the same plan and a generator seeded as the ranks' ((g) must
+equal it bit for bit, aux included), the one-process
+``make_train_step(mode="stacked-rrs")`` on the same batches (params
+equal, gate 0 as the CPU test) and the one-process ``_RobustDot`` (dW
+equal). A rank's failure raises through the join. B1 at the RRS wire's
+slice and at the consensus wire's block join the ``kernels`` line.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it lists every kernel with its launches, error and times. Any
@@ -5925,6 +5938,10 @@ def phase_launch(torch, dev, card: str):
 # activations); signflip on the last rank's worker (int(0.34 * 3) = 1)
 WIRE_W, WIRE_LAYERS, WIRE_SEED, WIRE_ALPHA = 4, 2, 18, 0.34
 WIRE_TIMEOUT_S = 600
+# (g)'s consensus run: one stale straggler, f = 0 (4 peers allow no more:
+# n > 5f), on one leaf of (a)'s gradient (one WIRE_CHUNK block)
+CONS_LEAF = ("layers", "attn", "wk")
+CONS_STALE = dict(n_stragglers=1, stale_rounds=1)
 # the leaves whose every use is a 3-D x 2-D product (robust_dot under
 # inloop): (e) sums every other leaf over the ranks, the tied embedding
 # included (its lookup half)
@@ -6108,7 +6125,7 @@ def wire_rank(rank: int, world: int, tmp: str, t_start: float) -> None:
                    os.path.join(tmp, "agg.pt"))
     n = sum(t[0].numel() for t in _flat(stack).values())
     out["slice"] = [world, -(-n // world)]
-    del agg, stack
+    del agg            # (a)'s gradient stays for (f) and (g)
     mark("saves")
 
     # -- (b) two stacked-rrs steps over the group -----------------------------
@@ -6195,12 +6212,77 @@ def wire_rank(rank: int, world: int, tmp: str, t_start: float) -> None:
     del params, opt_state, setup, flat, prof
     mark("hashes")
 
+    # -- (f) and (g): the consensus wire over the ranks -----------------------
+    out.update(wire_consensus(torch, rank, world, tmp, stack, est, G,
+                              sync_wall))
+    del stack
+    mark("(f) (g) consensus")
+
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["rank_s"] = time.perf_counter() - t_rank
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def wire_consensus(torch, rank: int, world: int, tmp: str, stack, est, G,
+                   sync_wall) -> dict:
+    """Phase 18's (f) and (g) on one rank: (a)'s worker gradient down the
+    consensus wire fault-free (f = 0, trivial plan, no pins: one
+    ``all_gather`` and one B1 a block), and its ``CONS_LEAF`` with one
+    stale straggler; the ``all_gather`` calls counted at
+    ``robust_reduce.all_gather_into``, B1 by the wrappers' counter. Rank 0
+    saves (g)'s aggregate."""
+    import os
+
+    from repro_torch import kernels as K
+    from repro_torch.dist import robust_reduce as RR
+    from repro_torch.dist.consensus import (ConsensusConfig,
+                                            aggregate_stacked_consensus)
+    from repro_torch.dist.faults import FaultPlan
+    from repro_torch.tree import at
+
+    calls, real = [], RR.all_gather_into
+
+    def counting(o, x, group):
+        calls.append(x.numel())
+        return real(o, x, group)
+
+    def aux_values(aux):
+        return [getattr(aux, f).tolist() for f in aux._fields]
+
+    out = {}
+    cfg = ConsensusConfig(f=0)
+    RR.all_gather_into = counting
+    try:
+        K.reset_launch_counts()   # ---- (f), the main path: counts from 0
+        (agg, aux), wall = sync_wall(lambda: aggregate_stacked_consensus(
+            stack, G, est, config=cfg))
+        out["cons_f"] = dict(
+            wall_s=wall, launches=K.launch_counts(), gathers=len(calls),
+            blocks=-(-sum(t[0].numel() for t in _flat(stack).values())
+                     // RR.WIRE_CHUNK),
+            sha=_tree_sha(torch, agg), aux=aux_values(aux))
+        del agg
+        calls.clear()
+        leaf = {CONS_LEAF[-1]: at(stack, CONS_LEAF)}
+        gen = torch.Generator(device=leaf[CONS_LEAF[-1]].device).manual_seed(
+            WIRE_SEED + 3)
+        K.reset_launch_counts()   # ---- (g)
+        (agg, aux), wall = sync_wall(lambda: aggregate_stacked_consensus(
+            leaf, G, est, config=cfg, plan=FaultPlan(**CONS_STALE),
+            generator=gen))
+        out["cons_g"] = dict(
+            wall_s=wall, launches=K.launch_counts(), gathers=len(calls),
+            blocks=-(-leaf[CONS_LEAF[-1]][0].numel() // RR.WIRE_CHUNK),
+            p_end=cfg.phases(FaultPlan(**CONS_STALE)),
+            sha=_tree_sha(torch, agg), aux=aux_values(aux))
+    finally:
+        RR.all_gather_into = real
+    if rank == 0:
+        torch.save(agg[CONS_LEAF[-1]].cpu(), os.path.join(tmp, "cons_g.pt"))
+    return out
 
 
 def _flat(tree) -> dict:
@@ -6212,9 +6294,10 @@ def _flat(tree) -> dict:
 def wire_references(torch, dev) -> dict:
     """What phase 18's ranks must equal, computed here in one process:
     the four workers' gradient SHA-256s and ``aggregate_stacked_auto`` of
-    their stack (a), the params' SHA-256s after each of two one-process
-    stacked-rrs steps, the last params and the losses (b), and the
-    one-process ``_RobustDot`` dW (c)."""
+    their stack (a), the one-process consensus emulation of their
+    ``CONS_LEAF`` with one stale straggler (g), the params' SHA-256s after
+    each of two one-process stacked-rrs steps, the last params and the
+    losses (b), and the one-process ``_RobustDot`` dW (c)."""
     from repro_torch.dist import robust_reduce as RR
     from repro_torch.train.step import worker_grads
 
@@ -6235,8 +6318,22 @@ def wire_references(torch, dev) -> dict:
                                         for w in range(WIRE_W)], threads=8)
     mark("hashes")
     ref["agg"] = _flat(RR.aggregate_stacked_auto(stack, est))
-    del stack
     mark("aggregate")
+    # (g): the one-process consensus emulation on the four workers' leaf,
+    # the generator seeded as each rank's
+    from repro_torch.dist.consensus import ConsensusConfig
+    from repro_torch.dist.faults import FaultPlan
+    from repro_torch.tree import at
+
+    leaf = {CONS_LEAF[-1]: at(stack, CONS_LEAF)}
+    g_agg, g_aux = RR.aggregate(
+        leaf, mode="stacked-consensus", est=est,
+        consensus=ConsensusConfig(f=0), plan=FaultPlan(**CONS_STALE),
+        generator=torch.Generator(device=dev).manual_seed(WIRE_SEED + 3))
+    ref["cons_g"] = g_agg[CONS_LEAF[-1]]
+    ref["cons_g_aux"] = [getattr(g_aux, f).tolist() for f in g_aux._fields]
+    del stack, leaf, g_agg
+    mark("consensus emulation")
     opt, setup = wire_train_setup(cfg, est, dev, None)
     opt_state = opt.init(params)
     ref["fp"], ref["losses"] = [], []
@@ -6277,6 +6374,7 @@ def _phase_wire(torch, dev, card: str, tmp: str):
 
     import torch.multiprocessing as mp
 
+    from repro_torch.dist.robust_reduce import WIRE_CHUNK
     from repro_torch.kernels import vrmom as VR
     from repro_torch.models import model as M
 
@@ -6441,6 +6539,52 @@ def _phase_wire(torch, dev, card: str, tmp: str):
                                          f"{max_err(got, ref['dw'])}")
     print(f"[wire] (c) robust_dot's dW [2048, 2048] f32 over the group "
           f"equals the one-process _RobustDot bit for bit")
+
+    # -- (f) and (g): the consensus wire over the ranks -----------------------
+    f0, g0 = ranks[0]["cons_f"], ranks[0]["cons_g"]
+    for r in ranks:
+        f, g = r["cons_f"], r["cons_g"]
+        print(f"[wire] (f) rank {r['rank']}: the consensus wire fault-free "
+              f"(f = 0, trivial plan, no pins) {f['wall_s']:.3f} s, "
+              f"synchronised; {f['blocks']} blocks of {WIRE_CHUNK} "
+              f"coordinates, {f['gathers']} all_gathers, B1 "
+              f"{f['launches']['aggregate']}; (g) one stale straggler on "
+              f"{'/'.join(CONS_LEAF)} {g['wall_s']:.3f} s, p_end "
+              f"{g['p_end']}, {g['gathers']} all_gathers over "
+              f"{g['blocks']} block(s), B1 "
+              f"{g['launches']['aggregate']}")
+        require(f["launches"]["aggregate"] == f["blocks"]
+                and f["gathers"] == f["blocks"],
+                f"rank {r['rank']} (f): B1 {f['launches']['aggregate']} and "
+                f"{f['gathers']} all_gathers over {f['blocks']} blocks; "
+                f"expected one of each a block")
+        parted = [k for k, h in f["sha"].items() if r["agg_sha"][k] != h]
+        require(not parted, f"rank {r['rank']} (f): the fault-free "
+                            f"consensus aggregate parts from (a)'s RRS "
+                            f"aggregate in {parted}")
+        require(f["aux"] == f0["aux"] and g["aux"] == g0["aux"],
+                f"rank {r['rank']}: the consensus aux differs from rank "
+                f"0's: (f) {f['aux']} / {f0['aux']}, (g) {g['aux']} / "
+                f"{g0['aux']}")
+        require(g["sha"] == g0["sha"], f"rank {r['rank']} (g): the "
+                                       f"aggregate differs from rank 0's")
+        require(g["gathers"] == g["blocks"] * (g["p_end"] + 1),
+                f"rank {r['rank']} (g): {g['gathers']} all_gathers; "
+                f"expected p_end + 1 = {g['p_end'] + 1} a block, "
+                f"{g['blocks']} blocks")
+    got = torch.load(os.path.join(tmp, "cons_g.pt")).to(dev)
+    require(torch.equal(got, ref["cons_g"]),
+            f"(g): the wire parts from the one-process emulation by "
+            f"{max_err(got, ref['cons_g'])}")
+    require(g0["aux"] == ref["cons_g_aux"],
+            f"(g): aux {g0['aux']} over the group, {ref['cons_g_aux']} in "
+            f"one process")
+    print(f"[wire] (f) every rank's fault-free consensus aggregate equals "
+          f"(a)'s RRS aggregate (SHA-256 of each leaf), aux the same on "
+          f"every rank {f0['aux']}; (g) every rank's aggregate and aux are "
+          f"rank 0's, which equal the one-process "
+          f"aggregate(mode='stacked-consensus') bit for bit, aux "
+          f"{g0['aux']}")
     del got, ref
     torch.cuda.empty_cache()
 
@@ -6460,12 +6604,21 @@ def _phase_wire(torch, dev, card: str, tmp: str):
                         for r in ranks))
     rec["bound_ms"], rec["bound_by"] = bound(
         VR.aggregate_cost((W, c), torch.float32)[1])
+    xs = torch.randn((W, WIRE_CHUNK), generator=g, device=dev)
+    cons = b1_record(torch, flush, f"B1 aggregate on the consensus wire's "
+                     f"block (vrmom K={TRAIN_K}, [{W},{WIRE_CHUNK}] f32, "
+                     f"round 0 of a fault-free block over {W} ranks; "
+                     f"launches: phase 18 (f), one a block and rank)", xs,
+                     TRAIN_K, sum(r["cons_f"]["launches"]["aggregate"]
+                                  for r in ranks))
+    cons["bound_ms"], cons["bound_by"] = bound(
+        VR.aggregate_cost((W, WIRE_CHUNK), torch.float32)[1])
     del xs
-    print_train_records("wire", card, [rec])
+    print_train_records("wire", card, [rec, cons])
     print(f"[wire] phase 18 in {time.perf_counter() - t_phase:.1f} s "
           f"(the ranks' peak {max(r['peak_gb'] for r in ranks):.1f} GB "
           f"each at most) [card] {card}")
-    return [rec]
+    return [rec, cons]
 
 
 def main() -> int:

@@ -18,10 +18,26 @@ dropout, stragglers and crashes of a :class:`dist.faults.FaultPlan`.
 ``consensus_iterate`` / ``consensus_aggregate`` run every peer of a local
 ``[..., n, C]`` stack on one device (every receiver's view is
 materialized, ``O(n^2 C)`` on the fault path); leading dims are
-independent runs, each with its own draws. ``repro``'s ``shard_map`` wire
-(``aggregate_stacked_consensus``) over the ranks of a process group is
-still to come (ROADMAP.md, A5c); ``repro`` proves it equal to this
-emulation.
+independent runs, each with its own draws.
+
+``aggregate_stacked_consensus`` is ``repro``'s ``shard_map`` wire over the
+ranks of a ``torch.distributed`` group, one peer a rank: each round is one
+``all_gather`` of every peer's sent vector (``robust_reduce.
+all_gather_into``), after which a rank computes its own receiver's f-trim
+only, never the ``[n, n, C]`` views of every receiver; a last exchange of
+the finals feeds the decision, which every rank computes alike. The leaves
+are raveled to f32 in tree order and the wire runs in column blocks of
+``robust_reduce.WIRE_CHUNK`` coordinates, every round of a block before
+the next block, with one set of round views for all blocks: a rank holds
+about ``(2n + k + 3)`` block-sized f32 vectors (the gathered block, the
+sort's rows, ``k = stale_rounds`` of straggler history, its own sent,
+held and initial values), never ``n x C``. The rounds are coordinate-wise
+and every receiver's arithmetic is the emulation's, so the wire equals
+the emulation on the gathered stack bit for bit (the tests hold it so).
+Fault-free with ``trim="mean"`` and no pins the wire is settled after round
+0 (below): one ``all_gather`` and one ``Estimator`` aggregate a block, and
+each rank takes in ``n x C x 4`` bytes; every other plan runs ``p_end + 1``
+exchanges a block, as ``repro`` does.
 
 Fault-free with ``trim="mean"``, a round is one ``Estimator`` aggregate of
 the sent stack (B1 on the card); every peer computes the identical value.
@@ -54,10 +70,12 @@ import torch
 from ..core.estimator import Estimator
 from ..kernels.ref import f32_scalar
 from ..obs.trace import named_span
+from ..tree import leaves as _leaves, tree_map, unflatten as _unflatten
 from .faults import FaultPlan
 
 __all__ = ["ConsensusConfig", "ConsensusAux", "consensus_iterate",
-           "consensus_aggregate", "TRIM_MODES"]
+           "consensus_aggregate", "aggregate_stacked_consensus",
+           "TRIM_MODES"]
 
 EstimatorLike = Union[str, Estimator]
 
@@ -424,3 +442,185 @@ def consensus_aggregate(stack, est: EstimatorLike = "vrmom", *,
     config, plan, finals, pinned, aux = _run(stack, est, config, plan,
                                              generator, draws, pin_mask)
     return _decide(finals, config, plan, pinned), aux
+
+
+# ---------------------------------------------------------------------------
+# the wire over the ranks of a process group
+# ---------------------------------------------------------------------------
+
+def aggregate_stacked_consensus(grads, group=None,
+                                est: EstimatorLike = "vrmom", *,
+                                config: Optional[ConsensusConfig] = None,
+                                plan: Optional[FaultPlan] = None,
+                                generator=None, draws=None, pin_mask=None,
+                                attack=None, with_diag: bool = False):
+    """Peer-to-peer consensus aggregate of a stacked tree over the ranks of
+    ``group``, one peer a rank (module docstring): ``(tree,
+    ConsensusAux)``, with ``with_diag`` ``(tree, ConsensusAux,
+    obs.diag.AggDiagnostics)``, the tree's leaves in their dtypes and tree
+    and aux the same on every rank.
+
+    ``grads``: this rank's leaves ``[1, ...]``, the same tree on every rank;
+    rank r is peer r, so n is the world size. ``generator`` (the same state
+    on every rank, so every rank builds the same reception matrices) draws
+    the dropout, or ``draws`` ``[p_end, n, n]`` hands the uniforms in;
+    ``pin_mask`` [n] marks persistent Byzantine senders. ``attack``: a
+    callable ``[n, ...] -> [n, ...]`` with its mask and generator bound. It
+    is applied to round 0's gathered stack leaf by leaf, in each leaf's
+    dtype and shape, so it computes what the one-process step's attack on
+    each leaf's stack does and draws from the generator before the rounds
+    do; each rank then keeps its own corrupted row as its initial value.
+    With an attack the rank holds the attacked ``[n, C]`` f32 stack, as
+    ``repro``'s wire does (ROADMAP.md §C); without one, a block at a time.
+
+    Refused before any collective: a rank holding other than one row
+    (``robust_reduce.GroupRefusal``), and what one process refuses (a
+    whole-vector estimator, ``n <= 5f``, a bad plan: ``ValueError``).
+    Without a group, or on one rank, this is the one-process emulation with
+    f = 0 (a single peer has nothing to disagree about), as in ``repro``,
+    the attack applied leaf by leaf."""
+    from . import robust_reduce as RR
+
+    nw = RR.group_world(group)
+    if nw <= 1:
+        cfg = config if config is not None else ConsensusConfig()
+        if isinstance(cfg, ConsensusConfig):
+            cfg = cfg._replace(f=0)
+        if attack is not None:
+            grads = tree_map(attack, grads)
+        return RR.aggregate_stacked_auto(
+            grads, est, with_diag=with_diag, reduce_backend="consensus",
+            consensus=cfg, plan=plan, generator=generator, draws=draws,
+            pin_mask=pin_mask)
+    import torch.distributed as dist
+
+    leaves = list(_leaves(grads))
+    est, config, plan = _prep(nw, est, config, plan)
+    rows = sorted({g.shape[0] for g in leaves})
+    if rows != [1]:
+        raise RR.GroupRefusal(
+            f"consensus wire: a rank holds {rows} worker rows; the worker "
+            f"dim must be fully sharded over the group's {nw} ranks (one "
+            f"worker a rank)")
+    rank, dev = dist.get_rank(group), leaves[0].device
+    sizes = [g[0].numel() for g in leaves]
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def exchange(sent):
+        allv = torch.empty((nw, sent.numel()), **f32)
+        RR.all_gather_into(allv.view(-1), sent.contiguous(), group)
+        return allv
+
+    stack = None
+    if attack is not None:
+        with named_span("consensus.attack"):
+            stack = exchange(torch.cat([g.reshape(-1).float()
+                                        for g in leaves]))
+            off = 0
+            for g, n in zip(leaves, sizes):
+                seg = stack[:, off:off + n]
+                hit = attack(seg.to(g.dtype).contiguous().reshape(
+                    (nw,) + tuple(g.shape[1:])))
+                seg.copy_(hit.reshape(nw, n))
+                off += n
+    p_end = config.phases(plan)
+    views = _round_views(plan, nw, p_end, nw - config.f, draws=draws,
+                         generator=generator, device=dev)
+    pin = _pin(pin_mask, nw, dev)
+    honest_end = _honest_end(plan, nw, p_end, pin, dev)
+    outs = [torch.empty(g.shape[1:], dtype=g.dtype, device=dev)
+            for g in leaves]
+    moments = None
+    if with_diag:
+        from ..obs import diag as OD
+
+        moments = OD._zeros(nw, dev)
+    spreads = final = None
+    chunk, C = RR.WIRE_CHUNK, sum(sizes)
+    with named_span("consensus.round_loop"):
+        for lo in range(0, C, chunk):
+            hi = min(lo + chunk, C)
+            pieces = list(RR._pieces(sizes, lo, hi, chunk))
+            if stack is None:
+                v0, first = torch.empty(hi - lo, **f32), None
+                for a, e, i, col in pieces:
+                    v0[a - lo:e - lo] = leaves[i].reshape(-1)[col:col + e - a]
+            else:
+                first = stack[:, lo:hi]
+                v0 = first[rank]
+            dec, sp, fs, first = _rank_rounds(
+                v0, first, exchange, est, config, plan, views, pin,
+                honest_end, rank, keep_first=with_diag)
+            spreads = sp if spreads is None else torch.maximum(spreads, sp)
+            final = fs if final is None else torch.maximum(final, fs)
+            for a, e, i, col in pieces:
+                outs[i].view(-1)[col:col + e - a] = dec[a - lo:e - lo]
+            if moments is not None:
+                # the moments of the leaves as they come back: each piece's
+                # decision rounded to its leaf's dtype
+                held = dec.clone()
+                for a, e, i, _ in pieces:
+                    held[a - lo:e - lo] = held[a - lo:e - lo].to(
+                        leaves[i].dtype).float()
+                OD._add_moments(moments, first, held)
+    out = _unflatten(grads, outs)
+    aux = _aux(views, spreads, final, config.eps, ())
+    if with_diag:
+        return out, aux, OD.finalize_diag(*moments)
+    return out, aux
+
+
+def _rank_rounds(v0, first, exchange, est: Estimator,
+                 config: ConsensusConfig, plan: FaultPlan,
+                 views: _RoundViews, pin, honest_end, rank: int, *,
+                 keep_first: bool):
+    """One column block on this rank: ``_iterate`` and ``_decide`` for its
+    own receiver, on ``v0`` [c] f32 (its initial value), ``exchange``
+    gathering every peer's sent vector [c] into [n, c]. ``first``: round
+    0's gathered stack when the caller holds it already (the attack's
+    gather), else None. Returns (decision [c], spreads [P], final spread,
+    round 0's gathered stack if ``keep_first`` else None)."""
+    n, p_end = views.alive.shape[1], views.alive.shape[0]
+    f, trim = config.f, config.trim
+    k = int(plan.stale_rounds) if plan.n_stragglers else 0
+    straggler = plan.n_crashed <= rank < plan.n_crashed + plan.n_stragglers
+    mine = None if pin is None else pin[rank]
+    fault_free = plan.trivial and trim == "mean"
+    # every row holds round 0's aggregate from round 1 on (module
+    # docstring): nothing more to exchange or aggregate
+    settled = fault_free and pin is None
+    hist = [v0] * k
+    v = v0
+    spreads, kept = [], None
+    for p in range(p_end):
+        alive = views.alive[p]
+        honest = alive if pin is None else alive & ~pin
+        if settled and p > 1:
+            spreads.append(spreads[1])
+            continue
+        if settled and p == 1:
+            spreads.append(_spread(v.expand(n, -1), honest))
+            continue
+        sent = hist[k - 1] if straggler else v
+        if mine is not None:
+            sent = torch.where(mine, v0, sent)
+        allv = first if p == 0 and first is not None else exchange(sent)
+        if p == 0 and keep_first:
+            kept = allv
+        spreads.append(_spread(allv, honest))
+        if fault_free:  # every peer receives all and updates
+            v = est.apply(allv, axis=0)
+        else:
+            new = _masked_trim(allv, views.recv[p, rank], f, trim)
+            v = torch.where(views.q_ok[p, rank] & alive[rank], new, v)
+        del allv
+        if k:
+            hist = [v] + hist[:k - 1]
+    if mine is not None:
+        v = torch.where(mine, v0, v)
+    if settled:
+        finals, dec = v.expand(n, -1), v
+    else:
+        finals = exchange(v)
+        dec = _decide(finals, config, plan, pin is not None)
+    return dec, torch.stack(spreads), _spread(finals, honest_end), kept

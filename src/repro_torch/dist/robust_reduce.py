@@ -26,7 +26,8 @@ leading worker dim, with the estimator given by one
   them through the host itself), so the wire never copies to the host.
 * ``aggregate`` — the mode dispatcher of the train step: ``stacked-auto``
   (``auto``), ``stacked-rrs``, ``mean`` and ``stacked-consensus``; over a
-  group of ranks only ``stacked-rrs`` (``GroupRefusal`` for the rest).
+  group of ranks ``stacked-rrs`` and ``stacked-consensus``
+  (``GroupRefusal`` for the rest).
 * ``robust_backward`` + ``robust_dot`` — in-backward aggregation
   (``repro``'s IB-RRS): a matmul whose weight gradient is the robust
   aggregate of the per-worker partial ``dW``, computed inside the
@@ -55,8 +56,11 @@ leading worker dim, with the estimator given by one
   block before the next block (the rounds are coordinate-wise, so that is
   exact): one set of reception matrices serves every block, the spreads
   are maxima over blocks, and the stragglers' history and the pinned
-  rows' ``v0`` are kept per block. ``repro``'s ``shard_map`` consensus
-  wire over ranks is still to come (ROADMAP.md, A5c).
+  rows' ``v0`` are kept per block. Over the ranks of a group, one peer a
+  rank, ``aggregate(mode="stacked-consensus", group=)`` runs
+  ``dist.consensus.aggregate_stacked_consensus``, ``repro``'s
+  ``shard_map`` wire: one ``all_gather`` a round in column blocks of the
+  raveled f32 vector, each rank its own receiver's trim.
 * ``aggregate_symmetric_stacked`` — the inference layer's stacks of
   symmetric matrices.
 """
@@ -81,13 +85,16 @@ __all__ = ["aggregate", "aggregate_stacked_auto", "aggregate_stacked_rrs",
 
 EstimatorLike = Union[str, Estimator]
 
-# columns of a leaf's stack made f32 at a time on the adaptive wire
+# columns made f32 at a time on the block wires: a leaf's stack on the
+# adaptive and the one-process consensus wire, the raveled vector on the
+# consensus wire over ranks
 WIRE_CHUNK = 1 << 22
 
 
 class GroupRefusal(ValueError):
-    """What the multi-rank wire does not take: a mode or an attack that
-    needs whole worker rows, or a worker count the ranks do not divide."""
+    """What the multi-rank wires do not take: a mode or an attack that
+    needs whole worker rows on the RRS wire, a worker count the ranks do
+    not divide, or other than one worker a rank on the consensus wire."""
 
 
 def all_gather_into(out, x, group) -> None:
@@ -445,7 +452,7 @@ def _adaptive_wire(grads, est: Estimator, state=None, *,
 def aggregate(grads, *, mode: str = "stacked-rrs",
               est: EstimatorLike = "vrmom", with_diag: bool = False,
               consensus=None, plan=None, generator=None, draws=None,
-              pin_mask=None, group=None):
+              pin_mask=None, group=None, attack: Optional[Callable] = None):
     """Mode dispatcher of ``train/step.py``. ``stacked-rrs`` runs the RRS
     wire (``aggregate_stacked_rrs``) over ``group``; without one, or on one
     rank, it runs ``aggregate_stacked_auto``, as ``repro``'s wire does at
@@ -458,16 +465,33 @@ def aggregate(grads, *, mode: str = "stacked-rrs",
     (``aggregate_stacked_auto``'s consensus arguments; ``(aggregate,
     ConsensusAux[, diag])``); a single worker has nothing to disagree
     about and runs it with f = 0, as ``repro``'s wire does. Over a group of
-    several ranks every mode but ``stacked-rrs`` raises ``GroupRefusal``:
-    they want whole worker rows in one place, and the consensus wire over
-    ranks is still to come."""
-    if group_world(group) > 1 and mode != "stacked-rrs":
+    several ranks ``stacked-rrs`` runs the RRS wire and
+    ``stacked-consensus`` the consensus wire over the ranks
+    (``dist.consensus.aggregate_stacked_consensus``, one worker a rank);
+    every other mode raises ``GroupRefusal``: it wants whole worker rows in
+    one place. ``attack``: a callable ``[W, ...] -> [W, ...]`` (its mask
+    and generator bound) that the wires apply where they hold the rows
+    (``aggregate_stacked_rrs``: a coordinate-wise attack on the rank's
+    slice; the consensus wire over ranks: round 0's gathered stack);
+    elsewhere it is applied to each leaf's stack first."""
+    nw = group_world(group)
+    if nw > 1 and mode not in ("stacked-rrs", "stacked-consensus"):
         raise GroupRefusal(
-            f"aggregation mode {mode!r} over a group of "
-            f"{group_world(group)} ranks: only 'stacked-rrs' rides the "
-            "multi-rank wire")
+            f"aggregation mode {mode!r} over a group of {nw} ranks: only "
+            "'stacked-rrs' and 'stacked-consensus' ride the multi-rank "
+            "wires")
     if mode == "stacked-rrs":
-        return aggregate_stacked_rrs(grads, group, est, with_diag=with_diag)
+        return aggregate_stacked_rrs(grads, group, est, with_diag=with_diag,
+                                     attack=attack)
+    if mode == "stacked-consensus" and nw > 1:
+        from .consensus import aggregate_stacked_consensus
+
+        return aggregate_stacked_consensus(
+            grads, group, est, config=consensus, plan=plan,
+            generator=generator, draws=draws, pin_mask=pin_mask,
+            attack=attack, with_diag=with_diag)
+    if attack is not None:
+        grads = tree_map(attack, grads)
     if mode == "stacked-consensus":
         W = next(iter(_leaves(grads))).shape[0]
         cfg = consensus

@@ -4,7 +4,9 @@
 workers emulated on one card or held by the ranks of a
 ``torch.distributed`` group (``group=``: the ranks hold W / world
 workers each and the aggregation rides the RRS wire,
-``dist.robust_reduce.aggregate_stacked_rrs``): per-worker gradients, the
+``dist.robust_reduce.aggregate_stacked_rrs``, or, one worker a rank, the
+consensus wire, ``dist.consensus.aggregate_stacked_consensus``): per-worker
+gradients, the
 simulated Byzantine corruption of the last rows, coordinate-wise robust
 aggregation (``dist.robust_reduce``), the optimizer update. The worker
 count and the group take the place of ``repro``'s mesh.
@@ -29,7 +31,9 @@ decode step under a mesh context, with the caches' partition specs.
   (``dist.consensus``), under a ``ConsensusConfig`` and an optional
   ``FaultPlan``; the attacked rows are pinned (they re-send their payload
   every round) and the dropout is drawn from the step's generator after
-  the attack's. The step returns a ``ConsensusAux`` after the loss.
+  the attack's. The step returns a ``ConsensusAux`` after the loss. Over
+  a group (one worker a rank) the attack runs on the wire's round-0
+  gathered stack, in the same order, so the step equals one process's.
 * **inloop**: one global backward under ``robust_backward``; every
   3-D x 2-D product aggregates its weight gradient over the workers in
   the backward (``repro``'s IB-RRS), with ``repro``'s strided micro-split
@@ -171,18 +175,25 @@ def worker_grads(cfg, params, batch, n_workers: int,
 
 def _check_group(world: int, n_workers: int, mode: str, est, reduce_backend,
                  n_byz: int, attack: str) -> None:
-    """Refuse at build what the multi-rank wire does not take."""
+    """Refuse at build what the multi-rank wires do not take."""
     G = RR.GroupRefusal
     if n_workers % world:
         raise G(f"{n_workers} workers over a group of {world} ranks: the "
                 f"world size must divide the workers")
-    if reduce_backend == "consensus":
-        raise G("the consensus backend over a group of ranks: its wire "
-                "over ranks is still to come; one process emulates it")
     if est.adaptive:
         raise G(f"adaptive estimator {est.method!r} over a group of ranks: "
                 "its census needs complete worker rows, and a rank holds "
                 "a slice of the coordinates")
+    if reduce_backend == "consensus":
+        if n_workers != world:
+            raise G(f"the consensus backend with {n_workers} workers over a "
+                    f"group of {world} ranks: the worker dim must be fully "
+                    f"sharded (one worker a rank), as repro's wire needs")
+        if mode == "inloop":
+            raise G("reduce_backend='consensus' needs the materialized "
+                    "stacked wire; inloop (IB-RRS) aggregates inside the "
+                    "backward pass. Use a stacked mode.")
+        return
     if mode not in ("stacked-rrs", "inloop"):
         raise G(f"mode {mode!r} over a group of ranks: only 'stacked-rrs' "
                 "and 'inloop' ride the multi-rank wire")
@@ -270,10 +281,16 @@ def make_train_step(cfg, n_workers: int, *, estimator=Estimator(),
     with one f32 ``all_reduce`` a leaf, only the leaves whose gradient is
     not wholly wire products (the norms, the embedding, tied or not: its
     lookup's gradient is one partial a rank;
-    ``dist.robust_reduce.mark_wire_products``). The optimizer then runs on
-    replicated params, the same on every rank; the loss is the mean over
-    all the workers. Every other mode, an adaptive estimator, the
-    consensus backend and the other attacks raise ``GroupRefusal``."""
+    ``dist.robust_reduce.mark_wire_products``). ``reduce_backend=
+    "consensus"`` over a group needs one worker a rank (``n_workers`` =
+    world) and runs the consensus wire over the ranks
+    (``dist.consensus.aggregate_stacked_consensus``), every attack on its
+    round-0 gathered stack; each rank's ``generator`` must hold the same
+    state. The optimizer then runs on replicated params, the same on every
+    rank; the loss is the mean over all the workers. Every other mode, an
+    adaptive estimator, the consensus backend at other than one worker a
+    rank or with ``inloop``, and the attacks that are not coordinate-wise
+    under ``stacked-rrs`` raise ``GroupRefusal``."""
     device = resolve_device(device)
     est = Estimator.coerce(estimator)
     if mode not in MODES:
@@ -386,12 +403,22 @@ def make_train_step(cfg, n_workers: int, *, estimator=Estimator(),
                                              w_loc, microbatch)
                 loss = _mean_over_ranks(losses, group)
             with named_span("train.aggregate"):
-                agg = RR.aggregate_stacked_rrs(
-                    grads, group, est, with_diag=with_diag,
-                    attack=(lambda v: attack_fn(generator, v, mask))
-                    if n_byz else None)
-                if with_diag:
-                    agg, diag = agg
+                hit = ((lambda v: attack_fn(generator, v, mask)) if n_byz
+                       else None)
+                if mode == "stacked-consensus":
+                    res = RR.aggregate(
+                        grads, mode=mode, est=est, with_diag=with_diag,
+                        consensus=consensus, plan=fault_plan,
+                        generator=generator,
+                        pin_mask=mask if n_byz else None, group=group,
+                        attack=hit)
+                    agg, caux = res[:2]
+                    diag = res[2] if with_diag else None
+                else:
+                    agg = RR.aggregate_stacked_rrs(
+                        grads, group, est, with_diag=with_diag, attack=hit)
+                    if with_diag:
+                        agg, diag = agg
                 del grads
         else:
             with named_span("train.worker_grads"):

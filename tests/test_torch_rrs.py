@@ -1,5 +1,6 @@
-"""The Robust-Reduce-Scatter wire over ``torch.distributed``
-(``dist.robust_reduce.aggregate_stacked_rrs``, ``robust_dot`` and
+"""The Robust-Reduce-Scatter wire and the consensus wire over
+``torch.distributed`` (``dist.robust_reduce.aggregate_stacked_rrs``,
+``dist.consensus.aggregate_stacked_consensus``, ``robust_dot`` and
 ``make_train_step`` over a group, RL201) on ``gloo`` groups of 4 and of
 8 CPU ranks.
 
@@ -18,8 +19,22 @@ result; the cases below read them. Held:
   (``torch.mean``) sums in an order that follows the stack's layout, so
   the slice and the leaf agree to f32 rounding, held at 1e-6;
 * the refusals (``GroupRefusal`` for a world size that does not divide
-  the workers, the modes, estimators, backend and attacks the multi-rank
-  wire does not take; ``ValueError`` for a whole-vector estimator);
+  the workers, the modes, estimators and attacks the RRS wire does not
+  take, the consensus backend at other than one worker a rank or with
+  ``inloop``; ``ValueError`` for a whole-vector estimator and for n <= 5f);
+* on 8 ranks (f = 1), the consensus wire bit for bit against the port's
+  emulation ``consensus_aggregate`` on the gathered stack with the same
+  draws, values and all six ``ConsensusAux`` fields, for the ``mean`` and
+  ``midpoint`` trims under four plans (fault-free; dropout 0.2 with a crash
+  at round 1; two stragglers; a pinned omniscient row, attacked on the
+  wire), in blocks of 512 columns with its ``all_gather`` calls counted (a
+  block: 1 settled, ``p_end + 1`` otherwise); fault-free it equals the RRS
+  wire bit for bit; ``with_diag`` against the one-process ``aggregate``
+  (moments at 1e-6). The consensus train step over the 8 ranks (reduced
+  qwen3, one Byzantine worker, dropout 0.1, 6 rounds) equals the
+  one-process step bit for bit, params, loss and aux: two steps under
+  alie, one under mimic and one under gaussian, whose draws and victim
+  need the whole stack the wire gathers;
 * one ``robust_dot`` ``dW`` over the group against the one-process
   ``_RobustDot`` bit for bit;
 * two train steps over the group of 4 against the one-process step on the
@@ -38,7 +53,11 @@ result; the cases below read them. Held:
 
 Against ``repro``: its RRS on an ``Auto``-axes (4, 2) host mesh in a
 subprocess (8 host devices), on the same numpy arrays as the 4-rank
-wire, within 1e-5 in f32 (``repro``'s own RRS-vs-oracle test uses 2e-5).
+wire, within 1e-5 in f32 (``repro``'s own RRS-vs-oracle test uses 2e-5);
+its ``shard_map`` consensus wire on an ``Auto``-axes (8, 1) mesh against
+the 8-rank wire, the ranks handed ``repro``'s uniforms as ``draws``:
+midpoint exact, mean within 1e-6 relative, aux exact (and, in that
+subprocess, the body of ``tests/test_consensus.py``'s mesh test).
 And ``launch.train`` under ``torchrun`` with 4 CPU ranks logs a finite
 loss on every rank.
 """
@@ -69,8 +88,15 @@ def _names(world):
     names += [f"refuse[{n}]" for n in (
         "whole_vector_estimator", "workers_not_divided",
         "robust_backward_not_divided", "mode_stacked_auto", "mode_mean",
-        "adaptive", "consensus", "aggregate_stacked_auto", "attack_mimic",
-        "attack_bitflip", "attack_gaussian")]
+        "adaptive", "consensus_two_rows_a_rank", "consensus_wire_two_rows",
+        "consensus_n_le_5f", "consensus_inloop", "aggregate_stacked_auto",
+        "attack_mimic", "attack_bitflip", "attack_gaussian")]
+    if world == 8:
+        names += [f"consensus[{t}_{p}]" for t in RK.CONS_TRIMS
+                  for p in RK.CONS_PLANS]
+        names += ["consensus[fault_free_equals_rrs]", "consensus[diag]",
+                  "consensus[repro_saved]", "train[consensus_runs]"]
+        names += [f"train[consensus_{a}]" for a, _, _ in RK.CONS_TRAIN]
     names += ["robust_dot", "rl201", "to_named"]
     if world == 4:
         names += ["train[stacked-rrs]", "train[inloop]",
@@ -88,11 +114,37 @@ def _rrs_input():
             "b": rng.standard_normal((4, 7), np.float32)}
 
 
+# repro's consensus test arrays and plan (tests/test_consensus.py:200-245)
+CONS_KEY = 11
+CONS_PLAN = dict(dropout=0.2, n_crashed=1, crash_round=1)
+
+
+def _consensus_input():
+    """``{"w": [8, 12, 8], "b": [8, 7]}`` from numpy, and ``repro``'s
+    uniforms of the plan's rounds under key 11 (``uniform(fold_in(key,
+    p), (8, 8))``, as ``tests/test_torch_consensus.py`` draws them)."""
+    import jax
+
+    from repro_torch.dist.consensus import ConsensusConfig
+    from repro_torch.dist.faults import FaultPlan
+
+    rng = np.random.default_rng(11)
+    p_end = ConsensusConfig(f=1).phases(FaultPlan(**CONS_PLAN))
+    key = jax.random.PRNGKey(CONS_KEY)
+    draws = np.stack([np.asarray(jax.random.uniform(
+        jax.random.fold_in(key, p), (8, 8))) for p in range(p_end)])
+    return {"w": rng.standard_normal((8, 12, 8), np.float32),
+            "b": rng.standard_normal((8, 7), np.float32), "draws": draws}
+
+
 def _run(world, tmp_path_factory):
     """Every rank's results of the ``world``-rank run (one spawn)."""
     if world not in _RUNS:
         path = str(tmp_path_factory.mktemp(f"rrs{world}"))
         np.savez(os.path.join(path, "rrs_input.npz"), **_rrs_input())
+        if world == 8:
+            np.savez(os.path.join(path, "consensus_input.npz"),
+                     **_consensus_input())
         RK.run_ranks(world, path)
         ranks = []
         for r in range(world):
@@ -188,6 +240,93 @@ def test_wire_matches_repro_rrs(tmp_path_factory):
     want, got = np.load(out), np.load(os.path.join(path, "port_rrs.npz"))
     for k in ("w_gate", "b"):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-5)
+
+
+_REPRO_CONSENSUS = """
+import sys
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
+from repro.dist import robust_reduce as RR
+from repro.dist.consensus import (ConsensusConfig, aggregate_stacked_consensus,
+                                  consensus_aggregate)
+from repro.dist.faults import FaultPlan
+d = np.load(sys.argv[1])
+mesh = jax.make_mesh((8, 1), ("data", "model"),
+                     axis_types=(AxisType.Auto,) * 2)
+g = {"w": jnp.asarray(d["w"]), "b": jnp.asarray(d["b"])}
+sh = {"w": NamedSharding(mesh, P("data", None, "model")),
+      "b": NamedSharding(mesh, P("data", None))}
+gp = jax.tree.map(jax.device_put, g, sh)
+plan = FaultPlan(dropout=0.2, n_crashed=1, crash_round=1).validate(8)
+key = jax.random.PRNGKey(int(sys.argv[3]))
+out = {}
+for trim in ("mean", "midpoint"):
+    cfg = ConsensusConfig(f=1, trim=trim).validate(8)
+    res, aux = jax.jit(lambda x: aggregate_stacked_consensus(
+        x, mesh, ("data",), "vrmom", config=cfg, plan=plan, key=key))(gp)
+    for k in ("w", "b"):
+        out[trim + "/" + k] = np.asarray(res[k])
+    for f in aux._fields:
+        out[trim + "/" + f] = np.asarray(getattr(aux, f))
+    # tests/test_consensus.py:200-245, on Auto axes: the faulty wire is
+    # the emulation bit for bit
+    wire = jnp.concatenate([g["w"].reshape(8, -1), g["b"].reshape(8, -1)],
+                           axis=1)
+    want, aux_e = consensus_aggregate(wire, "vrmom", config=cfg, plan=plan,
+                                      key=key)
+    got = jnp.concatenate([res["w"].reshape(-1), res["b"].reshape(-1)])
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    for f in aux_e._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(aux, f)),
+                                      np.asarray(getattr(aux_e, f)))
+cfg = ConsensusConfig(f=1).validate(8)
+free, aux = jax.jit(lambda x: aggregate_stacked_consensus(
+    x, mesh, ("data",), "vrmom", config=cfg))(gp)
+rrs = jax.jit(lambda x: RR.aggregate_stacked_rrs(x, mesh, ("data",),
+                                                 "vrmom"))(gp)
+for k in g:
+    np.testing.assert_array_equal(np.asarray(free[k]), np.asarray(rrs[k]))
+assert not bool(aux.quorum_lost)
+np.savez(sys.argv[2], **out)
+print("REPRO-CONSENSUS-OK")
+"""
+
+
+def test_consensus_wire_matches_repro(tmp_path_factory):
+    """The 8-rank consensus wire on ``repro``'s arrays, plan and uniforms
+    against ``repro``'s ``shard_map`` wire on an ``Auto``-axes (8, 1) host
+    mesh: the midpoint trim exactly, the trimmed mean within 1e-6 relative
+    (XLA sums the kept window in its own order), the six aux fields
+    exactly."""
+    from repro_torch.dist.consensus import ConsensusAux
+
+    path, ranks = _run(8, tmp_path_factory)
+    assert ranks[0]["consensus[repro_saved]"][0] == "ok", \
+        ranks[0]["consensus[repro_saved]"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    out = os.path.join(path, "repro_consensus.npz")
+    r = subprocess.run([sys.executable, "-c", _REPRO_CONSENSUS,
+                        os.path.join(path, "consensus_input.npz"), out,
+                        str(CONS_KEY)],
+                       capture_output=True, text=True, env=env, timeout=300)
+    assert r.returncode == 0 and "REPRO-CONSENSUS-OK" in r.stdout, \
+        r.stderr[-3000:]
+    want, got = np.load(out), np.load(os.path.join(path,
+                                                   "port_consensus.npz"))
+    for trim in ("mean", "midpoint"):
+        for k in ("w", "b"):
+            a, b = got[f"{trim}/{k}"], want[f"{trim}/{k}"]
+            if trim == "midpoint":
+                np.testing.assert_array_equal(a, b)
+            else:
+                scale = float(np.abs(b).max())
+                np.testing.assert_allclose(a, b, rtol=1e-6,
+                                           atol=1e-6 * scale)
+        for f in ConsensusAux._fields:
+            np.testing.assert_array_equal(got[f"{trim}/{f}"],
+                                          want[f"{trim}/{f}"], err_msg=f)
 
 
 def test_launch_train_under_torchrun(tmp_path):

@@ -5,10 +5,12 @@ wire on one ``gloo`` group of CPU ranks, started by
 Each rank runs every check in the same order (a check that raises is
 recorded, not thrown, so no rank leaves the others waiting in a
 collective), writes ``{check: [status, detail]}`` to ``rank<r>.json`` in
-the run's directory, and rank 0 saves the wire's output on ``repro``'s
-RRS test arrays to ``port_rrs.npz`` there. The module imports neither
-jax nor ``repro``: a spawned rank imports only what it runs. It holds no
-test of its own.
+the run's directory, and rank 0 saves the RRS wire's output on
+``repro``'s RRS test arrays to ``port_rrs.npz`` there (4 ranks) and the
+consensus wire's on ``repro``'s consensus test arrays and uniforms to
+``port_consensus.npz`` (8 ranks). The module imports neither jax nor
+``repro``: a spawned rank imports only what it runs. It holds no test of
+its own.
 """
 from __future__ import annotations
 
@@ -39,6 +41,22 @@ WIRE_LEAVES = ("layers/attn/wq", "layers/attn/wk", "layers/attn/wv",
 # single sum (summation order), over SGD at lr 1e-2
 INLOOP_TOL = 1e-6
 TRAIN_SEQ = 24
+# the consensus wire's plans on 8 ranks (f = 1): fault-free,
+# tests/test_consensus.py:229's dropout with a crash, stragglers, and a
+# pinned omniscient row on the attack's path
+CONS_PLANS = {"fault_free": {},
+              "dropout_crash": dict(dropout=0.2, n_crashed=1, crash_round=1),
+              "stragglers": dict(n_stragglers=2, stale_rounds=2),
+              "pinned_omniscient": {}}
+CONS_TRIMS = ("mean", "midpoint")
+# columns a block in the consensus checks: _tree's 1,925 coordinates in 4
+# blocks, each ending mid-leaf
+CONS_CHUNK = 512
+# the consensus train steps over 8 ranks (reduced qwen3, one Byzantine
+# worker, dropout 0.1): (attack, steps, the rank that holds the
+# one-process reference, so the three run side by side)
+CONS_TRAIN = (("alie", 2, 0), ("mimic", 1, 1), ("gaussian", 1, 2))
+CONS_TRAIN_ROUNDS = 6
 
 
 def run_ranks(world: int, path: str, timeout: float = 300.0) -> None:
@@ -218,6 +236,8 @@ def _checks(rank: int, world: int, path: str):
         yield f"attack[{name}]", attack(name)
 
     yield from _refusals(world)
+    if W == 8:
+        yield from _consensus_checks(rank, world, path)
     yield "robust_dot", lambda: _robust_dot(rank, world)
     if W == 4:
         for mode in ("stacked-rrs", "inloop"):
@@ -262,6 +282,8 @@ def _refusals(world: int):
     from repro_torch.configs import get
     from repro_torch.core.estimator import Estimator
     from repro_torch.dist import robust_reduce as RR
+    from repro_torch.dist.consensus import (ConsensusConfig,
+                                            aggregate_stacked_consensus)
     from repro_torch.train.step import make_train_step
 
     G = dist.group.WORLD
@@ -286,7 +308,17 @@ def _refusals(world: int):
         "mode_mean": (mk(mode="mean"), R, "'mean'"),
         "adaptive": (mk(estimator=Estimator("vrmom_adaptive")), R,
                      "census"),
-        "consensus": (mk(reduce_backend="consensus"), R, "consensus"),
+        "consensus_two_rows_a_rank": (
+            mk(n=2 * world, reduce_backend="consensus"), R, "fully sharded"),
+        "consensus_wire_two_rows": (lambda: aggregate_stacked_consensus(
+            {"w": torch.zeros(2, 8)}, G, config=ConsensusConfig(f=0)), R,
+            "fully sharded"),
+        "consensus_n_le_5f": (
+            mk(reduce_backend="consensus",
+               consensus=ConsensusConfig(f=(world - 1) // 5 + 1)),
+            ValueError, "n > 5f"),
+        "consensus_inloop": (mk(mode="inloop", reduce_backend="consensus"),
+                             R, "needs the materialized"),
         "aggregate_stacked_auto": (lambda: RR.aggregate(
             {"w": torch.zeros(1, 8)}, mode="stacked-auto", group=G), R,
             "stacked-auto"),
@@ -296,6 +328,214 @@ def _refusals(world: int):
                                    name)
     for name, (fn, exc, text) in cases.items():
         yield f"refuse[{name}]", lambda f=fn, e=exc, t=text: _raises(f, e, t)
+
+
+def _aux_values(aux) -> list:
+    return [getattr(aux, f).tolist() for f in aux._fields]
+
+
+def _consensus_checks(rank: int, world: int, path: str):
+    """The consensus wire over the ranks (f = 1): every plan and trim bit
+    for bit against the port's emulation on the gathered stack with the
+    same draws (values and the six aux fields), with its ``all_gather``
+    calls counted a block; fault-free it equals the RRS wire; ``with_diag``
+    against the one-process ``aggregate``; its output on ``repro``'s arrays
+    and uniforms saved; the consensus train step over the group against
+    one process's."""
+    from repro_torch.core import attacks as atk
+    from repro_torch.dist import consensus as CS
+    from repro_torch.dist import robust_reduce as RR
+    from repro_torch.dist.faults import FaultPlan
+    from repro_torch.tree import leaves as _leaves, tree_map, unflatten
+
+    G = dist.group.WORLD
+    W = world
+    full = _tree(np.random.default_rng(SEED + 4), W)
+    mine = _rows(full, rank, rank + 1)
+    mask = torch.arange(W) >= W - 1
+    omni = atk.get("omniscient")
+    C = sum(g[0].numel() for g in _leaves(full))
+
+    def raveled(tree):
+        return torch.cat([g.reshape(W, -1).float() for g in _leaves(tree)],
+                         dim=1)
+
+    def as_tree(flat):
+        outs, off = [], 0
+        for g in _leaves(full):
+            n = g[0].numel()
+            outs.append(flat[off:off + n].reshape(g.shape[1:]).to(g.dtype))
+            off += n
+        return unflatten(full, outs)
+
+    def draws_for(p_end):
+        rng = np.random.default_rng(SEED + 5)
+        return torch.from_numpy(rng.random((p_end, W, W), dtype=np.float32))
+
+    def counted(fn):
+        calls, real = [], RR.all_gather_into
+
+        def counting(out, x, group):
+            calls.append(x.numel())
+            return real(out, x, group)
+
+        chunk, RR.WIRE_CHUNK = RR.WIRE_CHUNK, CONS_CHUNK
+        RR.all_gather_into = counting
+        try:
+            return fn(), calls
+        finally:
+            RR.all_gather_into, RR.WIRE_CHUNK = real, chunk
+
+    def wire(trim, name):
+        def fn():
+            cfg = CS.ConsensusConfig(f=1, trim=trim)
+            plan = FaultPlan(**CONS_PLANS[name])
+            p_end = cfg.phases(plan)
+            draws = draws_for(p_end)
+            pinned = name == "pinned_omniscient"
+            pin = mask if pinned else None
+            (got, aux), calls = counted(
+                lambda: CS.aggregate_stacked_consensus(
+                    mine, G, "vrmom", config=cfg, plan=plan, draws=draws,
+                    pin_mask=pin, attack=(lambda v: omni(None, v, mask))
+                    if pinned else None))
+            stack = (tree_map(lambda g: omni(None, g, mask), full) if pinned
+                     else full)
+            want, waux = CS.consensus_aggregate(
+                raveled(stack), "vrmom", config=cfg, plan=plan, draws=draws,
+                pin_mask=pin)
+            assert _equal(got, as_tree(want)), \
+                "the wire differs from the emulation"
+            for f in aux._fields:
+                a, b = getattr(aux, f), getattr(waux, f)
+                assert a.dtype == b.dtype and torch.equal(a, b), (f, a, b)
+            assert _same_on_every_rank(_digest(got) + str(_aux_values(aux)))
+            blocks = -(-C // CONS_CHUNK)
+            if pinned:     # the attack's gather is round 0's exchange
+                want_calls = 1 + blocks * p_end
+            elif plan.trivial and trim == "mean":
+                want_calls = blocks             # settled after round 0
+            else:
+                want_calls = blocks * (p_end + 1)
+            assert len(calls) == want_calls, (len(calls), want_calls)
+            return (f"bitwise, aux equal; {len(calls)} all_gathers over "
+                    f"{blocks} blocks, p_end {p_end}")
+        return fn
+
+    for trim in CONS_TRIMS:
+        for name in CONS_PLANS:
+            yield f"consensus[{trim}_{name}]", wire(trim, name)
+
+    def equals_rrs():
+        got, _ = CS.aggregate_stacked_consensus(
+            mine, G, "vrmom", config=CS.ConsensusConfig(f=1))
+        assert _equal(got, RR.aggregate_stacked_rrs(mine, G, "vrmom"))
+        return "fault-free consensus = the RRS wire, bitwise"
+
+    yield "consensus[fault_free_equals_rrs]", equals_rrs
+
+    def diag():
+        cfg = CS.ConsensusConfig(f=1)
+        plan = FaultPlan(**CONS_PLANS["dropout_crash"])
+        draws = draws_for(cfg.phases(plan))
+        got, aux, d = RR.aggregate(
+            mine, mode="stacked-consensus", est="vrmom", with_diag=True,
+            consensus=cfg, plan=plan, draws=draws, pin_mask=mask, group=G,
+            attack=lambda v: omni(None, v, mask))
+        want, waux, e = RR.aggregate(
+            tree_map(lambda g: omni(None, g, mask), full),
+            mode="stacked-consensus", est="vrmom", with_diag=True,
+            consensus=cfg, plan=plan, draws=draws, pin_mask=mask)
+        assert _equal(got, want), "the wire differs from one process"
+        assert _aux_values(aux) == _aux_values(waux)
+        assert torch.equal(d.suspected, e.suspected)
+        for f in ("scores", "alpha_hat", "pre_norms", "post_norm"):
+            torch.testing.assert_close(getattr(d, f), getattr(e, f),
+                                       rtol=1e-6, atol=1e-6)
+        return "aggregate and aux bitwise, moments at 1e-6"
+
+    yield "consensus[diag]", diag
+
+    def repro_saved():
+        data = np.load(os.path.join(path, "consensus_input.npz"))
+        t = {k: torch.from_numpy(data[k][rank:rank + 1]) for k in ("w", "b")}
+        plan = FaultPlan(dropout=0.2, n_crashed=1, crash_round=1)
+        out = {}
+        for trim in CONS_TRIMS:
+            got, aux = CS.aggregate_stacked_consensus(
+                t, G, "vrmom", config=CS.ConsensusConfig(f=1, trim=trim),
+                plan=plan, draws=torch.from_numpy(data["draws"]))
+            for k in ("w", "b"):
+                out[f"{trim}/{k}"] = got[k].numpy()
+            for f in aux._fields:
+                out[f"{trim}/{f}"] = getattr(aux, f).numpy()
+        if rank == 0:
+            np.savez(os.path.join(path, "port_consensus.npz"), **out)
+        return "saved"
+
+    yield "consensus[repro_saved]", repro_saved
+
+    runs = {}
+
+    def train_runs():
+        for name, steps, _ in CONS_TRAIN:
+            runs[name] = _consensus_train(name, steps, G)
+            for params, _, _ in runs[name]:
+                h = hashlib.sha256(b"".join(t.numpy().tobytes() for t in
+                                            params.values())).hexdigest()
+                assert _same_on_every_rank(h), (name, "params differ")
+        return "params identical on every rank after each step"
+
+    yield "train[consensus_runs]", train_runs
+
+    def train_vs_one_process(name, steps, holder):
+        if rank != holder:
+            return f"held on rank {holder}"
+        want = _consensus_train(name, steps, None)
+        for s, ((gp, gl, ga), (wp, wl, wa)) in enumerate(zip(runs[name],
+                                                             want)):
+            for k in gp:
+                assert torch.equal(gp[k], wp[k]), \
+                    (s, k, float((gp[k] - wp[k]).abs().max()))
+            assert gl == wl, (s, gl, wl)
+            assert ga == wa, (s, ga, wa)
+        return f"{steps} step(s) bitwise: params, loss, aux {wa}"
+
+    for name, steps, holder in CONS_TRAIN:
+        yield (f"train[consensus_{name}]",
+               lambda a=(name, steps, holder): train_vs_one_process(*a))
+
+
+def _consensus_train(attack: str, steps: int, group):
+    """``steps`` consensus train steps (reduced qwen3, 8 workers, one
+    Byzantine under ``attack``, dropout 0.1, AdamW) over ``group`` or in
+    one process, from one seed: [(params, loss, aux values)] a step."""
+    from repro_torch import optim as O
+    from repro_torch.configs import get
+    from repro_torch.data import lm_batch
+    from repro_torch.dist.consensus import ConsensusConfig
+    from repro_torch.dist.faults import FaultPlan
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import paths
+
+    cfg = get("qwen3-1.7b").reduced()
+    params = M.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    opt = O.get("adamw", lr=1e-2)
+    st = make_train_step(
+        cfg, 8, estimator="vrmom", optimizer=opt, byzantine_frac=0.15,
+        attack=attack, reduce_backend="consensus",
+        consensus=ConsensusConfig(f=1, max_rounds=CONS_TRAIN_ROUNDS),
+        fault_plan=FaultPlan(dropout=0.1), device="cpu", group=group)
+    state = opt.init(params)
+    gen = torch.Generator().manual_seed(SEED + 6)
+    out = []
+    for i in range(steps):
+        b = lm_batch(cfg, i, 8, TRAIN_SEQ, device="cpu")
+        params, state, loss, caux = st.step_fn(params, state, b, gen)
+        out.append(({"/".join(p): t.clone() for p, t in paths(params)},
+                    float(loss), _aux_values(caux)))
+    return out
 
 
 def _robust_dot(rank: int, world: int) -> str:
