@@ -337,8 +337,14 @@ recorded, each call's untraced wall is printed against its roofline
 bound (989 TFLOP/s bf16, 3.35 TB/s), and the train step's
 ``max_memory_allocated`` must lie within 10 % of the meta peak; (c)
 ``launch.dryrun.dryrun_one`` for every arch at ``decode_32k`` and the
-``launch.report`` table of those rows. B1, B2 and B3 at phase 17's
-shapes join the ``kernels`` line with the bounds of ``kernels/*.cost``.
+``launch.report`` table of those rows; (e) the mesh dry run of
+qwen3-1.7b ``train_4k`` at 16 worker ranks (``dryrun_one(mesh=16x16)``:
+one rank's step under a fake process group of 16 on meta, its RRS
+wire's all-to-all and all-gather bytes equal to the padded raveled
+gradient's and its slice's, its three roofline terms printed) and the
+meta count of phase 18's counted wire call under a fake group of 4. B1,
+B2 and B3 at phase 17's shapes join the ``kernels`` line with the bounds
+of ``kernels/*.cost``.
 
 Phase 18 is the Robust-Reduce-Scatter wire and the consensus wire over
 ranks (``dist.robust_reduce.aggregate_stacked_rrs``,
@@ -379,8 +385,21 @@ more, n > 5f; trivial plan, no pins): its SHA-256 leaf by leaf must equal
 ``robust_reduce.all_gather_into``) and one B1 (the wrappers' counter),
 its synchronised wall printed; (g) the leaf ``layers/attn/wk`` alone with
 one stale straggler (f = 0, p_end 21): ``p_end + 1`` = 22 ``all_gather``s,
-output and aux the same on every rank. The f = 1 fault paths are held on 8
-CPU ranks (``tests/test_torch_rrs.py``). Then this process recomputes the
+output and aux the same on every rank; the counted wire call: one RRS
+wire call on (a)'s ``layers/attn/wk`` under ``launch.op_cost.counting``
+on the card and a profiler trace, its all-to-all and all-gather bytes
+equal to the elements of the profiler's ``gloo:`` shapes x 4 and to phase
+17's meta count of the same call under a fake group of 4; (h), (a)'s
+gradient freed, PAPER_LINREG's gaussian alpha 0.1 cell at phase 4's
+settings over the group (``coverage_run(group=)``: 500 replications, 125
+a rank in one chunk, 10 rounds, seed 1), VRMOM-RCSL and MOM-RCSL: every
+rank's cell the same, rank 0's re-run of the 4 one-process slices
+(seeded ``rank_seed``) equal to it bit for bit and B1's launches a rank
+equal to its slice's, coverage within 4 binomial standard errors (over
+2,500 CIs) of this process's one-process cell at phase 4's settings, and
+RMSE VRMOM < MOM; the cell's synchronised wall printed. The f = 1 fault
+paths are held on 8 CPU ranks (``tests/test_torch_rrs.py``). Then this
+process recomputes the
 four workers' gradients (each must hash as its rank's), runs
 ``aggregate_stacked_auto`` (rank 0's aggregate must equal it bit for
 bit) and the one-process ``aggregate(mode="stacked-consensus")`` on their
@@ -389,7 +408,8 @@ equal it bit for bit, aux included), the one-process
 ``make_train_step(mode="stacked-rrs")`` on the same batches (params
 equal, gate 0 as the CPU test) and the one-process ``_RobustDot`` (dW
 equal). A rank's failure raises through the join. B1 at the RRS wire's
-slice and at the consensus wire's block join the ``kernels`` line.
+slice, at the consensus wire's block and at (h)'s chunk [101, 125 x 465]
+join the ``kernels`` line.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it lists every kernel with its launches, error and times. Any
@@ -2086,6 +2106,16 @@ def phase_pool(torch, dev, card: str):
     return out
 
 
+def paper_kw(cfg, **kw):
+    """Phase 4's ``coverage_run`` arguments for a paper config: every
+    replication in one chunk (X is 6.06 GB of f32 at 500), 10 rounds,
+    seed 1."""
+    return dict(model=cfg.model, K=cfg.K, reps=cfg.reps,
+                N_per_machine=cfg.n_per_machine, m_workers=cfg.m_workers,
+                p=cfg.p, rounds=10, mu_x=cfg.mu_x, batch_size=cfg.reps,
+                seed=1, **kw)
+
+
 def phase_paper(torch, dev, card: str):
     """Phase 4: the paper path. Returns (B1 launches on the path, the
     B1 record at the path's shape)."""
@@ -2152,17 +2182,11 @@ def phase_paper(torch, dev, card: str):
                level=0.95, reps=200, N_per_machine=200, m_workers=100, p=5,
                rounds=6, batch_size=200, seed=0)
 
-    # every replication in one chunk: X is 6.06 GB of f32 at 500
-    def paper(cfg, **kw):
-        return dict(model=cfg.model, K=cfg.K, reps=cfg.reps,
-                    N_per_machine=cfg.n_per_machine, m_workers=cfg.m_workers,
-                    p=cfg.p, rounds=10, mu_x=cfg.mu_x, batch_size=cfg.reps,
-                    seed=1, **kw)
-
+    paper = paper_kw
     # warm-up at the cells' own size: cuBLAS and cuSOLVER set-up and the
     # allocator's blocks of several GB out of the timed cells
-    coverage_run(device=dev, **paper(PAPER_LINREG, attack="gaussian",
-                                     alpha=0.1, estimator="vrmom"))
+    coverage_run(device=dev, **paper_kw(PAPER_LINREG, attack="gaussian",
+                                        alpha=0.1, estimator="vrmom"))
     torch.cuda.synchronize()
 
     # ---- the main path: counts from 0 ----------------------------------
@@ -2171,14 +2195,14 @@ def phase_paper(torch, dev, card: str):
                            "gaussian/a0.1/vrmom K=10", estimator="vrmom",
                            **acc)
     c_v, s_v, wall_v = cell("(c) PAPER_LINREG gaussian a0.1 VRMOM-RCSL",
-                            **paper(PAPER_LINREG, attack="gaussian",
-                                    alpha=0.1, estimator="vrmom"))
+                            **paper_kw(PAPER_LINREG, attack="gaussian",
+                                       alpha=0.1, estimator="vrmom"))
     _, s_m, _ = cell("(c) PAPER_LINREG gaussian a0.1 MOM-RCSL",
-                     **paper(PAPER_LINREG, attack="gaussian", alpha=0.1,
-                             estimator="median"))
+                     **paper_kw(PAPER_LINREG, attack="gaussian", alpha=0.1,
+                                estimator="median"))
     cell("(c) PAPER_LOGREG_BALANCED labelflip a0.1 VRMOM-RCSL",
-         **paper(PAPER_LOGREG_BALANCED, attack="none", alpha=0.1,
-                 labelflip=True, estimator="vrmom"))
+         **paper_kw(PAPER_LOGREG_BALANCED, attack="none", alpha=0.1,
+                    labelflip=True, estimator="vrmom"))
     counts = K.launch_counts()
     # ---------------------------------------------------------------------
     require(abs(s_acc["coverage"] - 0.95) <= 0.03,
@@ -2252,8 +2276,8 @@ def phase_paper(torch, dev, card: str):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        coverage_run(device=dev, **paper(PAPER_LINREG, attack="gaussian",
-                                         alpha=0.1, estimator="vrmom"))
+        coverage_run(device=dev, **paper_kw(
+            PAPER_LINREG, attack="gaussian", alpha=0.1, estimator="vrmom"))
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     rows = []
@@ -5888,6 +5912,33 @@ def phase_launch(torch, dev, card: str):
             print(f"[launch] (c) {line}")
     print(f"[time] phase 17 (c) {time.perf_counter() - t:.1f} s")
 
+    # -- (e) one rank of repro's 16x16 worker axes; phase 18's wire call -----
+    t = time.perf_counter()
+    r = dryrun.dryrun_one(cfg.name, "train_4k", mesh=dryrun.MESHES["16x16"],
+                          verbose=False)
+    P, n = r["chips"], M.param_count(pm)
+    c = -(-n // P)
+    # the RRS wire: the padded raveled f32 gradient out, the rank's slice
+    # back; and the losses' gather, one f32 a rank
+    want = {"all-to-all": P * c * 4, "all-gather": c * 4 + 4}
+    require(r["collectives"] == want and r["mesh"] == "16xH100",
+            f"the 16-rank dry run's collectives {r['collectives']}, "
+            f"expected {want}")
+    print(f"[launch] (e) {cfg.name} x train_4k on one of {P} worker ranks "
+          f"({r['mesh']}; repro's 16x16, the model axis not sharded), a "
+          f"fake process group on meta: collectives {r['collectives']} "
+          f"bytes a rank ({r['collective_bytes_per_chip']:.6e} in all); "
+          f"roofline compute {r['compute_s']:.4f} s, memory "
+          f"{r['memory_s']:.4f} s, collective {r['collective_s']:.6f} s "
+          f"(NVLink {dryrun.H100_NVLINK_BW / 1e9:.0f} GB/s) -> "
+          f"{r['bottleneck']}; peak {r['peak_memory_bytes'] / 1e9:.3f} GB; "
+          f"kernels {r['kernels']}; counted in {r['host_s']:.2f} s")
+    print(f"[launch] (e) phase 18's counted wire call ({'/'.join(CONS_LEAF)}"
+          f" of {cfg.name} at {WIRE_LAYERS} layers, one worker a rank) on "
+          f"meta under a fake group of {WIRE_W}: {wire_meta_count()} bytes "
+          f"a rank")
+    print(f"[time] phase 17 (e) {time.perf_counter() - t:.1f} s")
+
     # -- (d) the kernels at phase 17's shapes, bounds from kernels/*.cost -----
     flush = make_flush(torch, dev)
     g = torch.Generator(device=dev).manual_seed(LAUNCH_SEED)
@@ -5942,6 +5993,11 @@ WIRE_TIMEOUT_S = 600
 # n > 5f), on one leaf of (a)'s gradient (one WIRE_CHUNK block)
 CONS_LEAF = ("layers", "attn", "wk")
 CONS_STALE = dict(n_stragglers=1, stale_rounds=1)
+# (h): PAPER_LINREG's gaussian alpha 0.1 cell at phase 4's settings over
+# the ranks, each rank's replications in one chunk; its coverage gate: 4
+# binomial standard errors over 2,500 CIs (500 replications of 30
+# coordinates give 15,000, correlated within a replication)
+CELL_ESTIMATORS, CELL_SE_CIS = ("vrmom", "median"), 2500
 # the leaves whose every use is a 3-D x 2-D product (robust_dot under
 # inloop): (e) sums every other leaf over the ranks, the tied embedding
 # included (its lookup half)
@@ -6007,6 +6063,52 @@ def _fingerprint(torch, tree) -> dict:
     return out
 
 
+def gloo_moved(prof) -> dict:
+    """{``gloo:`` event name: elements of its recorded input shapes} of a
+    profiler trace taken with ``record_shapes``: what each collective took
+    from this rank."""
+    moved = {}
+    for e in prof.events():
+        if e.name.startswith("gloo:"):
+            moved[e.name] = moved.get(e.name, 0) + sum(
+                math.prod(sh) for sh in e.input_shapes if sh)
+    return moved
+
+
+def wire_meta_count() -> dict:
+    """{kind: operand bytes} of phase 18's counted wire call, one
+    ``aggregate_stacked_rrs`` of a rank's one-worker ``CONS_LEAF`` stack,
+    counted on meta under a fake process group of WIRE_W ranks (this
+    process must hold no default group)."""
+    import torch
+
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core.estimator import Estimator
+    from repro_torch.dist import robust_reduce as RR
+    from repro_torch.launch.op_cost import counting, fake_group
+    from repro_torch.models import model as M
+    from repro_torch.tree import at
+
+    cfg = at_depth(get_arch("qwen3-1.7b"), WIRE_LAYERS)
+    leaf = at(M.init(cfg, torch.Generator(), device="meta"), CONS_LEAF)
+    stack = {CONS_LEAF[-1]: torch.empty((1,) + tuple(leaf.shape),
+                                        dtype=leaf.dtype, device="meta")}
+    with fake_group(WIRE_W) as g, counting("cuda") as oc:
+        RR.aggregate_stacked_rrs(stack, g, Estimator("vrmom", K=TRAIN_K))
+    return dict(oc.cost.coll)
+
+
+def wire_cell_kw(estimator: str) -> dict:
+    """(h)'s cell: phase 4's PAPER_LINREG gaussian alpha 0.1 cell, a
+    rank's replications in one chunk."""
+    from repro_torch.configs.paper_glm import PAPER_LINREG
+
+    kw = paper_kw(PAPER_LINREG, attack="gaussian", alpha=0.1,
+                  estimator=estimator)
+    kw["batch_size"] = kw["reps"] // WIRE_W
+    return kw
+
+
 def wire_setup(torch, dev):
     """Phase 18's model, estimator and batches, the same in every rank and
     in the parent: (cfg, params, est, batch(i))."""
@@ -6063,8 +6165,10 @@ def wire_rank(rank: int, world: int, tmp: str, t_start: float) -> None:
     from repro_torch import kernels as K
     from repro_torch.dist import robust_reduce as RR
     from repro_torch.kernels import build
+    from repro_torch.launch.op_cost import counting
     from repro_torch.lint.auditor import _check_rrs_wire
     from repro_torch.train.step import worker_grads
+    from repro_torch.tree import at
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -6128,6 +6232,20 @@ def wire_rank(rank: int, world: int, tmp: str, t_start: float) -> None:
     del agg            # (a)'s gradient stays for (f) and (g)
     mark("saves")
 
+    # -- the counted wire call: (a)'s CONS_LEAF under op_cost.counting -------
+    K.reset_launch_counts()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            record_shapes=True) as prof:
+        with counting("cuda") as oc:
+            RR.aggregate_stacked_rrs({CONS_LEAF[-1]: at(stack, CONS_LEAF)},
+                                     G, est)
+        torch.cuda.synchronize()
+    out["counted"] = dict(coll=dict(oc.cost.coll), moved=gloo_moved(prof),
+                          launches=K.launch_counts())
+    del prof, oc
+    mark("the counted wire call")
+
     # -- (b) two stacked-rrs steps over the group -----------------------------
     opt, setup = wire_train_setup(cfg, est, dev, G)
     opt_state = opt.init(params)
@@ -6190,11 +6308,7 @@ def wire_rank(rank: int, world: int, tmp: str, t_start: float) -> None:
             lambda: setup.step_fn(params, opt_state, batch(3, INLOOP_SEQ)))
     launches = K.launch_counts()
     mark("(e) inloop step")
-    moved = {}                # elements a collective took on this rank
-    for e in prof.events():
-        if e.name.startswith("gloo:"):
-            moved[e.name] = moved.get(e.name, 0) + sum(
-                math.prod(sh) for sh in e.input_shapes if sh)
+    moved = gloo_moved(prof)  # elements a collective took on this rank
     fp = _fingerprint(torch, params)
     fps = [None] * world
     dist.all_gather_object(fps, fp)
@@ -6217,6 +6331,11 @@ def wire_rank(rank: int, world: int, tmp: str, t_start: float) -> None:
                               sync_wall))
     del stack
     mark("(f) (g) consensus")
+
+    # -- (h) the paper's cells over the ranks, (a)'s gradient freed ----------
+    torch.cuda.empty_cache()
+    out["cells"] = wire_cells(torch, rank, world, G, dev, sync_wall)
+    mark("(h) coverage cells")
 
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["rank_s"] = time.perf_counter() - t_rank
@@ -6282,6 +6401,66 @@ def wire_consensus(torch, rank: int, world: int, tmp: str, stack, est, G,
         RR.all_gather_into = real
     if rank == 0:
         torch.save(agg[CONS_LEAF[-1]].cpu(), os.path.join(tmp, "cons_g.pt"))
+    return out
+
+
+def wire_cells(torch, rank: int, world: int, G, dev, sync_wall) -> dict:
+    """Phase 18 (h) on one rank: ``wire_cell_kw``'s cell over the group for
+    each of CELL_ESTIMATORS, after a warm-up cell of the rank's size (not
+    counted): its synchronised wall, B1's launches (the wrappers' counter),
+    summary and SHA-256, and whether every rank's cell is the same. Rank 0
+    then re-runs the WIRE_W one-process slices (seeded ``rank_seed``),
+    each with B1's launches counted, and records whether their
+    concatenation equals the group cell bit for bit and every rank's
+    launches."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch.infer import coverage_run
+    from repro_torch.infer.coverage import rank_seed
+
+    def sha(cell) -> str:
+        return hashlib.sha256(b"".join(
+            t.cpu().contiguous().view(torch.uint8).numpy().tobytes()
+            for t in cell)).hexdigest()
+
+    def gathered(value) -> list:
+        out = [None] * world
+        dist.all_gather_object(out, value, group=G)
+        return out
+
+    out = {}
+    first = wire_cell_kw(CELL_ESTIMATORS[0])
+    n = first["reps"] // world
+    coverage_run(device=dev, **dict(first, reps=n,
+                                    seed=rank_seed(first["seed"], rank)))
+    for est in CELL_ESTIMATORS:
+        kw = wire_cell_kw(est)
+        K.reset_launch_counts()   # ---- the main path: counts from 0
+        cell, wall = sync_wall(lambda: coverage_run(group=G, device=dev,
+                                                    **kw))
+        launches = K.launch_counts()["aggregate"]
+        h = sha(cell)
+        rec = dict(wall_s=wall, launches=launches, sha=h,
+                   summary=cell.summary(),
+                   same_on_every_rank=len(set(gathered(h))) == 1,
+                   ranks_launches=gathered(launches))
+        if rank == 0:
+            parts, rec["slice_launches"] = [], []
+            for r in range(world):
+                K.reset_launch_counts()
+                parts.append(coverage_run(device=dev, **dict(
+                    kw, reps=n, seed=rank_seed(kw["seed"], r))))
+                rec["slice_launches"].append(
+                    K.launch_counts()["aggregate"])
+            rec["equals_slices"] = all(
+                torch.equal(x, torch.cat([p[i] for p in parts]))
+                for i, x in enumerate(cell))
+            del parts
+        out[est] = rec
+        del cell
     return out
 
 
@@ -6588,6 +6767,74 @@ def _phase_wire(torch, dev, card: str, tmp: str):
     del got, ref
     torch.cuda.empty_cache()
 
+    # -- the counted wire call against the profiler and the meta count --------
+    meta = wire_meta_count()
+    for r in ranks:
+        cnt = r["counted"]
+        shapes = {kind: 4 * sum(v for name, v in cnt["moved"].items()
+                                if kind.replace("-", "_") in name)
+                  for kind in ("all-to-all", "all-gather")}
+        require(cnt["coll"] == shapes == meta
+                and cnt["launches"]["aggregate"] == 1,
+                f"rank {r['rank']}: the counted wire call's collectives "
+                f"{cnt['coll']}, the profiler's gloo shapes x 4 {shapes}, "
+                f"the meta count {meta}; B1 {cnt['launches']}")
+    print(f"[wire] the counted wire call ({'/'.join(CONS_LEAF)}, one RRS "
+          f"call under op_cost.counting on the card): every rank's "
+          f"collectives {ranks[0]['counted']['coll']} bytes = the "
+          f"profiler's gloo shapes x 4 ({ranks[0]['counted']['moved']} "
+          f"elements) = the meta count under a fake group of {WIRE_W}; B1 "
+          f"once")
+
+    # -- (h) the paper's cells over the ranks ---------------------------------
+    from repro_torch.configs.paper_glm import PAPER_LINREG
+    from repro_torch.infer import coverage_run
+
+    one = {}
+    for est in CELL_ESTIMATORS:
+        t = time.perf_counter()
+        one[est] = coverage_run(device=dev, **paper_kw(
+            PAPER_LINREG, attack="gaussian", alpha=0.1, estimator=est)
+            ).summary()
+        torch.cuda.synchronize()
+        one[est]["wall_s"] = time.perf_counter() - t
+    cells = {est: [r["cells"][est] for r in ranks] for est in CELL_ESTIMATORS}
+    kw = wire_cell_kw(CELL_ESTIMATORS[0])
+    for est, recs in cells.items():
+        c0, ref = recs[0], one[est]
+        summ = c0["summary"]
+        wall = max(x["wall_s"] for x in recs)
+        se = math.sqrt(ref["coverage"] * (1 - ref["coverage"]) / CELL_SE_CIS)
+        print(f"[wire] (h) PAPER_LINREG gaussian a0.1 {est} over {WIRE_W} "
+              f"ranks ({kw['reps']} replications, {kw['batch_size']} a rank "
+              f"in one chunk): coverage {summ['coverage']:.4f}, mean width "
+              f"{summ['mean_width']:.6f}, RMSE {summ['rmse']:.6f}; "
+              f"{wall:.3f} s synchronised = {kw['reps'] / wall:.1f} "
+              f"replications/s; B1 a rank {c0['ranks_launches']} (the "
+              f"one-process slices {c0['slice_launches']}); this process's "
+              f"one-process cell at phase 4's settings: coverage "
+              f"{ref['coverage']:.4f}, RMSE {ref['rmse']:.6f}, "
+              f"{ref['wall_s']:.3f} s; 4 s.e. {4 * se:.4f} ({card})")
+        require(all(x["same_on_every_rank"] and x["sha"] == c0["sha"]
+                    for x in recs), f"(h) {est}: the ranks' cells differ")
+        require(c0["equals_slices"], f"(h) {est}: the group cell is not the "
+                                     f"one-process slices' concatenation")
+        require(c0["ranks_launches"] == c0["slice_launches"],
+                f"(h) {est}: B1 launches a rank {c0['ranks_launches']}, its "
+                f"one-process slice's {c0['slice_launches']}")
+        require(abs(summ["coverage"] - ref["coverage"]) <= 4 * se,
+                f"(h) {est}: coverage {summ['coverage']} over the ranks, "
+                f"{ref['coverage']} in one process: more than 4 s.e. "
+                f"({se}) apart")
+    rmse = {est: cells[est][0]["summary"]["rmse"] for est in cells}
+    require(rmse["vrmom"] < rmse["median"],
+            f"(h): VRMOM-RCSL RMSE {rmse['vrmom']} not below MOM-RCSL's "
+            f"{rmse['median']} over the ranks")
+    print(f"[wire] (h) every rank's cell is the same and equals rank 0's "
+          f"re-run of the {WIRE_W} one-process slices bit for bit, B1's "
+          f"launches a rank equal its slice's; RMSE VRMOM "
+          f"{rmse['vrmom']:.6f} < MOM {rmse['median']:.6f}")
+
     # -- B1 at the wire's slice -----------------------------------------------
     flush = make_flush(torch, dev)
     W, c = ranks[0]["slice"]
@@ -6613,12 +6860,24 @@ def _phase_wire(torch, dev, card: str, tmp: str):
                                   for r in ranks))
     cons["bound_ms"], cons["bound_by"] = bound(
         VR.aggregate_cost((W, WIRE_CHUNK), torch.float32)[1])
+    m1, tri = PAPER_LINREG.m_workers + 1, PAPER_LINREG.p * (
+        PAPER_LINREG.p + 1) // 2
+    xs = torch.randn((m1, kw["batch_size"] * tri), generator=g, device=dev)
+    paper = b1_record(torch, flush, f"B1 aggregate on the paper path over "
+                      f"ranks (vrmom K={PAPER_LINREG.K}, "
+                      f"[{m1},{kw['batch_size'] * tri}] f32, a rank's chunk "
+                      f"of PAPER_LINREG's triangle statistics; launches: "
+                      f"phase 18 (h), the {WIRE_W} ranks' two cells)", xs,
+                      PAPER_LINREG.K, sum(x["launches"] for recs in
+                                          cells.values() for x in recs))
+    paper["bound_ms"], paper["bound_by"] = bound(
+        VR.aggregate_cost(tuple(xs.shape), torch.float32)[1])
     del xs
-    print_train_records("wire", card, [rec, cons])
+    print_train_records("wire", card, [rec, cons, paper])
     print(f"[wire] phase 18 in {time.perf_counter() - t_phase:.1f} s "
           f"(the ranks' peak {max(r['peak_gb'] for r in ranks):.1f} GB "
           f"each at most) [card] {card}")
-    return [rec, cons]
+    return [rec, cons, paper]
 
 
 def main() -> int:

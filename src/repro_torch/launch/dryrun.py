@@ -11,6 +11,28 @@ bytes from the dispatched ops' outputs, the peak from the storages they
 hold) and the roofline takes the card's published peaks. One card has no
 collectives: ``collective_bytes_per_chip`` is 0.
 
+With a mesh (``mesh=make_production_mesh(...)``, ``--mesh 16x16`` or
+``2x16x16``; train shapes only) the count is one rank's of ``repro``'s
+worker axes: ``pod`` x ``data`` = P ranks (16 single-pod, 32 multi-pod) of
+a fake process group (``op_cost.fake_group``: the collectives take meta
+tensors and move nothing), one worker each (``n_workers = P``, as
+``repro``'s ``make_train_step`` reckons it; W_loc 1), each rank's batch
+share ``global_batch / P``, its step ``make_train_step(..., group=)``: the
+RRS wire (``stacked-rrs``) or ``robust_dot`` on it (``inloop``). Every
+rank's RRS slice is ``ceil(n / P)`` coordinates, so rank 0, the rank
+counted, holds as large a slice as any. ``collectives`` are the count's
+``Cost.coll`` (operand bytes by kind, ``hlo_cost``'s rule) and
+``collective_s`` prices their sum at one H100's NVLink rate
+(``H100_NVLINK_BW``); past 8 ranks the ranks span nodes, whose network is
+slower, and that is not reckoned. ``repro``'s meshes also shard every
+layer over their ``model`` axis (16 ways); the port shards no layer
+(``dist.ctx``'s mesh half is inert), so each rank holds the whole model
+and the count has no tensor-parallel collective: the record says so
+(``model_axis_sharded``). Prefill and decode over ranks wait for that
+work too (ROADMAP A5e): with a mesh they raise. The count joins this
+process to the fake group and leaves it: the process must hold no
+default process group.
+
 * train: ``make_train_step`` with ``repro``'s W = 16 workers and
   ``cfg.optimizer`` (llama3-405b: adafactor), byzantine 0, counted by
   trip count (``op_cost.trips``): one micro-step of one worker is traced
@@ -34,12 +56,14 @@ passes 4 GB (llama3-405b and mixtral-8x7b), so every row runs the mode of
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b \\
-      --shape decode_32k [--mode stacked-rrs] [--json out.json]
+      --shape decode_32k [--mode stacked-rrs] [--mesh 16x16 | 2x16x16] \\
+      [--json out.json] [--metrics-jsonl metrics.jsonl]
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 
 import torch
 
@@ -48,16 +72,23 @@ from ..configs import INPUT_SHAPES, get as get_arch, input_specs
 from ..models import model as M
 from ..obs.metrics import now
 from ..train.step import make_train_step
-from .op_cost import counting, tensor_bytes
+from .mesh import MeshShape, make_production_mesh
+from .op_cost import counting, fake_group, tensor_bytes
 
 __all__ = ["dryrun_one", "write_metrics_jsonl", "active_params",
-           "model_flops", "main",
-           "H100_PEAK_FLOPS", "H100_HBM_BW", "N_WORKERS", "MESH"]
+           "model_flops", "mesh_name", "main",
+           "H100_PEAK_FLOPS", "H100_HBM_BW", "H100_NVLINK_BW", "N_WORKERS",
+           "MESH", "MESHES"]
 
-# NVIDIA H100 SXM5 80GB (data sheet): dense bf16 tensor-core peak, HBM3
+# NVIDIA H100 SXM5 80GB (data sheet): dense bf16 tensor-core peak, HBM3,
+# NVLink 4 (900 GB/s both ways together: 450 GB/s each way)
 H100_PEAK_FLOPS = 989e12   # FLOP/s
 H100_HBM_BW = 3.35e12      # bytes/s
+H100_NVLINK_BW = 450e9     # bytes/s out of one card
 MESH = "1xH100"
+# repro's production meshes by their CLI names
+MESHES = {"16x16": make_production_mesh(),
+          "2x16x16": make_production_mesh(multi_pod=True)}
 N_WORKERS = 16    # repro's single-pod worker count (the 16x16 data axis)
 REPRO_TP = 16     # repro's single-pod model axis: the inloop switch's
 
@@ -84,6 +115,13 @@ def model_flops(cfg, shape) -> float:
         * tokens
 
 
+def mesh_name(mesh: MeshShape) -> str:
+    """The record's name for what a count over ``mesh`` counts: its worker
+    axes' sizes, a card each ("16xH100", "2x16xH100")."""
+    return "x".join(str(mesh.shape[a]) for a in ("pod", "data")
+                    if a in mesh.shape) + "xH100"
+
+
 def _fresh_bytes(out, args) -> int:
     """Bytes of the storages in ``out`` that are not storages of ``args``."""
     from torch.utils._pytree import tree_flatten
@@ -96,16 +134,18 @@ def _fresh_bytes(out, args) -> int:
     return tensor_bytes(fresh)
 
 
-def _count(cfg, shape, mode: str, window):
+def _count(cfg, shape, mode: str, window, group=None):
     """(OpCost, argument bytes, output bytes) of one step on meta tensors,
-    counted as the card runs it (the kernels where it runs them)."""
+    counted as the card runs it (the kernels where it runs them); a train
+    step over ``group`` is one rank's, a worker a rank."""
     params = M.init(cfg, torch.Generator(), device="meta")
     batch = input_specs(cfg, shape)
     if shape.kind == "train":
         opt = O.get(cfg.optimizer, lr=1e-3)
         opt_state = opt.init(params)
-        setup = make_train_step(cfg, N_WORKERS, mode=mode, optimizer=opt,
-                                device="meta")
+        n_workers = N_WORKERS if group is None else group.size()
+        setup = make_train_step(cfg, n_workers, mode=mode, optimizer=opt,
+                                device="meta", group=group)
         args = (params, opt_state, batch)
         with counting("cuda", reckon=True) as oc:
             out = setup.step_fn(*args)
@@ -125,12 +165,19 @@ def _count(cfg, shape, mode: str, window):
 
 
 def dryrun_one(arch: str, shape_name: str, *, mode: str = "stacked-rrs",
-               verbose: bool = True) -> dict:
+               mesh: MeshShape = None, verbose: bool = True) -> dict:
     """The count and roofline of ``arch`` at ``shape_name`` on one card, in
     ``repro``'s result keys (``mesh`` "1xH100", ``chips`` 1), with the
-    kernels' calls and the host seconds the count took."""
+    kernels' calls and the host seconds the count took; with ``mesh``, of
+    one of its worker ranks (module docstring: ``mesh`` named for the
+    ranks, ``chips`` their number, the collectives filled)."""
     cfg = get_arch(arch)
     shape = INPUT_SHAPES[shape_name]
+    if mesh is not None and shape.kind != "train":
+        raise ValueError(
+            f"{shape_name} over a mesh: the port serves on one card; "
+            f"prefill and decode over ranks wait for the model axis to be "
+            f"sharded (ROADMAP A5e)")
     window, variant = "cfg", ""
     if shape_name == "long_500k" and not cfg.sub_quadratic:
         window, variant = 4096, "swa4096-variant"
@@ -140,18 +187,29 @@ def dryrun_one(arch: str, shape_name: str, *, mode: str = "stacked-rrs",
         if n_params * 4.0 / REPRO_TP > 4e9:
             mode = "inloop"
     t0 = now()
-    oc, arg_bytes, out_bytes = _count(cfg, shape, mode, window)
+    if mesh is None:
+        chips, name = 1, MESH
+        oc, arg_bytes, out_bytes = _count(cfg, shape, mode, window)
+    else:
+        chips = math.prod(mesh.shape.get(a, 1) for a in ("pod", "data"))
+        name = mesh_name(mesh)
+        with fake_group(chips) as group:
+            oc, arg_bytes, out_bytes = _count(cfg, shape, mode, window,
+                                              group)
     host_s = now() - t0
     flops, nbytes = oc.cost.flops, oc.cost.bytes
+    coll = dict(oc.cost.coll)
+    coll_bytes = float(sum(coll.values()))
 
-    mflops = model_flops(cfg, shape)
+    mflops = model_flops(cfg, shape) / chips
     terms = {"compute_s": flops / H100_PEAK_FLOPS,
-             "memory_s": nbytes / H100_HBM_BW, "collective_s": 0.0}
+             "memory_s": nbytes / H100_HBM_BW,
+             "collective_s": coll_bytes / H100_NVLINK_BW}
     result = {
-        "arch": arch, "shape": shape_name, "mesh": MESH, "chips": 1,
+        "arch": arch, "shape": shape_name, "mesh": name, "chips": chips,
         "mode": mode if shape.kind == "train" else "", "variant": variant,
         "flops_per_chip": flops, "hbm_bytes_per_chip": nbytes,
-        "collective_bytes_per_chip": 0.0, "collectives": {},
+        "collective_bytes_per_chip": coll_bytes, "collectives": coll,
         "model_flops_per_chip": mflops,
         "useful_flops_ratio": mflops / max(flops, 1.0),
         **terms,
@@ -162,8 +220,10 @@ def dryrun_one(arch: str, shape_name: str, *, mode: str = "stacked-rrs",
         "kernels": {k: v["calls"] for k, v in oc.kernels.items()},
         "host_s": host_s,
     }
+    if mesh is not None:
+        result["model_axis_sharded"] = False
     if verbose:
-        print(f"== {arch} x {shape_name} on {MESH}"
+        print(f"== {arch} x {shape_name} on {name}"
               f"{' (mode=' + mode + ')' if result['mode'] else ''}"
               f"{' ' + variant if variant else ''} ==")
         print("memory: peak={:.3e} B (arguments {:.3e}, temp {:.3e}, "
@@ -173,11 +233,14 @@ def dryrun_one(arch: str, shape_name: str, *, mode: str = "stacked-rrs",
             flops, nbytes, result["kernels"]))
         print("model_flops/chip={:.3e} useful_ratio={:.3f}".format(
             mflops, result["useful_flops_ratio"]))
-        print("roofline (H100 SXM5, 989 TFLOP/s bf16, 3.35 TB/s): "
-              "compute={:.3e}s memory={:.3e}s collective=0s -> "
-              "bottleneck={}  [counted in {:.1f} s of host]".format(
+        if mesh is not None:
+            print("collectives (operand bytes a rank; repro's model axis "
+                  "not sharded):", {k: f"{v:.3e}" for k, v in coll.items()})
+        print("roofline (H100 SXM5, 989 TFLOP/s bf16, 3.35 TB/s, NVLink "
+              "450 GB/s): compute={:.3e}s memory={:.3e}s collective={:.3e}s"
+              " -> bottleneck={}  [counted in {:.1f} s of host]".format(
                   terms["compute_s"], terms["memory_s"],
-                  result["bottleneck"], host_s))
+                  terms["collective_s"], result["bottleneck"], host_s))
     return result
 
 
@@ -208,12 +271,16 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True, choices=sorted(INPUT_SHAPES))
     ap.add_argument("--mode", default="stacked-rrs")
+    ap.add_argument("--mesh", default=None, choices=sorted(MESHES),
+                    help="count one rank of this production mesh's worker "
+                    "axes (train shapes)")
     ap.add_argument("--json", default=None)
     ap.add_argument("--metrics-jsonl", default=None,
                     help="append the count to this telemetry JSONL "
                     "(obs.sinks wire format)")
     args = ap.parse_args(argv)
-    res = dryrun_one(args.arch, args.shape, mode=args.mode)
+    res = dryrun_one(args.arch, args.shape, mode=args.mode,
+                     mesh=MESHES[args.mesh] if args.mesh else None)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(res, f, indent=1)

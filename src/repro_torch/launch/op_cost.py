@@ -27,8 +27,21 @@ resolves a meta device as ``target``. With ``reckon=True`` a loop written
 as ``for i in trips(n)`` runs its body once and counts it n times, as
 ``hlo_cost`` multiplies a while body by its trip count: the train step's
 workers and micro-steps are such loops (``train.step``), each trip the
-same ops on the same shapes. One card has no collectives: ``Cost.coll``
-stays empty.
+same ops on the same shapes.
+
+Collectives: each ``torch.distributed`` collective dispatches as a
+``c10d`` op (``_COLLECTIVES``), counted into ``Cost.coll`` under
+``hlo_cost``'s kind (all-to-all, all-gather, all-reduce, reduce-scatter,
+collective-permute) at ``hlo_cost.analyze``'s rule: the bytes of its
+operands, what this rank puts in (an all-gather's own shard, an
+all-to-all's whole send buffer). Like any op its output counts twice in
+``bytes``, as ``hlo_cost`` counts a collective's result there, and
+``trips`` multiplies it. The rooted collectives (broadcast, reduce,
+gather, scatter) and ``recv`` are not counted: no wire of the port issues
+them, and a ``send`` counts as the permute. The count sees the
+collectives on meta tensors under a fake process group
+(:func:`fake_group`: a dry run of one rank) and on the card under gloo
+alike; in one process with no group ``Cost.coll`` stays empty.
 """
 from __future__ import annotations
 
@@ -44,8 +57,8 @@ from torch.utils._pytree import tree_flatten
 
 from ..kernels import build as _B
 
-__all__ = ["Cost", "OpCost", "counting", "trips", "ALLOC_BLOCK",
-           "tensor_bytes"]
+__all__ = ["Cost", "OpCost", "counting", "trips", "fake_group",
+           "ALLOC_BLOCK", "tensor_bytes"]
 
 # the CUDA caching allocator's smallest block: every allocation rounds up
 # to a multiple of it
@@ -69,12 +82,33 @@ _SCATTER = frozenset({
 })
 
 
+# the c10d ops of torch.distributed's collectives: (hlo_cost's kind, the
+# argument holding the operands, the argument the collective writes; a
+# send writes nothing on its rank)
+_COLLECTIVES = {
+    "alltoall_base_": ("all-to-all", 1, 0),
+    "alltoall_": ("all-to-all", 1, 0),
+    "_allgather_base_": ("all-gather", 1, 0),
+    "allgather_": ("all-gather", 1, 0),
+    "allreduce_": ("all-reduce", 0, 0),
+    "_reduce_scatter_base_": ("reduce-scatter", 1, 0),
+    "reduce_scatter_": ("reduce-scatter", 1, 0),
+    "send": ("collective-permute", 0, None),
+}
+
+
 # per op overload: whether its outputs are fresh storages
 _FRESH = {}
 
 
 def _rounded(n: int) -> int:
     return -(-n // ALLOC_BLOCK) * ALLOC_BLOCK
+
+
+def _nbytes(tree) -> int:
+    """Bytes of the tensors in ``tree`` (a tensor or a nest of lists)."""
+    return sum(t.numel() * t.element_size() for t in tree_flatten(tree)[0]
+               if isinstance(t, torch.Tensor))
 
 
 def tensor_bytes(tree) -> int:
@@ -104,11 +138,12 @@ class Cost:
 
 
 class OpCost(TorchDispatchMode):
-    """The count of one :func:`counting`: ``cost`` (flops, bytes),
-    ``kernels`` ({name: {"calls", "flops", "bytes"}}), ``by_op`` ({aten
-    name: [calls, flops, bytes]}), ``live`` and ``peak`` (bytes of the
-    storages the counted ops allocated: now, and at most since the last
-    :meth:`reset_peak`) and ``peak_op`` (the op that reached the peak)."""
+    """The count of one :func:`counting`: ``cost`` (flops, bytes, and the
+    collectives' operand bytes by kind in ``coll``), ``kernels`` ({name:
+    {"calls", "flops", "bytes"}}), ``by_op`` ({aten name: [calls, flops,
+    bytes]}), ``live`` and ``peak`` (bytes of the storages the counted ops
+    allocated: now, and at most since the last :meth:`reset_peak`) and
+    ``peak_op`` (the op that reached the peak)."""
 
     def __init__(self, target: str = "cuda", reckon: bool = False):
         super().__init__()
@@ -185,6 +220,14 @@ class OpCost(TorchDispatchMode):
         rec["bytes"] += self.mult * nbytes
         self._add("kernel:" + name, flops, nbytes)
 
+    def _collective(self, name: str, args) -> None:
+        """One collective: its operands into ``coll``, its output twice
+        into ``bytes``; it allocates nothing."""
+        kind, src, dst = _COLLECTIVES[name]
+        moved = self.mult * _nbytes(args[src])
+        self.cost.coll[kind] = self.cost.coll.get(kind, 0.0) + moved
+        self._add(name, 0, 0 if dst is None else 2 * _nbytes(args[dst]))
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.utils.flop_counter import flop_registry
 
@@ -192,6 +235,9 @@ class OpCost(TorchDispatchMode):
         out = func(*args, **kwargs)
         packet = func.overloadpacket
         name = packet.__name__
+        if name in _COLLECTIVES and func.namespace == "c10d":
+            self._collective(name, args)
+            return out
         flops = 0
         if packet in flop_registry:
             flops = flop_registry[packet](*args, **kwargs, out_val=out)
@@ -224,6 +270,29 @@ def counting(target: str = "cuda", reckon: bool = False):
             yield oc
     finally:
         _B.set_count(prev)
+
+
+@contextlib.contextmanager
+def fake_group(world: int):
+    """A default process group of ``world`` ranks on PyTorch's fake backend
+    (no communication, no other process: this process is rank 0), yielded
+    and destroyed on exit. Its collectives take meta tensors, so a count of
+    one rank's step runs on meta as any other. The calling process must
+    hold no default process group: this one would replace it."""
+    import torch.distributed as dist
+    # importing it registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_group: this process already holds a "
+                           "default process group; count in another "
+                           "process")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
 
 
 def trips(n: int):

@@ -1,12 +1,14 @@
-"""Render the one-card roofline table from dry-run results
+"""Render the roofline tables from dry-run results
 (``repro.launch.report``'s counterpart).
 
   PYTHONPATH=src python -m repro_torch.launch.report \\
       [--dir results/dryrun_torch] [--jsonl metrics.jsonl] [--md]
 
 Rows come in ``repro``'s order of archs and shapes; ``fits80G`` says
-whether the counted peak fits one H100's 80 GB. One card has no
-multi-pod table.
+whether the counted peak fits one H100's 80 GB. The tables: one card's
+roofline, one rank's of the 16 worker ranks of ``repro``'s single-pod
+mesh (``MESH_16``), and which combos have a count over the 32 ranks of
+its multi-pod mesh (``multipod_status``, ``repro``'s table).
 """
 from __future__ import annotations
 
@@ -15,7 +17,10 @@ import glob
 import json
 import os
 
-from .dryrun import MESH
+from .dryrun import MESH, MESHES, mesh_name
+
+MESH_16 = mesh_name(MESHES["16x16"])
+MESH_32 = mesh_name(MESHES["2x16x16"])
 
 ORDER_SHAPES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
 ORDER_ARCHS = ["whisper-medium", "qwen3-1.7b", "starcoder2-7b",
@@ -93,6 +98,18 @@ def roofline_table(res, mesh=MESH, md=True):
     return "\n".join(lines)
 
 
+def multipod_status(res, mesh=MESH_32):
+    """``repro``'s multi-pod status table: "ok" where ``res`` has a count
+    of the combo over ``mesh``, "-" where not."""
+    out = ["| arch | " + " | ".join(ORDER_SHAPES) + " |",
+           "|" + "---|" * (len(ORDER_SHAPES) + 1)]
+    for arch in ORDER_ARCHS:
+        row = [arch] + ["ok" if (arch, shape, mesh) in res else "-"
+                        for shape in ORDER_SHAPES]
+        out.append("| " + " | ".join(row) + " |")
+    return "\n".join(out)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dir", default="results/dryrun_torch")
@@ -109,6 +126,12 @@ def main(argv=None):
     print(f"## Roofline (one NVIDIA H100, {MESH}; reckoned against its "
           f"published peaks)\n")
     print(roofline_table(res, MESH, md=args.md))
+    print(f"\n## Roofline (one of the 16 worker ranks of repro's single-pod "
+          f"mesh, {MESH_16}; the model axis not sharded)\n")
+    print(roofline_table(res, MESH_16, md=args.md))
+    print(f"\n## Multi-pod ({MESH_32}: the 32 worker ranks of repro's "
+          f"2x16x16) count status\n")
+    print(multipod_status(res))
 
 
 if __name__ == "__main__":

@@ -1,8 +1,11 @@
-"""Run the whole (arch x shape) dry-run sweep on one card's count,
-resumable through per-combo JSON files (``repro.launch.sweep``'s
-counterpart).
+"""Run the whole dry-run sweep, resumable through per-combo JSON files
+(``repro.launch.sweep``'s counterpart): every (arch x shape) on one card's
+count, and every arch's train shapes on a rank of ``repro``'s single-pod
+and (without ``--single-pod-only``) multi-pod mesh (``dryrun``'s
+``--mesh``).
 
-  PYTHONPATH=src python -m repro_torch.launch.sweep --out results/dryrun_torch
+  PYTHONPATH=src python -m repro_torch.launch.sweep \\
+      --out results/dryrun_torch [--single-pod-only]
 
 ``repro`` runs a subprocess per combo because JAX locks its device count
 per process; torch locks none, so the combos run in this one process, and
@@ -17,6 +20,7 @@ import json
 import os
 import traceback
 
+from ..configs import INPUT_SHAPES
 from ..obs.metrics import now
 from . import dryrun
 
@@ -32,13 +36,27 @@ def combos():
             yield arch, shape
 
 
-def run_one(arch, shape, out_dir, run=None):
+def mesh_combos(include_multipod: bool = True):
+    """(arch, train shape, mesh CLI name) of the counts over ranks."""
+    for mesh in (["16x16", "2x16x16"] if include_multipod else ["16x16"]):
+        for shape in SHAPES:
+            if INPUT_SHAPES[shape].kind == "train":
+                for arch in ARCHS:
+                    yield arch, shape, mesh
+
+
+def run_one(arch, shape, out_dir, run=None, mesh=None):
     """-> (status, path). ``run(arch, shape)`` makes the result
-    (``dryrun.dryrun_one`` by default)."""
-    path = os.path.join(out_dir, f"{arch}__{shape}__{dryrun.MESH}.json")
+    (``dryrun.dryrun_one`` by default, over ``mesh``'s ranks when it is
+    one of ``dryrun.MESHES``' names)."""
+    name = dryrun.MESH if mesh is None else dryrun.mesh_name(
+        dryrun.MESHES[mesh])
+    path = os.path.join(out_dir, f"{arch}__{shape}__{name}.json")
     if os.path.exists(path):
         return "cached", path
-    run = run or (lambda a, s: dryrun.dryrun_one(a, s, verbose=False))
+    run = run or (lambda a, s: dryrun.dryrun_one(
+        a, s, verbose=False,
+        mesh=None if mesh is None else dryrun.MESHES[mesh]))
     t0 = now()
     try:
         res = run(arch, shape)
@@ -54,13 +72,15 @@ def run_one(arch, shape, out_dir, run=None):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="results/dryrun_torch")
+    ap.add_argument("--single-pod-only", action="store_true")
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
-    todo = list(combos())
-    for i, (arch, shape) in enumerate(todo):
-        status, _ = run_one(arch, shape, args.out)
-        print(f"[{i + 1}/{len(todo)}] {arch} x {shape} x {dryrun.MESH}: "
-              f"{status}", flush=True)
+    todo = [c + (None,) for c in combos()] + list(
+        mesh_combos(include_multipod=not args.single_pod_only))
+    for i, (arch, shape, mesh) in enumerate(todo):
+        status, _ = run_one(arch, shape, args.out, mesh=mesh)
+        print(f"[{i + 1}/{len(todo)}] {arch} x {shape} x "
+              f"{mesh or dryrun.MESH}: {status}", flush=True)
 
 
 if __name__ == "__main__":

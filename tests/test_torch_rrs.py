@@ -101,6 +101,9 @@ def _names(world):
     if world == 4:
         names += ["train[stacked-rrs]", "train[inloop]",
                   "train[inloop_sums]", "port_rrs_saved"]
+        names += [f"coverage[{c}]" for c in RK.COV_CASES]
+        names += ["coverage[not_divisible]", "coverage[devices_differ]",
+                  "coverage[one_rank_group]", "coverage[small_rep_saved]"]
     return names
 
 
@@ -327,6 +330,58 @@ def test_consensus_wire_matches_repro(tmp_path_factory):
         for f in ConsensusAux._fields:
             np.testing.assert_array_equal(got[f"{trim}/{f}"],
                                           want[f"{trim}/{f}"], err_msg=f)
+
+
+_REPRO_COVERAGE = """
+import json, sys
+import jax, numpy as np
+from jax.sharding import AxisType
+from repro.infer import coverage_run
+mesh = jax.make_mesh((4,), ("data",), axis_types=(AxisType.Auto,))
+cell = coverage_run(mesh=mesh, rep_axis="data", **json.loads(sys.argv[1]))
+np.savez(sys.argv[2], **{k: np.asarray(getattr(cell, k))
+                         for k in cell._fields})
+print("REPRO-COVERAGE-OK")
+"""
+
+
+def _cell_summary(d):
+    return {"coverage": float(d["covered"].mean()),
+            "mean_width": float(d["width"].mean()),
+            "rmse": float(np.sqrt(np.mean(d["err"] ** 2))),
+            "cis": d["covered"].size}
+
+
+def test_coverage_over_ranks_matches_repro_mesh_cell(tmp_path_factory):
+    """``tests/test_infer.py``'s small-rep cell (40 replications) over the 4
+    gloo ranks against ``repro``'s ``coverage_run(mesh=)`` on an
+    ``Auto``-axes 4-device host mesh, as distributions (the generators'
+    draws differ): each within that test's own bounds, and their coverages
+    within 4 binomial standard errors at the nominal 0.95 over the 200
+    CIs."""
+    path, ranks = _run(4, tmp_path_factory)
+    assert ranks[0]["coverage[small_rep_saved]"][0] == "ok", \
+        ranks[0]["coverage[small_rep_saved]"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    out = os.path.join(path, "repro_coverage.npz")
+    r = subprocess.run([sys.executable, "-c", _REPRO_COVERAGE,
+                        json.dumps(RK.COV_SMALL_REP), out],
+                       capture_output=True, text=True, env=env, timeout=300)
+    assert r.returncode == 0 and "REPRO-COVERAGE-OK" in r.stdout, \
+        r.stderr[-3000:]
+    cells = {"repro": _cell_summary(np.load(out)),
+             "port": _cell_summary(np.load(os.path.join(
+                 path, "port_coverage.npz")))}
+    for name, s in cells.items():
+        assert s["cis"] == 40 * 5, (name, s)
+        assert 0.85 <= s["coverage"] <= 1.0, (name, s)
+        assert np.isfinite(s["mean_width"]) and s["mean_width"] > 0, (name, s)
+        assert s["rmse"] < 0.05, (name, s)
+    se = math.sqrt(0.95 * 0.05 / 200)
+    assert abs(cells["port"]["coverage"] - cells["repro"]["coverage"]) \
+        <= 4 * se, cells
 
 
 def test_launch_train_under_torchrun(tmp_path):

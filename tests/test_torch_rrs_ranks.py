@@ -57,6 +57,20 @@ CONS_CHUNK = 512
 # one-process reference, so the three run side by side)
 CONS_TRAIN = (("alie", 2, 0), ("mimic", 1, 1), ("gaussian", 1, 2))
 CONS_TRAIN_ROUNDS = 6
+# the coverage cells over 4 ranks: a reduced cell, two replications a rank
+# in chunks of one; and tests/test_infer.py's small-rep cell (40
+# replications), held against repro's cell on a 4-device host mesh
+COV_REDUCED = dict(model="linear", attack="gaussian", alpha=0.1,
+                   estimator="vrmom", K=10, m_workers=20, N_per_machine=100,
+                   p=3, rounds=3, reps=8, batch_size=1, seed=5)
+COV_CASES = {"direct": {},
+             "consensus_dropout": dict(reduce_backend="consensus"),
+             "labelflip": dict(model="logistic", attack="none",
+                               labelflip=True)}
+COV_SMALL_REP = dict(model="linear", attack="gaussian", alpha=0.1,
+                     estimator="vrmom", reps=40, N_per_machine=200,
+                     m_workers=100, p=5, rounds=6, level=0.95, batch_size=10,
+                     seed=0)
 
 
 def run_ranks(world: int, path: str, timeout: float = 300.0) -> None:
@@ -276,6 +290,93 @@ def _checks(rank: int, world: int, path: str):
 
     if W == 4:
         yield "port_rrs_saved", lambda: _save_port_rrs(path)
+        yield from _coverage_checks(rank, world, path)
+
+
+def _coverage_checks(rank: int, world: int, path: str):
+    """``coverage_run(group=)``: the gathered cell against this rank's
+    one-process slice (seeded ``rank_seed``) and the same on every rank,
+    under the three kinds of cell; the refusals before any collective; a
+    one-rank group; rank 0 saves the small-rep cell for ``repro``."""
+    from repro_torch.dist.consensus import ConsensusConfig
+    from repro_torch.dist.faults import FaultPlan
+    from repro_torch.infer import coverage_run
+    from repro_torch.infer.coverage import rank_seed
+    from repro_torch.launch.op_cost import counting
+
+    G = dist.group.WORLD
+
+    def kw(case):
+        out = dict(COV_REDUCED, device="cpu", **COV_CASES[case])
+        if case == "consensus_dropout":
+            out.update(consensus=ConsensusConfig(f=2),
+                       fault_plan=FaultPlan(dropout=0.1))
+        return out
+
+    def cell_digest(cell) -> str:
+        return hashlib.sha256(b"".join(
+            t.contiguous().view(torch.uint8).numpy().tobytes()
+            for t in cell)).hexdigest()
+
+    def split(case):
+        def fn():
+            a = kw(case)
+            got = coverage_run(group=G, **a)
+            n = a["reps"] // world
+            mine = coverage_run(**dict(a, reps=n,
+                                       seed=rank_seed(a["seed"], rank)))
+            assert got.covered.shape == (a["reps"], a["p"])
+            for x, y in zip(got, mine):
+                assert x.dtype == y.dtype and torch.equal(
+                    x[rank * n:(rank + 1) * n], y), "a slice differs"
+            assert _same_on_every_rank(cell_digest(got)), \
+                "the ranks' cells differ"
+            return f"rows {rank * n}-{(rank + 1) * n - 1} = the slice"
+        return fn
+
+    for case in COV_CASES:
+        yield f"coverage[{case}]", split(case)
+
+    def refused(args, exc_text):
+        """The refusal's text and the collectives counted before it."""
+        with counting("cpu") as oc:
+            detail = _raises(lambda: coverage_run(group=G, **args),
+                             ValueError, exc_text)
+        return detail, dict(oc.cost.coll)
+
+    def not_divisible():
+        detail, coll = refused(dict(kw("direct"), reps=9), "not divisible")
+        assert coll == {}, f"a collective ran first: {coll}"
+        return detail
+
+    yield "coverage[not_divisible]", not_divisible
+
+    def devices_differ():
+        dev = "cpu" if rank == 0 else "meta"
+        detail, coll = refused(dict(kw("direct"), device=dev),
+                               "one kind of device")
+        assert set(coll) == {"all-gather"}, coll   # the kinds' gather alone
+        return detail
+
+    yield "coverage[devices_differ]", devices_differ
+
+    def one_rank_group():
+        groups = [dist.new_group([r]) for r in range(world)]
+        got = coverage_run(group=groups[rank], **kw("direct"))
+        want = coverage_run(**kw("direct"))
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        return "= group=None"
+
+    yield "coverage[one_rank_group]", one_rank_group
+
+    def small_rep_saved():
+        cell = coverage_run(group=G, device="cpu", **COV_SMALL_REP)
+        if rank == 0:
+            np.savez(os.path.join(path, "port_coverage.npz"),
+                     **{k: getattr(cell, k).numpy() for k in cell._fields})
+        return str(cell.summary()["coverage"])
+
+    yield "coverage[small_rep_saved]", small_rep_saved
 
 
 def _refusals(world: int):
